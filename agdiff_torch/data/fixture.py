@@ -2,8 +2,10 @@
 
 qm9_synthetic.json holds the output of the JAX package's
 `synthetic_dataset(4, seed=7, num_conformers=2)` (QM9-sized molecules of
-17-23 atoms with two reference conformers each); a test keeps the two
-equal.
+17-23 atoms with two reference conformers each). drugs_synthetic.json
+holds `synthetic_dataset(2, seed=7, min_heavy=H, max_heavy=H,
+num_conformers=2)` for H = 20 and then H = 28 (Drugs-sized molecules of
+50, 56, 69 and 73 atoms). Tests keep each equal to its source.
 """
 
 from __future__ import annotations

@@ -5,7 +5,13 @@ Per molecule: num_samples = 2 x num_reference_conformers ("2x") or a fixed
 count; pos_init ~ N(0, 1); the annealed Langevin ladder; samples are run in
 chunks of one molecule repeated, padded to a power-of-two batch; chunks
 whose ladder went non-finite are rerun once with clip_local = 20 and the
-flagged samples replaced.
+flagged samples replaced. A molecule larger than every bucket gets a
+bucket of its own, its size rounded up to a multiple of 8.
+
+Engines follow the JAX package's choice on a TPU: at buckets >= 40 the
+tight engines, whose pair list holds the molecule's own pairs at a
+capacity rounded up to 256 (one shared list, since a chunk is one
+molecule repeated); below 40 the triu engines.
 """
 
 from __future__ import annotations
@@ -22,16 +28,22 @@ from agdiff_torch.data.bucketing import pad_molecules, pick_bucket
 from agdiff_torch.device import resolve_device
 from agdiff_torch.models.fast_forward import build_fast_forward
 from agdiff_torch.models.schedules import Diffusion
+from agdiff_torch.models.tight_forward import (
+    ENGINES as _TIGHT_ENGINES,
+    build_tight_forward,
+)
+from agdiff_torch.ops.pairs import pair_capacity_for
 from agdiff_torch.sampling.langevin import SamplerConfig, build_fast_sampler
 
 RETRY_CLIP_LOCAL = 20.0
+TIGHT_FROM_BUCKET = 40
 
 
 class GenerationRunner:
     def __init__(self, model, model_config: ModelConfig,
                  diffusion: Diffusion, sampler_config: SamplerConfig,
                  buckets: Sequence[int] = (32, 64), chunk_size: int = 64,
-                 device=None):
+                 device=None, engine: Optional[str] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.model_config = model_config
@@ -40,32 +52,55 @@ class GenerationRunner:
         self.retry_config = sampler_config.with_clip_local(RETRY_CLIP_LOCAL)
         self.buckets = tuple(buckets)
         self.chunk_size = chunk_size
-        self._forwards: Dict[Optional[str], object] = {}
+        # None: automatic (_engine_for); else the engine of every bucket
+        self.engine = engine
+        self.forwards: Dict[Optional[str], object] = {}
         self._samplers: Dict[tuple, object] = {}
 
     def _engine_for(self, bucket: int) -> Optional[str]:
-        """bf16 configs run 'pksf' (K1 over the full triu pair set) at
-        every bucket; the JAX package switches to 'tight-pksf' at bucket
-        >= 40, which the port does not have yet. f32 configs run the plain
-        f32 packed forward (None), as in JAX. On the card K1 takes buckets
-        up to 64 at hidden 128 (its shared memory); larger molecules wait
-        for the tight engine."""
-        return "pksf" if self.model_config.dtype == "bfloat16" else None
+        """The JAX runner's choice on a TPU (agdiff_tpu/eval/generate.py:
+        209-246): bf16 configs run 'tight-pksf' (K1 over the molecule's
+        tight pair list) at buckets >= 40 and 'pksf' (K1 over the bucket's
+        triu set) below; f32 configs run the f32 'tight' engine at >= 40
+        and the plain f32 packed forward (None) below."""
+        if self.engine is not None:
+            return self.engine
+        tight = bucket >= TIGHT_FROM_BUCKET
+        if self.model_config.dtype == "bfloat16":
+            return "tight-pksf" if tight else "pksf"
+        return "tight" if tight else None
 
     def forward(self, engine: Optional[str]):
-        """The engine's forward (models/fast_forward.FastForward), built
-        once; its `calls` counts the forwards run."""
-        if engine not in self._forwards:
-            self._forwards[engine] = build_fast_forward(
-                self.model_config, self.model, engine)
-        return self._forwards[engine]
+        """The engine's forward (models/fast_forward.py,
+        models/tight_forward.py), built once; its `calls` counts the
+        forwards run."""
+        if engine not in self.forwards:
+            build = (build_tight_forward if engine in _TIGHT_ENGINES
+                     else build_fast_forward)
+            self.forwards[engine] = build(self.model_config, self.model,
+                                          engine)
+        return self.forwards[engine]
 
-    def _sampler(self, engine: Optional[str], retry: bool):
-        key = (engine, retry)
+    def _capacity_for(self, mol: Molecule, engine: Optional[str]):
+        """A tight engine's pair capacity: the molecule's N(N-1)/2 rounded
+        up to 256 (fewer distinct shapes; the gain comes from capacity
+        below the bucket's pair count, not from exactness)."""
+        if engine not in _TIGHT_ENGINES:
+            return None
+        n = mol.num_nodes
+        capacity = pair_capacity_for(n, multiple=256)
+        # a smaller capacity would drop pairs and give wrong conformers
+        assert capacity >= n * (n - 1) // 2, (capacity, n)
+        return capacity
+
+    def _sampler(self, engine: Optional[str], retry: bool,
+                 capacity: Optional[int] = None):
+        key = (engine, retry, capacity)
         if key not in self._samplers:
             cfg = self.retry_config if retry else self.sampler_config
             self._samplers[key] = build_fast_sampler(
-                self.forward(engine), self.diffusion, cfg)
+                self.forward(engine), self.diffusion, cfg,
+                pair_capacity=capacity)
         return self._samplers[key]
 
     def num_samples_for(self, mol: Molecule, num_confs="2x") -> int:
@@ -99,6 +134,7 @@ class GenerationRunner:
         """num_samples conformers of `mol` as (num_samples, N, 3)."""
         bucket = self._bucket_for(mol)
         engine = self._engine_for(bucket)
+        capacity = self._capacity_for(mol, engine)
         n = mol.num_nodes
         out: List[np.ndarray] = []
         remaining = num_samples
@@ -110,11 +146,11 @@ class GenerationRunner:
                                   batch_size=bsz, device=self.device)
             pos_init = torch.randn(batch.pos.shape, generator=generator,
                                    device=self.device)
-            result = self._sampler(engine, retry=False)(
+            result = self._sampler(engine, False, capacity)(
                 batch, pos_init, generator=generator)
             pos, flags = result.pos, result.nan_flags
             if bool(flags.any()):
-                retry = self._sampler(engine, retry=True)(
+                retry = self._sampler(engine, True, capacity)(
                     batch, pos_init, generator=generator)
                 pos = torch.where(flags[:, None, None], retry.pos, pos)
             out.append(pos[:count, :n].cpu().numpy())

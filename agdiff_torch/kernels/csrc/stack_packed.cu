@@ -1,31 +1,49 @@
-// K1 on Hopper: the whole-stack packed-pair forward, mode 'full'.
+// K1 on Hopper: the whole-stack packed-pair forward, modes 'schnet', 'gin'
+// and 'full', each exact or with the polynomial transcendentals ('-approx').
 //
 // Replaces the TPU kernel _stack_kernel (agdiff_tpu/ops/pallas/
 // stack_packed.py:104). One CTA per graph runs, after the edge encoder,
-// NB SchNet interaction blocks, NL GIN layers and both pair-score heads,
-// and writes the two packed (B, P) score planes. The function and its
-// rounding are documented beside the wrapper (kernels/stack_packed.py).
+// NB SchNet interaction blocks ('schnet' stops there and writes h), NL GIN
+// layers ('gin' writes h and hl) and both pair-score heads ('full' writes
+// the two packed (B, P) score planes). The pair list is the bucket's full
+// upper triangle or a molecule's tight list padded to a capacity; pad
+// slots carry zero weights and appear in no incidence list. The function
+// and its rounding are documented beside the wrapper
+// (kernels/stack_packed.py).
 //
 // Layout of one CTA (NP = N rounded up to 16, FW = 1.5H):
 //   h, hl    f32  NP x H      node states, resident for the whole launch
 //   NF       f32  NP x LDF    node-side f32 results / aggregation sums
 //   XB       bf16 NP x LDX    bf16 operands of node-side products
 //   tile     TP pairs: e rows (bf16), filter values (f32 and bf16), we
+//   small    per-node cursors, gates and CSR offsets
 //   WR       bf16 weights staged from global memory, when they fit
-// Every matrix a wmma fragment reads or writes in shared memory has its
-// rows padded by 16 bytes (the LD* strides below and the staged weights'
-// Nc + 8): unpadded, rows of 256, 384 or 512 bytes all start on the same
-// bank and each fragment load is an 8-way bank conflict.
+// The node-sized regions live in shared memory (level 0), or NF and XB
+// move to a per-graph scratch in global memory (level 1), or h, hl and the
+// small arrays too (level 2, which fits any N). The wrapper picks the
+// smallest level that leaves room to stage the weights (at H = 128: level
+// 0 to N = 32, 1 to N = 80, then 2) and allocates the scratch; at B = 48,
+// N = 128 it is 16 MB, which stays in the 50 MB L2. The code is the same
+// at every level, and so are the results: wmma fragments and the vector
+// accesses below take generic pointers.
+// Every matrix a wmma fragment reads or writes has its rows padded by 16
+// bytes (the LD* strides below and the staged weights' Nc + 8): unpadded,
+// rows of 256, 384 or 512 bytes all start on the same shared-memory bank
+// and each fragment load is an 8-way bank conflict.
 // Elementwise passes and the aggregation work on 4 consecutive columns
 // per thread (float4 / 4 x bf16 accesses, biases through the read-only
 // path), so each thread has a few short dependency chains, not many
 // scalar ones.
 // Products are bf16 wmma 16x16x16 fragments with f32 accumulators. The
 // weights are copied into WR with coalesced 16-byte loads before use
-// (N <= 32 at H = 128); without room for WR (N = 64) the B fragments load
-// straight from global memory, which is latency-bound. Aggregation walks each
-// node's incidence list in increasing pair order, so sums are in a fixed
-// order and need no atomics.
+// where shared memory has room for WR; otherwise the B fragments load
+// straight from global memory, which is latency-bound. Aggregation walks
+// each node's incidence list in increasing pair order, so sums are in a
+// fixed order and need no atomics; the lists (one 32-bit entry per
+// incident pair: pair << shift | other endpoint) are staged in shared
+// memory after the weight region where that has room, else read from
+// global memory. The SchNet and GIN loops stop at the last valid pair;
+// the heads score every slot.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (kernels/build.py).
@@ -42,6 +60,8 @@ typedef __nv_bfloat16 bf16;
 #define NTHREADS 512      // 16 warps: twice 8 warps' speed (PERF.md)
 #define NWARPS (NTHREADS / 32)
 #define MAX_SMEM_BYTES 232448  // shared memory a block may use on Hopper
+
+enum { MODE_SCHNET = 0, MODE_GIN = 1, MODE_FULL = 2 };
 
 // Offset table (int32, built by kernels/stack_packed.py::_pack):
 //   [NB x W_PER_BLOCK bf16][NB x F_PER_BLOCK f32]
@@ -64,17 +84,23 @@ struct Args {
   const float* h0;         // (B, N, H)
   const float* hl0;        // (B, N, H)
   const float* lm;         // (B, P) local (bond-graph) mask
-  const long long* pi;     // (P,) endpoint i
+  const long long* pi;     // (P,) endpoint i (pad slots: 0)
   const long long* pj;     // (P,) endpoint j
   const int* inc_ptr;      // (N + 1,) CSR offsets
-  const int* inc_pair;     // (2P,) incident pair, increasing per node
-  const int* inc_other;    // (2P,) the pair's other endpoint
+  const unsigned* inc;     // (2V,) incident valid pair << shift | other
+                           // endpoint, increasing per node
   const bf16* wbf;         // bf16 weights
   const float* wf;         // f32 weights, biases and scalars
   const int* offs;         // offset table
-  float* out_g;            // (B, P)
-  float* out_l;            // (B, P)
-  int B, N, P, H, NB, NL, NP;
+  float* out0;             // full: (B, P) global plane; schnet/gin: h
+  float* out1;             // full: (B, P) local plane; gin: hl
+  unsigned char* scratch;  // per-graph node regions that are not shared
+  long long scratch_stride;  // bytes of scratch per graph
+  int B, N, P, V, H, NB, NL, NP;
+  int inc_shift;           // bits of the other endpoint in an entry
+  int inc_offset;          // byte offset of the staged lists, 0: global
+  int level;               // 0: node regions shared; 1: NF, XB global;
+                           // 2: every node-sized region global
   int resident;            // weights staged in shared memory (WR region)
   int wr_offset;           // byte offset of WR in shared memory
 };
@@ -127,14 +153,40 @@ __device__ __forceinline__ void add_msg(float4& acc, float4 t, float4 x) {
   acc.z += bfr(t.z * x.z);
   acc.w += bfr(t.w * x.w);
 }
+// '-approx' (ops/approx.py, same coefficients): max(x, 0) plus a degree-8
+// polynomial in min(|x|, 8); sigmoid through an odd Pade [5/4] tanh.
+__device__ __forceinline__ float softplus_approx(float x) {
+  const float t = fminf(fabsf(x), 8.f);
+  float acc = -5.52531068e-07f;
+  acc = acc * t + 2.03902123e-05f;
+  acc = acc * t - 3.09991317e-04f;
+  acc = acc * t + 2.42865434e-03f;
+  acc = acc * t - 9.28887060e-03f;
+  acc = acc * t + 3.08196131e-03f;
+  acc = acc * t + 1.24495898e-01f;
+  acc = acc * t - 5.00341100e-01f;
+  acc = acc * t + 6.93209096e-01f;
+  return fmaxf(x, 0.f) + acc;
+}
+__device__ __forceinline__ float tanh_approx(float x) {
+  const float y = fminf(fmaxf(x, -4.f), 4.f), y2 = y * y;
+  const float r = y * (945.f + 105.f * y2 + y2 * y2)
+                  / (945.f + 420.f * y2 + 15.f * y2 * y2);
+  return fminf(fmaxf(r, -1.f), 1.f);
+}
+template <bool APPROX>
 __device__ __forceinline__ float softplus_(float x) {
+  if (APPROX) return softplus_approx(x);
   return fmaxf(x, 0.f) + __logf(1.f + __expf(-fabsf(x)));
 }
+template <bool APPROX>
 __device__ __forceinline__ float sigmoid_(float x) {
+  if (APPROX) return 0.5f * (1.f + tanh_approx(0.5f * x));
   return 1.f / (1.f + __expf(-x));
 }
+template <bool APPROX>
 __device__ __forceinline__ float ssp(float x, float beta) {
-  return softplus_(beta * x) - 0.6931471805599453f;
+  return softplus_<APPROX>(beta * x) - 0.6931471805599453f;
 }
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
@@ -248,8 +300,8 @@ __device__ void load_rows(bf16* dst, int ld, const bf16* src, int p0,
 // warp per node counts them 32 at a time with a ballot (a node can have
 // a whole tile of entries, so a one-thread scan would be a long chain of
 // dependent loads). Callers initialise endq[n] = incp[n] and synchronise.
-__device__ void tile_cursors(const unsigned* inc, const int* incp, int* cur,
-                             int* endq, int N, int pend) {
+__device__ void tile_cursors(const unsigned* inc, int shift, const int* incp,
+                             int* cur, int* endq, int N, int pend) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int n = warp; n < N; n += NWARPS) {
     int q = endq[n];
@@ -257,7 +309,7 @@ __device__ void tile_cursors(const unsigned* inc, const int* incp, int* cur,
     unsigned in;
     do {
       in = __ballot_sync(0xffffffffu, q + lane < qe
-                         && (int)(inc[q + lane] >> 16) < pend);
+                         && (int)(inc[q + lane] >> shift) < pend);
       q += __popc(in);
     } while (in == 0xffffffffu);
     if (lane == 0) {
@@ -267,7 +319,30 @@ __device__ void tile_cursors(const unsigned* inc, const int* incp, int* cur,
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
+// Bytes of each group of regions (kernels/stack_packed.py region_bytes
+// mirrors this): node states and the small per-node arrays, node
+// temporaries, and the pair tile. Each group is a multiple of 128 bytes
+// except the small arrays, which come last wherever they live.
+struct Regions {
+  size_t states, small, temps, tile;
+  __host__ __device__ Regions(int NP, int H) {
+    const Strides S(H);
+    states = 2 * (size_t)NP * H * 4;
+    small = (4 * (size_t)NP + 1) * 4;
+    temps = (size_t)NP * S.LDF * 4 + (size_t)NP * S.LDX * 2;
+    tile = (size_t)TP * S.LDE * 2 + (size_t)TP * S.LDV * 4
+           + (size_t)TP * S.LDB * 2 + 2 * TP * 4;
+  }
+  size_t shared(int level) const {
+    return tile + (level < 1 ? temps : 0) + (level < 2 ? states + small : 0);
+  }
+  size_t global(int level) const {
+    return (level >= 1 ? temps : 0) + (level >= 2 ? states + small : 0);
+  }
+};
+
+template <int MODE, bool APPROX>
+__global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.x;
   const int H = a.H, N = a.N, NP = a.NP, P = a.P, C = a.H;
@@ -275,19 +350,28 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
   const Strides S(H);
   const int LDF = S.LDF, LDX = S.LDX, LDE = S.LDE, LDV = S.LDV, LDB = S.LDB;
 
-  float* h = reinterpret_cast<float*>(smem);
-  float* hl = h + NP * H;
-  float* NF = hl + NP * H;
-  bf16* XB = reinterpret_cast<bf16*>(NF + NP * LDF);
-  bf16* EPT = XB + NP * LDX;                            // TP x LDE
-  float* VF = reinterpret_cast<float*>(EPT + TP * LDE);  // TP x LDV
-  bf16* VB = reinterpret_cast<bf16*>(VF + TP * LDV);    // TP x LDB
-  float* WE = reinterpret_cast<float*>(VB + TP * LDB);  // 2 x TP
-  int* cur = reinterpret_cast<int*>(WE + 2 * TP);      // NP
-  int* endq = cur + NP;                                // NP
-  float* gate = reinterpret_cast<float*>(endq + NP);   // NP
-  int* incp = reinterpret_cast<int*>(gate + NP);       // NP + 1 CSR offsets
-  unsigned* inc = reinterpret_cast<unsigned*>(incp + NP + 1);  // 2P entries
+  // carve the regions from shared memory or this graph's scratch
+  unsigned char* sp = smem;
+  unsigned char* gp = a.scratch + (size_t)b * a.scratch_stride;
+  auto take = [&](bool glob, size_t bytes) {
+    unsigned char*& p = glob ? gp : sp;
+    unsigned char* r = p;
+    p += bytes;
+    return r;
+  };
+  const bool sg = a.level >= 2, tg = a.level >= 1;
+  float* h = reinterpret_cast<float*>(take(sg, (size_t)NP * H * 4));
+  float* hl = reinterpret_cast<float*>(take(sg, (size_t)NP * H * 4));
+  float* NF = reinterpret_cast<float*>(take(tg, (size_t)NP * LDF * 4));
+  bf16* XB = reinterpret_cast<bf16*>(take(tg, (size_t)NP * LDX * 2));
+  bf16* EPT = reinterpret_cast<bf16*>(take(false, TP * LDE * 2));
+  float* VF = reinterpret_cast<float*>(take(false, TP * LDV * 4));
+  bf16* VB = reinterpret_cast<bf16*>(take(false, TP * LDB * 2));
+  float* WE = reinterpret_cast<float*>(take(false, 2 * TP * 4));
+  int* cur = reinterpret_cast<int*>(take(sg, (size_t)NP * 4));
+  int* endq = reinterpret_cast<int*>(take(sg, (size_t)NP * 4));
+  float* gate = reinterpret_cast<float*>(take(sg, (size_t)NP * 4));
+  int* incp = reinterpret_cast<int*>(take(sg, ((size_t)NP + 1) * 4));
   // weight region (a.resident): the block's three filter matrices, or one
   // node-side matrix, or one score head's three matrices at a time
   bf16* WR = a.resident
@@ -300,16 +384,21 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
   const int of_gin = obf_head + 2 * S_PER_HEAD;
   const int of_head = of_gin + a.NL * GF_PER_LAYER;
 
-  // incidence lists, packed (pair << 16 | other endpoint); P < 65536
-  for (int q = threadIdx.x; q < 2 * P; q += NTHREADS)
-    inc[q] = ((unsigned)a.inc_pair[q] << 16) | (unsigned)a.inc_other[q];
+  const unsigned* inc = a.inc;
+  if (a.inc_offset) {
+    unsigned* staged = reinterpret_cast<unsigned*>(smem + a.inc_offset);
+    for (int q = threadIdx.x; q < 2 * a.V; q += NTHREADS) staged[q] = inc[q];
+    inc = staged;
+  }
+  const int shift = a.inc_shift;
+  const unsigned omask = (1u << shift) - 1u;
   for (int n = threadIdx.x; n <= NP; n += NTHREADS)
     incp[n] = a.inc_ptr[n < N ? n : N];
   const size_t node_base = (size_t)b * N * H;
   for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
     const bool real = e / H < N;
     h[e] = real ? a.h0[node_base + e] : 0.f;
-    hl[e] = real ? a.hl0[node_base + e] : 0.f;
+    if (MODE != MODE_SCHNET) hl[e] = real ? a.hl0[node_base + e] : 0.f;
   }
   __syncthreads();
 
@@ -355,7 +444,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
       XB[n * LDX + c] = __float2bfloat16(v);
       NF[n * LDF + c] = 0.f;  // aggregation sums start at zero
     }
-    if (threadIdx.x < N) endq[threadIdx.x] = incp[threadIdx.x];
+    for (int n = threadIdx.x; n < N; n += NTHREADS) endq[n] = incp[n];
     const bf16 *b_fa = w_fa, *b_fb1 = w_fb1, *b_fb2 = w_fb2;
     int ld_fa = FW, ld_fb1 = F1, ld_fb2 = F2;
     if (WR != nullptr) {
@@ -373,7 +462,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
 
     const float* we1 = a.we + ((size_t)(2 * blk) * a.B + b) * P;
     const float* we2 = a.we + ((size_t)(2 * blk + 1) * a.B + b) * P;
-    for (int p0 = 0; p0 < P; p0 += TP) {
+    for (int p0 = 0; p0 < a.V; p0 += TP) {
       const int rows = min(TP, P - p0);
       load_rows(EPT, LDE, epg, p0, rows, C);
       if (threadIdx.x < TP) {
@@ -381,7 +470,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
         WE[r] = r < rows ? we1[p0 + r] : 0.f;
         WE[TP + r] = r < rows ? we2[p0 + r] : 0.f;
       }
-      tile_cursors(inc, incp, cur, endq, N, p0 + TP);
+      tile_cursors(inc, shift, incp, cur, endq, N, p0 + TP);
       __syncthreads();
       // filter MLPs: v = ssp(e @ [fa1 | fa2] + ba), t = (v @ fb + bb) * we
       mma_tiles(VF, LDV, TP, FW, EPT, LDE, b_fa, ld_fa, C);
@@ -391,8 +480,10 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
         const float beta = c < F1 ? beta1 : beta2;
         const float4 v = ld4(VF + r * LDV + c), bias = ldg4(f_ba + c);
         stb4(VB + r * LDB + c,
-             make_float4(ssp(v.x + bias.x, beta), ssp(v.y + bias.y, beta),
-                         ssp(v.z + bias.z, beta), ssp(v.w + bias.w, beta)));
+             make_float4(ssp<APPROX>(v.x + bias.x, beta),
+                         ssp<APPROX>(v.y + bias.y, beta),
+                         ssp<APPROX>(v.z + bias.z, beta),
+                         ssp<APPROX>(v.w + bias.w, beta)));
       }
       __syncthreads();
       mma_tiles(VF, LDV, TP, F1, VB, LDB, b_fb1, ld_fb1, F1);
@@ -410,7 +501,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
 #pragma unroll 4
         for (int q = cur[n]; q < qe; ++q) {
           const unsigned iq = inc[q];
-          const int lp = (int)(iq >> 16) - p0, o = iq & 0xffffu;
+          const int lp = (int)(iq >> shift) - p0, o = iq & omask;
           const float w = wep[lp];
           const float4 v = ld4(VF + lp * LDV + c);
           add_msg(acc,
@@ -435,7 +526,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
     for (int e = threadIdx.x; e < NP * 2 * H; e += NTHREADS) {
       const int n = e / (2 * H), c = e % (2 * H);
       const float v = NF[n * LDF + c] + (c < H ? f_l2ab[c] : f_l2bb[c - H]);
-      XB[n * LDX + c] = __float2bfloat16(ssp(v, act_beta));
+      XB[n * LDX + c] = __float2bfloat16(ssp<APPROX>(v, act_beta));
     }
     __syncthreads();
     gemm_w(NF, LDF, NP, H, XB, LDX, w_lin, 2 * H, WR);
@@ -468,7 +559,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
           s += bfr(fmaxf(NF[n * LDF + H + k] + f_att0b[k], 0.f))
                * b2f(s_att1[k]);
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0) gate[n] = sigmoid_(s + f_att1b[0]);
+        if (lane == 0) gate[n] = sigmoid_<APPROX>(s + f_att1b[0]);
       }
     }
     __syncthreads();
@@ -492,9 +583,15 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
       float s = 0.f;
       for (int k = 0; k < R; ++k)
         s += NF[n * LDF + H + k] * b2f(s_se1[k * H + c]);
-      h[e] += NF[n * LDF + c] * sigmoid_(s);
+      h[e] += NF[n * LDF + c] * sigmoid_<APPROX>(s);
     }
     __syncthreads();
+  }
+
+  if (MODE == MODE_SCHNET) {
+    for (int e = threadIdx.x; e < N * H; e += NTHREADS)
+      a.out0[node_base + e] = h[e];
+    return;
   }
 
   // ---- GIN layers -----------------------------------------------------------
@@ -508,14 +605,14 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
     // over pair tiles of the local edge features, in increasing pair order
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS)
       NF[(e / H) * LDF + e % H] = 0.f;
-    if (threadIdx.x < N) endq[threadIdx.x] = incp[threadIdx.x];
+    for (int n = threadIdx.x; n < N; n += NTHREADS) endq[n] = incp[n];
     __syncthreads();
-    for (int p0 = 0; p0 < P; p0 += TP) {
+    for (int p0 = 0; p0 < a.V; p0 += TP) {
       const int rows = min(TP, P - p0);
       load_rows(EPT, LDE, eplg, p0, rows, C);
       if (threadIdx.x < TP)
         WE[threadIdx.x] = threadIdx.x < rows ? lmg[p0 + threadIdx.x] : 0.f;
-      tile_cursors(inc, incp, cur, endq, N, p0 + TP);
+      tile_cursors(inc, shift, incp, cur, endq, N, p0 + TP);
       __syncthreads();
       for (int e = threadIdx.x; e < N * H / 4; e += NTHREADS) {
         const int n = e / (H / 4), c = 4 * (e % (H / 4));
@@ -524,7 +621,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
 #pragma unroll 4
         for (int q = cur[n]; q < qe; ++q) {
           const unsigned iq = inc[q];
-          const int lp = (int)(iq >> 16) - p0, o = iq & 0xffffu;
+          const int lp = (int)(iq >> shift) - p0, o = iq & omask;
           const float m = WE[lp];
           const float4 x = ld4(hl + o * H + c), ev = ldb4(EPT + lp * LDE + c);
           acc.x += bfr(fmaxf((bfr(x.x) + ev.x) * m, 0.f));
@@ -559,11 +656,19 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
     __syncthreads();
   }
 
+  if (MODE == MODE_GIN) {
+    for (int e = threadIdx.x; e < N * H; e += NTHREADS) {
+      a.out0[node_base + e] = h[e];
+      a.out1[node_base + e] = hl[e];
+    }
+    return;
+  }
+
   // ---- pair-score heads -------------------------------------------------------
   for (int head = 0; head < 2; ++head) {
     const float* hs = head == 0 ? h : hl;
     const bf16* eg = head == 0 ? epg : eplg;
-    float* out = (head == 0 ? a.out_g : a.out_l) + (size_t)b * P;
+    float* out = (head == 0 ? a.out0 : a.out1) + (size_t)b * P;
     const int* ob = offs + obf_head + head * S_PER_HEAD;
     const int* of = offs + of_head + head * SF_PER_HEAD;
     const bf16* w_w1h = a.wbf + ob[S_W1H];
@@ -632,16 +737,6 @@ __global__ void __launch_bounds__(NTHREADS) stack_full_kernel(Args a) {
   }
 }
 
-// Shared memory below the weight region (kernels/stack_packed.py
-// smem_bytes mirrors this).
-static size_t smem_bytes(int NP, int H, int P) {
-  const Strides S(H);
-  return 2 * (size_t)NP * H * 4 + (size_t)NP * S.LDF * 4
-         + (size_t)NP * S.LDX * 2 + (size_t)TP * S.LDE * 2
-         + (size_t)TP * S.LDV * 4 + (size_t)TP * S.LDB * 2 + 2 * TP * 4
-         + 3 * (size_t)NP * 4 + ((size_t)NP + 1) * 4 + 2 * (size_t)P * 4;
-}
-
 // The weight region holds the largest set staged at once, at padded row
 // strides: the filter trio (C x FW, F1 x F1, F2 x F2), a score head
 // (H x H, C x H, H x H/2), or one node-side matrix (lin: 2H x H).
@@ -656,12 +751,25 @@ static size_t weight_region_bytes(int H) {
   return 2 * m;
 }
 
-extern "C" int stack_full_launch(
-    const void* ep, const void* epl, const void* we, const void* h0,
-    const void* hl0, const void* lm, const void* pi, const void* pj,
-    const void* inc_ptr, const void* inc_pair, const void* inc_other,
-    const void* wbf, const void* wf, const void* offs, void* out_g,
-    void* out_l, int B, int N, int P, int H, int NB, int NL, void* stream) {
+typedef void (*KernelFn)(Args);
+
+template <int MODE>
+static KernelFn pick(int approx) {
+  return approx ? stack_kernel<MODE, true> : stack_kernel<MODE, false>;
+}
+
+// mode: 0 schnet, 1 gin, 2 full; approx: 0 or 1. out0/out1 as in Args;
+// scratch holds scratch_stride bytes per graph for the regions `level`
+// moves to global memory (kernels/stack_packed.py layout chooses both).
+// V valid pairs come first in the list; inc holds their 2V entries.
+extern "C" int stack_launch(
+    int mode, int approx, const void* ep, const void* epl, const void* we,
+    const void* h0, const void* hl0, const void* lm, const void* pi,
+    const void* pj, const void* inc_ptr, const void* inc,
+    const void* wbf, const void* wf, const void* offs,
+    void* out0, void* out1, void* scratch, long long scratch_stride, int B,
+    int N, int P, int V, int inc_shift, int H, int NB, int NL, int level,
+    void* stream) {
   Args a;
   a.ep = static_cast<const bf16*>(ep);
   a.epl = static_cast<const bf16*>(epl);
@@ -672,27 +780,43 @@ extern "C" int stack_full_launch(
   a.pi = static_cast<const long long*>(pi);
   a.pj = static_cast<const long long*>(pj);
   a.inc_ptr = static_cast<const int*>(inc_ptr);
-  a.inc_pair = static_cast<const int*>(inc_pair);
-  a.inc_other = static_cast<const int*>(inc_other);
+  a.inc = static_cast<const unsigned*>(inc);
   a.wbf = static_cast<const bf16*>(wbf);
   a.wf = static_cast<const float*>(wf);
   a.offs = static_cast<const int*>(offs);
-  a.out_g = static_cast<float*>(out_g);
-  a.out_l = static_cast<float*>(out_l);
-  a.B = B; a.N = N; a.P = P; a.H = H; a.NB = NB; a.NL = NL;
+  a.out0 = static_cast<float*>(out0);
+  a.out1 = static_cast<float*>(out1);
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.scratch_stride = scratch_stride;
+  a.B = B; a.N = N; a.P = P; a.V = V; a.H = H; a.NB = NB; a.NL = NL;
+  a.inc_shift = inc_shift;
   a.NP = (N + 15) / 16 * 16;
-  if (a.NP > NTHREADS || H % 32 != 0 || P >= 65536)
+  a.level = level;
+  const Regions rg(a.NP, H);
+  if (mode < 0 || mode > 2 || level < 0 || level > 2 || H % 32 != 0
+      || V > P || inc_shift < 1 || inc_shift > 31
+      || (size_t)scratch_stride < rg.global(level)
+      || (level > 0 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t base = (smem_bytes(a.NP, H, P) + 127) / 128 * 128;
+  const size_t base = (rg.shared(level) + 127) / 128 * 128;
   const size_t wr = weight_region_bytes(H);
+  if (rg.shared(level) > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   a.resident = base + wr <= MAX_SMEM_BYTES;
   a.wr_offset = (int)base;
-  const size_t smem = a.resident ? base + wr : smem_bytes(a.NP, H, P);
+  size_t smem = a.resident ? base + wr : rg.shared(level);
+  const size_t inc_off = (smem + 15) / 16 * 16;
+  a.inc_offset = 0;
+  if (inc_off + 8 * (size_t)V <= MAX_SMEM_BYTES) {
+    a.inc_offset = (int)inc_off;
+    smem = inc_off + 8 * (size_t)V;
+  }
+  const KernelFn fn = mode == MODE_SCHNET ? pick<MODE_SCHNET>(approx)
+                      : mode == MODE_GIN  ? pick<MODE_GIN>(approx)
+                                          : pick<MODE_FULL>(approx);
   cudaError_t err = cudaFuncSetAttribute(
-      stack_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  stack_full_kernel<<<B, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  fn<<<B, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

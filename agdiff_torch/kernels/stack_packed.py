@@ -1,24 +1,36 @@
-"""K1, the whole-stack packed-pair forward (mode 'full'), for Hopper.
+"""K1, the whole-stack packed-pair forward, for Hopper: modes 'schnet',
+'gin' and 'full', each exact or '-approx', over the triu pair set of a
+bucket or a molecule's tight pair list.
 
 Replaces the TPU kernel `_stack_kernel` (agdiff_tpu/ops/pallas/
 stack_packed.py:104, entered through `packed_stack_forward` :273). After
-the edge encoder, one launch runs the whole eval forward of
-DualEncoderEpsNetwork on the packed pair set: the NB SchNet interaction
-blocks (two filter MLPs per pair, endpoint aggregation, node tail), the NL
-GIN layers, and both pair-score heads; it writes only the two (B, P)
-packed score planes.
+the edge encoder, one launch runs the eval forward of
+DualEncoderEpsNetwork on a pair list (ops/pairs.py): the NB SchNet
+interaction blocks (two filter MLPs per pair, endpoint aggregation, node
+tail), then in modes 'gin' and 'full' the NL GIN layers, then in mode
+'full' both pair-score heads. 'schnet' returns h (B, N, H) f32, 'gin'
+(h, hl), 'full' the two (B, P) packed score planes. `approx` swaps the
+softplus and sigmoid for ops/approx.py's polynomial and rational forms.
+A tight list's pad slots have zero distance weights and local mask and
+no incidence entry, so they add nothing to any node; their scores are
+finite and never mirrored.
 
-Design (csrc/stack_packed.cu). One CTA per graph, 512 threads. h, hl and
-the node temporaries stay in shared memory for the whole launch; e_packed
-and the distance-weight planes stream in tiles of 32 pairs; the weights
-come from global memory (L2-resident across CTAs) and, where shared memory
-has room (N <= 32 at H = 128), are staged there before each product.
-Matrix products are bf16 `wmma` 16x16x16 fragments with f32 accumulators,
-on shared-memory rows padded by 16 bytes against bank conflicts; products
-narrower than 16 (the attention output, the SE gate, the last score layer)
-are FMA loops. Aggregation is a per-node sum over the node's incidence
-list (ops/pairs.py) in increasing pair order: no atomics, results
-reproduce bit for bit.
+Design (csrc/stack_packed.cu). One CTA per graph, 512 threads. The node
+states h, hl and the node temporaries live in shared memory or, in part
+or in whole, in a per-graph scratch in global memory that this wrapper
+allocates: `layout` picks the smallest level that leaves shared memory
+for the staged weights (at H = 128 everything shared to N = 32, the
+temporaries in scratch to N = 80, all node regions in scratch above).
+e_packed and the distance-weight planes stream in tiles of 32 pairs; the
+weights come from global memory (L2-resident across CTAs) and are staged
+in shared memory before each product. Matrix products are bf16 `wmma`
+16x16x16 fragments with f32 accumulators, on rows padded by 16 bytes
+against bank conflicts; products narrower than 16 (the attention output,
+the SE gate, the last score layer) are FMA loops. Aggregation is a
+per-node sum over the node's incidence list (staged in shared memory
+where it fits) in increasing pair order: no atomics, results reproduce
+bit for bit, at every level. The SchNet and GIN loops stop at the last
+valid pair; the heads score every slot.
 
 Bound, from the code at B=128, N=32 (P=496), H=128, NB=6, NL=4: per graph
 the filter MLPs are 2*P*(128*192 + 128*128 + 64*64) = 44.7 MFLOP per
@@ -27,13 +39,13 @@ block (268 MFLOP for six), the score heads 2*2*P*(2*128*128 + 128*64) =
 launch, ~51 us at the H100's 989 TFLOP/s bf16 dense. The bytes (e_packed
 twice at 16 MB each if untied, the f32 planes ~3 MB, h0/hl0 4 MB, outputs
 0.5 MB, weights ~1 MB) are ~25-40 MB, ~10 us at 3.35 TB/s: the launch is
-compute-bound. chip_smoke.py computes both bounds from each run's shapes.
-What this kernel leaves on the table (it runs some 30x above that bound,
-PERF.md): no `wgmma` (the legacy mma.sync path through wmma runs well
-below Hopper's peak), no TMA, five block-wide barriers per 32-pair tile
-with warps idle behind the slowest (in the triu order one node holds most
-of a tile's pairs, so its aggregation is a long serial chain), one CTA
-per SM, and at N = 64 no room to stage the weights in shared memory.
+compute-bound, in every mode. chip_smoke.py computes both bounds from
+each run's shapes. What this kernel leaves on the table (it runs some 30x
+above that bound, PERF.md): no `wgmma` (the legacy mma.sync path through
+wmma runs well below Hopper's peak), no TMA, five block-wide barriers per
+32-pair tile with warps idle behind the slowest (in the triu order one
+node holds most of a tile's pairs, so its aggregation is a long serial
+chain), one CTA per SM, and node temporaries in L2 above N = 64.
 
 The rounding matches the TPU kernel (stack_packed.py:144-146, 209, 238,
 262): every product takes bf16 operands with an f32 accumulator; endpoint
@@ -50,17 +62,31 @@ tolerance).
 from __future__ import annotations
 
 import ctypes
+import math
+from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from agdiff_torch.nn.common import activation_by_name, shifted_softplus
+from agdiff_torch.nn.common import activation_by_name
+from agdiff_torch.ops import approx as ax
+from agdiff_torch.ops.pairs import PairList, gather_nodes, scatter_nodes
 
 TILE_P = 32          # pairs per tile (csrc/stack_packed.cu TP)
 MAX_SMEM = 232448    # bytes of shared memory a block may use on Hopper
+MODES = ("schnet", "gin", "full")
+LN2 = math.log(2.0)
 
-launches = 0         # kernel launches (plain-version calls do not count)
+# kernel launches per variant (`variant`); plain-version calls do not count
+launches: Counter = Counter()
+
+
+def variant(mode: str, approx: bool, tight: bool) -> str:
+    """Name of a launch variant: 'stack_<mode>[_approx]:<triu|tight>'."""
+    return (f"stack_{mode}{'_approx' if approx else ''}:"
+            f"{'tight' if tight else 'triu'}")
 
 
 @dataclass
@@ -92,15 +118,26 @@ def _leaky(x):
 
 
 def packed_stack_forward_plain(e_packed, we, h0, params: StackParams,
-                               e_packed_local, local_mask_p, hl0, pairs):
-    """Plain PyTorch version of K1 (mode 'full').
+                               e_packed_local, local_mask_p, hl0,
+                               pairs: PairList, *, mode: str = "full",
+                               approx: bool = False):
+    """Plain PyTorch version of K1.
 
     e_packed / e_packed_local (B, P, C) at the compute dtype (bf16 or f32);
-    we (2*NB, B, P) f32 planes [blk0 conv1, blk0 conv2, ...]; h0 / hl0
-    (B, N, H) f32; local_mask_p (B, P); pairs an ops.pairs.TriuPairs.
-    Returns the packed score planes (global, local), each (B, P) f32.
+    we (2*NB, B, P) f32 planes [blk0 conv1, blk0 conv2, ...], zero at pad
+    slots; h0 / hl0 (B, N, H) f32; local_mask_p (B, P), zero at pad slots;
+    pairs an ops.pairs.PairList. Mode 'schnet' needs no local inputs and
+    returns h (B, N, H) f32; 'gin' returns (h, hl); 'full' the packed score
+    planes (global, local), each (B, P) f32.
     """
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
     cd = e_packed.dtype
+    sp, sig = (ax.softplus, ax.sigmoid) if approx else (F.softplus,
+                                                       torch.sigmoid)
+
+    def ssp(x, beta):
+        return sp(beta * x) - LN2
 
     def rnd(x):
         return x.to(cd).float()
@@ -115,14 +152,13 @@ def packed_stack_forward_plain(e_packed, we, h0, params: StackParams,
     def aggregate(m_i, m_j):
         # m_i lands on endpoint i, m_j on endpoint j; each message is
         # rounded to the compute dtype before the sum, as in the TPU kernel
+        # (pad slots carry zero messages)
         out = torch.zeros((b, n, m_i.shape[-1]), device=m_i.device)
-        out.index_add_(1, iu, rnd(m_i))
-        out.index_add_(1, ju, rnd(m_j))
-        return out
+        scatter_nodes(out, iu, rnd(m_i))
+        return scatter_nodes(out, ju, rnd(m_j))
 
     def filt(conv, we_k):
-        v = shifted_softplus(dot(e_packed, conv["fa"][0]) + conv["fa"][1],
-                             conv["beta"])
+        v = ssp(dot(e_packed, conv["fa"][0]) + conv["fa"][1], conv["beta"])
         return (dot(v, conv["fb"][0]) + conv["fb"][1]) * we_k[..., None]
 
     h = h0.float()
@@ -132,37 +168,40 @@ def packed_stack_forward_plain(e_packed, we, h0, params: StackParams,
                        for c in (c1, c2)], dim=-1)
         t = torch.cat([filt(c1, we[2 * k]), filt(c2, we[2 * k + 1])], -1)
         xb = rnd(x)
-        a = aggregate(t * xb[:, ju], t * xb[:, iu])
+        a = aggregate(t * gather_nodes(xb, ju), t * gather_nodes(xb, iu))
         f1 = c1["fb"][0].shape[1]
         p1 = dot(a[..., :f1], c1["lin2"][0]) + c1["lin2"][1]
         p2 = dot(a[..., f1:], c2["lin2"][0]) + c2["lin2"][1]
-        comb = shifted_softplus(torch.cat([p1, p2], -1), blk["act_beta"])
+        comb = ssp(torch.cat([p1, p2], -1), blk["act_beta"])
         comb = dot(comb, blk["lin"][0]) + blk["lin"][1]
         gate = torch.relu(dot(comb, blk["att0"][0]) + blk["att0"][1])
-        gate = torch.sigmoid(dot(gate, blk["att1"][0]) + blk["att1"][1])
+        gate = sig(dot(gate, blk["att1"][0]) + blk["att1"][1])
         out = comb * gate
-        out = out * torch.sigmoid(dot(torch.relu(dot(out, blk["se0"])),
-                                      blk["se1"]))
+        out = out * sig(dot(torch.relu(dot(out, blk["se0"])), blk["se1"]))
         h = h + out
+    if mode == "schnet":
+        return h
 
     el = e_packed_local.float()
     lm = local_mask_p.float()[..., None]
     hl = hl0.float()
     for li, layer in enumerate(params.gin_layers):
         hb = rnd(hl)
-        agg = aggregate(torch.relu((hb[:, ju] + el) * lm),
-                        torch.relu((hb[:, iu] + el) * lm))
+        agg = aggregate(torch.relu((gather_nodes(hb, ju) + el) * lm),
+                        torch.relu((gather_nodes(hb, iu) + el) * lm))
         out = torch.relu(dot(hl + agg, layer["l0"][0]) + layer["l0"][1])
         out = dot(out, layer["l1"][0]) + layer["l1"][1]
         if li < len(params.gin_layers) - 1:
             out = torch.relu(out)
         hl = out + hl
+    if mode == "gin":
+        return h, hl
 
     def scores(hx, e, p6):
         w1, b1, w2, b2, w3, b3 = p6
         c = e.shape[-1]
         hb = rnd(hx)
-        prod = hb[:, iu] * hb[:, ju]
+        prod = gather_nodes(hb, iu) * gather_nodes(hb, ju)
         x = act(dot(prod, w1[:c]) + dot(e, w1[c:]) + b1)
         y = act(dot(x, w2) + b2)
         return (y * w3[:, 0].float()).sum(-1) + b3.float()[0]
@@ -173,18 +212,20 @@ def packed_stack_forward_plain(e_packed, we, h0, params: StackParams,
 
 def packed_stack_forward(e_packed, we, h0, params: StackParams,
                          e_packed_local, local_mask_p, hl0, pairs, *,
-                         mode: str = "full"):
-    """K1 (mode 'full'). CPU tensors run the plain version; CUDA tensors
-    launch the hand-written kernel (bf16 e_packed only) or raise."""
-    if mode != "full":
-        raise NotImplementedError(
-            f"packed_stack_forward mode {mode!r}: only 'full' is ported")
+                         mode: str = "full", approx: bool = False,
+                         level: Optional[int] = None):
+    """K1. CPU tensors run the plain version; CUDA tensors launch the
+    hand-written kernel (bf16 e_packed, shared pair lists) or raise.
+    `level` forces a layout level of the kernel (`layout`; every level
+    gives the same bits), for measurement."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
     if e_packed.device.type == "cpu":
-        return packed_stack_forward_plain(e_packed, we, h0, params,
-                                          e_packed_local, local_mask_p, hl0,
-                                          pairs)
+        return packed_stack_forward_plain(
+            e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
+            pairs, mode=mode, approx=approx)
     return _launch(e_packed, we, h0, params, e_packed_local, local_mask_p,
-                   hl0, pairs)
+                   hl0, pairs, mode, approx, level)
 
 
 # ---- the CUDA kernel -------------------------------------------------------
@@ -268,16 +309,64 @@ def _pack(params: StackParams, device) -> tuple:
     return packed
 
 
-def smem_bytes(n: int, h: int, p: int) -> int:
-    """Shared memory one CTA needs at least (csrc/stack_packed.cu layout
-    with its padded strides, without the weight region it adds when that
-    fits too)."""
+def region_bytes(n: int, h: int) -> Tuple[int, int, int, int]:
+    """Bytes of one CTA's groups of regions (csrc/stack_packed.cu Regions,
+    with its padded strides): node states h and hl, the small per-node
+    arrays, the node temporaries NF and XB, and the pair tile."""
     np_ = -(-n // 16) * 16
     fw = h + h // 2
     ldf, ldx, lde, ldv, ldb = 2 * h + 4, 2 * h + 8, h + 8, fw + 4, fw + 8
-    return (2 * np_ * h * 4 + np_ * ldf * 4 + np_ * ldx * 2
-            + TILE_P * lde * 2 + TILE_P * ldv * 4 + TILE_P * ldb * 2
-            + 2 * TILE_P * 4 + 3 * np_ * 4 + (np_ + 1) * 4 + 2 * p * 4)
+    states = 2 * np_ * h * 4
+    small = (4 * np_ + 1) * 4
+    temps = np_ * ldf * 4 + np_ * ldx * 2
+    tile = TILE_P * lde * 2 + TILE_P * ldv * 4 + TILE_P * ldb * 2 \
+        + 2 * TILE_P * 4
+    return states, small, temps, tile
+
+
+def smem_bytes(n: int, h: int, level: int = 0) -> int:
+    """Shared memory one CTA needs at a layout level (without the weight
+    region the kernel adds when that fits too): level 0 keeps every
+    node-sized region in shared memory, level 1 moves the node temporaries
+    to global scratch, level 2 the node states and small arrays too."""
+    states, small, temps, tile = region_bytes(n, h)
+    return (tile + (temps if level < 1 else 0)
+            + (states + small if level < 2 else 0))
+
+
+def scratch_bytes(n: int, h: int, level: int) -> int:
+    """Global scratch per graph at a layout level, in 256-byte units."""
+    states, small, temps, _ = region_bytes(n, h)
+    raw = (temps if level >= 1 else 0) + (states + small if level >= 2
+                                          else 0)
+    return -(-raw // 256) * 256
+
+
+def weight_region_bytes(h: int) -> int:
+    """The staged weights' region (csrc/stack_packed.cu): the largest set
+    staged at once, at padded row strides."""
+    fw = h + h // 2
+    filters = h * (fw + 8) + h * (h + 8) + (h // 2) * (h // 2 + 8)
+    head = 2 * h * (h + 8) + h * (h // 2 + 8)
+    return 2 * max(filters, head, 2 * h * (h + 8))
+
+
+def layout(n: int, h: int) -> Tuple[int, int, int]:
+    """(level, shared bytes, scratch bytes per graph): the smallest level
+    at which the staged weights fit beside the shared regions, else the
+    smallest at which the shared regions fit. Staging the weights
+    outweighs keeping node regions in shared memory (PERF.md: at B=48,
+    N=64 level 1 with staged weights beats level 0 without); every level
+    gives the same bits."""
+    fits = [lv for lv in (0, 1, 2) if smem_bytes(n, h, lv) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"H={h} needs {smem_bytes(n, h, 2)} bytes of "
+                         f"shared memory even with every node region in "
+                         f"global memory")
+    staged = [lv for lv in fits if -(-smem_bytes(n, h, lv) // 128) * 128
+              + weight_region_bytes(h) <= MAX_SMEM]
+    level = (staged or fits)[0]
+    return level, smem_bytes(n, h, level), scratch_bytes(n, h, level)
 
 
 def _lib():
@@ -286,8 +375,9 @@ def _lib():
     lib = build.load("stack_packed")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stack_full_launch.argtypes = [p] * 16 + [i] * 6 + [p]
-        lib.stack_full_launch.restype = i
+        lib.stack_launch.argtypes = ([i, i] + [p] * 16 + [ctypes.c_longlong]
+                                     + [i] * 9 + [p])
+        lib.stack_launch.restype = i
         lib.stack_error_string.argtypes = [i]
         lib.stack_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -306,8 +396,7 @@ def _check(name, t, shape, dtype, device):
 
 
 def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
-            pairs):
-    global launches
+            pairs: PairList, mode: str, approx: bool, level=None):
     dev = e_packed.device
     if dev.type != "cuda":
         raise ValueError(f"packed_stack_forward: unsupported device {dev}")
@@ -316,40 +405,60 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
     b, p, c = e_packed.shape
     n, h = h0.shape[1], h0.shape[2]
     nb, nl = len(params.blocks), len(params.gin_layers)
-    if c != h or h % 32 or h // 16 < 1:
+    if c != h or h % 32:
         raise ValueError(f"kernel needs C == H and H % 32 == 0 (C={c}, "
                          f"H={h})")
+    if not pairs.shared or pairs.inc_ptr is None:
+        raise ValueError("the kernel takes a shared pair list with "
+                         "incidence lists")
     if p != pairs.num_pairs or n != pairs.num_nodes:
-        raise ValueError(f"pair set ({pairs.num_pairs}, {pairs.num_nodes}) "
+        raise ValueError(f"pair list ({pairs.num_pairs}, {pairs.num_nodes}) "
                          f"does not match P={p}, N={n}")
-    if smem_bytes(n, h, p) > MAX_SMEM or p >= 65536:
-        raise ValueError(f"N={n}, H={h} needs {smem_bytes(n, h, p)} bytes "
-                         f"of shared memory (> {MAX_SMEM})")
+    if level is None:
+        level = layout(n, h)[0]
+    if smem_bytes(n, h, level) > MAX_SMEM:
+        raise ValueError(f"layout level {level} does not fit N={n}, H={h}")
+    scratch_per_graph = scratch_bytes(n, h, level)
     _check("e_packed", e_packed, (b, p, c), torch.bfloat16, dev)
-    _check("e_packed_local", e_packed_local, (b, p, c), torch.bfloat16, dev)
     _check("we", we, (2 * nb, b, p), torch.float32, dev)
     _check("h0", h0, (b, n, h), torch.float32, dev)
-    _check("hl0", hl0, (b, n, h), torch.float32, dev)
-    lm = local_mask_p.to(torch.float32).contiguous()
-    _check("local_mask_p", lm, (b, p), torch.float32, dev)
+    if mode == "schnet":
+        # the kernel reads no local inputs in this mode
+        e_packed_local, lm, hl0 = e_packed, we, h0
+    else:
+        _check("e_packed_local", e_packed_local, (b, p, c), torch.bfloat16,
+               dev)
+        _check("hl0", hl0, (b, n, h), torch.float32, dev)
+        lm = local_mask_p.to(torch.float32).contiguous()
+        _check("local_mask_p", lm, (b, p), torch.float32, dev)
     for name in ("iu", "ju"):
         _check(name, getattr(pairs, name), (p,), torch.int64, dev)
-    for name, length in (("inc_ptr", n + 1), ("inc_pair", 2 * p),
-                         ("inc_other", 2 * p)):
+    nv = pairs.num_valid
+    for name, length in (("inc_ptr", n + 1), ("inc", 2 * nv)):
         _check(name, getattr(pairs, name), (length,), torch.int32, dev)
     wbf, wf, offs = _pack(params, dev)
-    out_g = torch.empty((b, p), dtype=torch.float32, device=dev)
-    out_l = torch.empty((b, p), dtype=torch.float32, device=dev)
+    if mode == "full":
+        out0 = torch.empty((b, p), dtype=torch.float32, device=dev)
+        out1 = torch.empty((b, p), dtype=torch.float32, device=dev)
+    else:
+        out0 = torch.empty((b, n, h), dtype=torch.float32, device=dev)
+        out1 = (torch.empty((b, n, h), dtype=torch.float32, device=dev)
+                if mode == "gin" else out0)
+    scratch = torch.empty((max(b * scratch_per_graph, 1),),
+                          dtype=torch.uint8, device=dev)
     lib = _lib()
     ptrs = [e_packed, e_packed_local, we, h0, hl0, lm, pairs.iu, pairs.ju,
-            pairs.inc_ptr, pairs.inc_pair, pairs.inc_other, wbf, wf, offs,
-            out_g, out_l]
+            pairs.inc_ptr, pairs.inc, wbf, wf, offs, out0, out1, scratch]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.stack_full_launch(*[t.data_ptr() for t in ptrs],
-                                    b, n, p, h, nb, nl, stream)
+        err = lib.stack_launch(MODES.index(mode), int(approx),
+                               *[t.data_ptr() for t in ptrs],
+                               scratch_per_graph, b, n, p, nv,
+                               pairs.inc_shift, h, nb, nl, level, stream)
     if err != 0:
-        raise RuntimeError("stack_full kernel launch failed: "
+        raise RuntimeError("stack kernel launch failed: "
                            + lib.stack_error_string(err).decode())
-    launches += 1
-    return out_g, out_l
+    launches[variant(mode, approx, pairs.tight)] += 1
+    if mode == "full":
+        return out0, out1
+    return out0 if mode == "schnet" else (out0, out1)

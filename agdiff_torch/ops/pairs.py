@@ -1,41 +1,85 @@
-"""Unordered-pair (upper-triangle) packing (port of agdiff_tpu/ops/pairs.py).
+"""Unordered-pair lists: the full upper triangle of a bucket, or a tight
+list of one molecule's real pairs (port of agdiff_tpu/ops/pairs.py and of
+the pair machinery of agdiff_tpu/models/tight_forward.py:54-129).
 
-Every per-edge quantity of the working graph is symmetric in (i, j), so the
-P = N(N-1)/2 pairs i < j (in `np.triu_indices(n, 1)` order) carry all of
-it. Besides the endpoint lists this holds the per-node incidence lists the
-whole-stack kernel aggregates over: for node n, the pairs that touch it in
-increasing pair order, each with the pair's other endpoint. Summing a node's
-messages in that fixed order needs no atomics and reproduces run to run.
+Every per-edge quantity of the working graph is symmetric in (i, j), so a
+list of pairs i < j carries all of it:
+
+* `triu_pairs(n)`: all N(N-1)/2 pairs of the bucket in
+  `np.triu_indices(n, 1)` order; every slot is valid.
+* `prepare_pairs(node_mask, capacity)`: the pairs of real atoms, in
+  row-major order, padded to a static `capacity` with pad slots. A pad
+  slot has valid 0, both endpoints at node 0 (so every gather stays in
+  bounds), and writes no dense cell when a plane is mirrored back.
+
+A list is shared (one list for the whole batch: fields without a batch
+axis, the generation pattern of one molecule repeated) or per graph
+(a leading batch axis on every field). A shared list also holds the
+per-node incidence lists K1 aggregates over: for node n, the valid pairs
+that touch it in increasing pair order, each with the pair's other
+endpoint, packed into one 32-bit entry (pair << inc_shift | other).
+Summing a node's messages in that fixed order needs no atomics and
+reproduces run to run. A pad slot is in no node's list.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+from typing import Optional
 
 import numpy as np
 import torch
 
 
 @dataclass(frozen=True)
-class TriuPairs:
-    iu: torch.Tensor         # (P,) int64 endpoint i (i < j)
-    ju: torch.Tensor         # (P,) int64 endpoint j
-    pair_id: torch.Tensor    # (N, N) int64 dense cell -> pair slot (diag -> 0)
-    inc_ptr: torch.Tensor    # (N + 1,) int32 CSR offsets into inc_*
-    inc_pair: torch.Tensor   # (2P,) int32 incident pair, increasing per node
-    inc_other: torch.Tensor  # (2P,) int32 the pair's other endpoint
+class PairList:
+    idx: torch.Tensor        # ([B,] P) int64 flat cell i*N + j (pad: 0)
+    valid: torch.Tensor      # ([B,] P) float32, 1 for real pairs
+    iu: torch.Tensor         # ([B,] P) int64 endpoint i (i < j; pad: 0)
+    ju: torch.Tensor         # ([B,] P) int64 endpoint j (pad: 0)
+    slot: torch.Tensor       # ([B,] N*N) int64 dense cell -> slot (else 0)
+    inc_ptr: Optional[torch.Tensor] = None    # (N + 1,) int32 CSR offsets
+    inc: Optional[torch.Tensor] = None   # (2V,) 32-bit entries, as int32:
+                                         # pair << inc_shift | other
+    inc_shift: int = 1       # bits of the other endpoint in an entry
+    tight: bool = False      # a molecule's list, not the bucket's triangle
+    num_valid: int = 0       # V; valid slots come first (the largest V
+                             # of the batch for a per-graph list)
 
     @property
-    def num_nodes(self) -> int:
-        return self.pair_id.shape[0]
+    def shared(self) -> bool:
+        return self.iu.dim() == 1
 
     @property
     def num_pairs(self) -> int:
-        return self.iu.shape[0]
+        return self.iu.shape[-1]
 
-    def to(self, device) -> "TriuPairs":
-        return TriuPairs(*(getattr(self, f).to(device) for f in
-                           self.__dataclass_fields__))
+    @property
+    def num_nodes(self) -> int:
+        return int(round(self.slot.shape[-1] ** 0.5))
+
+    @property
+    def inc_pair(self) -> torch.Tensor:
+        """(2V,) the incident pair of each entry, increasing per node."""
+        return (self.inc.long() & 0xFFFFFFFF) >> self.inc_shift
+
+    @property
+    def inc_other(self) -> torch.Tensor:
+        """(2V,) the pair's other endpoint."""
+        return self.inc.long() & ((1 << self.inc_shift) - 1)
+
+    @property
+    def pair_id(self) -> torch.Tensor:
+        """The slot map as ([B,] N, N)."""
+        n = self.num_nodes
+        return self.slot.reshape(*self.slot.shape[:-1], n, n)
+
+    def to(self, device) -> "PairList":
+        moved = {f.name: getattr(self, f.name) for f in fields(self)}
+        for k, v in moved.items():
+            if isinstance(v, torch.Tensor):
+                moved[k] = v.to(device)
+        return PairList(**moved)
 
 
 def incidence(iu: np.ndarray, ju: np.ndarray, n: int):
@@ -52,28 +96,108 @@ def incidence(iu: np.ndarray, ju: np.ndarray, n: int):
             other[order].astype(np.int32))
 
 
-def triu_pairs(n: int, device="cpu") -> TriuPairs:
-    iu, ju = np.triu_indices(n, k=1)
-    pair_id = np.zeros((n, n), np.int64)
-    pair_id[iu, ju] = np.arange(len(iu))
-    pair_id = pair_id + pair_id.T
+def _shared_list(iu, ju, n, capacity, tight, device) -> PairList:
+    """A shared list from its V valid pairs (i < j), padded to capacity."""
+    v = len(iu)
+    pad = capacity - v
     ptr, pair, other = incidence(iu, ju, n)
-    return TriuPairs(
-        iu=torch.from_numpy(iu.astype(np.int64)),
-        ju=torch.from_numpy(ju.astype(np.int64)),
-        pair_id=torch.from_numpy(pair_id),
+    shift = max(1, (n - 1).bit_length())
+    if v and (v - 1) >> (32 - shift):
+        raise ValueError(f"{v} pairs of {n} nodes exceed 32-bit incidence "
+                         f"entries")
+    inc = ((pair.astype(np.uint64) << shift) | other.astype(np.uint64))
+    slot = np.zeros((n, n), np.int64)
+    slot[iu, ju] = np.arange(v)
+    slot[ju, iu] = np.arange(v)
+    iu_p = np.concatenate([iu, np.zeros(pad, np.int64)])
+    ju_p = np.concatenate([ju, np.zeros(pad, np.int64)])
+    return PairList(
+        idx=torch.from_numpy(iu_p * n + ju_p),
+        valid=torch.from_numpy((np.arange(capacity) < v).astype(np.float32)),
+        iu=torch.from_numpy(iu_p), ju=torch.from_numpy(ju_p),
+        slot=torch.from_numpy(slot.reshape(-1)),
         inc_ptr=torch.from_numpy(ptr),
-        inc_pair=torch.from_numpy(pair),
-        inc_other=torch.from_numpy(other),
+        inc=torch.from_numpy(inc.astype(np.uint32).view(np.int32)),
+        inc_shift=shift, tight=tight, num_valid=v,
     ).to(device)
 
 
-def pack_plane(a, pairs: TriuPairs):
-    """(B, N, N[, C]) symmetric -> (B, P[, C])."""
-    return a[:, pairs.iu, pairs.ju]
+def triu_pairs(n: int, device="cpu") -> PairList:
+    iu, ju = np.triu_indices(n, k=1)
+    return _shared_list(iu.astype(np.int64), ju.astype(np.int64), n,
+                        len(iu), False, device)
 
 
-def mirror_plane(s, pairs: TriuPairs):
-    """(B, P) packed symmetric plane -> (B, N, N); the diagonal gets pair
-    0's value (every consumer masks it)."""
-    return s[:, pairs.pair_id]
+def pair_capacity_for(num_nodes: int, multiple: int = 64) -> int:
+    """Static pair capacity for graphs of at most num_nodes real atoms,
+    rounded up to `multiple` (fewer distinct shapes)."""
+    n = int(num_nodes)
+    cap = n * (n - 1) // 2
+    return max(multiple, -(-cap // multiple) * multiple)
+
+
+def _real_pairs(mask: np.ndarray):
+    iu, ju = np.triu_indices(len(mask), k=1)
+    keep = mask[iu] & mask[ju]
+    return iu[keep].astype(np.int64), ju[keep].astype(np.int64)
+
+
+def prepare_pairs_shared(node_mask, capacity: int) -> PairList:
+    """Graph 0's tight list, for a batch of one molecule repeated (its
+    node set covers every graph's). Built on the host, once per ladder."""
+    mask = node_mask[0].cpu().numpy().astype(bool)
+    iu, ju = _real_pairs(mask)
+    if len(iu) > capacity:
+        raise ValueError(f"{len(iu)} real pairs exceed capacity {capacity}")
+    return _shared_list(iu, ju, len(mask), capacity, True,
+                        node_mask.device)
+
+
+def prepare_pairs(node_mask, capacity: int) -> PairList:
+    """Per-graph tight lists, (B, capacity) each (no incidence lists: the
+    kernel takes shared lists only)."""
+    b, n = node_mask.shape
+    lists = [prepare_pairs_shared(node_mask[k:k + 1].cpu(), capacity)
+             for k in range(b)]
+    stacked = {f: torch.stack([getattr(pl, f) for pl in lists])
+               for f in ("idx", "valid", "iu", "ju", "slot")}
+    return PairList(**stacked, tight=True,
+                    num_valid=max(pl.num_valid for pl in lists)
+                    ).to(node_mask.device)
+
+
+def _flat(index, b: int, stride: int):
+    """([B,] K) per-graph index -> (B, K) index into the (B * stride)
+    flattening of a batched tensor."""
+    base = torch.arange(b, device=index.device)[:, None] * stride
+    return index + base
+
+
+def pack_plane(a, pairs: PairList):
+    """(B, N, N[, C]) symmetric -> (B, P[, C]) at the list's cells."""
+    b, n = a.shape[:2]
+    flat = a.reshape(b * n * n, *a.shape[3:])
+    return flat[_flat(pairs.idx, b, n * n)]
+
+
+def gather_nodes(x, index):
+    """(B, N, F) node rows at a ([B,] P) endpoint index -> (B, P, F)."""
+    b, n = x.shape[:2]
+    return x.reshape(b * n, -1)[_flat(index, b, n)]
+
+
+def scatter_nodes(out, index, msg):
+    """out (B, N, F) += msg (B, P, F) summed onto the endpoints `index`."""
+    b, n = out.shape[:2]
+    out.view(b * n, -1).index_add_(0, _flat(index, b, n).reshape(-1),
+                                   msg.reshape(-1, msg.shape[-1]))
+    return out
+
+
+def mirror_plane(s, pairs: PairList):
+    """(B, P) packed symmetric plane -> (B, N, N). Cells outside the list
+    (the diagonal, padded nodes) get slot 0's value: every consumer masks
+    them."""
+    b, p = s.shape
+    n = pairs.num_nodes
+    return s.reshape(-1)[_flat(pairs.slot, b, p)].reshape(b, n, n)

@@ -7,7 +7,9 @@ Per step i (the last n_steps noise levels, highest first):
 then non-finite entries are flagged per graph and zeroed, each graph is
 re-centred, and positions are optionally clipped. The ladder is a Python
 loop over steps; the flags stay on the device, so a run syncs only at the
-end.
+end. The forward's pair list depends only on the node mask: the sampler
+builds it once per ladder and passes it to every step (the JAX package's
+`forward.prepare` hoist, models/tight_forward.py:388-392).
 """
 
 from __future__ import annotations
@@ -64,12 +66,13 @@ def assemble_drift(out, pos, sigma, cfg: SamplerConfig):
 def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
                              diffusion: Diffusion, config: SamplerConfig,
                              generator: Optional[torch.Generator] = None,
-                             noise: Optional[torch.Tensor] = None
-                             ) -> SampleResult:
+                             noise: Optional[torch.Tensor] = None,
+                             pairs=None) -> SampleResult:
     """Run the ladder. pos_init is standard normal noise (scaled here by the
     largest sigma). The per-step noise comes from `generator`, or from
     `noise` of shape (n_steps, B, N, 3) when given (tests replay the JAX
-    package's noise that way)."""
+    package's noise that way). `pairs`, when given, goes to every forward
+    call."""
     cfg = config
     dev = batch.pos.device
     sigmas = torch.as_tensor(diffusion.sigmas, dtype=torch.float32,
@@ -83,7 +86,9 @@ def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
                          f"{cfg.n_steps}")
     for k, i in enumerate(range(T - 1, T - cfg.n_steps - 1, -1)):
         sigma = sigmas[i]
-        out = forward_fn(batch.replace(pos=pos))
+        step_batch = batch.replace(pos=pos)
+        out = (forward_fn(step_batch) if pairs is None
+               else forward_fn(step_batch, pairs=pairs))
         eps_pos = assemble_drift(out, pos, sigma, cfg)
         step_size = cfg.step_lr * (sigma / 0.01) ** 2
         xi = (noise[k].to(dev) if noise is not None else
@@ -100,13 +105,21 @@ def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
 
 
 def build_fast_sampler(forward_fn: Callable, diffusion: Diffusion,
-                       config: SamplerConfig):
-    """A sampler closure over a forward callable (models/fast_forward.py):
-    run(batch, pos_init, generator=None, noise=None) -> SampleResult."""
+                       config: SamplerConfig,
+                       pair_capacity: Optional[int] = None):
+    """A sampler closure over a forward (models/fast_forward.py,
+    models/tight_forward.py): run(batch, pos_init, generator=None,
+    noise=None) -> SampleResult. A forward with `prepare` gets its pair
+    list built once per ladder, at `pair_capacity` pairs for a tight
+    forward; it must hold every graph's real pairs (eval/generate.py
+    sizes it)."""
 
     def run(batch, pos_init, generator=None, noise=None):
+        prepare = getattr(forward_fn, "prepare", None)
+        pairs = None if prepare is None else prepare(batch, pair_capacity)
         return langevin_dynamics_sample(forward_fn, batch, pos_init,
                                         diffusion, config,
-                                        generator=generator, noise=noise)
+                                        generator=generator, noise=noise,
+                                        pairs=pairs)
 
     return run

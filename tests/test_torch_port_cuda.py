@@ -1,6 +1,8 @@
 """K1's CUDA kernel against its plain version, on a card of compute
-capability 9.0 or newer; skips elsewhere. Imports no JAX, so that it runs
-on a machine without it:
+capability 9.0 or newer; skips elsewhere: mode 'full' over triu sets, and
+every variant over tight lists, at N = 64 (node regions in shared memory),
+96 (node temporaries in global memory) and 192 (all node regions in
+global memory). Imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
@@ -16,14 +18,32 @@ from agdiff_torch.data.fixture import load_fixture
 from agdiff_torch.kernels import stack_packed as k1
 from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
 from agdiff_torch.models.fast_forward import build_fast_forward
+from agdiff_torch.models.tight_forward import build_tight_forward
 from agdiff_torch.models.weights import init_random
+from agdiff_torch.ops.pairs import pair_capacity_for
 
 # f32 sums taken in another order than the plain version's can flip a bf16
 # rounding by one unit (2^-8 relative), which later layers carry on; the
-# median error stays at summation-order noise. Each output plane is held,
-# as a share of its own largest score, to the limits of chip_smoke.py's
-# K1_LIMITS: max error 3%, median 1e-6, 99th percentile 3e-3.
+# median error stays at summation-order noise. Each output (score plane,
+# or h / hl over real nodes) is held, as a share of its own largest value,
+# to the limits of chip_smoke.py's K1_LIMITS: max error 3%, median 1e-6,
+# 99th percentile 3e-3.
 BF16_MAX, BF16_MEDIAN, BF16_P99 = 3e-2, 1e-6, 3e-3
+# Drugs-sized graphs, per output, chip_smoke.py's DRUGS_LIMITS (max,
+# median, p99): there a flipped rounding reaches every atom of its graph
+# within a SchNet block, so the global branch differs by more.
+DRUGS = {"global": (3e-2, 8e-4, 6e-3), "local": (0.12, 1e-6, 3e-2),
+         "h": (5e-4, 2e-5, 1e-4), "hl": (1e-2, 1e-6, 3e-3)}
+
+
+def _within_limits(got, ref, limits=(BF16_MAX, BF16_MEDIAN, BF16_P99)):
+    scale = float(ref.abs().max())
+    err = (got - ref).abs().flatten()
+    assert torch.isfinite(got).all()
+    assert float(err.max()) <= limits[0] * scale
+    assert float(err.median()) <= limits[1] * scale
+    p99 = err.kthvalue(max(1, int(0.99 * err.numel()))).values
+    assert float(p99) <= limits[2] * scale
 
 
 @pytest.fixture
@@ -45,18 +65,48 @@ def test_cuda_kernel_matches_plain(card, n, b):
     batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
                           device=card)
     kw, _ = fwd.stack_inputs(batch)
-    before = k1.launches
+    before = k1.launches["stack_full:triu"]
     got = k1.packed_stack_forward(**kw)
-    assert k1.launches == before + 1
+    assert k1.launches["stack_full:triu"] == before + 1
     ref = k1.packed_stack_forward_plain(**kw)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
-        scale = float(r.abs().max())
-        err = (g - r).abs().flatten()
-        assert float(err.max()) <= BF16_MAX * scale
-        assert float(err.median()) <= BF16_MEDIAN * scale
-        p99 = err.kthvalue(int(0.99 * err.numel())).values
-        assert float(p99) <= BF16_P99 * scale
+        _within_limits(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,n", [
+    ("tight-pks", 64), ("tight-pksg", 64), ("tight-pksf", 64),
+    ("tight-pksf-approx", 64), ("tight-pksf", 96), ("tight-pksg", 192)])
+def test_cuda_tight_variants_match_plain(card, engine, n):
+    """Each variant on a Drugs-sized molecule's tight list (pad slots
+    included), outputs against the plain version: planes on every slot,
+    node states on real nodes."""
+    cfg = dataclasses.replace(ModelConfig(), num_convs=3, num_convs_local=2,
+                              dtype="bfloat16", smooth_conv=True)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    fwd = build_tight_forward(cfg, model, engine)
+    mol = load_fixture("drugs_synthetic")[3 if n > 64 else 0]
+    batch = pad_molecules([mol] * 4, n, device=card)
+    pairs = fwd.prepare(batch, pair_capacity_for(mol.num_nodes, 256))
+    assert pairs.num_valid < pairs.num_pairs
+    kw, _ = fwd.stack_inputs(batch, pairs)
+    name = k1.variant(fwd.mode, fwd.approx, True)
+    before = k1.launches[name]
+    got = k1.packed_stack_forward(**kw, mode=fwd.mode, approx=fwd.approx)
+    assert k1.launches[name] == before + 1
+    ref = k1.packed_stack_forward_plain(**kw, mode=fwd.mode,
+                                        approx=fwd.approx)
+    torch.cuda.synchronize()
+    names = {"full": ("global", "local"), "gin": ("h", "hl"),
+             "schnet": ("h",)}[fwd.mode]
+    if fwd.mode == "schnet":
+        got, ref = (got,), (ref,)
+    real = batch.node_mask
+    for name, g, r in zip(names, got, ref):
+        if fwd.mode != "full":
+            g, r = g[real], r[real]
+        _within_limits(g, r, DRUGS[name])
 
 
 @pytest.mark.cuda
@@ -73,3 +123,5 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(card):
         k1.packed_stack_forward(**f32)
     with pytest.raises(ValueError):
         k1.packed_stack_forward(**dict(kw, h0=kw["h0"][:, :16]))
+    with pytest.raises(TypeError):   # f32 kernel modes are not built
+        k1.packed_stack_forward(**f32, mode="schnet")

@@ -159,3 +159,26 @@ def test_fixture_equals_synthetic_dataset():
                      "pos_ref"):
             np.testing.assert_array_equal(getattr(g, name), getattr(r, name))
         assert g.smiles == r.smiles
+
+
+def test_drugs_fixture_equals_synthetic_dataset():
+    got = load_fixture("drugs_synthetic")
+    ref = [m for h in (20, 28) for m in synthetic_dataset(
+        2, seed=7, min_heavy=h, max_heavy=h, num_conformers=2)]
+    assert [g.num_nodes for g in got] == [50, 56, 69, 73]
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        for name in ("atom_type", "pos", "bond_index", "bond_type",
+                     "pos_ref"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(r, name))
+        assert g.smiles == r.smiles and g.num_ref == 2
+
+
+@pytest.mark.parametrize("name", ["drugs_fast", "drugs_default"])
+def test_config_reads_the_drugs_yaml(name):
+    path = os.path.join(ROOT, "configs", f"{name}.yml")
+    got, ref = load_config(path), jax_load_config(path)
+    for f in dataclasses.fields(got.model):
+        assert getattr(got.model, f.name) == getattr(ref.model, f.name), f
+    assert got.model.smooth_conv
+    assert got.buckets == tuple(ref.buckets.max_nodes)

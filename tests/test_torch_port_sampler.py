@@ -133,7 +133,7 @@ def test_generation_runner_retries_non_finite_chunks(setup):
         device="cpu")
     pg = runner.run(load_fixture()[:1], num_confs=5)[0].meta["pos_gen"]
     assert pg.shape[0] == 5 and np.isfinite(pg).all()
-    assert (None, True) in runner._samplers  # the clip_local retry ran
+    assert (None, True, None) in runner._samplers  # the retry ran
     assert runner._batch_size_for(5) == 8
     assert runner.num_samples_for(load_fixture()[0], "3x") == 6
 

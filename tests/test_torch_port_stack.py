@@ -130,16 +130,30 @@ def test_engines_match_dense_forward(weights):
 def test_wrapper_counts_only_kernel_launches(weights):
     _, cfg, variables = weights
     stack = build_fast_forward(cfg, port_model(cfg, variables), "pksf").stack
-    before = k1.launches
+    before = dict(k1.launches)
     _port_planes(stack, *_inputs(cfg.hidden_dim, cfg.num_convs),
                  torch.bfloat16)
-    assert k1.launches == before
-    with pytest.raises(NotImplementedError):
+    assert dict(k1.launches) == before
+    with pytest.raises(ValueError, match="mode"):
         k1.packed_stack_forward(None, None, None, stack, None, None, None,
-                                None, mode="schnet")
+                                None, mode="dense")
 
 
 def test_smem_layout_fits_the_main_path():
-    assert k1.smem_bytes(32, 128, 496) <= k1.MAX_SMEM
-    assert k1.smem_bytes(64, 128, 2016) <= k1.MAX_SMEM
-    assert k1.smem_bytes(72, 128, 2556) > k1.MAX_SMEM
+    """At H = 128 every node region fits shared memory to N = 64 (level
+    0), but beside the staged weights only to N = 32; the layout takes
+    the smallest level with staged weights: node temporaries in global
+    scratch from N = 48 (level 1), node states too from N = 96 (level 2),
+    which fits any N. Pair lists never count against shared memory."""
+    assert k1.smem_bytes(32, 128) == 130308
+    assert k1.smem_bytes(64, 128) == 213764 <= k1.MAX_SMEM
+    assert k1.smem_bytes(72, 128) == 255492 > k1.MAX_SMEM
+    assert k1.weight_region_bytes(128) == 95232
+    assert k1.layout(32, 128) == (0, 130308, 0)
+    assert k1.layout(48, 128)[0] == 1
+    assert k1.layout(64, 128) == (1, 113412, 100352)
+    assert k1.layout(80, 128) == (1, 130052, 125440)
+    level, smem, scratch = k1.layout(96, 128)
+    assert level == 2 and smem == k1.smem_bytes(96, 128, 2) == 46848
+    assert scratch >= sum(k1.region_bytes(96, 128)[:3])
+    assert k1.layout(1024, 128)[0] == 2
