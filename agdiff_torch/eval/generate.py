@@ -11,7 +11,13 @@ bucket of its own, its size rounded up to a multiple of 8.
 Engines follow the JAX package's choice on a TPU: at buckets >= 40 the
 tight engines, whose pair list holds the molecule's own pairs at a
 capacity rounded up to 256 (one shared list, since a chunk is one
-molecule repeated); below 40 the triu engines.
+molecule repeated); below 40 the triu engines. An `engine` override takes
+any triu or tight engine, 'pk' and 'pk-approx' (K2 over the triu pairs)
+among them, but not 'pallas': the JAX runner passes use_pallas=False
+(agdiff_tpu/eval/generate.py:258-261), so its 'pallas' runs the XLA
+forward without the kernels, and the port has no such forward. The
+'pallas' kernels run through build_fast_sampler(build_fast_forward(cfg,
+model, "pallas"), ...).
 """
 
 from __future__ import annotations
@@ -44,6 +50,14 @@ class GenerationRunner:
                  diffusion: Diffusion, sampler_config: SamplerConfig,
                  buckets: Sequence[int] = (32, 64), chunk_size: int = 64,
                  device=None, engine: Optional[str] = None):
+        if engine is not None and engine.startswith("pallas"):
+            raise ValueError(
+                "GenerationRunner does not take engine 'pallas': the JAX "
+                "runner builds it with use_pallas=False "
+                "(agdiff_tpu/eval/generate.py:258-261), i.e. the XLA "
+                "forward without the kernels, which the port does not "
+                "have; run build_fast_sampler(build_fast_forward(cfg, "
+                "model, 'pallas'), ...) for the kernels")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.model_config = model_config

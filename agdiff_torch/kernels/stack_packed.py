@@ -70,6 +70,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from agdiff_torch.kernels.fused import check as _check
 from agdiff_torch.nn.common import activation_by_name
 from agdiff_torch.ops import approx as ax
 from agdiff_torch.ops.pairs import PairList, gather_nodes, scatter_nodes
@@ -382,17 +383,6 @@ def _lib():
         lib.stack_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,

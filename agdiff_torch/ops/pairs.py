@@ -201,3 +201,15 @@ def mirror_plane(s, pairs: PairList):
     b, p = s.shape
     n = pairs.num_nodes
     return s.reshape(-1)[_flat(pairs.slot, b, p)].reshape(b, n, n)
+
+
+def mirror_features(e, pairs: PairList):
+    """(B, P, C) packed symmetric features -> (B, N, N, C) on a shared
+    list (the JAX engine's e_packed[:, pair_id]). Cells outside the list
+    (the diagonal, padded nodes) get slot 0's row, as there: every
+    consumer weights or masks them to zero."""
+    if not pairs.shared:
+        raise ValueError("mirror_features takes a shared pair list")
+    b, _, c = e.shape
+    n = pairs.num_nodes
+    return e[:, pairs.slot].reshape(b, n, n, c)

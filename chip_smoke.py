@@ -6,8 +6,9 @@
 Phases, each of which fails the run:
   1. a CUDA card of compute capability 9.0 is required; its name and power
      limit are printed as nvidia-smi reports them;
-  2. the CUDA source agdiff_torch/kernels/csrc/stack_packed.cu is built
-     with nvcc;
+  2. the CUDA sources under agdiff_torch/kernels/csrc (stack_packed.cu,
+     fused.cu, block_packed.cu) are built with nvcc, one process each, all
+     started together; their ptxas register and spill lines are printed;
   3. K1 (the whole-stack kernel) is held against its plain PyTorch version
      on the card, on the inputs the main paths give it, output by output
      (each score plane, or h and hl over real nodes, on its own scale),
@@ -23,11 +24,24 @@ Phases, each of which fails the run:
        'schnet', 'gin' and 'full' with '-approx' at N=64;
      - at N=64 and N=96 also at every layout level that fits, each of
        which must give the bits of the wrapper's choice;
+     then K3 (f32, bf16), K5, K4 (f32, bf16) and K2 (exact, '-approx')
+     likewise, on the inputs of each path's first call at the full width
+     of configs/qm9_default.yml (f32) or qm9_fast.yml (bf16), B=128,
+     N=32, with planted faults (a dropped filter or first-layer bias, the
+     softplus shift dropped, the mask ignored, the relu dropped);
   4. the QM9 slice: GenerationRunner generates conformers for the
      molecules of agdiff_torch/data/fixtures/qm9_synthetic.json on the
      'pksf' engine (bucket 32, chunk 128, w_global 0.3, a 500-step suffix
      of the 5000-step ladder) with seeded random weights; a small batch is
-     also checked against the f32 plain engine;
+     also checked against the f32 plain engine; then the engines
+     'pallas' (f32 against the f32 engine, 2e-4; bf16 within 5%; with
+     pack_pairs=False against the packed form, 2e-4) and 'pk' (within 5%),
+     and their paths over the same molecules, 128 conformers each: A
+     'pallas' f32 and B 'pallas' bf16 (build_fast_sampler, 100 steps), C
+     pack_pairs=False at f32 and at bf16 (20 steps), D 'pk' (100 steps)
+     and D' 'pk-approx' (20 steps) through GenerationRunner; each kernel's
+     launches must equal the forwards run times its count per forward (K3
+     6, K5 4, K4 2, K2 6) and no other kernel may launch;
   5. the Drugs slice: GenerationRunner on configs/drugs_fast.yml runs the
      molecules of agdiff_torch/data/fixtures/drugs_synthetic.json (50 and
      56 atoms in bucket 64, 69 and 73 atoms above it) on 'tight-pksf'
@@ -39,8 +53,9 @@ Phases, each of which fails the run:
      must equal the forwards run, counted from 0 just before it, and
      every position must be finite;
   6. where the time goes: torch.profiler over a few ladder steps of one
-     chunk of each slice gives K1's share of the device time, the
-     device's idle share and the largest kernels;
+     chunk of each slice, and of paths A and D, gives each hand kernel's
+     share of the device time, the device's idle share and the largest
+     kernels;
   7. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -102,6 +117,16 @@ ENGINE_TOL = 0.05       # bf16 engine vs f32 engine, the JAX slim gate's
 # CPU beside the kernel's reading, under the same limit
 DRUGS_ENGINE_TOL = 0.15
 PROFILE_STEPS = 20
+F32_ENGINE_TOL = 2e-4   # two f32 engines: summation order only
+SOURCES = ("stack_packed", "fused", "block_packed")
+# the TPU kernel each new kernel replaces (file:line of its function)
+REPLACES = {
+    "block_agg": "agdiff_tpu/ops/pallas/fused.py:181",
+    "pair_score": "agdiff_tpu/ops/pallas/fused.py:82",
+    "gine": "agdiff_tpu/ops/pallas/fused.py:142",
+    "packed_block": "agdiff_tpu/ops/pallas/block_packed.py:53",
+    "packed_block_approx": "agdiff_tpu/ops/pallas/block_packed.py:53",
+}
 
 
 def card_line() -> str:
@@ -167,16 +192,18 @@ def k1_work(kw, mode: str) -> tuple:
     return flops, nbytes
 
 
-def errors(got, ref, mask=None) -> dict:
-    """|got - plain| over the entries `mask` selects, as shares of the
-    max |plain value| there: max, median, p99, and the share of entries
-    off by more than 1% of it."""
+def errors(got, ref, mask=None, scale=None) -> dict:
+    """|got - plain| over the entries `mask` selects, as shares of
+    `scale` (default: the max |plain value| there): max, median, p99, and
+    the share of entries off by more than 1% of it."""
     import torch
 
     if mask is not None:
         got, ref = got[mask], ref[mask]
-    scale = float(ref.abs().max())
+    scale = float(ref.abs().max()) if scale is None else scale
     d = (got - ref).abs().flatten() / scale
+    if d.numel() == 0:
+        d = torch.zeros(1, device=got.device)
     return dict(
         max_abs_value=scale, max_abs_err=float(d.max()) * scale,
         max_rel=float(d.max()), median_rel=float(d.median()),
@@ -354,13 +381,15 @@ def check_levels(kw, label, report) -> list:
     return failures
 
 
-def random_batch(mol, n, b, gen):
-    """`mol` repeated b times in a bucket of n, at random positions."""
+def random_batch(mols, n, b, gen):
+    """b graphs cycling through `mols` in a bucket of n, at random
+    positions (the K1 triu cases' batches)."""
     import torch
 
     from agdiff_torch.data.bucketing import pad_molecules
 
-    batch = pad_molecules([mol] * b, n, device=gen.device)
+    batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
+                          device=gen.device)
     return batch.replace(pos=torch.randn(
         batch.pos.shape, generator=gen, device=gen.device)
         * batch.node_mask[..., None])
@@ -449,13 +478,15 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
     return row
 
 
-def profile_slice(runner, engine, mol, bucket, chunk, label, report):
+def profile_slice(fwd, diffusion, mol, bucket, chunk, label, report,
+                  kernels, capacity=None):
     """Where the time goes: torch.profiler over PROFILE_STEPS ladder steps
-    of one chunk (`mol` repeated `chunk` times in `bucket`) on the
-    engine's forward, with the pair list built once as the runner does.
-    Reports the device's busy time (the union of kernel intervals), its
-    idle share of the host-clock window, K1's share, and the kernels that
-    took the most time."""
+    of one chunk (`mol` repeated `chunk` times in `bucket`) on the forward
+    `fwd`, with the pair list built once as the runner does (at
+    `capacity` for a tight forward). Reports the device's busy time (the
+    union of kernel intervals), its idle share of the host-clock window,
+    each hand kernel's share (`kernels`: label -> a substring of its
+    name), and the kernels that took the most time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -466,11 +497,10 @@ def profile_slice(runner, engine, mol, bucket, chunk, label, report):
         build_fast_sampler,
     )
 
-    dev = runner.device
+    dev = torch.device("cuda")
     sampler = build_fast_sampler(
-        runner.forward(engine), runner.diffusion,
-        SamplerConfig(n_steps=PROFILE_STEPS, w_global=0.3),
-        pair_capacity=runner._capacity_for(mol, engine))
+        fwd, diffusion, SamplerConfig(n_steps=PROFILE_STEPS, w_global=0.3),
+        pair_capacity=capacity)
     batch = pad_molecules([mol] * chunk, bucket, batch_size=chunk,
                           device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -496,20 +526,368 @@ def profile_slice(runner, engine, mol, bucket, chunk, label, report):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    k1_us = sum(t for n, t in by_name.items() if "stack_kernel" in n)
+    own = {k: sum(t for n, t in by_name.items() if sub in n)
+           for k, sub in kernels.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     report["profiles"][label] = dict(
-        engine=engine, steps=PROFILE_STEPS, batch=chunk, bucket=bucket,
-        wall_us=wall_us, device_busy_us=busy, idle_share=1.0 - busy / wall_us,
-        k1_us=k1_us, k1_share_of_busy=k1_us / busy, kernels=len(spans),
-        top=[dict(name=n[:80], us=t) for n, t in top])
-    print(f"profile {label}: {PROFILE_STEPS} steps of B={chunk} N={bucket} "
-          f"on {engine}: host window {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms (idle share {1.0 - busy / wall_us:.3f}), K1 "
-          f"{k1_us / 1e3:.3f} ms = {k1_us / busy:.3f} of device time, "
-          f"{len(spans)} kernels", flush=True)
+        steps=PROFILE_STEPS, batch=chunk, bucket=bucket, wall_us=wall_us,
+        device_busy_us=busy, idle_share=1.0 - busy / wall_us,
+        kernels_us=own, kernel_shares={k: t / busy for k, t in own.items()},
+        kernels=len(spans), top=[dict(name=n[:80], us=t) for n, t in top])
+    shares = ", ".join(f"{k} {t / 1e3:.3f} ms = {t / busy:.3f}"
+                       for k, t in own.items())
+    print(f"profile {label}: {PROFILE_STEPS} steps of B={chunk} N={bucket}: "
+          f"host window {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms (idle share {1.0 - busy / wall_us:.3f}); "
+          f"of device time: {shares}; {len(spans)} kernels", flush=True)
     for n, t in top:
         print(f"  {t / 1e3:9.3f} ms  {n[:80]}", flush=True)
+
+
+# ---- K2-K5 -------------------------------------------------------------------
+
+PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+# Each new kernel against its plain version, per output, as shares of
+# that output's max |plain value| (tests/test_torch_port_cuda.py holds the
+# same). At f32 the two differ by summation order only; at bf16 a
+# different f32 sum can flip the bf16 rounding of a hidden value (the
+# filter's, K4's first layer's), which moves the outputs that use it.
+# Each limit lies between the kernel's readings and the planted faults'
+# (PERF.md).
+F32_KERNEL_LIMITS = dict(max_rel=1e-5, median_rel=1e-6, p99_rel=5e-6,
+                         beyond_1pct=0.0)
+BF16_KERNEL_LIMITS = dict(max_rel=1e-2, median_rel=1e-6, p99_rel=3e-4,
+                          beyond_1pct=1e-3)
+OFF_MASK_LIMITS = dict(max_rel=0.0, median_rel=0.0, p99_rel=0.0,
+                       beyond_1pct=0.0)
+PATH_STEPS = 100        # paths A, B and D
+SHORT_STEPS = 20        # paths C and D'
+
+
+def kernel_counters() -> dict:
+    """Every launch counter of the port, by kernel module."""
+    from agdiff_torch.kernels import block_packed, fused
+    from agdiff_torch.kernels import stack_packed as k1
+
+    return {"stack_packed": k1.launches, "fused": fused.launches,
+            "block_packed": block_packed.launches}
+
+
+def capture(fwd, batch, name):
+    """The arguments of the first call of models/fast_forward.<name> (a
+    kernel wrapper) while fwd runs on batch: the inputs that path gives
+    that kernel."""
+    from agdiff_torch.models import fast_forward as ff
+
+    real, calls = getattr(ff, name), []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(ff, name, record)
+    try:
+        fwd(batch)
+    finally:
+        setattr(ff, name, real)
+    return calls[0]
+
+
+def nbytes(*ts) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def conv_tensors(*convs):
+    return [t for c in convs for t in (*c["fa"], *c["fb"], c["beta"])]
+
+
+def filter_flops(c, f1, f2) -> int:
+    """FLOPs of both filter MLPs on one row (pair)."""
+    return 2 * (c * (f1 + f2) + f1 * f1 + f2 * f2)
+
+
+def block_agg_work(args):
+    e, w1, w2, h1, h2, c1, c2 = args
+    b, n, _, c = e.shape
+    f1, f2 = h1.shape[-1], h2.shape[-1]
+    flops = b * n * n * (filter_flops(c, f1, f2) + 3 * (f1 + f2))
+    io = nbytes(e, w1, w2, h1, h2, *conv_tensors(c1, c2)) \
+        + 4 * b * n * (f1 + f2)
+    return flops, io
+
+
+def pair_score_work(args):
+    h, e, mask, w1, b1, w2, b2, w3, b3 = args
+    b, n, c = h.shape
+    h1, h2 = w2.shape
+    flops = b * n * n * (c + 2 * (2 * c * h1 + h1 * h2) + 2 * h2)
+    return flops, nbytes(h, e, mask, w1, b1, w2, b2, w3, b3) + 4 * b * n * n
+
+
+def gine_work(args):
+    x, e, mask = args
+    b, n, c = x.shape
+    return 4 * b * n * n * c, nbytes(x, e, mask) + 4 * b * n * c
+
+
+def packed_block_work(args):
+    e, we1, we2, x1, x2, c1, c2, pairs = args
+    b, p, c = e.shape
+    n, f1, f2 = x1.shape[1], x1.shape[-1], x2.shape[-1]
+    flops = b * p * (filter_flops(c, f1, f2) + 5 * (f1 + f2))
+    io = nbytes(e, we1, we2, x1, x2, pairs.iu, pairs.ju,
+                *conv_tensors(c1, c2)) + 4 * b * n * (f1 + f2)
+    return flops, io
+
+
+def check_kernel(label, name, kernel, plain, args, outputs, faults, limits,
+                 work, peak, report) -> tuple:
+    """A K2-K5 kernel against its plain version on a path's inputs:
+    `outputs` lists (output name, index into the result, selection,
+    scale-from output or None); each planted fault (name, plain-like
+    callable) must break a limit; times and the bound. Returns the row and
+    its failures."""
+    import torch
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def rows(got, ref):
+        table = {}
+        for oname, k, sel, scale_of in outputs:
+            scale = None
+            if scale_of is not None:
+                src = outputs[[o[0] for o in outputs].index(scale_of)]
+                scale = float(ref[src[1]][src[2]].abs().max())
+            table[oname] = errors(got[k], ref[k], sel, scale)
+        return table
+
+    got, again, ref = (as_tuple(kernel(*args)), as_tuple(kernel(*args)),
+                       as_tuple(plain(*args)))
+    torch.cuda.synchronize()
+    outs = rows(got, ref)
+    repro = all(torch.equal(g, a) for g, a in zip(got, again))
+    fault_rows = {fname: rows(as_tuple(fn()), ref) for fname, fn in faults}
+    ms = cuda_time(lambda: kernel(*args))
+    plain_ms = cuda_time(lambda: plain(*args))
+    flops, io = work(args)
+    t_ops, t_bytes = flops / peak * 1e3, io / PEAK_BYTES * 1e3
+    row = dict(case=label, variant=name, outputs=outs,
+               limits={k: limits[k] for k in outs},
+               planted_faults=fault_rows, bitwise_reproducible=repro,
+               max_abs_err=max(r["max_abs_err"] for r in outs.values()),
+               ms=ms, plain_ms=plain_ms, library_ms=None, flops=flops,
+               bytes=io, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    report["kernel_checks"].append(row)
+
+    def line(table):
+        return "; ".join(
+            f"{o}: max {r['max_rel']:.3e} median {r['median_rel']:.3e} "
+            f"p99 {r['p99_rel']:.3e} beyond-1% {r['beyond_1pct']:.3e} "
+            f"(max|value| {r['max_abs_value']:.3e})"
+            for o, r in table.items())
+
+    print(f"{name} {label}: |kernel - plain| as shares of each output's "
+          f"max|value|: {line(outs)}; two launches bitwise equal {repro}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} "
+          f"GFLOP, {io / 1e6:.1f} MB)", flush=True)
+    failures = [f"{name} {label}: kernel breaks {o} {k}"
+                for o, k in broken_limits(outs, limits)]
+    if not repro:
+        failures.append(f"{name} {label}: two launches differ")
+    for fname, table in fault_rows.items():
+        caught = broken_limits(table, limits)
+        print(f"  planted fault '{fname}': {line(table)}; caught by "
+              f"{caught}", flush=True)
+        if not caught:
+            failures.append(f"{name} {label}: the gate passes the planted "
+                            f"fault '{fname}'")
+    return row, failures
+
+
+def no_bias(conv, key):
+    import torch
+
+    w, bias = conv[key]
+    return dict(conv, **{key: (w, torch.zeros_like(bias))})
+
+
+def shift_dropped(fn):
+    """fn with the shifted softplus' '- ln 2' dropped (a planted fault)."""
+    from agdiff_torch.kernels import fused
+
+    def run():
+        saved, fused.LN2 = fused.LN2, 0.0
+        try:
+            return fn()
+        finally:
+            fused.LN2 = saved
+    return run
+
+
+def check_new_kernels(fwds, batch, report) -> tuple:
+    """K3 (f32, bf16), K5, K4 (f32, bf16) and K2 (exact, '-approx') against
+    their plain versions on the inputs of the paths' first call, with
+    planted faults. `fwds`: the paths' forwards by name."""
+    import torch
+
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+
+    node = batch.node_mask
+    rows, failures = {}, []
+
+    def limits_for(names, dtype):
+        lim = (F32_KERNEL_LIMITS if dtype == torch.float32
+               else BF16_KERNEL_LIMITS)
+        return {n: (OFF_MASK_LIMITS if n == "off_mask" else lim)
+                for n in names}
+
+    for label, key in (("A", "pallas_f32"), ("B", "pallas_bf16")):
+        args, _ = capture(fwds[key], batch, "interaction_block_aggregate")
+        e, w1, w2, h1, h2, c1, c2 = args
+        outs = [("agg1", 0, node, None), ("agg2", 1, node, None)]
+        plain = fused.interaction_block_aggregate_plain
+        faults = [
+            ("filter bias dropped (conv 1)", lambda: plain(
+                e, w1, w2, h1, h2, no_bias(c1, "fb"), c2)),
+            ("softplus shift dropped", shift_dropped(lambda: plain(*args)))]
+        name = fused.variant("block_agg", e.dtype)
+        rows[name], f = check_kernel(
+            f"path {label}", name, fused.interaction_block_aggregate, plain,
+            args, outs, faults, limits_for(("agg1", "agg2"), e.dtype),
+            block_agg_work, PEAK_F32 if e.dtype == torch.float32
+            else PEAK_BF16, report)
+        failures += f
+
+    args, _ = capture(fwds["pallas_f32"], batch, "gine_aggregate")
+    x, e, mask = args
+    plain = fused.gine_aggregate_plain
+    faults = [
+        ("mask ignored", lambda: plain(x, e, torch.ones_like(mask))),
+        ("relu dropped", lambda: ((x[:, None] + e) * mask[..., None]
+                                  .float()).sum(2))]
+    rows["gine:f32"], f = check_kernel(
+        "path A", "gine:f32", fused.gine_aggregate, plain, args,
+        [("agg", 0, node, None)], faults,
+        limits_for(("agg",), torch.float32), gine_work, PEAK_F32, report)
+    failures += f
+
+    for label, key in (("C", "dense_f32"), ("C-bf16", "dense_bf16")):
+        args, kw = capture(fwds[key], batch, "pair_score_mlp")
+        h, e, mask, w1, b1, w2, b2, w3, b3 = args
+
+        def kern(*a):
+            return fused.pair_score_mlp(*a, **kw)
+
+        def plain(*a):
+            return fused.pair_score_mlp_plain(*a, **kw)
+
+        outs = [("score", 0, mask, None), ("off_mask", 0, ~mask, "score")]
+        faults = [
+            ("first-layer bias dropped", lambda: plain(
+                h, e, mask, w1, torch.zeros_like(b1), w2, b2, w3, b3)),
+            ("mask ignored", lambda: plain(
+                h, e, torch.ones_like(mask), w1, b1, w2, b2, w3, b3))]
+        name = fused.variant("pair_score", h.dtype)
+        rows[name], f = check_kernel(
+            f"path {label}", name, kern, plain, args, outs, faults,
+            limits_for(("score", "off_mask"), h.dtype), pair_score_work,
+            PEAK_F32 if h.dtype == torch.float32 else PEAK_BF16, report)
+        failures += f
+
+    for label, key in (("D", "pk"), ("D'", "pk_approx")):
+        args, kw = capture(fwds[key], batch, "packed_block_aggregate")
+        e, we1, we2, x1, x2, c1, c2, pairs = args
+
+        def kern(*a):
+            return k2.packed_block_aggregate(*a, **kw)
+
+        def plain(*a):
+            return k2.packed_block_aggregate_plain(*a, **kw)
+
+        outs = [("agg1", 0, node, None), ("agg2", 1, node, None)]
+        faults = [
+            ("filter bias dropped (conv 1)", lambda: plain(
+                e, we1, we2, x1, x2, no_bias(c1, "fb"), c2, pairs)),
+            ("softplus shift dropped", shift_dropped(lambda: plain(*args)))]
+        name = k2.variant(e.dtype, kw.get("approx", False))
+        rows[name], f = check_kernel(
+            f"path {label}", name, kern, plain, args, outs, faults,
+            limits_for(("agg1", "agg2"), e.dtype), packed_block_work,
+            PEAK_BF16, report)
+        failures += f
+    return rows, failures
+
+
+def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
+             runner=None) -> dict:
+    """A path's ladder over `mols` (CHUNK conformers each, bucket 32):
+    through `runner` when given, else build_fast_sampler on `fwd`. Every
+    launch count is set to 0 just before and read just after: each
+    (counter, variant) of `per_forward` must have launched that many times
+    per forward run, and no other kernel at all; every position must be
+    finite."""
+    import numpy as np
+    import torch
+
+    from agdiff_torch.data.bucketing import pad_molecules
+    from agdiff_torch.sampling.langevin import (
+        SamplerConfig,
+        build_fast_sampler,
+    )
+
+    dev = fwd.schnet_emb.device
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.clear()
+    calls0 = fwd.calls
+    t0 = time.time()
+    if runner is not None:
+        done = runner.run(mols, seed=SEED, num_confs=CHUNK)
+        positions = [m.meta["pos_gen"] for m in done]
+    else:
+        sampler = build_fast_sampler(
+            fwd, diffusion, SamplerConfig(n_steps=n_steps, w_global=0.3))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        positions = []
+        for m in mols:
+            batch = pad_molecules([m] * CHUNK, 32, batch_size=CHUNK,
+                                  device=dev)
+            pos0 = torch.randn(batch.pos.shape, generator=gen, device=dev)
+            res = sampler(batch, pos0, generator=gen)
+            positions.append(res.pos[:, :m.num_nodes].cpu().numpy())
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    forwards = fwd.calls - calls0
+    counts = {f"{mod}/{name}": n for mod, c in counters.items()
+              for name, n in c.items() if n}
+    want = {f"{mod}/{name}": k * forwards
+            for (mod, name), k in per_forward.items()}
+    for m, pg in zip(mols, positions):
+        if pg.shape != (CHUNK, m.num_nodes, 3):
+            raise SystemExit(f"path {label}: bad conformer shape {pg.shape}")
+        if not np.isfinite(pg).all():
+            raise SystemExit(f"path {label}: non-finite conformer positions")
+    if counts != want or forwards == 0:
+        raise SystemExit(f"path {label}: launches {counts}, expected {want} "
+                         f"for {forwards} forwards")
+    n_conf = CHUNK * len(mols)
+    row = dict(steps=n_steps, forwards=forwards, launches=counts,
+               wall_s=wall, ms_per_step=wall * 1e3 / forwards,
+               conformers=n_conf, conformers_per_s=n_conf / wall)
+    report["paths"][label] = row
+    print(f"path {label}: {forwards} forwards of B={CHUNK} N=32, launches "
+          f"{counts}; {row['ms_per_step']:.3f} ms/step, "
+          f"{row['conformers_per_s']:.2f} conformers/s ({wall:.1f} s)",
+          flush=True)
+    return row
 
 
 def main() -> int:
@@ -546,7 +924,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     report = {"card": card, "kind": kind, "torch": torch.__version__,
               "cuda": torch.version.cuda, "k1_checks": [], "slices": {},
-              "profiles": {}, "levels": {}}
+              "profiles": {}, "levels": {}, "kernel_checks": [],
+              "paths": {}, "build_logs": {}}
 
     def dump():
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -554,13 +933,16 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.time()
-    log = build.build("stack_packed")
+    logs = build.build_all(SOURCES)
     report["build_s"] = time.time() - t0
-    report["build_log"] = log
-    print(f"built stack_packed in {report['build_s']:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}", flush=True)
+    report["build_logs"] = logs
+    print(f"built {', '.join(SOURCES)} in parallel in "
+          f"{report['build_s']:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print(f"  {name}: {line.strip()}", flush=True)
 
     # ---- 3. K1 against its plain version ------------------------------------
     dev = torch.device("cuda")
@@ -578,11 +960,7 @@ def main() -> int:
     dcpu = init_random(DualEncoderEpsNetwork(dcfg), SEED).eval()
     cases, failures = {}, []
     for label, n, b in (("triu_B128_N32", 32, 128), ("triu_B48_N64", 64, 48)):
-        batch = pad_molecules([qmols[i % len(qmols)] for i in range(b)], n,
-                              device=dev)
-        batch = batch.replace(pos=torch.randn(
-            batch.pos.shape, generator=gen, device=dev)
-            * batch.node_mask[..., None])
+        batch = random_batch(qmols, n, b, gen)
         kw, _ = qfwd.stack_inputs(batch)
         cases[label], failed = check_k1(
             kw, batch.node_mask, label, "full", False, QM9_LIMITS,
@@ -599,7 +977,7 @@ def main() -> int:
         ("full_approx_B48_N64", "tight-pksf-approx", dmols[0], 64))
     for label, engine, mol, n in tight_cases:
         fwd = build_tight_forward(dcfg, dmodel, engine)
-        batch = random_batch(mol, n, DRUGS_CHUNK, gen)
+        batch = random_batch([mol], n, DRUGS_CHUNK, gen)
         pairs = fwd.prepare(batch, pair_capacity_for(mol.num_nodes, 256))
         kw, _ = fwd.stack_inputs(batch, pairs)
         cases[label], failed = check_k1(
@@ -608,6 +986,25 @@ def main() -> int:
         failures += failed
         if label in ("tight_B48_N64", "tight_B48_N96"):
             failures += check_levels(kw, label, report)
+    dump()
+
+    # ---- 3b. K2-K5 against their plain versions ------------------------------
+    fcfg = load_config(os.path.join(ROOT, "configs",
+                                    "qm9_default.yml")).model
+    fmodel = init_random(DualEncoderEpsNetwork(fcfg), SEED).to(dev).eval()
+    fwds = {
+        "pallas_f32": build_fast_forward(fcfg, fmodel, "pallas"),
+        "pallas_bf16": build_fast_forward(qcfg, qmodel, "pallas"),
+        "dense_f32": build_fast_forward(fcfg, fmodel, "pallas",
+                                        pack_pairs=False),
+        "dense_bf16": build_fast_forward(qcfg, qmodel, "pallas",
+                                         pack_pairs=False),
+        "pk": build_fast_forward(qcfg, qmodel, "pk"),
+        "pk_approx": build_fast_forward(qcfg, qmodel, "pk-approx"),
+    }
+    qbatch = random_batch(qmols, 32, CHUNK, gen)
+    new_rows, failed = check_new_kernels(fwds, qbatch, report)
+    failures += failed
     dump()
 
     # ---- 4. the QM9 slice ---------------------------------------------------
@@ -619,6 +1016,43 @@ def main() -> int:
                               SamplerConfig(n_steps=N_STEPS, w_global=0.3),
                               buckets=(32,), chunk_size=CHUNK, device=dev)
     qm9 = run_slice(runner, "pksf", qmols, CHUNK, "qm9_slice", report)
+
+    # ---- 4b. the paths of engines 'pallas' and 'pk' ---------------------------
+    small = pad_molecules(qmols, 32, device=dev)
+    f32_out = build_fast_forward(fcfg, fmodel, None)(small)
+    check_engines(fwds["pallas_f32"](small), f32_out, "pallas_f32",
+                  F32_ENGINE_TOL, report)
+    check_engines(fwds["dense_f32"](small), fwds["pallas_f32"](small),
+                  "pallas_f32_dense_pairs", F32_ENGINE_TOL, report)
+    check_engines(fwds["pallas_bf16"](small), f32_out, "pallas_bf16",
+                  ENGINE_TOL, report)
+    check_engines(fwds["pk"](small), f32_out, "pk", ENGINE_TOL, report)
+    fdiff = make_diffusion(fcfg)
+    k3, k4, k5 = ("fused", "block_agg:"), ("fused", "pair_score:"), (
+        "fused", "gine:f32")
+    paths = {}
+    paths["A"] = run_path("A", fwds["pallas_f32"], fdiff, qmols, PATH_STEPS,
+                          {(k3[0], k3[1] + "f32"): 6, k5: 4}, report)
+    paths["B"] = run_path("B", fwds["pallas_bf16"], fdiff, qmols,
+                          PATH_STEPS, {(k3[0], k3[1] + "bf16"): 6}, report)
+    paths["C"] = run_path("C", fwds["dense_f32"], fdiff, qmols, SHORT_STEPS,
+                          {(k3[0], k3[1] + "f32"): 6, k5: 4,
+                           (k4[0], k4[1] + "f32"): 2}, report)
+    paths["C-bf16"] = run_path(
+        "C-bf16", fwds["dense_bf16"], fdiff, qmols, SHORT_STEPS,
+        {(k3[0], k3[1] + "bf16"): 6, (k4[0], k4[1] + "bf16"): 2}, report)
+    for label, engine, steps in (("D", "pk", PATH_STEPS),
+                                 ("D'", "pk-approx", SHORT_STEPS)):
+        pk_runner = GenerationRunner(
+            qmodel, qcfg, make_diffusion(qcfg),
+            SamplerConfig(n_steps=steps, w_global=0.3), buckets=(32,),
+            chunk_size=CHUNK, device=dev, engine=engine)
+        name = ("packed_block_approx:bf16" if engine.endswith("approx")
+                else "packed_block:bf16")
+        paths[label] = run_path(label, pk_runner.forward(engine), fdiff,
+                                qmols, steps, {("block_packed", name): 6},
+                                report, runner=pk_runner)
+    dump()
 
     # ---- 5. the Drugs slice -------------------------------------------------
     one = pad_molecules([dmols[0]] * 4, 64, device=dev)
@@ -650,9 +1084,16 @@ def main() -> int:
     dump()
 
     # ---- 6. where the time goes ---------------------------------------------
-    profile_slice(runner, "pksf", qmols[0], 32, CHUNK, "qm9", report)
-    profile_slice(drugs, "tight-pksf", dmols[0], 64, DRUGS_CHUNK, "drugs",
-                  report)
+    k1_name = {"K1": "stack_kernel"}
+    profile_slice(runner.forward("pksf"), runner.diffusion, qmols[0], 32,
+                  CHUNK, "qm9", report, k1_name)
+    profile_slice(drugs.forward("tight-pksf"), drugs.diffusion, dmols[0], 64,
+                  DRUGS_CHUNK, "drugs", report, k1_name,
+                  capacity=drugs._capacity_for(dmols[0], "tight-pksf"))
+    profile_slice(fwds["pallas_f32"], fdiff, qmols[0], 32, CHUNK, "path_A",
+                  report, {"K3": "block_agg_kernel", "K5": "gine_kernel"})
+    profile_slice(fwds["pk"], fdiff, qmols[0], 32, CHUNK, "path_D", report,
+                  {"K2": "packed_block_kernel"})
     dump()
     if failures:
         raise SystemExit("\n".join(failures))
@@ -668,6 +1109,19 @@ def main() -> int:
                     bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                     library_ms=None)
 
+    def new_entry(name, launches, source):
+        c = new_rows[name]
+        return dict(name=name, route="cuda", source=source,
+                    replaces=REPLACES[name.split(":")[0]],
+                    launches=launches, max_abs_err=c["max_abs_err"],
+                    ms=c["ms"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                    library_ms=None)
+
+    def path_launches(name, labels):
+        return sum(paths[p]["launches"].get(name, 0) for p in labels)
+
+    fused_src = "agdiff_torch/kernels/csrc/fused.cu"
     kernels = [
         entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]),
         entry("stack_full:tight", "tight_B48_N64",
@@ -679,6 +1133,22 @@ def main() -> int:
               slices["tight-pksg"]["k1_launches"]),
         entry("stack_full_approx:tight", "full_approx_B48_N64",
               slices["tight-pksf-approx"]["k1_launches"]),
+        new_entry("block_agg:f32", path_launches(
+            "fused/block_agg:f32", ("A", "C")), fused_src),
+        new_entry("block_agg:bf16", path_launches(
+            "fused/block_agg:bf16", ("B", "C-bf16")), fused_src),
+        new_entry("pair_score:f32", path_launches(
+            "fused/pair_score:f32", ("C",)), fused_src),
+        new_entry("pair_score:bf16", path_launches(
+            "fused/pair_score:bf16", ("C-bf16",)), fused_src),
+        new_entry("gine:f32", path_launches("fused/gine:f32", ("A", "C")),
+                  fused_src),
+        new_entry("packed_block:bf16", path_launches(
+            "block_packed/packed_block:bf16", ("D",)),
+            "agdiff_torch/kernels/csrc/block_packed.cu"),
+        new_entry("packed_block_approx:bf16", path_launches(
+            "block_packed/packed_block_approx:bf16", ("D'",)),
+            "agdiff_torch/kernels/csrc/block_packed.cu"),
     ]
     report["kernels"] = kernels
     dump()

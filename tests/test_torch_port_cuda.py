@@ -1,8 +1,10 @@
-"""K1's CUDA kernel against its plain version, on a card of compute
-capability 9.0 or newer; skips elsewhere: mode 'full' over triu sets, and
-every variant over tight lists, at N = 64 (node regions in shared memory),
-96 (node temporaries in global memory) and 192 (all node regions in
-global memory). Imports no JAX, so that it runs on a machine without it:
+"""The CUDA kernels against their plain versions, on a card of compute
+capability 9.0 or newer; skips elsewhere. K1: mode 'full' over triu sets,
+and every variant over tight lists, at N = 64 (node regions in shared
+memory), 96 (node temporaries in global memory) and 192 (all node regions
+in global memory). K2-K5: each variant on the inputs its engine gives it
+at a small width, and the inputs their wrappers refuse. Imports no JAX,
+so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
@@ -125,3 +127,132 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(card):
         k1.packed_stack_forward(**dict(kw, h0=kw["h0"][:, :16]))
     with pytest.raises(TypeError):   # f32 kernel modes are not built
         k1.packed_stack_forward(**f32, mode="schnet")
+
+
+# K2-K5 against their plain versions, each output as a share of its own
+# largest value, under chip_smoke.py's F32_KERNEL_LIMITS and
+# BF16_KERNEL_LIMITS (max, median, p99): at f32 summation order only; at
+# bf16 a flipped rounding of a hidden value moves the outputs that use it.
+NEW_LIMITS = {torch.float32: (1e-5, 1e-6, 5e-6),
+              torch.bfloat16: (1e-2, 1e-6, 3e-4)}
+
+
+def _first_call(fwd, batch, name):
+    """The arguments of the first call of models/fast_forward.<name> (a
+    kernel wrapper) while fwd runs on batch."""
+    from agdiff_torch.models import fast_forward as ff
+
+    real, calls = getattr(ff, name), []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(ff, name, record)
+    try:
+        fwd(batch)
+    finally:
+        setattr(ff, name, real)
+    return calls[0]
+
+
+def _small_forward(card, dtype, engine, n=32, **kw):
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+                              num_convs_local=2, dtype=dtype)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    mols = load_fixture()
+    batch = pad_molecules([mols[i % len(mols)] for i in range(8)], n,
+                          device=card)
+    return build_fast_forward(cfg, model, engine, **kw), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper,engine,dtype,kw", [
+    ("interaction_block_aggregate", "pallas", "float32", {}),
+    ("interaction_block_aggregate", "pallas", "bfloat16", {}),
+    ("gine_aggregate", "pallas", "float32", {}),
+    ("pair_score_mlp", "pallas", "float32", dict(pack_pairs=False)),
+    ("pair_score_mlp", "pallas", "bfloat16", dict(pack_pairs=False)),
+    ("packed_block_aggregate", "pk", "bfloat16", {}),
+    ("packed_block_aggregate", "pk-approx", "bfloat16", {}),
+    # a bucket that is not a multiple of the 32-row tile
+    ("interaction_block_aggregate", "pallas", "float32", dict(n=40)),
+    ("gine_aggregate", "pallas", "float32", dict(n=40)),
+    ("pair_score_mlp", "pallas", "bfloat16", dict(pack_pairs=False, n=40)),
+    ("packed_block_aggregate", "pk", "bfloat16", dict(n=40))])
+def test_cuda_new_kernels_match_plain(card, wrapper, engine, dtype, kw):
+    """K3, K5, K4 and K2 on the inputs their engine gives them at H = 64,
+    B = 8, N = 32 (or 40), against the plain versions, each launch counted
+    once; node outputs on real nodes, scores on the mask (zero off
+    it)."""
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+
+    fwd, batch = _small_forward(card, dtype, engine, **kw)
+    args, akw = _first_call(fwd, batch, wrapper)
+    module = k2 if wrapper == "packed_block_aggregate" else fused
+    counts = dict(module.launches)
+    got = getattr(module, wrapper)(*args, **akw)
+    assert sum(module.launches.values()) == sum(counts.values()) + 1
+    ref = getattr(module, wrapper + "_plain")(*args, **akw)
+    again = getattr(module, wrapper)(*args, **akw)
+    torch.cuda.synchronize()
+    got, ref, again = ((t,) if isinstance(t, torch.Tensor) else t
+                       for t in (got, ref, again))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    limits = NEW_LIMITS[args[0].dtype]
+    if wrapper == "pair_score_mlp":
+        mask = args[2]
+        _within_limits(got[0][mask], ref[0][mask], limits)
+        assert float(got[0][~mask].abs().max()) == 0.0
+    else:
+        for g, r in zip(got, ref):
+            _within_limits(g[batch.node_mask], r[batch.node_mask], limits)
+
+
+@pytest.mark.cuda
+def test_cuda_k2_f32_matches_plain(card):
+    """K2's f32 variant (no engine runs it; JAX's packed_block_aggregate
+    takes f32 operands) on the 'pk' inputs taken at f32."""
+    from agdiff_torch.kernels import block_packed as k2
+
+    fwd, batch = _small_forward(card, "bfloat16", "pk")
+    args, kw = _first_call(fwd, batch, "packed_block_aggregate")
+    args = [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+    before = k2.launches["packed_block:f32"]
+    got = k2.packed_block_aggregate(*args, **kw)
+    assert k2.launches["packed_block:f32"] == before + 1
+    ref = k2.packed_block_aggregate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _within_limits(g[batch.node_mask], r[batch.node_mask],
+                       NEW_LIMITS[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(card):
+    """K5 takes f32 only; K2 the triu set only, not a tight list; K4 relu
+    heads; every input on the card."""
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+    from agdiff_torch.ops.pairs import prepare_pairs_shared
+
+    fwd, batch = _small_forward(card, "float32", "pallas")
+    x, e, mask = _first_call(fwd, batch, "gine_aggregate")[0]
+    with pytest.raises(TypeError):
+        fused.gine_aggregate(x.bfloat16(), e.bfloat16(), mask)
+    with pytest.raises(ValueError):
+        fused.gine_aggregate(x, e, mask.cpu())
+    args = _first_call(fwd, batch, "interaction_block_aggregate")[0]
+    with pytest.raises(ValueError):
+        fused.interaction_block_aggregate(args[0], args[1].cpu(), *args[2:])
+    pk, batch = _small_forward(card, "bfloat16", "pk")
+    args, kw = _first_call(pk, batch, "packed_block_aggregate")
+    tight = prepare_pairs_shared(batch.node_mask, args[-1].num_pairs)
+    with pytest.raises(ValueError, match="triu"):
+        k2.packed_block_aggregate(*args[:-1], tight, **kw)
+    dense, batch = _small_forward(card, "float32", "pallas",
+                                  pack_pairs=False)
+    args, _ = _first_call(dense, batch, "pair_score_mlp")
+    with pytest.raises(NotImplementedError):
+        fused.pair_score_mlp(*args, activation="gelu")
