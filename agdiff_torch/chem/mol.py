@@ -1,10 +1,12 @@
 """Host-side molecule (port of agdiff_tpu/chem/mol.py: the fields padding
-and generation read)."""
+and generation read, and the .npz format, :97-155, which both packages
+read and write alike)."""
 
 from __future__ import annotations
 
+import ast
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -53,3 +55,49 @@ class Molecule:
         adj = np.zeros((n, n), dtype=np.int32)
         adj[self.bond_index[0], self.bond_index[1]] = self.bond_type
         return adj
+
+    # --- serialization: one .npz-able dict per molecule ---
+    def to_arrays(self) -> Dict[str, np.ndarray]:
+        out = {"atom_type": self.atom_type, "pos": self.pos,
+               "bond_index": self.bond_index, "bond_type": self.bond_type}
+        if self.pos_ref is not None:
+            out["pos_ref"] = self.pos_ref
+        if self.smiles is not None:
+            out["smiles"] = np.array(self.smiles)
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrs: Dict[str, np.ndarray]) -> "Molecule":
+        return cls(atom_type=arrs["atom_type"], pos=arrs["pos"],
+                   bond_index=arrs["bond_index"], bond_type=arrs["bond_type"],
+                   pos_ref=arrs.get("pos_ref"),
+                   smiles=str(arrs["smiles"]) if "smiles" in arrs else None)
+
+
+def save_molecules(path: str, mols: List[Molecule]) -> None:
+    """A molecule list as one .npz archive: `m<k>/<field>` arrays, the
+    molecule's plain meta entries as `m<k>/__meta__`, and `__num__`."""
+    payload: Dict[str, np.ndarray] = {"__num__": np.array(len(mols))}
+    for k, mol in enumerate(mols):
+        for name, arr in mol.to_arrays().items():
+            payload[f"m{k}/{name}"] = arr
+        # private (underscore) meta entries are runtime caches, not data
+        meta = {mk: mv for mk, mv in mol.meta.items()
+                if not mk.startswith("_")
+                and isinstance(mv, (int, float, str, bool, list, tuple))}
+        payload[f"m{k}/__meta__"] = np.array(repr(meta))
+    np.savez_compressed(path, **payload)
+
+
+def load_molecules(path: str) -> List[Molecule]:
+    with np.load(path, allow_pickle=False) as data:
+        mols = []
+        for k in range(int(data["__num__"])):
+            prefix = f"m{k}/"
+            mol = Molecule.from_arrays({
+                name[len(prefix):]: data[name] for name in data.files
+                if name.startswith(prefix) and not name.endswith("__meta__")})
+            if prefix + "__meta__" in data.files:
+                mol.meta = ast.literal_eval(str(data[prefix + "__meta__"]))
+            mols.append(mol)
+    return mols

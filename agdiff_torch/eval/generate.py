@@ -8,21 +8,33 @@ whose ladder went non-finite are rerun once with clip_local = 20 and the
 flagged samples replaced. A molecule larger than every bucket gets a
 bucket of its own, its size rounded up to a multiple of 8.
 
-Engines follow the JAX package's choice on a TPU: at buckets >= 40 the
-tight engines, whose pair list holds the molecule's own pairs at a
-capacity rounded up to 256 (one shared list, since a chunk is one
-molecule repeated); below 40 the triu engines. An `engine` override takes
-any triu or tight engine, 'pk' and 'pk-approx' (K2 over the triu pairs)
-among them, but not 'pallas': the JAX runner passes use_pallas=False
-(agdiff_tpu/eval/generate.py:258-261), so its 'pallas' runs the XLA
-forward without the kernels, and the port has no such forward. The
-'pallas' kernels run through build_fast_sampler(build_fast_forward(cfg,
-model, "pallas"), ...).
+With use_fast (the default here; the CLI's --fast) engines follow the JAX
+package's choice on a TPU: at buckets >= 40 the tight engines, whose pair
+list holds the molecule's own pairs at a capacity rounded up to 256 (one
+shared list, since a chunk is one molecule repeated); below 40 the triu
+engines. An `engine` override takes any triu or tight engine, 'pk' and
+'pk-approx' (K2 over the triu pairs) and 'mono' (K6, at the config's
+dtype, every bucket, no capacity: agdiff_tpu/eval/generate.py:231-232,
+:258-265) among them, but not 'pallas': the JAX runner passes
+use_pallas=False (:258-261), so its 'pallas' runs the XLA forward without
+the kernels, and the port has no such forward. The 'pallas' kernels run
+through build_fast_sampler(build_fast_forward(cfg, model, "pallas"),
+...). With use_fast=False the ladder runs on the dense module
+(models/dualenc.py), as JAX's build_sampler path does, and `engine` has
+no effect (:253-283).
+
+`run` writes <out_dir>/samples_<i>.npz as each molecule is done and
+samples_all.npz at the end, in the JAX package's format (`load_samples`
+reads either package's files), and skips molecules whose file exists
+when resuming. Molecule i's generator is seeded from its dataset index
+(seed + i, where JAX folds i into its key), so a resumed run or a
+partial range gives the conformers of a whole run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -33,23 +45,30 @@ from agdiff_torch.config import ModelConfig
 from agdiff_torch.data.bucketing import pad_molecules, pick_bucket
 from agdiff_torch.device import resolve_device
 from agdiff_torch.models.fast_forward import build_fast_forward
+from agdiff_torch.models.mono_forward import build_monolithic_forward
 from agdiff_torch.models.schedules import Diffusion
 from agdiff_torch.models.tight_forward import (
     ENGINES as _TIGHT_ENGINES,
     build_tight_forward,
 )
 from agdiff_torch.ops.pairs import pair_capacity_for
-from agdiff_torch.sampling.langevin import SamplerConfig, build_fast_sampler
+from agdiff_torch.sampling.langevin import (
+    SamplerConfig,
+    build_fast_sampler,
+    build_sampler,
+)
 
 RETRY_CLIP_LOCAL = 20.0
 TIGHT_FROM_BUCKET = 40
+MODULE = "module"   # the sampler key of the dense module path (no --fast)
 
 
 class GenerationRunner:
     def __init__(self, model, model_config: ModelConfig,
                  diffusion: Diffusion, sampler_config: SamplerConfig,
                  buckets: Sequence[int] = (32, 64), chunk_size: int = 64,
-                 device=None, engine: Optional[str] = None):
+                 device=None, engine: Optional[str] = None,
+                 use_fast: bool = True, logger=None):
         if engine is not None and engine.startswith("pallas"):
             raise ValueError(
                 "GenerationRunner does not take engine 'pallas': the JAX "
@@ -68,6 +87,8 @@ class GenerationRunner:
         self.chunk_size = chunk_size
         # None: automatic (_engine_for); else the engine of every bucket
         self.engine = engine
+        self.use_fast = use_fast
+        self.logger = logger
         self.forwards: Dict[Optional[str], object] = {}
         self._samplers: Dict[tuple, object] = {}
 
@@ -76,7 +97,10 @@ class GenerationRunner:
         209-246): bf16 configs run 'tight-pksf' (K1 over the molecule's
         tight pair list) at buckets >= 40 and 'pksf' (K1 over the bucket's
         triu set) below; f32 configs run the f32 'tight' engine at >= 40
-        and the plain f32 packed forward (None) below."""
+        and the plain f32 packed forward (None) below. Without use_fast,
+        MODULE: the dense module, whatever `engine` says."""
+        if not self.use_fast:
+            return MODULE
         if self.engine is not None:
             return self.engine
         tight = bucket >= TIGHT_FROM_BUCKET
@@ -86,13 +110,18 @@ class GenerationRunner:
 
     def forward(self, engine: Optional[str]):
         """The engine's forward (models/fast_forward.py,
-        models/tight_forward.py), built once; its `calls` counts the
-        forwards run."""
+        models/tight_forward.py, models/mono_forward.py), built once; its
+        `calls` counts the forwards run. MODULE: the dense module."""
+        if engine == MODULE:
+            return self.model
         if engine not in self.forwards:
-            build = (build_tight_forward if engine in _TIGHT_ENGINES
-                     else build_fast_forward)
-            self.forwards[engine] = build(self.model_config, self.model,
-                                          engine)
+            if engine == "mono":
+                fwd = build_monolithic_forward(self.model_config, self.model)
+            else:
+                build = (build_tight_forward if engine in _TIGHT_ENGINES
+                         else build_fast_forward)
+                fwd = build(self.model_config, self.model, engine)
+            self.forwards[engine] = fwd
         return self.forwards[engine]
 
     def _capacity_for(self, mol: Molecule, engine: Optional[str]):
@@ -112,9 +141,11 @@ class GenerationRunner:
         key = (engine, retry, capacity)
         if key not in self._samplers:
             cfg = self.retry_config if retry else self.sampler_config
-            self._samplers[key] = build_fast_sampler(
-                self.forward(engine), self.diffusion, cfg,
-                pair_capacity=capacity)
+            self._samplers[key] = (
+                build_sampler(self.model, self.diffusion, cfg)
+                if engine == MODULE else
+                build_fast_sampler(self.forward(engine), self.diffusion, cfg,
+                                   pair_capacity=capacity))
         return self._samplers[key]
 
     def num_samples_for(self, mol: Molecule, num_confs="2x") -> int:
@@ -164,6 +195,10 @@ class GenerationRunner:
                 batch, pos_init, generator=generator)
             pos, flags = result.pos, result.nan_flags
             if bool(flags.any()):
+                if self.logger:
+                    self.logger.warning(
+                        "NaN in %d/%d samples; retrying with clip_local",
+                        int(flags.sum()), len(flags))
                 retry = self._sampler(engine, True, capacity)(
                     batch, pos_init, generator=generator)
                 pos = torch.where(flags[:, None, None], retry.pos, pos)
@@ -171,15 +206,73 @@ class GenerationRunner:
             remaining -= count
         return np.concatenate(out, axis=0)
 
-    def run(self, dataset: Sequence[Molecule], seed: int = 0,
-            num_confs="2x") -> List[Molecule]:
-        """Generate for every molecule; returns copies with
-        meta['pos_gen'] (num_samples, N, 3)."""
+    def run(self, dataset: Sequence[Molecule], out_dir: Optional[str] = None,
+            seed: int = 0, num_confs="2x", start_idx: int = 0,
+            end_idx: Optional[int] = None, resume: bool = True,
+            save: bool = True) -> List[Molecule]:
+        """Generate for dataset[start_idx:end_idx]; returns copies with
+        meta['pos_gen'] (num_samples, N, 3). With an out_dir (and save),
+        writes <out_dir>/samples_<i>.npz per molecule and samples_all.npz
+        at the end, and with resume loads a molecule whose file exists
+        instead of generating it (agdiff_tpu/eval/generate.py:454-503).
+        out_dir None writes nothing."""
+        save = save and out_dir is not None
+        if save:
+            os.makedirs(out_dir, exist_ok=True)
+        end_idx = len(dataset) if end_idx is None else min(end_idx,
+                                                           len(dataset))
         results = []
-        for i, mol in enumerate(dataset):
+        for i in range(start_idx, end_idx):
+            mol = dataset[i]
+            path = os.path.join(out_dir, f"samples_{i}.npz") if save else None
+            if save and resume and os.path.exists(path):
+                results.append(load_samples(path)[0])
+                continue
+            ns = self.num_samples_for(mol, num_confs)
             gen = torch.Generator(device=self.device).manual_seed(seed + i)
-            pos_gen = self.generate_molecule(
-                mol, self.num_samples_for(mol, num_confs), gen)
+            pos_gen = self.generate_molecule(mol, ns, gen)
+            if save:
+                _save_with_gen(path, mol, pos_gen)
+            if self.logger:
+                self.logger.info("molecule %d: %d samples generated (%d "
+                                 "atoms)", i, ns, mol.num_nodes)
             results.append(dataclasses.replace(
                 mol, meta={**mol.meta, "pos_gen": pos_gen}))
+        if save:
+            _save_all(os.path.join(out_dir, "samples_all.npz"), results)
         return results
+
+
+def _save_with_gen(path: str, mol: Molecule, pos_gen: np.ndarray) -> None:
+    arrs = mol.to_arrays()
+    arrs["pos_gen"] = pos_gen.astype(np.float32)
+    np.savez_compressed(path, **{f"m0/{k}": v for k, v in arrs.items()},
+                        **{"__num__": np.array(1)})
+
+
+def _save_all(path: str, mols: List[Molecule]) -> None:
+    payload = {"__num__": np.array(len(mols))}
+    for k, mol in enumerate(mols):
+        arrs = mol.to_arrays()
+        if "pos_gen" in mol.meta:
+            arrs["pos_gen"] = np.asarray(mol.meta["pos_gen"], np.float32)
+        for name, arr in arrs.items():
+            payload[f"m{k}/{name}"] = arr
+    np.savez_compressed(path, **payload)
+
+
+def load_samples(path: str) -> List[Molecule]:
+    """samples_all.npz or samples_<i>.npz back into Molecules with
+    meta['pos_gen'] (agdiff_tpu/eval/generate.py:524-540)."""
+    out = []
+    with np.load(path, allow_pickle=False) as data:
+        for k in range(int(data["__num__"])):
+            prefix = f"m{k}/"
+            arrs = {name[len(prefix):]: data[name] for name in data.files
+                    if name.startswith(prefix)}
+            pos_gen = arrs.pop("pos_gen", None)
+            mol = Molecule.from_arrays(arrs)
+            if pos_gen is not None:
+                mol.meta["pos_gen"] = pos_gen
+            out.append(mol)
+    return out

@@ -22,8 +22,7 @@ from agdiff_torch.nn.edge_encoders import MLPEdgeEncoder
 from agdiff_torch.nn.gin import GINEncoder
 from agdiff_torch.nn.mlp import MultiLayerPerceptron
 from agdiff_torch.nn.schnet import SchNetEncoder
-from agdiff_torch.ops.geometry import pairwise_distance
-from agdiff_torch.ops.graph import radius_union_mask
+from agdiff_torch.ops.graph import working_graph
 
 
 class ModelOutput(NamedTuple):
@@ -56,12 +55,16 @@ class DualEncoderEpsNetwork(nn.Module):
         self.grad_local_dist_mlp = MultiLayerPerceptron(
             2 * h, (h, h // 2, 1), cfg.mlp_act)
 
-    def forward(self, batch: GraphBatch) -> ModelOutput:
+    def forward(self, batch: GraphBatch, *, extend_order: bool = False,
+                extend_radius: bool = True) -> ModelOutput:
+        """extend_order extends the bond adjacency here (it is normally
+        extended on the host); extend_radius=False takes the bond graph
+        alone (agdiff_tpu/models/dualenc.py:66-95)."""
         cfg = self.config
         node_mask = batch.node_mask
-        dist = pairwise_distance(batch.pos)
-        edge_mask, edge_type, local_mask = radius_union_mask(
-            dist, batch.bond_adj, node_mask, cfg.cutoff)
+        dist, edge_mask, edge_type, local_mask = working_graph(
+            batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
+            extend_radius=extend_radius)
         edge_length = dist[..., None]
         e_global = self.edge_encoder_global(edge_length, edge_type)
         e_local = (e_global if cfg.tie_edge_encoders

@@ -59,8 +59,7 @@ from agdiff_torch.models.dualenc import DualEncoderEpsNetwork, ModelOutput
 from agdiff_torch.nn.common import LN2, activation_by_name, gelu
 from agdiff_torch.nn.schnet import embed_max_norm, envelope
 from agdiff_torch.ops import approx as ax
-from agdiff_torch.ops.geometry import pairwise_distance
-from agdiff_torch.ops.graph import radius_union_mask
+from agdiff_torch.ops.graph import working_graph
 from agdiff_torch.ops.pairs import (
     PairList,
     gather_nodes,
@@ -322,16 +321,17 @@ class FastForward:
         return self._pairs[key]
 
     @torch.no_grad()
-    def stack_inputs(self, batch, pairs: Optional[PairList] = None):
-        """Everything before K1: the working graph, the packed edge
-        features and planes (zero at pad slots), the initial node states.
-        Returns K1's keyword arguments and the dense masks (edge_mask,
-        edge_type, local_mask, dist)."""
+    def stack_inputs(self, batch, pairs: Optional[PairList] = None, *,
+                     extend_order: bool = False, extend_radius: bool = True):
+        """Everything before K1: the working graph (ops/graph.py
+        working_graph), the packed edge features and planes (zero at pad
+        slots), the initial node states. Returns K1's keyword arguments
+        and the dense masks (edge_mask, edge_type, local_mask, dist)."""
         cfg, cd = self.config, self.compute_dtype
         pairs = pairs if pairs is not None else self.prepare(batch)
-        dist = pairwise_distance(batch.pos)
-        edge_mask, edge_type, local_mask = radius_union_mask(
-            dist, batch.bond_adj, batch.node_mask, cfg.cutoff)
+        dist, edge_mask, edge_type, local_mask = working_graph(
+            batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
+            extend_radius=extend_radius)
         el_packed = pack_plane(dist, pairs)[..., None]
         type_packed = pack_plane(edge_type, pairs)
         e_packed = edge_encode(self.ee, el_packed, type_packed,
@@ -355,11 +355,13 @@ class FastForward:
         return kwargs, (edge_mask, edge_type, local_mask, dist)
 
     @torch.no_grad()
-    def __call__(self, batch, pairs: Optional[PairList] = None
+    def __call__(self, batch, pairs: Optional[PairList] = None, *,
+                 extend_order: bool = False, extend_radius: bool = True
                  ) -> ModelOutput:
         self.calls += 1
-        kw, (edge_mask, edge_type, local_mask, dist) = \
-            self.stack_inputs(batch, pairs)
+        kw, (edge_mask, edge_type, local_mask, dist) = self.stack_inputs(
+            batch, pairs, extend_order=extend_order,
+            extend_radius=extend_radius)
         pairs, cd = kw["pairs"], self.compute_dtype
         if self.mode is None:
             sg, sl = packed_stack_forward_plain(**kw)
@@ -452,15 +454,16 @@ class PallasForward(FastForward):
         return e, e_local, dense, dense_local
 
     @torch.no_grad()
-    def __call__(self, batch, pairs: Optional[PairList] = None
+    def __call__(self, batch, pairs: Optional[PairList] = None, *,
+                 extend_order: bool = False, extend_radius: bool = True
                  ) -> ModelOutput:
         self.calls += 1
         cfg, cd = self.config, self.compute_dtype
         if self.pack_pairs and pairs is None:
             pairs = self.prepare(batch)
-        dist = pairwise_distance(batch.pos)
-        edge_mask, edge_type, local_mask = radius_union_mask(
-            dist, batch.bond_adj, batch.node_mask, cfg.cutoff)
+        dist, edge_mask, edge_type, local_mask = working_graph(
+            batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
+            extend_radius=extend_radius)
         e_p, e_pl, edge_attr, edge_attr_local = self.encode_edges(
             dist, edge_type, pairs)
         b, n = dist.shape[:2]

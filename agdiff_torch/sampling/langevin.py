@@ -7,9 +7,13 @@ Per step i (the last n_steps noise levels, highest first):
 then non-finite entries are flagged per graph and zeroed, each graph is
 re-centred, and positions are optionally clipped. The ladder is a Python
 loop over steps; the flags stay on the device, so a run syncs only at the
-end. The forward's pair list depends only on the node mask: the sampler
-builds it once per ladder and passes it to every step (the JAX package's
-`forward.prepare` hoist, models/tight_forward.py:388-392).
+end. Every forward call gets the config's `extend_order` and
+`extend_radius` (agdiff_tpu/sampling/langevin.py:177-189). The forward's
+pair list depends only on the node mask: the sampler builds it once per
+ladder and passes it to every step (the JAX package's `forward.prepare`
+hoist, models/tight_forward.py:388-392). `build_sampler` runs the ladder
+on the dense module (models/dualenc.py), `build_fast_sampler` on a folded
+forward.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ class SamplerConfig:
     clip: float = 1000.0
     clip_local: Optional[float] = None
     clip_pos: Optional[float] = None
+    extend_order: bool = False   # the test-time adjacency is pre-extended
+    extend_radius: bool = True
 
     def with_clip_local(self, value: float) -> "SamplerConfig":
         return dataclasses.replace(self, clip_local=value)
@@ -84,11 +90,13 @@ def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
     if noise is not None and noise.shape[0] != cfg.n_steps:
         raise ValueError(f"noise has {noise.shape[0]} steps, expected "
                          f"{cfg.n_steps}")
+    fwd_kwargs = dict(extend_order=cfg.extend_order,
+                      extend_radius=cfg.extend_radius)
+    if pairs is not None:
+        fwd_kwargs["pairs"] = pairs
     for k, i in enumerate(range(T - 1, T - cfg.n_steps - 1, -1)):
         sigma = sigmas[i]
-        step_batch = batch.replace(pos=pos)
-        out = (forward_fn(step_batch) if pairs is None
-               else forward_fn(step_batch, pairs=pairs))
+        out = forward_fn(batch.replace(pos=pos), **fwd_kwargs)
         eps_pos = assemble_drift(out, pos, sigma, cfg)
         step_size = cfg.step_lr * (sigma / 0.01) ** 2
         xi = (noise[k].to(dev) if noise is not None else
@@ -102,6 +110,20 @@ def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
         if cfg.clip_pos is not None:
             pos = torch.clamp(pos, -cfg.clip_pos, cfg.clip_pos)
     return SampleResult(pos=pos, nan_flags=nan_flags)
+
+
+def build_sampler(model, diffusion: Diffusion, config: SamplerConfig):
+    """A sampler on the dense module path (agdiff_tpu/sampling/langevin.py
+    build_sampler): run(batch, pos_init, generator=None, noise=None) ->
+    SampleResult, the module in eval mode without gradients."""
+
+    @torch.no_grad()
+    def run(batch, pos_init, generator=None, noise=None):
+        return langevin_dynamics_sample(model.eval(), batch, pos_init,
+                                        diffusion, config,
+                                        generator=generator, noise=noise)
+
+    return run
 
 
 def build_fast_sampler(forward_fn: Callable, diffusion: Diffusion,

@@ -7,8 +7,9 @@ Phases, each of which fails the run:
   1. a CUDA card of compute capability 9.0 is required; its name and power
      limit are printed as nvidia-smi reports them;
   2. the CUDA sources under agdiff_torch/kernels/csrc (stack_packed.cu,
-     fused.cu, block_packed.cu) are built with nvcc, one process each, all
-     started together; their ptxas register and spill lines are printed;
+     fused.cu, block_packed.cu, mono.cu) are built with nvcc, one process
+     each, all started together; their ptxas register and spill lines are
+     printed;
   3. K1 (the whole-stack kernel) is held against its plain PyTorch version
      on the card, on the inputs the main paths give it, output by output
      (each score plane, or h and hl over real nodes, on its own scale),
@@ -52,10 +53,34 @@ Phases, each of which fails the run:
      in every slice and engine run, K1's launches of the path's variant
      must equal the forwards run, counted from 0 just before it, and
      every position must be finite;
+  5b. engine 'mono' (K6, the whole forward in one launch,
+     agdiff_torch/kernels/csrc/mono.cu): K6 is held against its plain
+     version per plane (each on its working-graph or bond mask, on its own
+     scale; off the masks every value must be exactly 0) at bf16 on
+     configs/qm9_fast.yml at B=128/N=32 and on drugs_fast.yml at
+     B=48/N=64, and at f32 on qm9_default.yml at B=128/N=32 and on
+     drugs_fast.yml at B=48/N=64, with planted faults (the type tables
+     replaced by their row 0, the cutoff mask dropped, lm ignored, the
+     softplus shift dropped), two launches and every layout level giving
+     the same bits, each case timed beside its bound; at Drugs size the
+     plain version on the CPU and the plain version fed K6's own encoder
+     output are read beside it, to show where bf16 differences start;
+     the engine is
+     checked against the f32 engine on QM9 (bf16 within 5%, f32 within
+     2e-4) and against f32 'tight' at Drugs size (15%), beside the same
+     checks with the plain version on the CPU; paths E (qm9_fast, the
+     four QM9 molecules, 128 conformers each, 100 steps), E-f32
+     (qm9_default, 20 steps) and E-drugs (drugs_fast, the 50-atom
+     molecule, bucket 64, 48 conformers, 20 steps) run through
+     GenerationRunner(engine='mono') with K6's launches equal to the
+     forwards and no other kernel; then the generation CLI runs as a
+     subprocess on a reference .pt of the seeded QM9 model and the QM9
+     molecules as an .npz (20 steps), and a second run must resume
+     without generating;
   6. where the time goes: torch.profiler over a few ladder steps of one
-     chunk of each slice, and of paths A and D, gives each hand kernel's
-     share of the device time, the device's idle share and the largest
-     kernels;
+     chunk of each slice, and of paths A, D and E, gives each hand
+     kernel's share of the device time, the device's idle share and the
+     largest kernels;
   7. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -63,6 +88,7 @@ Details also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -118,7 +144,7 @@ ENGINE_TOL = 0.05       # bf16 engine vs f32 engine, the JAX slim gate's
 DRUGS_ENGINE_TOL = 0.15
 PROFILE_STEPS = 20
 F32_ENGINE_TOL = 2e-4   # two f32 engines: summation order only
-SOURCES = ("stack_packed", "fused", "block_packed")
+SOURCES = ("stack_packed", "fused", "block_packed", "mono")
 # the TPU kernel each new kernel replaces (file:line of its function)
 REPLACES = {
     "block_agg": "agdiff_tpu/ops/pallas/fused.py:181",
@@ -126,6 +152,7 @@ REPLACES = {
     "gine": "agdiff_tpu/ops/pallas/fused.py:142",
     "packed_block": "agdiff_tpu/ops/pallas/block_packed.py:53",
     "packed_block_approx": "agdiff_tpu/ops/pallas/block_packed.py:53",
+    "mono": "agdiff_tpu/ops/pallas/monolithic.py:240",
 }
 
 
@@ -544,7 +571,7 @@ def profile_slice(fwd, diffusion, mol, bucket, chunk, label, report,
         print(f"  {t / 1e3:9.3f} ms  {n[:80]}", flush=True)
 
 
-# ---- K2-K5 -------------------------------------------------------------------
+# ---- K2-K5 ------------------------------------------------------------------
 
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 # Each new kernel against its plain version, per output, as shares of
@@ -566,11 +593,12 @@ SHORT_STEPS = 20        # paths C and D'
 
 def kernel_counters() -> dict:
     """Every launch counter of the port, by kernel module."""
-    from agdiff_torch.kernels import block_packed, fused
+    from agdiff_torch.kernels import block_packed, fused, monolithic
     from agdiff_torch.kernels import stack_packed as k1
 
     return {"stack_packed": k1.launches, "fused": fused.launches,
-            "block_packed": block_packed.launches}
+            "block_packed": block_packed.launches,
+            "monolithic": monolithic.launches}
 
 
 def capture(fwd, batch, name):
@@ -826,9 +854,10 @@ def check_new_kernels(fwds, batch, report) -> tuple:
 
 
 def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
-             runner=None) -> dict:
-    """A path's ladder over `mols` (CHUNK conformers each, bucket 32):
-    through `runner` when given, else build_fast_sampler on `fwd`. Every
+             runner=None, num_confs=CHUNK) -> dict:
+    """A path's ladder over `mols` (num_confs conformers each, bucket 32
+    unless the runner picks another): through `runner` when given, else
+    build_fast_sampler on `fwd`. Every
     launch count is set to 0 just before and read just after: each
     (counter, variant) of `per_forward` must have launched that many times
     per forward run, and no other kernel at all; every position must be
@@ -843,6 +872,8 @@ def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
     )
 
     dev = fwd.schnet_emb.device
+    buckets = (sorted({runner._bucket_for(m) for m in mols}) if runner
+               else [32])
     counters = kernel_counters()
     torch.cuda.synchronize()
     for c in counters.values():
@@ -850,7 +881,7 @@ def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
     calls0 = fwd.calls
     t0 = time.time()
     if runner is not None:
-        done = runner.run(mols, seed=SEED, num_confs=CHUNK)
+        done = runner.run(mols, seed=SEED, num_confs=num_confs)
         positions = [m.meta["pos_gen"] for m in done]
     else:
         sampler = build_fast_sampler(
@@ -871,22 +902,322 @@ def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
     want = {f"{mod}/{name}": k * forwards
             for (mod, name), k in per_forward.items()}
     for m, pg in zip(mols, positions):
-        if pg.shape != (CHUNK, m.num_nodes, 3):
+        if pg.shape != (num_confs, m.num_nodes, 3):
             raise SystemExit(f"path {label}: bad conformer shape {pg.shape}")
         if not np.isfinite(pg).all():
             raise SystemExit(f"path {label}: non-finite conformer positions")
     if counts != want or forwards == 0:
         raise SystemExit(f"path {label}: launches {counts}, expected {want} "
                          f"for {forwards} forwards")
-    n_conf = CHUNK * len(mols)
+    n_conf = num_confs * len(mols)
     row = dict(steps=n_steps, forwards=forwards, launches=counts,
                wall_s=wall, ms_per_step=wall * 1e3 / forwards,
-               conformers=n_conf, conformers_per_s=n_conf / wall)
+               conformers=n_conf, conformers_per_s=n_conf / wall,
+               batch=num_confs, buckets=buckets)
     report["paths"][label] = row
-    print(f"path {label}: {forwards} forwards of B={CHUNK} N=32, launches "
+    print(f"path {label}: {forwards} forwards of B={num_confs} N={buckets}, "
+          f"launches "
           f"{counts}; {row['ms_per_step']:.3f} ms/step, "
           f"{row['conformers_per_s']:.2f} conformers/s ({wall:.1f} s)",
           flush=True)
+    return row
+
+
+# ---- K6 (engine 'mono') -----------------------------------------------------
+
+# K6 against its plain version, per plane on its own mask (em for the
+# global plane, lm for the local one), as shares of the plane's max |plain
+# value| there; off the masks both must be exactly 0 (OFF_MASK_LIMITS).
+# Each limit lies between the kernel's readings and the planted faults'
+# (PERF.md). At f32 the two differ by summation order only. At bf16 a sum
+# in another order can flip a bf16 rounding that later layers carry on.
+# On the local plane at Drugs size (hl ~ 300, where one bf16 unit is 2)
+# such a flip in a GIN message spreads through the node MLPs to every
+# atom of its graph within a layer, so a graph with one flip differs
+# everywhere and a graph with none agrees to f32 noise: the median there
+# is that of the graphs that flipped. The plain version on the CPU differs
+# from the one on the card the same way (check_k6 reads both), and the
+# kernel gives the same bits at every layout level.
+MONO_LIMITS = {
+    "bf16": {"global": dict(max_rel=0.03, median_rel=1e-5, p99_rel=5e-3,
+                            beyond_1pct=1e-3),
+             "local": dict(max_rel=0.05, median_rel=1e-5, p99_rel=2e-2,
+                           beyond_1pct=1e-2)},
+    "bf16_drugs": {"global": dict(max_rel=0.03, median_rel=1e-4,
+                                  p99_rel=5e-3, beyond_1pct=1e-3),
+                   "local": dict(max_rel=0.25, median_rel=1e-2,
+                                 p99_rel=0.1, beyond_1pct=0.4)},
+    "f32": {"global": F32_KERNEL_LIMITS, "local": F32_KERNEL_LIMITS},
+    # f32 at Drugs size: summation order only, but hl ~ 300 carries it
+    # through four GIN layers (max 1.3e-5 of the local plane's largest)
+    "f32_drugs": {"global": F32_KERNEL_LIMITS,
+                  "local": dict(max_rel=5e-5, median_rel=5e-6, p99_rel=3e-5,
+                                beyond_1pct=0.0)},
+}
+MONO_POS_SCALE = 6.0    # Angstrom: K6 cases' positions, N(0, 6^2) per axis,
+# a noise level of the ladder at which pairs straddle the 10 A cutoff, so
+# that the cutoff mask matters (at the ladder's top, sigma ~12, nearly
+# every pair lies beyond it)
+E_STEPS = 100           # path E
+CLI_STEPS = 20
+
+
+def mono_work(kw) -> tuple:
+    """(FLOPs, bytes) K6 must do on these inputs: every product at 2 FLOPs
+    per multiply-add, the elementwise message and sum work, the encoder,
+    the distance weights, the filter MLPs, the messages and the global
+    head over the pairs of the working graph (em = 1), the GIN messages
+    and the local head over the bond pairs (lm = 1), the node side over
+    all N nodes; each input read once and each output written once (the
+    e32 scratch is K6's own)."""
+    prm = kw["params"]
+    b, p = kw["dp"].shape
+    n, h = kw["h0"].shape[1:]
+    nb, nl = prm.num_convs, prm.num_local
+    dw = prm.w["c1_dw1k"].shape[1]
+    f1, f2, r = h, h // 2, h // 16
+    fw = f1 + f2
+    pe, pl = float(kw["em"].sum()), float(kw["lm"].sum())
+    enc = pe * 8 * h * h
+    block = (pe * (4 * dw * 2 + 2 * (h * fw + f1 * f1 + f2 * f2) + 6 * fw)
+             + b * 2 * n * (h * fw + f1 * h + f2 * h + 2 * h * h
+                            + h * h // 2 + h // 2 + 2 * h * r))
+    gin = b * 2 * n * h * h * 2 + pl * 2 * h * 3
+    head = 2 * (h * h + h * h + h * h // 2 + h // 2) + h
+    flops = enc + nb * block + nl * gin + (pe + pl) * head
+    ins = [kw["dp"], kw["em"], kw["lm"], kw["tp"], kw["h0"], kw["hl0"],
+           kw["pairs"].iu, kw["pairs"].ju, kw["pairs"].inc_ptr,
+           kw["pairs"].inc]
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in prm._packed[kw["dp"].device])
+    return flops, nbytes + 2 * b * p * 4
+
+
+def mono_errors(got, ref, kw) -> dict:
+    """Each plane on its mask, and every value off the masks (which must
+    be 0), as shares of the global plane's scale."""
+    import torch
+
+    em, lm = kw["em"] > 0, kw["lm"] > 0
+    rows = {"global": errors(got[0], ref[0], em),
+            "local": errors(got[1], ref[1], lm)}
+    off = torch.cat([got[0][~em], got[1][~lm]])
+    rows["off_mask"] = errors(off, torch.zeros_like(off),
+                              scale=rows["global"]["max_abs_value"])
+    return rows
+
+
+def mono_faults(kw) -> list:
+    """Wrong versions of K6's function, each the plain version with one
+    planted fault: (name, planes)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from agdiff_torch.kernels import monolithic as k6
+
+    prm, plain = kw["params"], k6.mono_forward_plain
+    row0 = {k: prm.w[k][:1].expand_as(prm.w[k]).contiguous()
+            for k in ("table0", "table2")}
+
+    def no_cutoff(d, cutoff, smooth):
+        env = (0.5 * (torch.cos(d * math.pi / cutoff) + 1.0) if smooth
+               else torch.exp(-((d - cutoff) ** 2) / (2 * cutoff ** 2)))
+        return env * (d >= 0.0)
+
+    def patched(name, value):
+        saved = getattr(k6, name)
+        setattr(k6, name, value)
+        try:
+            return plain(**kw)
+        finally:
+            setattr(k6, name, saved)
+
+    return [
+        ("type tables replaced by row 0", plain(**dict(
+            kw, params=dataclasses.replace(prm, w={**prm.w, **row0},
+                                           _packed={})))),
+        ("cutoff mask dropped", patched("envelope", no_cutoff)),
+        ("lm ignored", plain(**dict(kw, lm=torch.ones_like(kw["lm"])))),
+        ("softplus shift dropped", patched("LN2", 0.0)),
+    ]
+
+
+def check_k6(kw, label, limits, report, cpu_params=None) -> tuple:
+    """K6 against its plain version on these inputs, plane by plane, two
+    launches bitwise equal, every layout level that fits giving the bits
+    of the wrapper's choice, the planted faults under the same limits, the
+    times and the bound; with `cpu_params` (the same weights on the CPU)
+    also the plain version on the CPU against the one on the card, for
+    scale. Returns the case's row and its failures."""
+    import torch
+
+    from agdiff_torch.kernels import monolithic as k6
+
+    def kernel():
+        return k6.mono_forward(**kw)
+
+    def plain():
+        return k6.mono_forward_plain(**kw)
+
+    got, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    limits = dict(limits, off_mask=OFF_MASK_LIMITS)
+    outs = mono_errors(got, ref, kw)
+    repro = all(torch.equal(g, a) for g, a in zip(got, again))
+    n, h = kw["h0"].shape[1:]
+    itemsize = 2 if kw["params"].cd == torch.bfloat16 else 4
+    levels = {lv: all(torch.equal(g, a) for g, a in zip(
+        got, k6.mono_forward(**kw, level=lv)))
+        for lv in (0, 1, 2) if k6.smem_bytes(n, h, itemsize, lv)
+        <= k6.MAX_SMEM}
+    faults = {name: mono_errors(out, ref, kw)
+              for name, out in mono_faults(kw)}
+    ms, plain_ms = cuda_time(kernel), cuda_time(plain)
+    cross = e32 = on_e32 = None
+    if cpu_params is not None:   # after the timings
+        on_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items()}
+        on_cpu.update(params=cpu_params, pairs=kw["pairs"].to("cpu"))
+        cross = mono_errors(tuple(t.to(ref[0].device) for t in
+                                  k6.mono_forward_plain(**on_cpu)), ref, kw)
+        # where the difference starts: the encoder output the kernel's last
+        # launch left in its scratch, against the plain encoder's, and the
+        # kernel against the plain version fed the kernel's e32
+        b, p = kw["dp"].shape
+        h = kw["h0"].shape[2]
+        e_k = kw["params"].buffer(kw["dp"].device, "e32", 0)[
+            :b * p * h * 4].view(torch.float32).view(b, p, h).clone()
+        e32 = errors(e_k, k6.encode_plain(kw["dp"], kw["tp"],
+                                          kw["params"].w))
+        saved, k6.encode_plain = k6.encode_plain, lambda *a: e_k
+        try:
+            on_e32 = mono_errors(got, k6.mono_forward_plain(**kw), kw)
+        finally:
+            k6.encode_plain = saved
+    cd = kw["params"].cd
+    flops, nbytes = mono_work(kw)
+    peak = PEAK_BF16 if cd == torch.bfloat16 else PEAK_F32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    b, p = kw["dp"].shape
+    n, h = kw["h0"].shape[1:]
+    row = dict(case=label, variant=k6.variant(cd), B=b, N=n, P=p,
+               em_pairs=float(kw["em"].sum()), lm_pairs=float(
+                   kw["lm"].sum()),
+               layout_level=k6.layout(n, h, 2 if cd == torch.bfloat16
+                                      else 4)[0],
+               outputs=outs, limits=limits, planted_faults=faults,
+               bitwise_reproducible=repro, levels_same_bits=levels,
+               plain_cpu_vs_plain=cross, e32_vs_plain=e32,
+               kernel_vs_plain_on_kernel_e32=on_e32,
+               max_abs_err=max(outs[k]["max_abs_err"]
+                               for k in ("global", "local")),
+               ms=ms, plain_ms=plain_ms, library_ms=None, flops=flops,
+               bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    report["mono_checks"].append(row)
+
+    def line(rows):
+        return "; ".join(
+            f"{name}: max {r['max_rel']:.3e} median {r['median_rel']:.3e} "
+            f"p99 {r['p99_rel']:.3e} beyond-1% {r['beyond_1pct']:.3e} "
+            f"(max|value| {r['max_abs_value']:.3e})"
+            for name, r in rows.items())
+
+    print(f"K6 {label} [{row['variant']}, layout {row['layout_level']}]: "
+          f"B={b} N={n} P={p}, em pairs {row['em_pairs']:.0f}, lm pairs "
+          f"{row['lm_pairs']:.0f}; |kernel - plain| as shares of each "
+          f"plane's max|value| on its mask: {line(outs)}; two launches "
+          f"bitwise equal {repro}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); layout "
+          f"levels giving the chosen level's bits: {levels}", flush=True)
+    if cross is not None:
+        print(f"  plain version on the CPU vs on the card: {line(cross)}",
+              flush=True)
+        print(f"  e32, kernel vs plain: {line(dict(e32=e32))}; kernel vs "
+              f"the plain version fed the kernel's e32: {line(on_e32)}",
+              flush=True)
+    failures = [f"K6 {label}: kernel breaks {o} {k}"
+                for o, k in broken_limits(outs, limits)]
+    if not repro:
+        failures.append(f"K6 {label}: two launches differ")
+    if not all(levels.values()):
+        failures.append(f"K6 {label}: layout levels differ: {levels}")
+    for name, rows in faults.items():
+        caught = broken_limits(rows, limits)
+        print(f"  planted fault '{name}': {line(rows)}; caught by "
+              f"{caught}", flush=True)
+        if not caught:
+            failures.append(f"K6 {label}: the gate passes the planted fault "
+                            f"'{name}'")
+    return row, failures
+
+
+def run_cli(model, cfg, mols, report) -> dict:
+    """The generation CLI as a user runs it, in a subprocess: a reference
+    .pt of `model` (the port's exporter) and `mols` as an .npz test set,
+    engine 'mono', CLI_STEPS steps; then the same command again, which
+    must resume: no molecule generated, no file rewritten."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agdiff_torch.chem.mol import save_molecules
+    from agdiff_torch.eval.generate import load_samples
+    from agdiff_torch.models.reference_checkpoint import (
+        export_reference_state_dict,
+    )
+
+    root = os.path.join(OUT_DIR, "cli")
+    ckpt = os.path.join(root, "ckpt", "model.pt")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    torch.save({"model": export_reference_state_dict(model),
+                "config": {"model": dataclasses.asdict(cfg)}}, ckpt)
+    test_set = os.path.join(root, "qm9_fixture.npz")
+    save_molecules(test_set, mols)
+    out_dir = os.path.join(root, "samples_0")
+    cmd = [sys.executable, "-m", "agdiff_torch.cli.generate", ckpt,
+           "--test_set", test_set, "--fast", "--engine", "mono",
+           "--n_steps", str(CLI_STEPS), "--chunk_size", str(CHUNK),
+           "--w_global", "0.3", "--no_resume"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    runs = []
+    for argv in (cmd, cmd[:-1]):
+        t0 = time.time()
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        runs.append(dict(rc=proc.returncode, wall_s=time.time() - t0,
+                         generated=proc.stderr.count("samples generated")))
+        if proc.returncode != 0:
+            raise SystemExit(f"CLI exit {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+        if len(runs) == 1:
+            stamps = {f: os.path.getmtime(os.path.join(out_dir, f))
+                      for f in os.listdir(out_dir) if f.startswith("samples_")}
+    done = load_samples(os.path.join(out_dir, "samples_all.npz"))
+    for m, got in zip(mols, done):
+        pg = got.meta["pos_gen"]
+        if pg.shape != (2 * m.num_ref, m.num_nodes, 3) or \
+                not np.isfinite(pg).all():
+            raise SystemExit(f"CLI: bad samples {pg.shape}")
+    rewritten = [f for f, t in stamps.items() if f != "samples_all.npz"
+                 and os.path.getmtime(os.path.join(out_dir, f)) != t]
+    if len(done) != len(mols) or runs[0]["generated"] != len(mols) \
+            or runs[1]["generated"] or rewritten:
+        raise SystemExit(f"CLI: {len(done)} molecules, runs {runs}, "
+                         f"rewritten {rewritten}")
+    row = dict(command=" ".join(cmd[1:]), runs=runs, molecules=len(done),
+               conformers=[int(m.meta["pos_gen"].shape[0]) for m in done])
+    report["cli"] = row
+    print(f"CLI: {len(done)} molecules, {row['conformers']} conformers, "
+          f"{CLI_STEPS} steps: first run {runs[0]['wall_s']:.1f} s "
+          f"({runs[0]['generated']} generated), second run "
+          f"{runs[1]['wall_s']:.1f} s ({runs[1]['generated']} generated, "
+          f"resumed)", flush=True)
     return row
 
 
@@ -909,6 +1240,7 @@ def main() -> int:
     from agdiff_torch.kernels import build
     from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
     from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
     from agdiff_torch.models.schedules import make_diffusion
     from agdiff_torch.models.tight_forward import build_tight_forward
     from agdiff_torch.models.weights import init_random
@@ -925,7 +1257,7 @@ def main() -> int:
     report = {"card": card, "kind": kind, "torch": torch.__version__,
               "cuda": torch.version.cuda, "k1_checks": [], "slices": {},
               "profiles": {}, "levels": {}, "kernel_checks": [],
-              "paths": {}, "build_logs": {}}
+              "paths": {}, "build_logs": {}, "mono_checks": []}
 
     def dump():
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -988,7 +1320,7 @@ def main() -> int:
             failures += check_levels(kw, label, report)
     dump()
 
-    # ---- 3b. K2-K5 against their plain versions ------------------------------
+    # ---- 3b. K2-K5 against their plain versions -----------------------------
     fcfg = load_config(os.path.join(ROOT, "configs",
                                     "qm9_default.yml")).model
     fmodel = init_random(DualEncoderEpsNetwork(fcfg), SEED).to(dev).eval()
@@ -1017,7 +1349,7 @@ def main() -> int:
                               buckets=(32,), chunk_size=CHUNK, device=dev)
     qm9 = run_slice(runner, "pksf", qmols, CHUNK, "qm9_slice", report)
 
-    # ---- 4b. the paths of engines 'pallas' and 'pk' ---------------------------
+    # ---- 4b. the paths of engines 'pallas' and 'pk' -------------------------
     small = pad_molecules(qmols, 32, device=dev)
     f32_out = build_fast_forward(fcfg, fmodel, None)(small)
     check_engines(fwds["pallas_f32"](small), f32_out, "pallas_f32",
@@ -1083,6 +1415,61 @@ def main() -> int:
                                    f"drugs_{engine}", report)
     dump()
 
+    # ---- 5b. engine 'mono': K6 ----------------------------------------------
+    mono_rows = {}
+    dcfg32 = dataclasses.replace(dcfg, dtype="float32")
+    for label, cfg_m, model_m, cpu_m, mols, n, b in (
+            ("bf16_B128_N32", qcfg, qmodel, None, qmols, 32, CHUNK),
+            ("bf16_B48_N64", dcfg, dmodel, dcpu, dmols[:1], 64, DRUGS_CHUNK),
+            ("f32_B128_N32", fcfg, fmodel, None, qmols, 32, CHUNK),
+            # the Drugs case at f32 too: level 1, the cosine envelope
+            ("f32_B48_N64", dcfg32, dmodel, None, dmols[:1], 64,
+             DRUGS_CHUNK)):
+        batch = random_batch(mols, n, b, gen)
+        batch = batch.replace(pos=batch.pos * MONO_POS_SCALE)
+        kw, _ = build_monolithic_forward(cfg_m, model_m).kernel_inputs(batch)
+        key = label.split("_")[0] + ("_drugs" if n == 64 else "")
+        cpu_params = (None if cpu_m is None else
+                      build_monolithic_forward(cfg_m, cpu_m).params)
+        mono_rows[label], failed = check_k6(kw, label, MONO_LIMITS[key],
+                                            report, cpu_params)
+        failures += failed
+    dump()
+    fcpu = init_random(DualEncoderEpsNetwork(fcfg), SEED).eval()
+    cpu_small = pad_molecules(qmols, 32)
+    for lbl, cfg_m, gpu_m, cpu_m, tol in (
+            ("mono", qcfg, qmodel, qcpu, ENGINE_TOL),
+            ("mono_f32", fcfg, fmodel, fcpu, F32_ENGINE_TOL)):
+        check_engines(build_monolithic_forward(cfg_m, gpu_m)(small),
+                      build_fast_forward(cfg_m, gpu_m, None)(small), lbl,
+                      tol, report)
+        check_engines(build_monolithic_forward(cfg_m, cpu_m)(cpu_small),
+                      build_fast_forward(cfg_m, cpu_m, None)(cpu_small),
+                      f"{lbl}_plain_cpu", tol, report)
+    check_engines(build_monolithic_forward(dcfg, dmodel)(one),
+                  build_tight_forward(dcfg, dmodel, "tight")(one),
+                  "mono_drugs", DRUGS_ENGINE_TOL, report)
+    check_engines(build_monolithic_forward(dcfg, dcpu)(cpu_one),
+                  build_tight_forward(dcfg, dcpu, "tight")(cpu_one),
+                  "mono_drugs_plain_cpu", DRUGS_ENGINE_TOL, report)
+    mono_runners = {}
+    for label, cfg_m, model_m, mols, steps, buckets, chunk, var in (
+            ("E", qcfg, qmodel, qmols, E_STEPS, (32,), CHUNK, "mono:bf16"),
+            ("E-f32", fcfg, fmodel, qmols, SHORT_STEPS, (32,), CHUNK,
+             "mono:f32"),
+            ("E-drugs", dcfg, dmodel, dmols[:1], SHORT_STEPS, dconf.buckets,
+             DRUGS_CHUNK, "mono:bf16")):
+        mono_runners[label] = GenerationRunner(
+            model_m, cfg_m, make_diffusion(cfg_m),
+            SamplerConfig(n_steps=steps, w_global=0.3), buckets=buckets,
+            chunk_size=chunk, device=dev, engine="mono")
+        paths[label] = run_path(label, mono_runners[label].forward("mono"),
+                                mono_runners[label].diffusion, mols, steps,
+                                {("monolithic", var): 1}, report,
+                                runner=mono_runners[label], num_confs=chunk)
+    run_cli(qmodel, qcfg, qmols, report)
+    dump()
+
     # ---- 6. where the time goes ---------------------------------------------
     k1_name = {"K1": "stack_kernel"}
     profile_slice(runner.forward("pksf"), runner.diffusion, qmols[0], 32,
@@ -1094,6 +1481,8 @@ def main() -> int:
                   report, {"K3": "block_agg_kernel", "K5": "gine_kernel"})
     profile_slice(fwds["pk"], fdiff, qmols[0], 32, CHUNK, "path_D", report,
                   {"K2": "packed_block_kernel"})
+    profile_slice(mono_runners["E"].forward("mono"), fdiff, qmols[0], 32,
+                  CHUNK, "path_E", report, {"K6": "mono_kernel"})
     dump()
     if failures:
         raise SystemExit("\n".join(failures))
@@ -1150,6 +1539,18 @@ def main() -> int:
             "block_packed/packed_block_approx:bf16", ("D'",)),
             "agdiff_torch/kernels/csrc/block_packed.cu"),
     ]
+    for name, case, labels in (("mono:bf16", "bf16_B128_N32",
+                                 ("E", "E-drugs")),
+                                ("mono:f32", "f32_B128_N32", ("E-f32",))):
+        c = mono_rows[case]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="agdiff_torch/kernels/csrc/mono.cu",
+            replaces=REPLACES["mono"],
+            launches=path_launches(f"monolithic/{name}", labels),
+            max_abs_err=c["max_abs_err"], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=None))
     report["kernels"] = kernels
     dump()
     print(json.dumps({"kernels": kernels}))

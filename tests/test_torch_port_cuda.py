@@ -256,3 +256,76 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(card):
     args, _ = _first_call(dense, batch, "pair_score_mlp")
     with pytest.raises(NotImplementedError):
         fused.pair_score_mlp(*args, activation="gelu")
+
+
+# K6 against its plain version, each plane on its mask (em / lm) as a
+# share of its own largest value there, under chip_smoke.py's MONO_LIMITS
+# (max, median, p99; global plane, local plane); off the masks both are
+# exactly 0. Positions spread 6 A, so that pairs straddle the cutoff. At
+# Drugs size a flipped bf16 rounding of a GIN message spreads through its
+# graph (hl ~ 300), hence the local plane's wide limits there.
+MONO = {torch.bfloat16: ((3e-2, 1e-5, 5e-3), (5e-2, 1e-5, 2e-2)),
+        torch.float32: ((1e-5, 1e-6, 5e-6), (1e-5, 1e-6, 5e-6))}
+MONO_DRUGS = ((3e-2, 1e-4, 5e-3), (0.25, 1e-2, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h,n,b", [
+    ("bfloat16", 64, 32, 8), ("float32", 64, 32, 8),
+    ("bfloat16", 128, 32, 16), ("float32", 128, 32, 16),
+    ("bfloat16", 128, 64, 4)])
+def test_cuda_mono_matches_plain(card, dtype, h, n, b):
+    """K6 at a small width and at full width (N = 64: node temporaries in
+    global memory, the cosine envelope), one launch counted per call, two
+    launches bitwise equal."""
+    from agdiff_torch.kernels import monolithic as k6
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=h, dtype=dtype,
+                              smooth_conv=n == 64,
+                              num_convs=2 if h == 64 else 6,
+                              num_convs_local=2 if h == 64 else 4)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    fwd = build_monolithic_forward(cfg, model)
+    mols = load_fixture() if n == 32 else load_fixture("drugs_synthetic")[:1]
+    batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
+                          device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    batch = batch.replace(pos=6.0 * torch.randn(
+        batch.pos.shape, generator=gen, device=card)
+        * batch.node_mask[..., None])
+    kw, _ = fwd.kernel_inputs(batch)
+    name = k6.variant(fwd.compute_dtype)
+    before = k6.launches[name]
+    got = k6.mono_forward(**kw)
+    assert k6.launches[name] == before + 1
+    again = k6.mono_forward(**kw)
+    ref = k6.mono_forward_plain(**kw)
+    torch.cuda.synchronize()
+    limits = MONO_DRUGS if n == 64 else MONO[fwd.compute_dtype]
+    for g, a, r, mask, lim in zip(got, again, ref, (kw["em"] > 0,
+                                                      kw["lm"] > 0), limits):
+        assert torch.equal(g, a)
+        _within_limits(g[mask], r[mask], lim)
+        assert float(g[~mask].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_mono_wrapper_rejects_what_the_kernel_does_not_take(card):
+    """A tight pair list, an int64 type plane, a tensor on the CPU."""
+    from agdiff_torch.kernels import monolithic as k6
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
+    from agdiff_torch.ops.pairs import prepare_pairs_shared
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=1,
+                              num_convs_local=1, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    batch = pad_molecules(load_fixture()[:2], 32, device=card)
+    kw, _ = build_monolithic_forward(cfg, model).kernel_inputs(batch)
+    tight = prepare_pairs_shared(batch.node_mask, kw["pairs"].num_pairs)
+    with pytest.raises(ValueError, match="triu"):
+        k6.mono_forward(**dict(kw, pairs=tight))
+    with pytest.raises(TypeError):
+        k6.mono_forward(**dict(kw, tp=kw["tp"].long()))
+    with pytest.raises(ValueError):
+        k6.mono_forward(**dict(kw, lm=kw["lm"].cpu()))

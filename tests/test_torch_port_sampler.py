@@ -87,8 +87,8 @@ def test_ld_ladder_flags_and_zeroes_non_finite_graphs(setup):
     _, cfg, _, tb, variables = setup
     fwd = build_fast_forward(cfg, port_model(cfg, variables), None)
 
-    def poisoned(batch):
-        out = fwd(batch)
+    def poisoned(batch, **kw):
+        out = fwd(batch, **kw)
         s = out.edge_inv_local.clone()
         s[1] = float("nan")
         return ModelOutput(s, *out[1:])
@@ -149,8 +149,9 @@ def test_entry_points_need_a_device_or_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of agdiff_torch loads neither jax nor
-    agdiff_tpu, and no source names them in an import."""
+    """Importing every module of agdiff_torch, the CLI under cli/ among
+    them, loads neither jax nor agdiff_tpu, and no source names them in an
+    import."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
         "for m in pkgutil.walk_packages(agdiff_torch.__path__, "
@@ -158,6 +159,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'agdiff_tpu')]\n"
+        "bad += [m for m in ('agdiff_torch.cli.generate', "
+        "'agdiff_torch.cli._common') if m not in sys.modules]\n"
         "print(len(list(pkgutil.walk_packages(agdiff_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
