@@ -2,14 +2,34 @@
 // and 'full', each exact or with the polynomial transcendentals ('-approx').
 //
 // Replaces the TPU kernel _stack_kernel (agdiff_tpu/ops/pallas/
-// stack_packed.py:104). One CTA per graph runs, after the edge encoder,
-// NB SchNet interaction blocks ('schnet' stops there and writes h), NL GIN
-// layers ('gin' writes h and hl) and both pair-score heads ('full' writes
-// the two packed (B, P) score planes). The pair list is the bucket's full
-// upper triangle or a molecule's tight list padded to a capacity; pad
-// slots carry zero weights and appear in no incidence list. The function
-// and its rounding are documented beside the wrapper
+// stack_packed.py:104). A cluster of R CTAs per graph runs, after the edge
+// encoder, NB SchNet interaction blocks ('schnet' stops there and writes
+// h), NL GIN layers ('gin' writes h and hl) and both pair-score heads
+// ('full' writes the two packed (B, P) score planes). The pair list is the
+// bucket's full upper triangle or a molecule's tight list padded to a
+// capacity; pad slots carry zero weights and appear in no incidence list.
+// The function and its rounding are documented beside the wrapper
 // (kernels/stack_packed.py).
+//
+// What bounds it: not arithmetic (~50 GFLOP a launch is ~0.05 ms of the
+// card's bf16 rate) but latency inside each CTA: a CTA walks its pair
+// tiles one after another, each a chain of loads, small wmma products,
+// elementwise passes and per-node sums between five block-wide barriers,
+// and its node regions take most of an SM's shared memory, so one CTA
+// fits an SM. With one CTA per graph, a Drugs-sized chunk of 48 graphs
+// left 84 of the 132 SMs idle. So each graph runs on a cluster of R CTAs
+// (kernels/stack_packed.py ranks_for: the largest power of two with
+// B x R <= the SMs, at most 8; 2 at B = 48, 1 at B = 128), launched
+// together with cudaLaunchKernelEx (at R = 1 a plain launch of one CTA per
+// graph: no cluster, no occupancy query). Rank r takes the r-th contiguous
+// share of the pair tiles, starting each node's cursor at its first
+// incidence entry in that share. After each SchNet block's and each GIN layer's pair
+// loop the ranks hold partial node sums; after a cluster barrier each rank
+// adds all R of them in rank order (sum_ranks: a peer's shared memory
+// through the cluster's distributed shared memory at level 0, its global
+// scratch at levels 1 and 2), so every rank gets the same bits and runs
+// the same node tail (the node side is ~0.12 of the cycles at N = 64,
+// PERF.md). The heads split the slots and need no exchange.
 //
 // Layout of one CTA (NP = N rounded up to 16, FW = 1.5H):
 //   h, hl    f32  NP x H      node states, resident for the whole launch
@@ -19,13 +39,13 @@
 //   small    per-node cursors, gates and CSR offsets
 //   WR       bf16 weights staged from global memory, when they fit
 // The node-sized regions live in shared memory (level 0), or NF and XB
-// move to a per-graph scratch in global memory (level 1), or h, hl and the
+// move to a per-CTA scratch in global memory (level 1), or h, hl and the
 // small arrays too (level 2, which fits any N). The wrapper picks the
 // smallest level that leaves room to stage the weights (at H = 128: level
 // 0 to N = 32, 1 to N = 80, then 2) and allocates the scratch; at B = 48,
-// N = 128 it is 16 MB, which stays in the 50 MB L2. The code is the same
-// at every level, and so are the results: wmma fragments and the vector
-// accesses below take generic pointers.
+// R = 2, N = 128 it is 32 MB, which stays in the 50 MB L2. The code is the
+// same at every level, and so are the results: wmma fragments and the
+// vector accesses below take generic pointers.
 // Every matrix a wmma fragment reads or writes has its rows padded by 16
 // bytes (the LD* strides below and the staged weights' Nc + 8): unpadded,
 // rows of 256, 384 or 512 bytes all start on the same shared-memory bank
@@ -48,12 +68,17 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (kernels/build.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <map>
+#include <tuple>
+
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 #define TP 32             // pairs per tile (kernels/stack_packed.py TILE_P)
@@ -94,9 +119,10 @@ struct Args {
   const int* offs;         // offset table
   float* out0;             // full: (B, P) global plane; schnet/gin: h
   float* out1;             // full: (B, P) local plane; gin: hl
-  unsigned char* scratch;  // per-graph node regions that are not shared
-  long long scratch_stride;  // bytes of scratch per graph
+  unsigned char* scratch;  // per-CTA node regions that are not shared
+  long long scratch_stride;  // bytes of scratch per CTA
   int B, N, P, V, H, NB, NL, NP;
+  int ranks;               // CTAs per graph: one cluster of `ranks` CTAs
   int inc_shift;           // bits of the other endpoint in an entry
   int inc_offset;          // byte offset of the staged lists, 0: global
   int level;               // 0: node regions shared; 1: NF, XB global;
@@ -319,6 +345,70 @@ __device__ void tile_cursors(const unsigned* inc, int shift, const int* incp,
   }
 }
 
+// The first of a rank's contiguous share of `ntiles` tiles (the share of
+// rank r runs to split(ntiles, ranks, r + 1); kernels/stack_packed.py
+// rank_tiles mirrors this).
+__device__ __forceinline__ int split(int ntiles, int ranks, int r) {
+  return (int)((long long)ntiles * r / ranks);
+}
+
+// A barrier of the whole cluster when a graph has several ranks (release
+// and acquire at cluster scope: it orders shared and global writes of
+// every CTA of the cluster), else of the block.
+__device__ __forceinline__ void ranks_sync(int ranks) {
+  if (ranks > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// XB[n][c] = bf16(base[n][c] + sum of NF[n][c] over the ranks of the
+// cluster), c < cols, n < rows, base optional (f32, row stride ldb). Each
+// rank's NF holds the partial sums of its pair tiles; they are added in
+// rank order 0..R-1, so every rank gets the same bits, and at R = 1 the
+// sum is NF itself. A peer's NF is read through distributed shared memory
+// when NF is shared (level 0), else from the peer's scratch, `stride`
+// bytes per rank, through L2 (ld.global.cg: this SM's L1 may hold a stale
+// line of it). The caller ends with ranks_sync, so that no rank
+// overwrites its NF while a peer still reads it.
+__device__ void sum_ranks(bf16* XB, int ldx, const float* base, int ldb,
+                          const float* NF, int ldf, int rows, int cols,
+                          int ranks, bool glob, long long stride) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int me = ranks > 1 ? (int)cluster.block_rank() : 0;
+  if (ranks > 1) cluster.sync();
+  const int vpr = cols / 4;
+  for (int e = threadIdx.x; e < rows * vpr; e += NTHREADS) {
+    const int n = e / vpr, c = 4 * (e % vpr);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < ranks; ++r) {
+      float4 v;
+      if (r == me) {
+        v = ld4(NF + n * ldf + c);
+      } else if (glob) {
+        const float* peer = reinterpret_cast<const float*>(
+            reinterpret_cast<const unsigned char*>(NF) + (r - me) * stride);
+        v = __ldcg(reinterpret_cast<const float4*>(peer + n * ldf + c));
+      } else {
+        v = ld4(cluster.map_shared_rank(NF, r) + n * ldf + c);
+      }
+      if (r == 0) {
+        s = v;
+      } else {
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+    }
+    if (base != nullptr) {
+      const float4 h = ld4(base + n * ldb + c);
+      s = make_float4(h.x + s.x, h.y + s.y, h.z + s.z, h.w + s.w);
+    }
+    stb4(XB + n * ldx + c, s);
+  }
+}
+
 // Bytes of each group of regions (kernels/stack_packed.py region_bytes
 // mirrors this): node states and the small per-node arrays, node
 // temporaries, and the pair tile. Each group is a multiple of 128 bytes
@@ -344,15 +434,18 @@ struct Regions {
 template <int MODE, bool APPROX>
 __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.x;
+  // this CTA is rank `rank` of the `NR` CTAs (one cluster) of graph b
+  const int NR = a.ranks;
+  const int rank = NR > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / NR;
   const int H = a.H, N = a.N, NP = a.NP, P = a.P, C = a.H;
   const int F1 = H, F2 = H / 2, FW = F1 + F2, R = H / 16;
   const Strides S(H);
   const int LDF = S.LDF, LDX = S.LDX, LDE = S.LDE, LDV = S.LDV, LDB = S.LDB;
 
-  // carve the regions from shared memory or this graph's scratch
+  // carve the regions from shared memory or this CTA's scratch
   unsigned char* sp = smem;
-  unsigned char* gp = a.scratch + (size_t)b * a.scratch_stride;
+  unsigned char* gp = a.scratch + (size_t)blockIdx.x * a.scratch_stride;
   auto take = [&](bool glob, size_t bytes) {
     unsigned char*& p = glob ? gp : sp;
     unsigned char* r = p;
@@ -404,6 +497,11 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
 
   const bf16* epg = a.ep + (size_t)b * P * C;
   const bf16* eplg = a.epl + (size_t)b * P * C;
+  // this rank's pair tiles: [vt0, vt1) of the valid pairs' tiles (SchNet
+  // and GIN), [pt0, pt1) of every slot's tiles (the heads)
+  const int vtiles = (a.V + TP - 1) / TP, ptiles = (P + TP - 1) / TP;
+  const int vt0 = split(vtiles, NR, rank), vt1 = split(vtiles, NR, rank + 1);
+  const int pt0 = split(ptiles, NR, rank), pt1 = split(ptiles, NR, rank + 1);
 
   // ---- SchNet interaction blocks ------------------------------------------
   for (int blk = 0; blk < a.NB; ++blk) {
@@ -459,11 +557,15 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
       ld_fb2 = stage_w(w, w_fb2, F2, F2);
     }
     __syncthreads();
+    if (vt0 > 0) {  // each node's cursor from its first entry in this share
+      tile_cursors(inc, shift, incp, cur, endq, N, vt0 * TP);
+      __syncthreads();
+    }
 
     const float* we1 = a.we + ((size_t)(2 * blk) * a.B + b) * P;
     const float* we2 = a.we + ((size_t)(2 * blk + 1) * a.B + b) * P;
-    for (int p0 = 0; p0 < a.V; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    for (int t = vt0; t < vt1; ++t) {
+      const int p0 = t * TP, rows = min(TP, P - p0);
       load_rows(EPT, LDE, epg, p0, rows, C);
       if (threadIdx.x < TP) {
         const int r = threadIdx.x;
@@ -514,12 +616,10 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
       __syncthreads();
     }
 
-    // node tail: lin2, ssp(act_beta), lin, attention gate, SE gate, residual
-    for (int e = threadIdx.x; e < NP * FW; e += NTHREADS) {
-      const int n = e / FW, c = e % FW;
-      XB[n * LDX + c] = __float2bfloat16(NF[n * LDF + c]);
-    }
-    __syncthreads();
+    // node tail: lin2, ssp(act_beta), lin, attention gate, SE gate,
+    // residual, on the sums of every rank's pairs
+    sum_ranks(XB, LDX, nullptr, 0, NF, LDF, NP, FW, NR, tg, a.scratch_stride);
+    ranks_sync(NR);
     gemm_w(NF, LDF, NP, H, XB, LDX, w_l2a, F1, WR);
     gemm_w(NF + H, LDF, NP, H, XB + F1, LDX, w_l2b, F2, WR);
     __syncthreads();
@@ -588,9 +688,11 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
     __syncthreads();
   }
 
+  // every rank holds the same h and hl (the same bits from the same sums)
   if (MODE == MODE_SCHNET) {
-    for (int e = threadIdx.x; e < N * H; e += NTHREADS)
-      a.out0[node_base + e] = h[e];
+    if (rank == 0)
+      for (int e = threadIdx.x; e < N * H; e += NTHREADS)
+        a.out0[node_base + e] = h[e];
     return;
   }
 
@@ -607,8 +709,12 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
       NF[(e / H) * LDF + e % H] = 0.f;
     for (int n = threadIdx.x; n < N; n += NTHREADS) endq[n] = incp[n];
     __syncthreads();
-    for (int p0 = 0; p0 < a.V; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    if (vt0 > 0) {
+      tile_cursors(inc, shift, incp, cur, endq, N, vt0 * TP);
+      __syncthreads();
+    }
+    for (int t = vt0; t < vt1; ++t) {
+      const int p0 = t * TP, rows = min(TP, P - p0);
       load_rows(EPT, LDE, eplg, p0, rows, C);
       if (threadIdx.x < TP)
         WE[threadIdx.x] = threadIdx.x < rows ? lmg[p0 + threadIdx.x] : 0.f;
@@ -633,11 +739,8 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
       }
       __syncthreads();
     }
-    for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
-      const int n = e / H, c = e % H;
-      XB[n * LDX + c] = __float2bfloat16(hl[e] + NF[n * LDF + c]);
-    }
-    __syncthreads();
+    sum_ranks(XB, LDX, hl, H, NF, LDF, NP, H, NR, tg, a.scratch_stride);
+    ranks_sync(NR);
     gemm_w(NF, LDF, NP, H, XB, LDX, w_g0, H, WR);
     __syncthreads();
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
@@ -657,10 +760,11 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
   }
 
   if (MODE == MODE_GIN) {
-    for (int e = threadIdx.x; e < N * H; e += NTHREADS) {
-      a.out0[node_base + e] = h[e];
-      a.out1[node_base + e] = hl[e];
-    }
+    if (rank == 0)
+      for (int e = threadIdx.x; e < N * H; e += NTHREADS) {
+        a.out0[node_base + e] = h[e];
+        a.out1[node_base + e] = hl[e];
+      }
     return;
   }
 
@@ -694,8 +798,8 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS)
       XB[(e / H) * LDX + e % H] = __float2bfloat16(hs[e]);
     __syncthreads();
-    for (int p0 = 0; p0 < P; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    for (int t = pt0; t < pt1; ++t) {
+      const int p0 = t * TP, rows = min(TP, P - p0);
       load_rows(EPT, LDE, eg, p0, rows, C);
       for (int e = threadIdx.x; e < TP * H / 4; e += NTHREADS) {
         const int r = e / (H / 4), c = 4 * (e % (H / 4));
@@ -759,9 +863,13 @@ static KernelFn pick(int approx) {
 }
 
 // mode: 0 schnet, 1 gin, 2 full; approx: 0 or 1. out0/out1 as in Args;
-// scratch holds scratch_stride bytes per graph for the regions `level`
-// moves to global memory (kernels/stack_packed.py layout chooses both).
-// V valid pairs come first in the list; inc holds their 2V entries.
+// scratch holds scratch_stride bytes per CTA (B x ranks of them) for the
+// regions `level` moves to global memory (kernels/stack_packed.py layout
+// chooses both). V valid pairs come first in the list; inc holds their 2V
+// entries. One launch of B clusters of `ranks` CTAs (kernels/
+// stack_packed.py ranks_for chooses it), or at ranks = 1 of B CTAs with
+// no cluster attribute. A cluster size the card cannot launch returns an
+// error.
 extern "C" int stack_launch(
     int mode, int approx, const void* ep, const void* epl, const void* we,
     const void* h0, const void* hl0, const void* lm, const void* pi,
@@ -769,7 +877,7 @@ extern "C" int stack_launch(
     const void* wbf, const void* wf, const void* offs,
     void* out0, void* out1, void* scratch, long long scratch_stride, int B,
     int N, int P, int V, int inc_shift, int H, int NB, int NL, int level,
-    void* stream) {
+    int ranks, void* stream) {
   Args a;
   a.ep = static_cast<const bf16*>(ep);
   a.epl = static_cast<const bf16*>(epl);
@@ -792,8 +900,10 @@ extern "C" int stack_launch(
   a.inc_shift = inc_shift;
   a.NP = (N + 15) / 16 * 16;
   a.level = level;
+  a.ranks = ranks;
   const Regions rg(a.NP, H);
   if (mode < 0 || mode > 2 || level < 0 || level > 2 || H % 32 != 0
+      || ranks < 1
       || V > P || inc_shift < 1 || inc_shift > 31
       || (size_t)scratch_stride < rg.global(level)
       || (level > 0 && scratch == nullptr))
@@ -816,7 +926,40 @@ extern "C" int stack_launch(
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<B, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ranks == 1) {  // one CTA per graph: no cluster to ask for
+    fn<<<B, NTHREADS, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * ranks);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // whether a cluster fits depends only on the card, the kernel, its
+  // shared memory and the cluster size: ask once for each
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  static std::map<std::tuple<int, KernelFn, size_t, int>, int> known;
+  const auto key = std::make_tuple(device, fn, smem, ranks);
+  auto hit = known.find(key);
+  if (hit == known.end()) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    hit = known.emplace(key, n).first;
+  }
+  if (hit->second < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, fn, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -15,12 +15,21 @@ A tight list's pad slots have zero distance weights and local mask and
 no incidence entry, so they add nothing to any node; their scores are
 finite and never mirrored.
 
-Design (csrc/stack_packed.cu). One CTA per graph, 512 threads. The node
-states h, hl and the node temporaries live in shared memory or, in part
-or in whole, in a per-graph scratch in global memory that this wrapper
-allocates: `layout` picks the smallest level that leaves shared memory
-for the staged weights (at H = 128 everything shared to N = 32, the
-temporaries in scratch to N = 80, all node regions in scratch above).
+Design (csrc/stack_packed.cu). One cluster of R CTAs per graph, 512
+threads each, in one launch of B clusters. `ranks_for` picks R, the
+largest power of two with B * R <= the card's SMs, at most 8 (the
+portable cluster size): B=48 -> 2, B=32 -> 4, B=8 or 16 -> 8, B=128 -> 1,
+so a Drugs-sized chunk, whose CTAs each fill an SM, no longer leaves most
+of the card idle. Each rank takes a contiguous share of the pair tiles
+(`rank_tiles`); after each SchNet block's and GIN layer's pair loop the
+ranks add their partial node sums in rank order, so every rank holds the
+same bits and runs the same node tail; the heads split the slots and need
+no exchange. The node states h, hl and the node temporaries live in
+shared memory or, in part or in whole, in a per-CTA scratch in global
+memory that this wrapper allocates: `layout` picks the smallest level
+that leaves shared memory for the staged weights (at H = 128 everything
+shared to N = 32, the temporaries in scratch to N = 80, all node regions
+in scratch above).
 e_packed and the distance-weight planes stream in tiles of 32 pairs; the
 weights come from global memory (L2-resident across CTAs) and are staged
 in shared memory before each product. Matrix products are bf16 `wmma`
@@ -30,7 +39,8 @@ the SE gate, the last score layer) are FMA loops. Aggregation is a
 per-node sum over the node's incidence list (staged in shared memory
 where it fits) in increasing pair order: no atomics, results reproduce
 bit for bit, at every level. The SchNet and GIN loops stop at the last
-valid pair; the heads score every slot.
+valid pair; the heads score every slot. Two launches at one R give the
+same bits; another R adds the partial sums in another order.
 
 Bound, from the code at B=128, N=32 (P=496), H=128, NB=6, NL=4: per graph
 the filter MLPs are 2*P*(128*192 + 128*128 + 64*64) = 44.7 MFLOP per
@@ -45,7 +55,10 @@ above that bound, PERF.md): no `wgmma` (the legacy mma.sync path through
 wmma runs well below Hopper's peak), no TMA, five block-wide barriers per
 32-pair tile with warps idle behind the slowest (in the triu order one
 node holds most of a tile's pairs, so its aggregation is a long serial
-chain), one CTA per SM, and node temporaries in L2 above N = 64.
+chain, though splitting it across lanes bought nothing, PERF.md), the
+node tail repeated on every rank, and node temporaries in L2 from N = 48,
+where every pair tile's per-node sums are read and written through L2
+(the aggregation is 0.25 of a CTA's cycles at N = 64, PERF.md).
 
 The rounding matches the TPU kernel (stack_packed.py:144-146, 209, 238,
 262): every product takes bf16 operands with an f32 accumulator; endpoint
@@ -77,11 +90,14 @@ from agdiff_torch.ops.pairs import PairList, gather_nodes, scatter_nodes
 
 TILE_P = 32          # pairs per tile (csrc/stack_packed.cu TP)
 MAX_SMEM = 232448    # bytes of shared memory a block may use on Hopper
+MAX_RANKS = 8        # the portable thread-block cluster size
 MODES = ("schnet", "gin", "full")
 LN2 = math.log(2.0)
 
 # kernel launches per variant (`variant`); plain-version calls do not count
 launches: Counter = Counter()
+# the last launch's cluster size R (CTAs per graph)
+last_launch: Dict[str, int] = {}
 
 
 def variant(mode: str, approx: bool, tight: bool) -> str:
@@ -214,11 +230,14 @@ def packed_stack_forward_plain(e_packed, we, h0, params: StackParams,
 def packed_stack_forward(e_packed, we, h0, params: StackParams,
                          e_packed_local, local_mask_p, hl0, pairs, *,
                          mode: str = "full", approx: bool = False,
-                         level: Optional[int] = None):
+                         level: Optional[int] = None,
+                         ranks: Optional[int] = None):
     """K1. CPU tensors run the plain version; CUDA tensors launch the
     hand-written kernel (bf16 e_packed, shared pair lists) or raise.
     `level` forces a layout level of the kernel (`layout`; every level
-    gives the same bits), for measurement."""
+    gives the same bits) and `ranks` the CTAs per graph (`ranks_for`
+    chooses otherwise; a cluster size the card cannot launch raises), for
+    tests and measurement."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if e_packed.device.type == "cpu":
@@ -226,7 +245,7 @@ def packed_stack_forward(e_packed, we, h0, params: StackParams,
             e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
             pairs, mode=mode, approx=approx)
     return _launch(e_packed, we, h0, params, e_packed_local, local_mask_p,
-                   hl0, pairs, mode, approx, level)
+                   hl0, pairs, mode, approx, level, ranks)
 
 
 # ---- the CUDA kernel -------------------------------------------------------
@@ -370,6 +389,43 @@ def layout(n: int, h: int) -> Tuple[int, int, int]:
     return level, smem_bytes(n, h, level), scratch_bytes(n, h, level)
 
 
+def ranks_for(b: int, sm_count: int) -> int:
+    """CTAs per graph (one cluster each): the largest power of two R with
+    b * R <= sm_count, at most MAX_RANKS; 1 when b graphs fill the card."""
+    r = 1
+    while r < MAX_RANKS and b * r * 2 <= sm_count:
+        r *= 2
+    return r
+
+
+def rank_tiles(num_tiles: int, ranks: int) -> List[Tuple[int, int]]:
+    """Each rank's contiguous share [t0, t1) of `num_tiles` pair tiles
+    (csrc/stack_packed.cu split)."""
+    return [(num_tiles * r // ranks, num_tiles * (r + 1) // ranks)
+            for r in range(ranks)]
+
+
+def rank_entries(pairs: PairList, ranks: int) -> List[List[Tuple[int,
+                                                                  int]]]:
+    """Per rank, per node, the [start, end) of the incidence entries the
+    rank sums over the valid pairs' tiles: from the node's first entry at
+    or past the rank's first pair (the kernel's ballot scan,
+    tile_cursors) to its first entry at or past the pair after the
+    rank's last tile."""
+    ptr = pairs.inc_ptr.tolist()
+    pair = pairs.inc_pair.tolist()
+    tiles = rank_tiles(-(-pairs.num_valid // TILE_P), ranks)
+
+    def first_at(n, p):
+        q = ptr[n]
+        while q < ptr[n + 1] and pair[q] < p:
+            q += 1
+        return q
+
+    return [[(first_at(n, t0 * TILE_P), first_at(n, t1 * TILE_P))
+             for n in range(pairs.num_nodes)] for t0, t1 in tiles]
+
+
 def _lib():
     from agdiff_torch.kernels import build
 
@@ -377,7 +433,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.stack_launch.argtypes = ([i, i] + [p] * 16 + [ctypes.c_longlong]
-                                     + [i] * 9 + [p])
+                                     + [i] * 10 + [p])
         lib.stack_launch.restype = i
         lib.stack_error_string.argtypes = [i]
         lib.stack_error_string.restype = ctypes.c_char_p
@@ -386,7 +442,8 @@ def _lib():
 
 
 def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
-            pairs: PairList, mode: str, approx: bool, level=None):
+            pairs: PairList, mode: str, approx: bool, level=None,
+            ranks=None):
     dev = e_packed.device
     if dev.type != "cuda":
         raise ValueError(f"packed_stack_forward: unsupported device {dev}")
@@ -408,7 +465,10 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
         level = layout(n, h)[0]
     if smem_bytes(n, h, level) > MAX_SMEM:
         raise ValueError(f"layout level {level} does not fit N={n}, H={h}")
-    scratch_per_graph = scratch_bytes(n, h, level)
+    scratch_per_cta = scratch_bytes(n, h, level)
+    if ranks is None:
+        ranks = ranks_for(b, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
     _check("e_packed", e_packed, (b, p, c), torch.bfloat16, dev)
     _check("we", we, (2 * nb, b, p), torch.float32, dev)
     _check("h0", h0, (b, n, h), torch.float32, dev)
@@ -434,7 +494,7 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
         out0 = torch.empty((b, n, h), dtype=torch.float32, device=dev)
         out1 = (torch.empty((b, n, h), dtype=torch.float32, device=dev)
                 if mode == "gin" else out0)
-    scratch = torch.empty((max(b * scratch_per_graph, 1),),
+    scratch = torch.empty((max(b * ranks * scratch_per_cta, 1),),
                           dtype=torch.uint8, device=dev)
     lib = _lib()
     ptrs = [e_packed, e_packed_local, we, h0, hl0, lm, pairs.iu, pairs.ju,
@@ -443,12 +503,14 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
     with torch.cuda.device(dev):
         err = lib.stack_launch(MODES.index(mode), int(approx),
                                *[t.data_ptr() for t in ptrs],
-                               scratch_per_graph, b, n, p, nv,
-                               pairs.inc_shift, h, nb, nl, level, stream)
+                               scratch_per_cta, b, n, p, nv,
+                               pairs.inc_shift, h, nb, nl, level, ranks,
+                               stream)
     if err != 0:
-        raise RuntimeError("stack kernel launch failed: "
+        raise RuntimeError(f"stack kernel launch failed at ranks={ranks}: "
                            + lib.stack_error_string(err).decode())
     launches[variant(mode, approx, pairs.tight)] += 1
+    last_launch["ranks"] = ranks
     if mode == "full":
         return out0, out1
     return out0 if mode == "schnet" else (out0, out1)

@@ -12,8 +12,10 @@ Phases, each of which fails the run:
      printed;
   3. K1 (the whole-stack kernel) is held against its plain PyTorch version
      on the card, on the inputs the main paths give it, output by output
-     (each score plane, or h and hl over real nodes, on its own scale),
-     and planted faults in the plain version must break the same limits;
+     (each score plane, or h and hl over real nodes, on its own scale), at
+     the cluster size R (CTAs per graph) the wrapper picks and at R = 1,
+     each timed, and planted faults in the plain version must break the
+     same limits;
      the plain version on the CPU is read against the one on the card for
      scale; every case is timed beside its bound:
      - over the triu pair set at the full width of configs/qm9_fast.yml
@@ -25,6 +27,11 @@ Phases, each of which fails the run:
        'schnet', 'gin' and 'full' with '-approx' at N=64;
      - at N=64 and N=96 also at every layout level that fits, each of
        which must give the bits of the wrapper's choice;
+     - at the runner's default chunk (triu, B=64/N=32, R=2) and a tail
+       chunk (tight, B=16/N=64, R=8), also at R / 2;
+     each K1 time is read twice: as a lone call (`ms`, the kernels line)
+     and behind a ~1 ms spin of the card (`ms_spun`, the card's time with
+     no host launch overhead in it);
      then K3 (f32, bf16), K5, K4 (f32, bf16) and K2 (exact, '-approx')
      likewise, on the inputs of each path's first call at the full width
      of configs/qm9_default.yml (f32) or qm9_fast.yml (bf16), B=128,
@@ -143,6 +150,7 @@ ENGINE_TOL = 0.05       # bf16 engine vs f32 engine, the JAX slim gate's
 # CPU beside the kernel's reading, under the same limit
 DRUGS_ENGINE_TOL = 0.15
 PROFILE_STEPS = 20
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock (cuda_time's spin)
 F32_ENGINE_TOL = 2e-4   # two f32 engines: summation order only
 SOURCES = ("stack_packed", "fused", "block_packed", "mono")
 # the TPU kernel each new kernel replaces (file:line of its function)
@@ -164,8 +172,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, reps: int = 20) -> float:
-    """Median ms of `reps` timed calls (CUDA events), after two warm-ups."""
+def cuda_time(fn, reps: int = 20, spin: bool = False) -> float:
+    """Median ms of `reps` timed calls (CUDA events), after two warm-ups.
+    A lone call's events also hold the host's time to launch it when the
+    card gets to the start event first. With `spin`, each timed call is
+    queued behind a ~1 ms spin of the card (torch.cuda._sleep), so that
+    the host has launched it before the card reaches the start event: the
+    card's time alone (K1's `ms_spun`, beside the plain `ms`)."""
     import torch
 
     for _ in range(2):
@@ -174,6 +187,8 @@ def cuda_time(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -292,32 +307,45 @@ def planted_faults(kw, ref, mode, approx):
 
 
 def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
-             report) -> tuple:
+             report, forced=(1,)) -> tuple:
     """K1 against its plain version on a main path's inputs, output by
-    output; also the planted faults against the same limits, and, for
-    scale, the plain version on the CPU (`cpu_params`: the same weights
-    there) against the plain version on the card: how far last-bit
-    differences of the same function (each device's exp and log, its
-    summation order) carry at this size. Returns the case's row and its
+    output, at the wrapper's cluster size R and at each forced R in
+    `forced` (1: one CTA per graph), each within the limits and each timed
+    (`ms`, and `ms_spun`: the card's time alone, cuda_time); also the
+    planted faults against the same limits, and, for scale, the plain
+    version on the CPU (`cpu_params`: the same weights there) against the
+    plain version on the card: how far last-bit differences of the same
+    function (each device's exp and log, its summation order) carry at
+    this size. Returns the case's row (at the wrapper's R) and its
     failures."""
     import torch
 
     from agdiff_torch.kernels import stack_packed as k1
 
-    def kernel():
-        return k1.packed_stack_forward(**kw, mode=mode, approx=approx)
+    def kernel(ranks=None):
+        return k1.packed_stack_forward(**kw, mode=mode, approx=approx,
+                                       ranks=ranks)
 
     def plain():
         return k1.packed_stack_forward_plain(**kw, mode=mode, approx=approx)
 
-    got, again, ref = kernel(), kernel(), plain()
+    got, again = kernel(), kernel()
+    ranks = k1.last_launch["ranks"]
+    others = [r for r in forced if r != ranks]
+    outs_at = {r: kernel(r) for r in others}
+    ref = plain()
     torch.cuda.synchronize()
     outs = output_errors(got, ref, mode, node_mask)
+    outs_at = {r: output_errors(o, ref, mode, node_mask)
+               for r, o in outs_at.items()}
     flat = (lambda x: (x,)) if mode == "schnet" else tuple
     repro = all(torch.equal(g, a) for g, a in zip(flat(got), flat(again)))
     faults = {name: output_errors(out, ref, mode, node_mask)
               for name, out in planted_faults(kw, ref, mode, approx)}
-    ms = cuda_time(kernel)
+    ms, ms_spun = cuda_time(kernel), cuda_time(kernel, spin=True)
+    at_ranks = {r: dict(ms=cuda_time(lambda: kernel(r)),
+                        ms_spun=cuda_time(lambda: kernel(r), spin=True),
+                        outputs=outs_at[r]) for r in others}
     plain_ms = cuda_time(plain)
     # after the timings, which a busy host would disturb
     on_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
@@ -337,12 +365,13 @@ def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
                variant=k1.variant(mode, approx, pairs.tight), B=b, N=n, P=p,
                valid_pairs=pairs.num_valid,
                layout_level=k1.layout(n, kw["h0"].shape[2])[0],
-               outputs=outs, limits={k: limits[k] for k in outs},
+               ranks=ranks, outputs=outs, at_ranks=at_ranks,
+               limits={k: limits[k] for k in outs},
                planted_faults=faults, plain_cpu_vs_plain=cross,
                bitwise_reproducible=repro,
                max_abs_err=max(r["max_abs_err"] for r in outs.values()),
-               ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
-               bound_ms=max(t_ops, t_bytes),
+               ms=ms, ms_spun=ms_spun, plain_ms=plain_ms, flops=flops,
+               bytes=nbytes, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     report["k1_checks"].append(row)
 
@@ -353,17 +382,24 @@ def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
             f"(max|value| {r['max_abs_value']:.3e})"
             for name, r in rows.items())
 
-    print(f"K1 {label} [{row['variant']}, layout {row['layout_level']}]: "
-          f"B={b} N={n} P={p} valid {pairs.num_valid}; |kernel - plain| as "
-          f"shares of each output's max|value|: {line(outs)}; two launches "
-          f"bitwise equal {repro}; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+    times = "".join(f", {a['ms']:.3f} ms ({a['ms_spun']:.3f}) at R={r}"
+                    for r, a in at_ranks.items())
+    print(f"K1 {label} [{row['variant']}, layout {row['layout_level']}, "
+          f"R={ranks}]: B={b} N={n} P={p} valid {pairs.num_valid}; "
+          f"|kernel - plain| as shares of each output's max|value|: "
+          f"{line(outs)}; two launches bitwise equal {repro}; kernel "
+          f"{ms:.3f} ms ({ms_spun:.3f} behind a spin) at R={ranks}{times}, "
+          f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
+    for r, a in at_ranks.items():
+        print(f"  at R={r}: {line(a['outputs'])}", flush=True)
     print(f"  plain version on the CPU vs on the card: {line(cross)}",
           flush=True)
-    failures = [f"K1 {label}: kernel breaks {name} {k}"
-                for name, k in broken_limits(outs, limits)]
+    failures = [f"K1 {label}: kernel breaks {name} {k} at R={r}"
+                for r, rows in [(ranks, outs)] + [
+                    (r, a["outputs"]) for r, a in at_ranks.items()]
+                for name, k in broken_limits(rows, limits)]
     if not repro:
         failures.append(f"K1 {label}: two launches differ")
     for name, rows in faults.items():
@@ -477,6 +513,7 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, forwards = k1.launches[name], fwd.calls - calls0
+    ranks = k1.last_launch.get("ranks")
     others = {k: c for k, c in k1.launches.items() if k != name and c}
     for m in results:
         pg = m.meta["pos_gen"]
@@ -492,13 +529,13 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
                buckets=sorted({runner._bucket_for(m) for m in mols}),
                atoms=[m.num_nodes for m in mols], chunk=runner.chunk_size,
                steps=runner.sampler_config.n_steps, forwards=forwards,
-               k1_launches=launches, wall_s=wall,
+               k1_launches=launches, k1_ranks=ranks, wall_s=wall,
                ms_per_step=wall * 1e3 / forwards, conformers=n_conf,
                conformers_per_s=n_conf / wall)
     report["slices"][label] = row
     print(f"{label}: {engine}, buckets {row['buckets']}, atoms "
           f"{row['atoms']}, {num_confs} conformers each, {forwards} "
-          f"forwards, K1 {name} launches {launches}; "
+          f"forwards, K1 {name} launches {launches} (last at R={ranks}); "
           f"{row['ms_per_step']:.3f} ms/step, "
           f"{row['conformers_per_s']:.2f} conformers/s ({wall:.1f} s)",
           flush=True)
@@ -1247,6 +1284,7 @@ def main() -> int:
     from agdiff_torch.ops.pairs import pair_capacity_for
     from agdiff_torch.sampling.langevin import SamplerConfig
 
+    started = time.time()
     # float32 products in full float32, as in the JAX reference's CPU runs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1318,6 +1356,30 @@ def main() -> int:
         failures += failed
         if label in ("tight_B48_N64", "tight_B48_N96"):
             failures += check_levels(kw, label, report)
+    # the runner's default chunk (64, QM9 bucket 32) and a tail chunk (16,
+    # a Drugs molecule in bucket 64): the wrapper's R against R / 2 and 1
+    from agdiff_torch.kernels.stack_packed import ranks_for
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tfwd = build_tight_forward(dcfg, dmodel, "tight-pksf")
+    for label, b, drugs in (("triu_B64_N32", 64, False),
+                            ("tight_B16_N64", 16, True)):
+        forced = sorted({max(ranks_for(b, sms) // 2, 1), 1})
+        if drugs:
+            batch = random_batch(dmols[:1], 64, b, gen)
+            pairs = tfwd.prepare(batch, pair_capacity_for(
+                dmols[0].num_nodes, 256))
+            kw, _ = tfwd.stack_inputs(batch, pairs)
+            cases[label], failed = check_k1(
+                kw, batch.node_mask, label, "full", False, DRUGS_LIMITS,
+                build_tight_forward(dcfg, dcpu, "tight-pksf").stack, report,
+                forced)
+        else:
+            batch = random_batch(qmols, 32, b, gen)
+            kw, _ = qfwd.stack_inputs(batch)
+            cases[label], failed = check_k1(
+                kw, batch.node_mask, label, "full", False, QM9_LIMITS,
+                build_fast_forward(qcfg, qcpu, "pksf").stack, report, forced)
+        failures += failed
     dump()
 
     # ---- 3b. K2-K5 against their plain versions -----------------------------
@@ -1552,7 +1614,10 @@ def main() -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None))
     report["kernels"] = kernels
+    report["total_s"] = time.time() - started
     dump()
+    print(f"chip_smoke.py ran {report['total_s']:.1f} s, the build "
+          f"{report['build_s']:.1f} s of it", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

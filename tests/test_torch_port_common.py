@@ -22,6 +22,16 @@ torch.set_num_threads(2)
 
 SMALL = dict(hidden_dim=32, num_convs=2, num_convs_local=2,
              num_diffusion_timesteps=100)
+# XLA's CPU backend without its optimisation passes: a JAX reference here
+# is a small program run once, and at level 0 it compiles about 4x faster,
+# to the same values within f32 rounding (7e-8 of a score plane of ~1)
+FAST_XLA = {"xla_backend_optimization_level": 0}
+
+
+def jax_run(fn, *args):
+    """fn(*args), traced into one program compiled with FAST_XLA (a
+    Pallas kernel in interpret mode included)."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_XLA)(*args)
 
 
 def configs(**overrides):
@@ -47,13 +57,54 @@ def batches(mols, max_nodes=16, batch_size=None):
     return jb, tb
 
 
+# variable shapes by config: they depend on neither the values nor the
+# shape of the batch the init is traced with
+_SHAPES = {}
+
+
+def _initial_variables(model, jcfg, jbatch, rng):
+    """The JAX model's variables as numpy: flax's tree and shapes (from
+    tracing its init, which compiles nothing), filled from `rng` as the
+    model's initializers fill them: dense kernels and their biases uniform
+    in +-1/sqrt(fan_in), embeddings standard normal, BatchNorm statistics
+    and affines and learnable betas at their initial values."""
+    key = repr(jcfg)
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(
+            lambda k, b: model.init(k, b, train=False),
+            jax.random.PRNGKey(0), jbatch)
+
+    def fill(tree):
+        out = {}
+        bound = (1.0 / np.sqrt(tree["kernel"].shape[0]) if "kernel" in tree
+                 else None)
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = fill(v)
+                continue
+            if k in ("kernel", "bias") and bound is not None:
+                out[k] = rng.uniform(-bound, bound, v.shape)
+            elif k == "embedding":
+                out[k] = rng.normal(0.0, 1.0, v.shape)
+            elif k in ("var", "beta", "scale"):
+                out[k] = np.ones(v.shape)
+            elif k in ("mean", "bias"):    # a BatchNorm's
+                out[k] = np.zeros(v.shape)
+            else:
+                raise ValueError(f"no initializer for variable {k!r}")
+            out[k] = np.asarray(out[k], dtype=v.dtype)
+        return out
+
+    return fill(_SHAPES[key])
+
+
 def jax_variables(jcfg, jbatch, seed=9):
     """Initialised JAX variables as numpy, with BatchNorm statistics,
     BatchNorm affines and learnable betas moved off their initial values
     (so BN folding and the betas are really exercised)."""
     model = get_model(jcfg)
-    variables = model.init(jax.random.PRNGKey(seed), jbatch, train=False)
-    variables = jax.tree_util.tree_map(np.asarray, variables)
+    variables = _initial_variables(model, jcfg, jbatch,
+                                   np.random.default_rng((seed, 1)))
     rng = np.random.default_rng(seed)
 
     def perturb(tree):

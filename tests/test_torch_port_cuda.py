@@ -2,7 +2,9 @@
 capability 9.0 or newer; skips elsewhere. K1: mode 'full' over triu sets,
 and every variant over tight lists, at N = 64 (node regions in shared
 memory), 96 (node temporaries in global memory) and 192 (all node regions
-in global memory). K2-K5: each variant on the inputs its engine gives it
+in global memory); each main-path case at a cluster of R = 1, 2 and 4
+CTAs per graph, the layout levels at R = 2, the choice of R and a refused
+R. K2-K5: each variant on the inputs its engine gives it
 at a small width, and the inputs their wrappers refuse. Imports no JAX,
 so that it runs on a machine without it:
 
@@ -127,6 +129,128 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(card):
         k1.packed_stack_forward(**dict(kw, h0=kw["h0"][:, :16]))
     with pytest.raises(TypeError):   # f32 kernel modes are not built
         k1.packed_stack_forward(**f32, mode="schnet")
+
+
+# K1 split across a cluster of R CTAs per graph (`ranks`): each R sums the
+# ranks' partial node sums in its own order, so each is held to the limits
+# above against the plain version, not to another R's bits.
+K1_CASES = {   # label: (engine, N, B); triu cases run engine 'pksf'
+    "triu_B128_N32": ("pksf", 32, 128), "triu_B48_N64": ("pksf", 64, 48),
+    "tight_N64": ("tight-pksf", 64, 48), "tight_N80": ("tight-pksf", 80, 48),
+    "tight_N96": ("tight-pksf", 96, 48),
+    "tight_N128": ("tight-pksf", 128, 48),
+    "schnet_N64": ("tight-pks", 64, 48), "gin_N64": ("tight-pksg", 64, 48),
+    "full_approx_N64": ("tight-pksf-approx", 64, 48)}
+
+
+def _k1_case(card, label):
+    """(kw, mode, approx, real-node mask, limits by output) of a K1 case
+    at H = 128 (3 SchNet blocks, 2 GIN layers): the QM9 molecules over
+    the triu set, or a Drugs molecule's tight list (N = 128: two of them
+    in one graph, as chip_smoke.py's union)."""
+    import numpy as np
+
+    from agdiff_torch.chem.mol import Molecule
+
+    engine, n, b = K1_CASES[label]
+    tight = engine != "pksf"
+    cfg = dataclasses.replace(ModelConfig(), num_convs=3, num_convs_local=2,
+                              dtype="bfloat16", smooth_conv=tight)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    if not tight:
+        mols = load_fixture()
+        batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
+                              device=card)
+        kw, _ = build_fast_forward(cfg, model, engine).stack_inputs(batch)
+        return kw, "full", False, batch.node_mask, None
+    drugs = load_fixture("drugs_synthetic")
+    mol = drugs[0] if n == 64 else drugs[3]
+    if n == 128:
+        m1, m2 = drugs[0], drugs[2]
+        mol = Molecule(
+            atom_type=np.concatenate([m1.atom_type, m2.atom_type]),
+            pos=np.concatenate([m1.pos, m2.pos + np.float32([6, 0, 0])]),
+            bond_index=np.concatenate([m1.bond_index,
+                                       m2.bond_index + m1.num_nodes], 1),
+            bond_type=np.concatenate([m1.bond_type, m2.bond_type]))
+    fwd = build_tight_forward(cfg, model, engine)
+    batch = pad_molecules([mol] * b, n, device=card)
+    pairs = fwd.prepare(batch, pair_capacity_for(mol.num_nodes, 256))
+    kw, _ = fwd.stack_inputs(batch, pairs)
+    return kw, fwd.mode, fwd.approx, batch.node_mask, DRUGS
+
+
+def _k1_outputs(out, mode):
+    return (out,) if mode == "schnet" else tuple(out)
+
+
+def _k1_within_limits(got, ref, mode, real, limits):
+    names = {"full": ("global", "local"), "gin": ("h", "hl"),
+             "schnet": ("h",)}[mode]
+    for name, g, r in zip(names, _k1_outputs(got, mode),
+                          _k1_outputs(ref, mode)):
+        if mode != "full":
+            g, r = g[real], r[real]
+        if limits is None:
+            _within_limits(g, r)
+        else:
+            _within_limits(g, r, limits[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("label", list(K1_CASES))
+def test_cuda_k1_ranks_match_plain(card, label, ranks):
+    """Each K1 case at a forced cluster size R against the plain version,
+    one launch counted per call; two launches at one R give the same
+    bits."""
+    kw, mode, approx, real, limits = _k1_case(card, label)
+    name = k1.variant(mode, approx, kw["pairs"].tight)
+    before = k1.launches[name]
+    got = k1.packed_stack_forward(**kw, mode=mode, approx=approx,
+                                  ranks=ranks)
+    assert k1.launches[name] == before + 1
+    assert k1.last_launch["ranks"] == ranks
+    again = k1.packed_stack_forward(**kw, mode=mode, approx=approx,
+                                    ranks=ranks)
+    ref = k1.packed_stack_forward_plain(**kw, mode=mode, approx=approx)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(
+        _k1_outputs(got, mode), _k1_outputs(again, mode)))
+    _k1_within_limits(got, ref, mode, real, limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["tight_N64", "tight_N96"])
+def test_cuda_k1_layout_levels_at_two_ranks(card, label):
+    """At R = 2 every layout level that fits gives the bits of the
+    wrapper's level (peers' sums through distributed shared memory at
+    level 0, through their scratch above it)."""
+    kw, mode, approx, real, limits = _k1_case(card, label)
+    n, h = kw["h0"].shape[1:]
+    ref = k1.packed_stack_forward(**kw, ranks=2)
+    levels = [lv for lv in (0, 1, 2) if k1.smem_bytes(n, h, lv) <= k1.MAX_SMEM]
+    assert len(levels) >= 2
+    for level in levels:
+        out = k1.packed_stack_forward(**kw, ranks=2, level=level)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), level
+    _k1_within_limits(ref, k1.packed_stack_forward_plain(**kw), mode, real,
+                      limits)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_chooses_and_refuses_ranks(card):
+    """Unforced, R follows ranks_for on this card's SMs; a cluster size
+    the card cannot launch (16, beyond the portable 8) raises, with no
+    retry at another R."""
+    kw, *_ = _k1_case(card, "tight_N64")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k1.packed_stack_forward(**kw)
+    assert k1.last_launch["ranks"] == k1.ranks_for(48, sms)
+    before = dict(k1.launches)
+    with pytest.raises(RuntimeError, match="ranks=16"):
+        k1.packed_stack_forward(**kw, ranks=16)
+    assert dict(k1.launches) == before
 
 
 # K2-K5 against their plain versions, each output as a share of its own

@@ -13,6 +13,7 @@ that later layers carry on: the largest difference stays within 1e-2 of
 the plane's largest score and the median within 1e-4 of it."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,8 +46,10 @@ from agdiff_torch.ops.graph import extend_graph_order_dense
 from agdiff_torch.sampling.langevin import SamplerConfig, build_fast_sampler
 
 from test_torch_port_common import (
+    FAST_XLA,
     batches,
     configs,
+    jax_run,
     jax_variables,
     molecules,
     port_model,
@@ -138,24 +141,55 @@ VARIANTS = {
 }
 
 
+@pytest.fixture(scope="module")
+def references(setup):
+    """JAX references that several tests read, each computed once: the
+    f32 kernel (interpret mode) compiled for the fixture's batch shape,
+    the kernel with extend_radius=False and with extend_order=True on the
+    raw bonds (one program), and the dense module with
+    extend_radius=False."""
+    jcfg, _, mols, jb, tb, variables, _ = setup
+    fn = jax_mono.build_monolithic_forward(
+        jcfg, variables, compute_dtype=jnp.float32, tile=2, interpret=True)
+    kernel = jax.jit(fn).lower(jb).compile(compiler_options=FAST_XLA)
+    bond_graph, raw_order = jax_run(
+        lambda a, raw: (fn(a, extend_radius=False),
+                        fn(raw, extend_order=True)),
+        jb, _raw_adjacency(jb, tb, mols)[0])
+    module = jax_run(functools.partial(
+        get_model(jcfg).apply, variables, train=False, extend_radius=False),
+        jb)
+    return {"kernel": kernel, "default": kernel(jb),
+            "bond_graph_only": bond_graph, "extend_order_raw": raw_order,
+            "module_bond_graph": module}
+
+
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_mono_matches_jax_f32(setup, variant):
+def test_mono_matches_jax_f32(setup, references, variant):
     """K6's plain version through the mono forward at f32 against JAX's
-    interpret-mode kernel: masked planes within 2e-4, masks and edge types
-    equal."""
+    kernel in interpret mode: masked planes within 2e-4, masks and edge
+    types equal. 'bond_graph_only' and 'extend_order_raw' call both with
+    the same option ('extend_order_raw' on the raw bonds); 'batch_of_3'
+    reads the first three graphs of the kernel on its molecules padded to
+    the fixture's four graphs (graphs do not interact)."""
     jcfg, cfg, mols, jb, tb, variables, model = setup
     over, call = VARIANTS[variant]
     if over:
         jcfg = dataclasses.replace(jcfg, **over)
         cfg = dataclasses.replace(cfg, **over)
         model = port_model(cfg, variables)
-    if variant == "batch_of_3":
+        ref = jax_run(jax_mono.build_monolithic_forward(
+            jcfg, variables, compute_dtype=jnp.float32, tile=2), jb)
+    elif variant == "batch_of_3":
         mols = molecules(3, seed=2)
-        jb, tb = batches(mols, 16)
-    if call.get("extend_order"):
-        jb, tb = _raw_adjacency(jb, tb, mols)
-    ref = jax_mono.build_monolithic_forward(
-        jcfg, variables, compute_dtype=jnp.float32, tile=2)(jb, **call)
+        padded = batches(mols, 16, batch_size=jb.pos.shape[0])[0]
+        tb = batches(mols, 16)[1]
+        ref = jax.tree_util.tree_map(lambda a: a[:3],
+                                     references["kernel"](padded))
+    else:
+        ref = references[variant if call else "default"]
+        if call.get("extend_order"):
+            _, tb = _raw_adjacency(jb, tb, mols)
     fwd = build_monolithic_forward(cfg, model, torch.float32)
     out = fwd(tb, **call)
     assert fwd.calls == 1 and k6.launches == {}
@@ -164,8 +198,8 @@ def test_mono_matches_jax_f32(setup, variant):
 
 def test_mono_matches_jax_bf16(setup):
     jcfg, cfg, _, jb, tb, variables, model = setup
-    ref = jax_mono.build_monolithic_forward(
-        jcfg, variables, compute_dtype=jnp.bfloat16, tile=2)(jb)
+    ref = jax_run(jax_mono.build_monolithic_forward(
+        jcfg, variables, compute_dtype=jnp.bfloat16, tile=2), jb)
     fwd = build_monolithic_forward(dataclasses.replace(cfg, dtype="bfloat16"),
                                    model)
     assert fwd.compute_dtype == torch.bfloat16
@@ -200,8 +234,9 @@ def test_refused_configurations_raise(setup, over):
     jcfg = dataclasses.replace(jcfg, **over)
     jvars = variables
     if over.get("tie_edge_encoders") is False:
-        jvars = jax.tree_util.tree_map(np.asarray, get_model(jcfg).init(
-            jax.random.PRNGKey(0), jb, train=False))
+        # the refusal reads the variables' names only: their shapes do
+        jvars = jax.eval_shape(lambda k: get_model(jcfg).init(
+            k, jb, train=False), jax.random.PRNGKey(0))
     with pytest.raises(NotImplementedError):
         jax_mono.build_monolithic_forward(jcfg, jvars)(jb)
     with pytest.raises(NotImplementedError):
@@ -217,25 +252,25 @@ def test_extend_graph_order_dense_matches_jax(order):
                                                   < 0.2)
     adj = np.triu(adj, 1)
     adj = (adj + adj.transpose(0, 2, 1)).astype(np.int32)
-    want = np.asarray(jax_extend(jnp.asarray(adj), order=order))
+    want = np.asarray(jax_run(functools.partial(jax_extend, order=order),
+                              jnp.asarray(adj)))
     got = extend_graph_order_dense(torch.from_numpy(adj), order=order)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 22).any()   # k-hop edges were added
 
 
 @pytest.mark.parametrize("path", ["module", "packed"])
-def test_bond_graph_only_matches_jax(setup, path):
+def test_bond_graph_only_matches_jax(setup, references, path):
     """extend_radius=False on the dense module and on the f32 packed
     engine, against their JAX counterparts."""
     jcfg, cfg, _, jb, tb, variables, model = setup
     if path == "module":
-        ref = get_model(jcfg).apply(variables, jb, train=False,
-                                    extend_radius=False)
+        ref = references["module_bond_graph"]
         with torch.no_grad():
             out = model(tb, extend_radius=False)
     else:
-        ref = jax_fast(jcfg, variables, use_pallas=False)(
-            jb, extend_radius=False)
+        ref = jax_run(functools.partial(jax_fast(
+            jcfg, variables, use_pallas=False), extend_radius=False), jb)
         out = build_fast_forward(cfg, model, None)(tb, extend_radius=False)
     np.testing.assert_array_equal(out.edge_mask.numpy(),
                                   np.asarray(ref.local_mask))
@@ -255,10 +290,12 @@ def test_mono_ladder_matches_jax_with_replayed_noise(setup):
     rng = np.random.default_rng(3)
     pos_init = rng.normal(size=tb.pos.shape).astype(np.float32)
     key = jax.random.PRNGKey(7)
-    ref = jax_ld(None, None, jb, jnp.asarray(pos_init), key,
-                 jax_diffusion(jcfg), JaxSamplerConfig(**ladder),
-                 forward_fn=jax_mono.build_monolithic_forward(
-                     jcfg, variables, compute_dtype=jnp.float32, tile=2))
+    ref = jax_run(functools.partial(
+        jax_ld, None, None, diffusion=jax_diffusion(jcfg),
+        config=JaxSamplerConfig(**ladder),
+        forward_fn=jax_mono.build_monolithic_forward(
+            jcfg, variables, compute_dtype=jnp.float32, tile=2)),
+        jb, jnp.asarray(pos_init), key)
     noise = []
     for _ in range(steps):
         key, noise_key = jax.random.split(key)

@@ -15,7 +15,11 @@ from agdiff_tpu.ops.pallas import stack_packed as jax_stack
 
 from agdiff_torch.kernels import stack_packed as k1
 from agdiff_torch.models.fast_forward import build_fast_forward
-from agdiff_torch.ops.pairs import triu_pairs
+from agdiff_torch.ops.pairs import (
+    pair_capacity_for,
+    prepare_pairs_shared,
+    triu_pairs,
+)
 
 from test_torch_port_common import (
     batches,
@@ -157,3 +161,46 @@ def test_smem_layout_fits_the_main_path():
     assert level == 2 and smem == k1.smem_bytes(96, 128, 2) == 46848
     assert scratch >= sum(k1.region_bytes(96, 128)[:3])
     assert k1.layout(1024, 128)[0] == 2
+
+
+@pytest.mark.parametrize("b,want", [(8, 8), (16, 8), (32, 4), (48, 2),
+                                    (64, 2), (128, 1)])
+def test_ranks_for_fills_the_card(b, want):
+    """CTAs per graph on a 132-SM H100: the largest power of two R with
+    B * R <= 132, at most the portable cluster size 8."""
+    assert k1.ranks_for(b, 132) == want
+    assert b * want <= 132 and want <= k1.MAX_RANKS
+
+
+@pytest.mark.parametrize("tight", [False, True])
+@pytest.mark.parametrize("n", [16, 32, 64, 80])
+def test_rank_shares_cover_every_tile_and_entry_once(n, tight):
+    """At R = 1, 2, 4 and 8 the ranks' contiguous tile shares cover every
+    tile of the valid pairs once, and their incidence ranges (from each
+    node's first entry at or past the rank's first pair) cover each
+    node's entries exactly once, in order, each entry in its rank's
+    pairs. Triu: the bucket's whole triangle; tight: the real pairs of a
+    molecule of n - 5 atoms, padded to a capacity. At n = 16 some ranks
+    get no tile (2 or 4 tiles for 8 ranks) and so no entry."""
+    if tight:
+        mask = torch.zeros((1, n), dtype=torch.bool)
+        mask[0, :n - 5] = True
+        pairs = prepare_pairs_shared(mask, pair_capacity_for(n - 5, 256))
+        assert pairs.num_valid < pairs.num_pairs
+    else:
+        pairs = triu_pairs(n)
+    num_tiles = -(-pairs.num_valid // k1.TILE_P)
+    ptr, pair = pairs.inc_ptr.tolist(), pairs.inc_pair.tolist()
+    for ranks in (1, 2, 4, 8):
+        shares = k1.rank_tiles(num_tiles, ranks)
+        tiles = [t for t0, t1 in shares for t in range(t0, t1)]
+        assert tiles == list(range(num_tiles))
+        entries = k1.rank_entries(pairs, ranks)
+        for node in range(n):
+            covered = [q for rank in entries for q in range(*rank[node])]
+            assert covered == list(range(ptr[node], ptr[node + 1]))
+        for (t0, t1), rank in zip(shares, entries):
+            for start, end in rank:
+                assert all(t0 * k1.TILE_P <= pair[q] < t1 * k1.TILE_P
+                           for q in range(start, end))
+
