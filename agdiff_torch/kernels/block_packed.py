@@ -18,26 +18,34 @@ for ops/approx.py's polynomial ('pk-approx').
 The plain twin runs for CPU tensors; CUDA tensors launch csrc/
 block_packed.cu (built at first use) or raise: a dtype other than f32 or
 bf16, a tight pair list, a shape the pair list does not fit, a bucket
-whose node inputs and sums do not fit shared memory (`smem_bytes`: above
-N = 104 at H = 128). The kernel sums each node's messages in increasing
-pair order, so its result reproduces bit for bit. `launches` counts the kernel launches per variant.
+whose node inputs and sums do not fit shared memory (f32 `smem_bytes`:
+above N = 104 at H = 128; bf16 `level_for`: above N = 134). At bf16 the
+filter MLPs run on the tensor cores with the packed filter weights
+(kernels/fused.py `prepared_filter`) staged in shared memory
+(layout level 0, to N = 56 at H = 128) or read from L2 (level 1);
+`packed_block_launch` forces a level for tests. The kernel sums each
+node's messages in increasing pair order, so its result reproduces bit
+for bit at either level. `launches` counts the kernel launches per
+variant, `last_launch` holds each variant's last level and grid.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from agdiff_torch.kernels import fused
-from agdiff_torch.kernels.stack_packed import MAX_SMEM
 from agdiff_torch.ops import approx as ax
 from agdiff_torch.ops.pairs import PairList, gather_nodes, scatter_nodes
 
 # kernel launches per variant ('packed_block[_approx]:<f32|bf16>')
 launches: Counter = Counter()
+# the last launch of each variant: its layout level and grid (blocks)
+last_launch: Dict[str, dict] = {}
 
 
 def variant(dtype: torch.dtype, approx: bool) -> str:
@@ -46,13 +54,33 @@ def variant(dtype: torch.dtype, approx: bool) -> str:
 
 
 def smem_bytes(n: int, c: int, f1: int, f2: int) -> int:
-    """Shared memory of one block (csrc/block_packed.cu): the pair tile's
-    operands and filter values, and the node inputs and sums of the
-    graph."""
+    """Shared memory of one f32 block (csrc/block_packed.cu
+    packed_block_smem_f32): the pair tile's operands and filter values,
+    and the node inputs and sums of the graph, all f32."""
     fw = f1 + f2
     tile = 32
     return 4 * (c * (tile + 4) + fw * (tile + 4) + tile * (fw + 4)
                 + 2 * n * fw + 4 * tile)
+
+
+def tc_smem_bytes(n: int, c: int, f1: int, f2: int, level: int) -> int:
+    """Shared memory of one bf16 block (csrc/block_packed.cu
+    packed_block_smem_tc): the staged weights (level 0 only), the
+    tensor-core tile (kernels/fused.py tc_regions), the tile's distance
+    weights and endpoints, and the graph's node sums (f32) and node inputs
+    (bf16)."""
+    r = fused.tc_regions(c, f1, f2)
+    return ((r["weights"] if level == 0 else 0) + r["r1"] + r["v"]
+            + 4 * fused.TC_ROWS * 4 + n * (f1 + f2) * (4 + 2))
+
+
+def level_for(n: int, c: int, f1: int, f2: int) -> Optional[int]:
+    """The layout level of the bf16 K2 for a bucket of N: the lowest that
+    fits in shared memory (at C = F1 = 128, F2 = 64: 0 to N = 56, 1 to
+    N = 134), None if none does."""
+    fits = [lv for lv in (0, 1)
+            if tc_smem_bytes(n, c, f1, f2, lv) <= fused.MAX_SMEM]
+    return fits[0] if fits else None
 
 
 def packed_block_aggregate_plain(e_packed, we1, we2, x1, x2, conv1, conv2,
@@ -81,6 +109,17 @@ def packed_block_aggregate(e_packed, we1, we2, x1, x2, conv1, conv2,
         return packed_block_aggregate_plain(e_packed, we1, we2, x1, x2,
                                             conv1, conv2, pairs,
                                             approx=approx)
+    return packed_block_launch(e_packed, we1, we2, x1, x2, conv1, conv2,
+                               pairs, approx=approx)
+
+
+def packed_block_launch(e_packed, we1, we2, x1, x2, conv1, conv2,
+                        pairs: PairList, *, approx: bool = False,
+                        level: Optional[int] = None):
+    """K2's CUDA kernel on CUDA tensors (packed_block_aggregate's
+    arguments). `level` forces a layout level of the bf16 kernel (tests
+    and chip_smoke.py; `level_for` picks it otherwise); the f32 kernel has
+    level 0 only."""
     dev = e_packed.device
     if dev.type != "cuda":
         raise ValueError(f"packed_block_aggregate: unsupported device {dev}")
@@ -100,30 +139,37 @@ def packed_block_aggregate(e_packed, we1, we2, x1, x2, conv1, conv2,
         raise ValueError(f"kernel needs C, F1, F2 % 4 == 0 and F1 + F2 <= "
                          f"{fused.MAX_FILTER_WIDTH} (C={c}, F1={f1}, "
                          f"F2={f2})")
-    if smem_bytes(n, c, f1, f2) > MAX_SMEM:
-        raise ValueError(f"N={n} needs {smem_bytes(n, c, f1, f2)} bytes of "
-                         f"shared memory, more than {MAX_SMEM}")
-    fused.check("e_packed", e_packed, (b, p, c), cd, dev)
+    bf = cd == torch.bfloat16
+    if bf:
+        lv = fused.layout_level(level, level_for(n, c, f1, f2), (0, 1),
+                            lambda x: tc_smem_bytes(n, c, f1, f2, x))
+    else:
+        lv = fused.layout_level(level, 0, (0,),
+                            lambda x: smem_bytes(n, c, f1, f2))
+    fused.check("e_packed", e_packed, (b, p, c), cd, dev,
+                align=8 if bf else 0)
     fused.check("we1", we1, (b, p), torch.float32, dev)
     fused.check("we2", we2, (b, p), torch.float32, dev)
     fused.check("x1", x1, (b, n, f1), cd, dev)
     fused.check("x2", x2, (b, n, f2), cd, dev)
     fused.check("iu", pairs.iu, (p,), torch.int64, dev)
     fused.check("ju", pairs.ju, (p,), torch.int64, dev)
-    wts = fused.filter_weights(conv1, conv2, c, cd, dev)
+    wts, packed = fused.prepared_filter(conv1, conv2, c, cd, dev)
     out1 = torch.empty((b, n, f1), dtype=torch.float32, device=dev)
     out2 = torch.empty((b, n, f2), dtype=torch.float32, device=dev)
     lib = _lib()
     ptrs = [e_packed, we1, we2, x1, x2, pairs.iu, pairs.ju]
     err = lib.packed_block_launch(
-        int(cd == torch.bfloat16), int(approx),
-        *[t.data_ptr() for t in ptrs], fused._ptr_array(wts),
-        out1.data_ptr(), out2.data_ptr(), b, n, p, c, f1, f2,
+        int(bf), int(approx), *[t.data_ptr() for t in ptrs],
+        fused._ptr_array(wts), None if packed is None else packed.data_ptr(),
+        out1.data_ptr(), out2.data_ptr(), b, n, p, c, f1, f2, lv,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("packed_block kernel launch failed: "
                            + lib.packed_block_error_string(err).decode())
-    launches[variant(cd, approx)] += 1
+    name = variant(cd, approx)
+    launches[name] += 1
+    last_launch[name] = dict(level=lv, grid=b)
     return out1, out2
 
 
@@ -134,8 +180,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.packed_block_launch.argtypes = (
-            [i, i] + [p] * 7 + [ctypes.POINTER(ctypes.c_void_p), p, p]
-            + [i] * 6 + [p])
+            [i, i] + [p] * 7 + [ctypes.POINTER(ctypes.c_void_p), p, p, p]
+            + [i] * 7 + [p])
         lib.packed_block_launch.restype = i
         lib.packed_block_error_string.argtypes = [i]
         lib.packed_block_error_string.restype = ctypes.c_char_p

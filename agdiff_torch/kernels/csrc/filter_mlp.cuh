@@ -1,14 +1,33 @@
 // Device code shared by K2 (block_packed.cu) and K3, K4 (fused.cu): the
-// CFConv filter MLPs of one interaction block, and the matrix product on
-// CUDA cores they are built from, on a tile of FT_ROWS rows (pairs).
+// CFConv filter MLPs of one interaction block, in two forms.
 //
-// Operands are held in shared memory as f32 in k-major order (row k of a
-// tile is its k-th feature, FT_LD floats apart), so that a thread reads
-// the eight rows of its unit as two float4 loads. A value of type T
-// (float or bf16) is held as the f32 value it is, so one f32 fused
-// multiply-add loop serves both: a product of two bf16 values is exact in
-// f32, and every sum is an f32 sum, which is what a bf16 product with an
-// f32 accumulator computes. At f32 the products are true f32, not TF32.
+// On CUDA cores (filter_tile, the f32 variants of K2 and K3, and K4's
+// gemm_unit), on a tile of FT_ROWS rows (pairs). Operands are held in
+// shared memory as f32 in k-major order (row k of a tile is its k-th
+// feature, FT_LD floats apart), so that a thread reads the eight rows of
+// its unit as two float4 loads. A value of type T (float or bf16) is held
+// as the f32 value it is, so one f32 fused multiply-add loop serves both: a
+// product of two bf16 values is exact in f32, and every sum is an f32 sum,
+// which is what a bf16 product with an f32 accumulator computes. At f32
+// the products are true f32, not TF32: the tensor cores offer only TF32
+// for f32 operands, so the f32 variants stay here.
+//
+// On the tensor cores (filter_tile_tc, the bf16 variants of K2 and K3), on
+// a tile of TC_ROWS rows: bf16 x bf16 -> f32 products through
+// mma.sync.m16n8k16 in PTX, whose fragment layout is documented, so that
+// the epilogues (bias, ssp, bf16 rounding; bias) work on the accumulators
+// where they are, with no f32 staging tile. The operand tiles E and V are
+// bf16, row-major, rows padded by TC_PAD elements (16 bytes), so that the
+// eight rows an ldmatrix reads fall on eight different bank groups. The
+// four filter matrices arrive packed by the wrapper
+// (kernels/fused.py pack_filter_weights) in the order a warp reads its B
+// fragments; a block stages them once into shared memory (layout level 0)
+// or reads them from global memory through L2 (level 1) with the same
+// loads and products, so both levels give the same bits. Widths are
+// zero-padded to multiples of 16 (C to Cp, F1 to F1p, F2 to F2p); padded
+// weights are 0, so padded columns add nothing. Bounded by bytes (the edge
+// features) at the main shapes, not by these products (fused.cu,
+// block_packed.cu).
 //
 // Build: included by the sources above, each compiled on its own with
 // nvcc -gencode arch=compute_90a,code=sm_90a (kernels/build.py, which
@@ -23,7 +42,7 @@
 typedef __nv_bfloat16 bf16;
 
 #define FT_ROWS 32                // rows (pairs) per tile
-#define FT_THREADS 256            // threads of every block that uses a tile
+#define FT_THREADS 256            // threads of a block that uses such tiles
 #define FT_LD (FT_ROWS + 4)       // k-major stride of a tile operand (floats)
 #define FT_LN2 0.6931471805599453f
 
@@ -165,6 +184,240 @@ __device__ void filter_tile(const float* E, float* V, float* Tt, int ldt,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         Tt[(r0 + i) * ldt + c + j] = acc[i][j] + bb[j];
+  }
+  __syncthreads();
+}
+
+// ---- the bf16 filter MLPs on the tensor cores ------------------------------
+
+#define TC_ROWS 64                // rows (pairs) per tensor-core tile
+#define TC_THREADS 512            // threads of a block that uses such tiles
+#define TC_PAD 8                  // bf16 elements padding each operand row
+#define TC_BLOCK 256              // bf16 values of one packed 16 x 16 block
+
+__host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
+
+// Widths, padded widths and strides of a tensor-core filter tile; the
+// region sizes below are mirrored by kernels/fused.py (tc_regions)
+struct TcDims {
+  int C, F1, F2, Cp, F1p, F2p, FWp;  // FWp = F1p + F2p
+  int lde, ldv, ldt;                 // strides of E, V (bf16), Tt (f32)
+};
+
+__host__ __device__ inline TcDims tc_dims(int C, int F1, int F2) {
+  TcDims d;
+  d.C = C; d.F1 = F1; d.F2 = F2;
+  d.Cp = pad16(C); d.F1p = pad16(F1); d.F2p = pad16(F2);
+  d.FWp = d.F1p + d.F2p;
+  d.lde = d.Cp + TC_PAD;
+  d.ldv = d.FWp + TC_PAD;
+  d.ldt = d.FWp + 8;   // float2 stores of a half-warp hit 16 banks apart
+  return d;
+}
+
+// bf16 values of the packed weights: fa = [fa1 | fa2] (Cp x FWp), then
+// fb1 (F1p x F1p), then fb2 (F2p x F2p)
+__host__ __device__ inline size_t tc_weight_elems(const TcDims& d) {
+  return (size_t)d.Cp * d.FWp + (size_t)d.F1p * d.F1p
+         + (size_t)d.F2p * d.F2p;
+}
+// R1 holds the tile's edge features E, then (after the first layer) Tt
+__host__ __device__ inline size_t tc_r1_bytes(const TcDims& d) {
+  const size_t e = (size_t)TC_ROWS * d.lde * 2;
+  const size_t t = (size_t)TC_ROWS * d.ldt * 4;
+  return e > t ? e : t;
+}
+__host__ __device__ inline size_t tc_v_bytes(const TcDims& d) {
+  return (size_t)TC_ROWS * d.ldv * 2;
+}
+
+// Biases, betas and packed weights of one block's two filter MLPs at bf16
+struct FilterTC {
+  const bf16* wp;          // packed weights (global memory)
+  const float *ba1, *ba2, *bb1, *bb2, *beta1, *beta2;
+};
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address
+// of row (l & 15), column 8 (l >> 4) of a 16 x 16 A tile, and r[0..3] are
+// then the a0..a3 registers of mma.m16n8k16's A fragment
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (16 x 16, row-major) x b (16 x 8), bf16 in, f32 accumulate;
+// lane (g, t) = (lane / 4, lane % 4) holds d at rows g, g + 8, columns
+// 2t, 2t + 1
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One lane's B fragments of a packed 16 x 16 block: (b0, b1) of the left
+// n8 half in x, y and of the right half in z, w
+template <bool W_SMEM>
+__device__ __forceinline__ uint4 ld_bfrag(const bf16* p) {
+  if (!W_SMEM) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint4 v;
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// acc[m][n] += A[rows 16m.., all k] x strip[all k, columns 8n..] for a
+// warp's unit of 32 rows x 16 columns: A bf16 row-major in shared memory
+// (stride lda, its first row), the strip KT packed blocks of one 16-column
+// strip
+template <bool W_SMEM>
+__device__ __forceinline__ void tc_unit(float acc[2][2][4], const bf16* A,
+                                        int lda, const bf16* strip, int KT,
+                                        int lane) {
+  const bf16* a = A + (lane & 15) * lda + (lane >> 4) * 8;
+  const bf16* b = strip + lane * 8;
+#pragma unroll 2
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, a + kt * 16);
+    ldsm_x4(a1, a + 16 * lda + kt * 16);
+    const uint4 w = ld_bfrag<W_SMEM>(b + (size_t)kt * TC_BLOCK);
+    mma_bf16(acc[0][0], a0, w.x, w.y);
+    mma_bf16(acc[0][1], a0, w.z, w.w);
+    mma_bf16(acc[1][0], a1, w.x, w.y);
+    mma_bf16(acc[1][1], a1, w.z, w.w);
+  }
+}
+
+// The packed weights (global) into shared memory, 16 bytes a thread at a
+// time; the caller's next barrier publishes them
+__device__ void stage_tc_weights(bf16* dst, const bf16* src, size_t elems) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* t = reinterpret_cast<uint4*>(dst);
+  for (size_t q = threadIdx.x; q < elems / 8; q += TC_THREADS)
+    t[q] = __ldg(s + q);
+}
+
+// Rows [0, rows) of a row-major (rows, C) bf16 plane into E (stride lde),
+// with zeros in columns [C, Cp) and in the rows past `rows` that the
+// products read (to 32 or TC_ROWS). 16-byte loads where C % 8 == 0 and
+// src is 16-byte aligned, else 8-byte (C % 4 == 0; the wrapper checks the
+// alignment).
+__device__ void load_tile_tc(bf16* E, const bf16* src, int rows,
+                             const TcDims& d) {
+  const int rows_read = rows > 32 ? TC_ROWS : 32;
+  if ((d.C & 7) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int vpr = d.Cp / 8;
+    for (int q = threadIdx.x; q < rows_read * vpr; q += TC_THREADS) {
+      const int r = q / vpr, c = 8 * (q % vpr);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows && c < d.C)
+        v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * d.C + c));
+      *reinterpret_cast<uint4*>(E + r * d.lde + c) = v;
+    }
+  } else {
+    const int vpr = d.Cp / 4;
+    for (int q = threadIdx.x; q < rows_read * vpr; q += TC_THREADS) {
+      const int r = q / vpr, c = 4 * (q % vpr);
+      uint2 v = make_uint2(0u, 0u);
+      if (r < rows && c < d.C)
+        v = __ldg(reinterpret_cast<const uint2*>(src + (size_t)r * d.C + c));
+      *reinterpret_cast<uint2*>(E + r * d.lde + c) = v;
+    }
+  }
+}
+
+// Both filter MLPs on a tile of `rows` (<= TC_ROWS) rows, E as
+// load_tile_tc leaves it:
+//   V  = ssp(E @ [fa1 | fa2] + [ba1 | ba2]) rounded to bf16   (stride ldv)
+//   Tt = [V1 @ fb1 + bb1 | V2 @ fb2 + bb2]                     (f32, ldt)
+// conv 1 in columns [0, F1p) of V and Tt, conv 2 in [F1p, FWp); padded
+// columns hold 0. ssp(x) = softplus(beta x) - ln 2 with beta1 or beta2.
+// A warp's unit is 32 rows x 16 columns, units round-robin over the
+// warps; the second 32-row half runs only when rows > 32. Tt may alias E
+// (it is written after the first layer's barrier). W: the packed weights,
+// staged in shared memory (W_SMEM) or in global memory. Starts and ends
+// with the block synchronised.
+template <bool APPROX, bool W_SMEM>
+__device__ void filter_tile_tc(const bf16* E, bf16* V, float* Tt, int rows,
+                               const bf16* W, const FilterTC& w,
+                               const TcDims& d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, nw = TC_THREADS / 32;
+  const int halves = rows > 32 ? 2 : 1;
+  const int ct1 = d.F1p / 16, ct2 = d.F2p / 16;
+  const float beta1 = *w.beta1, beta2 = *w.beta2;
+  // first layers: strips of [fa1 | fa2], K = Cp
+  for (int u = warp; u < halves * (ct1 + ct2); u += nw) {
+    const int ct = u / halves, r0 = 32 * (u % halves);
+    float acc[2][2][4] = {};
+    tc_unit<W_SMEM>(acc, E + r0 * d.lde, d.lde,
+                    W + (size_t)ct * (d.Cp / 16) * TC_BLOCK, d.Cp / 16, lane);
+    const bool first = ct < ct1;
+    const float beta = first ? beta1 : beta2;
+    const float* ba = first ? w.ba1 : w.ba2;
+    const int F = first ? d.F1 : d.F2;
+    const int c0 = 16 * ct - (first ? 0 : d.F1p);   // column in its conv
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int cl = c0 + 8 * n + 2 * t;          // F % 4 == 0: cl + 1 < F too
+      const bool real = cl < F;
+      const float b0 = real ? ba[cl] : 0.f, b1 = real ? ba[cl + 1] : 0.f;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x0 = acc[m][n][2 * h], x1 = acc[m][n][2 * h + 1];
+          const __nv_bfloat162 v =
+              real ? __floats2bfloat162_rn(
+                         softplus_<APPROX>(beta * (x0 + b0)) - FT_LN2,
+                         softplus_<APPROX>(beta * (x1 + b1)) - FT_LN2)
+                   : __floats2bfloat162_rn(0.f, 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(
+              V + (r0 + 16 * m + g + 8 * h) * d.ldv + 16 * ct + 8 * n
+              + 2 * t) = v;
+        }
+    }
+  }
+  __syncthreads();
+  // second layers: strips of fb1 (K = F1p) on V1, of fb2 (K = F2p) on V2
+  const bf16* fb1 = W + (size_t)d.Cp * d.FWp;
+  const bf16* fb2 = fb1 + (size_t)d.F1p * d.F1p;
+  for (int u = warp; u < halves * (ct1 + ct2); u += nw) {
+    const bool first = u < halves * ct1;
+    const int v = first ? u : u - halves * ct1;
+    const int ct = v / halves, r0 = 32 * (v % halves);
+    const int KT = (first ? d.F1p : d.F2p) / 16;
+    float acc[2][2][4] = {};
+    tc_unit<W_SMEM>(acc, V + r0 * d.ldv + (first ? 0 : d.F1p), d.ldv,
+                    (first ? fb1 : fb2) + (size_t)ct * KT * TC_BLOCK, KT,
+                    lane);
+    const float* bb = first ? w.bb1 : w.bb2;
+    const int F = first ? d.F1 : d.F2;
+    const int col0 = (first ? 0 : d.F1p) + 16 * ct;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int cl = 16 * ct + 8 * n + 2 * t;
+      const bool real = cl < F;
+      const float b0 = real ? bb[cl] : 0.f, b1 = real ? bb[cl + 1] : 0.f;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              Tt + (r0 + 16 * m + g + 8 * h) * d.ldt + col0 + 8 * n
+              + 2 * t) =
+              real ? make_float2(acc[m][n][2 * h] + b0,
+                                 acc[m][n][2 * h + 1] + b1)
+                   : make_float2(0.f, 0.f);
+    }
   }
   __syncthreads();
 }

@@ -27,7 +27,12 @@ Hopper (port of agdiff_tpu/ops/pallas/fused.py).
 Each function has a `*_plain` twin in PyTorch. The wrapper runs the twin
 for CPU tensors and launches the CUDA kernel (csrc/fused.cu, built at first
 use) for CUDA tensors, or raises for what the kernel does not take: a
-dtype, a shape, a device mismatch, an activation other than relu. K5 is a
+dtype, a shape, a device mismatch, an activation other than relu. K3 at
+bf16 runs on the tensor cores over a persistent grid
+(`block_agg_schedule`), with the filter weights packed once per weight
+set (`prepared_filter`, `pack_filter_weights`) and staged in shared
+memory (layout level 0) or read from L2 (level 1, `block_agg_level`);
+`block_agg_launch` forces a level for tests. K5 is a
 fused elementwise pass plus a reduction, which Triton could express; it is
 CUDA C++ here too, so that the port has one build path. `launches` counts
 the kernel launches per variant; the plain twins count nothing.
@@ -41,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import math
 from collections import Counter
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,10 +56,15 @@ from agdiff_torch.nn.common import activation_by_name
 LN2 = math.log(2.0)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_FILTER_WIDTH = 256   # F1 + F2: one thread a column (csrc/fused.cu)
+MAX_SMEM = 232448        # bytes of shared memory a block may use on Hopper
+TC_ROWS = 64             # pairs of a tensor-core tile (csrc/filter_mlp.cuh)
+TC_PAD = 8               # bf16 elements padding each operand row
 
 # kernel launches per variant ('<kernel>:<f32|bf16>'); plain calls do not
 # count
 launches: Counter = Counter()
+# the last launch of each variant: its layout level and grid (blocks)
+last_launch: Dict[str, dict] = {}
 
 
 def variant(kernel: str, dtype: torch.dtype) -> str:
@@ -74,6 +85,156 @@ def filter_mlp(e, conv, softplus=F.softplus):
     v = _dot(e, conv["fa"][0], cd) + conv["fa"][1]
     v = softplus(conv["beta"] * v) - LN2
     return _dot(v, conv["fb"][0], cd) + conv["fb"][1]
+
+
+# ---- the tensor-core layout (csrc/filter_mlp.cuh) ---------------------------
+
+def pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def tc_regions(c: int, f1: int, f2: int) -> Dict[str, int]:
+    """Bytes of a tensor-core filter tile's shared-memory regions
+    (filter_mlp.cuh tc_weight_elems, tc_r1_bytes, tc_v_bytes): the packed
+    weights, E | Tt (the edge tile, then the second layers' f32 output)
+    and V (the first layers' bf16 output), for widths padded to 16."""
+    cp, f1p, f2p = pad16(c), pad16(f1), pad16(f2)
+    fwp = f1p + f2p
+    return dict(weights=2 * (cp * fwp + f1p * f1p + f2p * f2p),
+                r1=max(TC_ROWS * (cp + TC_PAD) * 2, TC_ROWS * (fwp + 8) * 4),
+                v=TC_ROWS * (fwp + TC_PAD) * 2)
+
+
+def block_agg_smem(c: int, f1: int, f2: int, level: int) -> int:
+    """Shared memory of one bf16 K3 block (csrc/fused.cu
+    block_agg_smem_tc): level 0 stages the packed weights, level 1 reads
+    them from global memory; both hold the tile and its distance
+    weights."""
+    r = tc_regions(c, f1, f2)
+    return ((r["weights"] if level == 0 else 0) + r["r1"] + r["v"]
+            + 2 * TC_ROWS * 4)
+
+
+def block_agg_level(c: int, f1: int, f2: int) -> Optional[int]:
+    """The layout level of the bf16 K3 at these widths: the lowest that
+    fits in shared memory (0 to C = 288 at F1 = 128, F2 = 64), None if
+    none does."""
+    fits = [lv for lv in (0, 1) if block_agg_smem(c, f1, f2, lv) <= MAX_SMEM]
+    return fits[0] if fits else None
+
+
+def block_agg_groups(b: int, n: int) -> tuple:
+    """The bf16 K3's unit of work (csrc/fused.cu block_agg_tc): (node rows
+    per group, tiles per group, groups). A group is TC_ROWS // N whole
+    node rows in one tile when N <= TC_ROWS, else one node row in
+    ceil(N / TC_ROWS) tiles."""
+    rpg = TC_ROWS // n if n <= TC_ROWS else 1
+    tiles = 1 if n <= TC_ROWS else -(-n // TC_ROWS)
+    return rpg, tiles, -(-(b * n) // rpg)
+
+
+def block_agg_schedule(b: int, n: int, grid: int) -> List[List[int]]:
+    """The node rows (b * N + i) each block of a grid of `grid` sums, in
+    its order: block k takes a contiguous share of the groups, the first
+    groups % grid blocks one more than the rest."""
+    rpg, _, groups = block_agg_groups(b, n)
+    per, extra = divmod(groups, grid)
+    out = []
+    for k in range(grid):
+        g0 = k * per + min(k, extra)
+        g1 = g0 + per + (k < extra)
+        out.append(list(range(g0 * rpg, min(g1 * rpg, b * n))))
+    return out
+
+
+def _fragment_order() -> torch.Tensor:
+    """Where each of the 256 values of a packed 16 x 16 block comes from,
+    as k * 16 + n: lane (g, t) = (lane // 4, lane % 4) holds (k, n) =
+    (2t, g), (2t + 1, g), (2t + 8, g), (2t + 9, g), then the same at n + 8
+    (the B fragments of mma.m16n8k16 for both n8 halves)."""
+    lane = torch.arange(32)[:, None]
+    v = torch.arange(8)[None, :]
+    g, t = lane // 4, lane % 4
+    k = 2 * t + (v & 1) + 8 * ((v >> 1) & 1)
+    return (k * 16 + g + 8 * (v >> 2)).reshape(-1)
+
+
+def pack_matrix(w: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    """w (K, Nn) zero-padded to (kp, np_), flat in packed order: strips of
+    16 columns, each its kp / 16 blocks of 16 rows, each block in
+    fragment order."""
+    k, nn = w.shape
+    wp = w.new_zeros(kp, np_)
+    wp[:k, :nn] = w
+    blocks = wp.reshape(kp // 16, 16, np_ // 16, 16).permute(2, 0, 1, 3)
+    order = _fragment_order().to(w.device)
+    return blocks.reshape(np_ // 16, kp // 16, 256)[..., order].reshape(-1)
+
+
+def unpack_matrix(flat: torch.Tensor, k: int, nn: int) -> torch.Tensor:
+    """The inverse of pack_matrix: the (k, nn) matrix a packed strip set
+    holds."""
+    kp, np_ = pad16(k), pad16(nn)
+    blocks = torch.empty((np_ // 16, kp // 16, 256), dtype=flat.dtype,
+                         device=flat.device)
+    blocks[..., _fragment_order().to(flat.device)] = flat.reshape(
+        np_ // 16, kp // 16, 256)
+    wp = blocks.reshape(np_ // 16, kp // 16, 16, 16).permute(1, 2, 0, 3)
+    return wp.reshape(kp, np_)[:k, :nn]
+
+
+def pack_filter_weights(fa1, fa2, fb1, fb2) -> torch.Tensor:
+    """The four filter matrices as the tensor-core tile reads them: fa =
+    [fa1 | fa2] with fa1 in columns [0, F1p) and fa2 in [F1p, F1p + F2p)
+    (C x FWp), then fb1 (F1p x F1p), then fb2 (F2p x F2p), each
+    pack_matrix'ed, in one flat buffer of fa1's dtype."""
+    c, f1 = fa1.shape
+    f2 = fa2.shape[1]
+    cp, f1p, f2p = pad16(c), pad16(f1), pad16(f2)
+    fa = fa1.new_zeros(c, f1p + f2p)
+    fa[:, :f1] = fa1
+    fa[:, f1p:f1p + f2] = fa2
+    return torch.cat([pack_matrix(fa, cp, f1p + f2p),
+                      pack_matrix(fb1, f1p, f1p),
+                      pack_matrix(fb2, f2p, f2p)])
+
+
+def unpack_filter_weights(packed, c: int, f1: int, f2: int) -> tuple:
+    """(fa1, fa2, fb1, fb2) from a pack_filter_weights buffer."""
+    cp, f1p, f2p = pad16(c), pad16(f1), pad16(f2)
+    n_fa, n_fb1 = cp * (f1p + f2p), f1p * f1p
+    fa = unpack_matrix(packed[:n_fa], c, f1p + f2p)
+    fb1 = unpack_matrix(packed[n_fa:n_fa + n_fb1], f1, f1)
+    fb2 = unpack_matrix(packed[n_fa + n_fb1:], f2, f2)
+    return fa[:, :f1], fa[:, f1p:f1p + f2], fb1, fb2
+
+
+# prepared filter weights by the identity of their source tensors (held
+# here, so an id is not reused while its entry lives), checked against
+# their versions
+_PREPARED: Dict[tuple, tuple] = {}
+
+
+def prepared_filter(conv1, conv2, c, cd, device) -> tuple:
+    """(filter_weights(...), pack_filter_weights of the four matrices at
+    bf16, or None at f32) for two convs, made once per weight set and
+    dtype (the forwards keep their conv dicts), so that a launch does not
+    redo ten casts and checks and a pack."""
+    srcs = tuple(t for conv in (conv1, conv2)
+                 for t in (*conv["fa"], *conv["fb"], conv["beta"]))
+    key = (tuple(id(t) for t in srcs), cd, str(device), c)
+    versions = tuple(getattr(t, "_version", None) for t in srcs)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[1] == versions:
+        return hit[2]
+    wts = filter_weights(conv1, conv2, c, cd, device)
+    packed = (pack_filter_weights(*wts[:4]).contiguous()
+              if cd == torch.bfloat16 else None)
+    if None not in versions:
+        if len(_PREPARED) >= 64:
+            _PREPARED.pop(next(iter(_PREPARED)))
+        _PREPARED[key] = (srcs, versions, (wts, packed))
+    return wts, packed
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -120,6 +281,16 @@ def interaction_block_aggregate(edge_attr, w_edge1, w_edge2, h1, h2, conv1,
     if edge_attr.device.type == "cpu":
         return interaction_block_aggregate_plain(
             edge_attr, w_edge1, w_edge2, h1, h2, conv1, conv2)
+    return block_agg_launch(edge_attr, w_edge1, w_edge2, h1, h2, conv1,
+                            conv2)
+
+
+def block_agg_launch(edge_attr, w_edge1, w_edge2, h1, h2, conv1, conv2, *,
+                     level: Optional[int] = None):
+    """K3's CUDA kernel on CUDA tensors (interaction_block_aggregate's
+    arguments). `level` forces a layout level of the bf16 kernel (tests
+    and chip_smoke.py; `block_agg_level` picks it otherwise); the f32
+    kernel has level 0 only."""
     dev, cd = _device_and_dtype(edge_attr, "edge_attr")
     b, n, n2, c = edge_attr.shape
     f1, f2 = conv1["fb"][0].shape[1], conv2["fb"][0].shape[1]
@@ -129,22 +300,44 @@ def interaction_block_aggregate(edge_attr, w_edge1, w_edge2, h1, h2, conv1,
     if c % 4 or f1 % 4 or f2 % 4 or f1 + f2 > MAX_FILTER_WIDTH:
         raise ValueError(f"kernel needs C, F1, F2 % 4 == 0 and F1 + F2 <= "
                          f"{MAX_FILTER_WIDTH} (C={c}, F1={f1}, F2={f2})")
-    check("edge_attr", edge_attr, (b, n, n, c), cd, dev)
+    bf = cd == torch.bfloat16
+    check("edge_attr", edge_attr, (b, n, n, c), cd, dev, align=8 if bf else 0)
     check("w_edge1", w_edge1, (b, n, n), torch.float32, dev)
     check("w_edge2", w_edge2, (b, n, n), torch.float32, dev)
     check("h1", h1, (b, n, f1), torch.float32, dev)
     check("h2", h2, (b, n, f2), torch.float32, dev)
-    wts = filter_weights(conv1, conv2, c, cd, dev)
+    lv = layout_level(level, block_agg_level(c, f1, f2) if bf else 0,
+                  (0, 1) if bf else (0,),
+                  lambda x: block_agg_smem(c, f1, f2, x) if bf else 0)
+    wts, packed = prepared_filter(conv1, conv2, c, cd, dev)
     out1 = torch.empty((b, n, f1), dtype=torch.float32, device=dev)
     out2 = torch.empty((b, n, f2), dtype=torch.float32, device=dev)
     lib = _lib()
+    grid = ctypes.c_int(0)
     err = lib.block_agg_launch(
-        int(cd == torch.bfloat16), *_ptrs(edge_attr, w_edge1, w_edge2, h1,
-                                          h2), _ptr_array(wts),
-        *_ptrs(out1, out2), b, n, c, f1, f2, _stream(dev))
+        int(bf), *_ptrs(edge_attr, w_edge1, w_edge2, h1, h2),
+        _ptr_array(wts), None if packed is None else packed.data_ptr(),
+        *_ptrs(out1, out2), b, n, c, f1, f2, lv, ctypes.byref(grid),
+        _stream(dev))
     _raise_on(lib, err, "block_agg")
-    launches[variant("block_agg", cd)] += 1
+    name = variant("block_agg", cd)
+    launches[name] += 1
+    last_launch[name] = dict(level=lv, grid=grid.value)
     return out1, out2
+
+
+def layout_level(level, chosen, levels, smem) -> int:
+    """The layout level to launch: `level` when forced, else `chosen`;
+    raises when it is not one of `levels` or its shared memory (`smem`,
+    a function of the level) is over MAX_SMEM."""
+    lv = chosen if level is None else level
+    if lv not in levels:
+        raise ValueError(f"layout level {lv} not in {levels}: the shape does "
+                         f"not fit in shared memory at any level")
+    if smem(lv) > MAX_SMEM:
+        raise ValueError(f"layout level {lv} needs {smem(lv)} bytes of "
+                         f"shared memory, more than {MAX_SMEM}")
+    return lv
 
 
 def pair_score_mlp(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3,
@@ -292,8 +485,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_void_p)
-        lib.block_agg_launch.argtypes = [i] + [p] * 5 + [pp, p, p] \
-            + [i] * 5 + [p]
+        lib.block_agg_launch.argtypes = [i] + [p] * 5 + [pp, p, p, p] \
+            + [i] * 6 + [ctypes.POINTER(i), p]
         lib.pair_score_launch.argtypes = [i, p, p, p, pp, p] + [i] * 5 + [p]
         lib.gine_launch.argtypes = [p] * 4 + [i] * 3 + [p]
         for fn in (lib.block_agg_launch, lib.pair_score_launch,

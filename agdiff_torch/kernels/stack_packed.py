@@ -83,13 +83,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from agdiff_torch.kernels.fused import check as _check
+from agdiff_torch.kernels.fused import MAX_SMEM, check as _check
 from agdiff_torch.nn.common import activation_by_name
 from agdiff_torch.ops import approx as ax
 from agdiff_torch.ops.pairs import PairList, gather_nodes, scatter_nodes
 
 TILE_P = 32          # pairs per tile (csrc/stack_packed.cu TP)
-MAX_SMEM = 232448    # bytes of shared memory a block may use on Hopper
 MAX_RANKS = 8        # the portable thread-block cluster size
 MODES = ("schnet", "gin", "full")
 LN2 = math.log(2.0)

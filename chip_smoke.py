@@ -32,11 +32,15 @@ Phases, each of which fails the run:
      each K1 time is read twice: as a lone call (`ms`, the kernels line)
      and behind a ~1 ms spin of the card (`ms_spun`, the card's time with
      no host launch overhead in it);
-     then K3 (f32, bf16), K5, K4 (f32, bf16) and K2 (exact, '-approx')
-     likewise, on the inputs of each path's first call at the full width
-     of configs/qm9_default.yml (f32) or qm9_fast.yml (bf16), B=128,
-     N=32, with planted faults (a dropped filter or first-layer bias, the
-     softplus shift dropped, the mask ignored, the relu dropped);
+     then K3 (f32, bf16), K5, K4 (f32, bf16) and K2 (exact, '-approx',
+     and f32 on path D's inputs taken at f32) likewise, on the inputs of
+     each path's first call at the full width of configs/qm9_default.yml
+     (f32) or qm9_fast.yml (bf16), B=128, N=32, with planted faults (a
+     dropped filter or first-layer bias, the softplus shift dropped, the
+     mask ignored, the relu dropped), each timed as a lone call (`ms`)
+     and behind a card spin (`ms_spun`); K2 and K3 print the layout level
+     and grid of their launch, and at bf16 the other layout level must
+     give the same bits (timed beside it);
   4. the QM9 slice: GenerationRunner generates conformers for the
      molecules of agdiff_torch/data/fixtures/qm9_synthetic.json on the
      'pksf' engine (bucket 32, chunk 128, w_global 0.3, a 500-step suffix
@@ -85,7 +89,7 @@ Phases, each of which fails the run:
      molecules as an .npz (20 steps), and a second run must resume
      without generating;
   6. where the time goes: torch.profiler over a few ladder steps of one
-     chunk of each slice, and of paths A, D and E, gives each hand
+     chunk of each slice, and of paths A, B, D and E, gives each hand
      kernel's share of the device time, the device's idle share and the
      largest kernels;
   7. one JSON line lists each kernel variant and its numbers, then the
@@ -709,12 +713,15 @@ def packed_block_work(args):
 
 
 def check_kernel(label, name, kernel, plain, args, outputs, faults, limits,
-                 work, peak, report) -> tuple:
+                 work, peak, report, launch=None, levels=None) -> tuple:
     """A K2-K5 kernel against its plain version on a path's inputs:
     `outputs` lists (output name, index into the result, selection,
     scale-from output or None); each planted fault (name, plain-like
-    callable) must break a limit; times and the bound. Returns the row and
-    its failures."""
+    callable) must break a limit; times and the bound. `launch` (K2, K3):
+    returns the last launch's layout level and grid, printed beside the
+    time; `levels` (K2, K3 at bf16): level -> a callable launching the
+    kernel at that level, each of which must give the bits of the
+    wrapper's choice (timed too). Returns the row and its failures."""
     import torch
 
     def as_tuple(x):
@@ -737,6 +744,17 @@ def check_kernel(label, name, kernel, plain, args, outputs, faults, limits,
     repro = all(torch.equal(g, a) for g, a in zip(got, again))
     fault_rows = {fname: rows(as_tuple(fn()), ref) for fname, fn in faults}
     ms = cuda_time(lambda: kernel(*args))
+    ms_spun = cuda_time(lambda: kernel(*args), spin=True)
+    info = launch() if launch else {}
+    level_rows, level_failures = {}, []
+    for lv, fn in (levels or {}).items():
+        out = as_tuple(fn())
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, o) for g, o in zip(got, out))
+        level_rows[lv] = dict(same_bits=same, ms=cuda_time(fn))
+        if not same:
+            level_failures.append(f"{name} {label}: level {lv} differs from "
+                                  f"level {info.get('level')}")
     plain_ms = cuda_time(lambda: plain(*args))
     flops, io = work(args)
     t_ops, t_bytes = flops / peak * 1e3, io / PEAK_BYTES * 1e3
@@ -744,7 +762,8 @@ def check_kernel(label, name, kernel, plain, args, outputs, faults, limits,
                limits={k: limits[k] for k in outs},
                planted_faults=fault_rows, bitwise_reproducible=repro,
                max_abs_err=max(r["max_abs_err"] for r in outs.values()),
-               ms=ms, plain_ms=plain_ms, library_ms=None, flops=flops,
+               ms=ms, ms_spun=ms_spun, plain_ms=plain_ms, library_ms=None,
+               flops=flops, launch=info, levels=level_rows,
                bytes=io, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     report["kernel_checks"].append(row)
@@ -758,11 +777,16 @@ def check_kernel(label, name, kernel, plain, args, outputs, faults, limits,
 
     print(f"{name} {label}: |kernel - plain| as shares of each output's "
           f"max|value|: {line(outs)}; two launches bitwise equal {repro}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} "
-          f"GFLOP, {io / 1e6:.1f} MB)", flush=True)
+          f"kernel {ms:.3f} ms (spun {ms_spun:.3f}), plain {plain_ms:.3f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{flops / 1e9:.2f} GFLOP, {io / 1e6:.1f} MB)"
+          + (f"; layout level {info['level']}, grid {info['grid']}"
+             if info else "")
+          + "".join(f"; level {lv}: same bits {r['same_bits']}, "
+                    f"{r['ms']:.3f} ms" for lv, r in level_rows.items()),
+          flush=True)
     failures = [f"{name} {label}: kernel breaks {o} {k}"
-                for o, k in broken_limits(outs, limits)]
+                for o, k in broken_limits(outs, limits)] + level_failures
     if not repro:
         failures.append(f"{name} {label}: two launches differ")
     for fname, table in fault_rows.items():
@@ -823,11 +847,14 @@ def check_new_kernels(fwds, batch, report) -> tuple:
                 e, w1, w2, h1, h2, no_bias(c1, "fb"), c2)),
             ("softplus shift dropped", shift_dropped(lambda: plain(*args)))]
         name = fused.variant("block_agg", e.dtype)
+        bf = e.dtype == torch.bfloat16
         rows[name], f = check_kernel(
             f"path {label}", name, fused.interaction_block_aggregate, plain,
             args, outs, faults, limits_for(("agg1", "agg2"), e.dtype),
-            block_agg_work, PEAK_F32 if e.dtype == torch.float32
-            else PEAK_BF16, report)
+            block_agg_work, PEAK_BF16 if bf else PEAK_F32, report,
+            launch=lambda name=name: fused.last_launch[name],
+            levels={1: lambda args=args: fused.block_agg_launch(
+                *args, level=1)} if bf else None)
         failures += f
 
     args, _ = capture(fwds["pallas_f32"], batch, "gine_aggregate")
@@ -885,8 +912,28 @@ def check_new_kernels(fwds, batch, report) -> tuple:
         rows[name], f = check_kernel(
             f"path {label}", name, kern, plain, args, outs, faults,
             limits_for(("agg1", "agg2"), e.dtype), packed_block_work,
-            PEAK_BF16, report)
+            PEAK_BF16, report,
+            launch=lambda name=name: k2.last_launch[name],
+            levels={1: lambda args=args, kw=kw: k2.packed_block_launch(
+                *args, level=1, **kw)})
         failures += f
+
+    # K2's f32 variant (no engine runs it) on path D's inputs taken at f32
+    args, _ = capture(fwds["pk"], batch, "packed_block_aggregate")
+    args = [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+    e, we1, we2, x1, x2, c1, c2, pairs = args
+    plain = k2.packed_block_aggregate_plain
+    faults = [
+        ("filter bias dropped (conv 1)", lambda: plain(
+            e, we1, we2, x1, x2, no_bias(c1, "fb"), c2, pairs)),
+        ("softplus shift dropped", shift_dropped(lambda: plain(*args)))]
+    name = k2.variant(torch.float32, False)
+    rows[name], f = check_kernel(
+        "path D at f32", name, k2.packed_block_aggregate, plain, args,
+        [("agg1", 0, node, None), ("agg2", 1, node, None)], faults,
+        limits_for(("agg1", "agg2"), torch.float32), packed_block_work,
+        PEAK_F32, report, launch=lambda: k2.last_launch[name])
+    failures += f
     return rows, failures
 
 
@@ -1541,6 +1588,8 @@ def main() -> int:
                   capacity=drugs._capacity_for(dmols[0], "tight-pksf"))
     profile_slice(fwds["pallas_f32"], fdiff, qmols[0], 32, CHUNK, "path_A",
                   report, {"K3": "block_agg_kernel", "K5": "gine_kernel"})
+    profile_slice(fwds["pallas_bf16"], fdiff, qmols[0], 32, CHUNK, "path_B",
+                  report, {"K3": "block_agg_kernel"})
     profile_slice(fwds["pk"], fdiff, qmols[0], 32, CHUNK, "path_D", report,
                   {"K2": "packed_block_kernel"})
     profile_slice(mono_runners["E"].forward("mono"), fdiff, qmols[0], 32,

@@ -5,7 +5,10 @@ memory), 96 (node temporaries in global memory) and 192 (all node regions
 in global memory); each main-path case at a cluster of R = 1, 2 and 4
 CTAs per graph, the layout levels at R = 2, the choice of R and a refused
 R. K2-K5: each variant on the inputs its engine gives it
-at a small width, and the inputs their wrappers refuse. Imports no JAX,
+at a small width, and the inputs their wrappers refuse; K3 at bf16 at N =
+20 and 40 (ragged 64-pair tiles) and B = 1, K2 at bf16 at N = 104 (layout
+level 1), both called directly at widths that are not multiples of 16, and
+both layout levels of each giving the same bits. Imports no JAX,
 so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -13,6 +16,7 @@ so that it runs on a machine without it:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -280,14 +284,26 @@ def _first_call(fwd, batch, name):
     return calls[0]
 
 
-def _small_forward(card, dtype, engine, n=32, **kw):
-    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+def _small_forward(card, dtype, engine, n=32, b=8, hidden=64, **kw):
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=hidden, num_convs=2,
                               num_convs_local=2, dtype=dtype)
     model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
-    mols = load_fixture()
-    batch = pad_molecules([mols[i % len(mols)] for i in range(8)], n,
+    mols = [m for m in load_fixture() if m.num_nodes <= n]
+    batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
                           device=card)
     return build_fast_forward(cfg, model, engine, **kw), batch
+
+
+def _expected_level(wrapper, args):
+    """The layout level the bf16 K2 or K3 wrapper should choose."""
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+
+    e, conv1, conv2 = args[0], args[5], args[6]
+    c, f1, f2 = e.shape[-1], conv1["fb"][0].shape[1], conv2["fb"][0].shape[1]
+    if wrapper == "packed_block_aggregate":
+        return k2.level_for(args[3].shape[1], c, f1, f2)
+    return fused.block_agg_level(c, f1, f2)
 
 
 @pytest.mark.cuda
@@ -303,12 +319,21 @@ def _small_forward(card, dtype, engine, n=32, **kw):
     ("interaction_block_aggregate", "pallas", "float32", dict(n=40)),
     ("gine_aggregate", "pallas", "float32", dict(n=40)),
     ("pair_score_mlp", "pallas", "bfloat16", dict(pack_pairs=False, n=40)),
-    ("packed_block_aggregate", "pk", "bfloat16", dict(n=40))])
+    ("packed_block_aggregate", "pk", "bfloat16", dict(n=40)),
+    # K3 at bf16: ragged 64-pair tiles (three node rows of 20, one of 40)
+    # and fewer node rows than the card holds blocks
+    ("interaction_block_aggregate", "pallas", "bfloat16", dict(n=20)),
+    ("interaction_block_aggregate", "pallas", "bfloat16", dict(n=40)),
+    ("interaction_block_aggregate", "pallas", "bfloat16", dict(b=1)),
+    # K2 at the largest N the CUDA-core form took at H = 128: level 1
+    ("packed_block_aggregate", "pk", "bfloat16", dict(n=104, hidden=128))])
 def test_cuda_new_kernels_match_plain(card, wrapper, engine, dtype, kw):
-    """K3, K5, K4 and K2 on the inputs their engine gives them at H = 64,
-    B = 8, N = 32 (or 40), against the plain versions, each launch counted
-    once; node outputs on real nodes, scores on the mask (zero off
-    it)."""
+    """K3, K5, K4 and K2 on the inputs their engine gives them at H = 64
+    (or 128), B = 8 (or 1), N = 32 (or 20, 40, 104), against the plain
+    versions, each launch counted once, two launches bitwise equal; node
+    outputs on real nodes, scores on the mask (zero off it). K2 and K3 at
+    bf16 launch at the layout level their shape picks, K3 on no more
+    blocks than its node-row groups."""
     from agdiff_torch.kernels import block_packed as k2
     from agdiff_torch.kernels import fused
 
@@ -324,6 +349,16 @@ def test_cuda_new_kernels_match_plain(card, wrapper, engine, dtype, kw):
     got, ref, again = ((t,) if isinstance(t, torch.Tensor) else t
                        for t in (got, ref, again))
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+    if dtype == "bfloat16" and wrapper in ("packed_block_aggregate",
+                                           "interaction_block_aggregate"):
+        name = (k2.variant(torch.bfloat16, akw.get("approx", False))
+                if module is k2 else fused.variant("block_agg",
+                                                   torch.bfloat16))
+        launch = module.last_launch[name]
+        assert launch["level"] == _expected_level(wrapper, args)
+        if module is fused:
+            b, n = args[0].shape[:2]
+            assert 1 <= launch["grid"] <= fused.block_agg_groups(b, n)[2]
     limits = NEW_LIMITS[args[0].dtype]
     if wrapper == "pair_score_mlp":
         mask = args[2]
@@ -351,6 +386,88 @@ def test_cuda_k2_f32_matches_plain(card):
     for g, r in zip(got, ref):
         _within_limits(g[batch.node_mask], r[batch.node_mask],
                        NEW_LIMITS[torch.float32])
+
+
+def _numpy_block(card, b, n, c, f1, f2, dtype, seed=0):
+    """Inputs of K2 and K3 at any widths, made from a seed with numpy:
+    dense (B, N, N, C) and packed (B, P, C) edge features, distance
+    weights, node inputs, and two conv dicts."""
+    from agdiff_torch.ops.pairs import triu_pairs
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, dt=torch.float32):
+        return torch.from_numpy((scale * rng.standard_normal(shape))
+                                .astype(np.float32)).to(card, dt)
+
+    def conv(f):
+        return {"fa": (t(c, f, scale=c ** -0.5), t(f, scale=0.1)),
+                "fb": (t(f, f, scale=f ** -0.5), t(f, scale=0.1)),
+                "beta": torch.tensor(1.3, device=card)}
+
+    pairs = triu_pairs(n, card)
+    p = pairs.num_pairs
+    return dict(
+        dense=(t(b, n, n, c, dt=dtype), t(b, n, n), t(b, n, n),
+               t(b, n, f1), t(b, n, f2)),
+        packed=(t(b, p, c, dt=dtype), t(b, p), t(b, p), t(b, n, f1, dt=dtype),
+                t(b, n, f2, dt=dtype)),
+        convs=(conv(f1), conv(f2)), pairs=pairs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k2_k3_at_widths_not_multiples_of_16(card, kernel, dtype):
+    """C = 36, F1 = 20, F2 = 12 (multiples of 4, not of 16): the
+    tensor-core tile zero-pads them; the f32 kernels take them as they
+    did."""
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+
+    x = _numpy_block(card, 3, 20, 36, 20, 12, dtype)
+    c1, c2 = x["convs"]
+    if kernel == "K3":
+        args = (*x["dense"], c1, c2)
+        run, plain = (fused.interaction_block_aggregate,
+                      fused.interaction_block_aggregate_plain)
+    else:
+        args = (*x["packed"], c1, c2, x["pairs"])
+        run, plain = (k2.packed_block_aggregate,
+                      k2.packed_block_aggregate_plain)
+    got, again, ref = run(*args), run(*args), plain(*args)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        _within_limits(g, r, NEW_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,approx", [("K2", False), ("K2", True),
+                                          ("K3", False)])
+def test_cuda_k2_k3_layout_levels_give_the_same_bits(card, kernel, approx):
+    """Level 1 (weights read from L2) against level 0 (weights staged in
+    shared memory) at bf16, at the main widths (C = F1 = 128, F2 = 64) and
+    at widths that are not multiples of 16."""
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+
+    for n, (c, f1, f2) in ((32, (128, 128, 64)), (20, (36, 20, 12))):
+        x = _numpy_block(card, 4, n, c, f1, f2, torch.bfloat16, seed=n)
+        c1, c2 = x["convs"]
+        if kernel == "K3":
+            outs = [fused.block_agg_launch(*x["dense"], c1, c2, level=lv)
+                    for lv in (0, 1)]
+            assert fused.last_launch["block_agg:bf16"]["level"] == 1
+        else:
+            outs = [k2.packed_block_launch(*x["packed"], c1, c2, x["pairs"],
+                                           approx=approx, level=lv)
+                    for lv in (0, 1)]
+            assert k2.last_launch[k2.variant(torch.bfloat16,
+                                             approx)]["level"] == 1
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -172,7 +172,9 @@ def test_port_imports_no_jax():
     sources = [os.path.join(d, f)
                for d, _, fs in os.walk(os.path.join(ROOT, "agdiff_torch"))
                for f in fs if f.endswith(".py")]
-    sources.append(os.path.join(ROOT, "chip_smoke.py"))
+    sources += [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                                "chip_stamps.py",
+                                                "chip_profile.py")]
     assert len(sources) > 20
     for path in sources:
         with open(path) as f:
