@@ -1,10 +1,17 @@
 // K6 on Hopper: the whole eval forward of DualEncoderEpsNetwork in one
-// launch, edge encoder included, over the bucket's unordered pairs.
+// launch, edge encoder included, over the pairs of each graph's working
+// graph.
 //
 // Replaces the TPU kernel _mono_kernel (agdiff_tpu/ops/pallas/
 // monolithic.py:240). One CTA per graph runs:
-//   1. the edge encoder on the graph's pairs, 32 at a time, into an f32
-//      per-graph scratch e32 (P x H) that the wrapper allocates;
+//   0. the graph's working list: its pairs with em or lm nonzero, in pair
+//      order (a ballot-and-popcount scan of its P mask entries), and its
+//      own incidence lists, each node's entries on those pairs in their
+//      order, re-coded as (row in the working list) << shift | other
+//      endpoint; both score planes are written 0 off the list;
+//   1. the edge encoder on the working pairs, 32 at a time, into rows
+//      [0, Pe) of an f32 per-graph scratch e32 (P x H, row r the list's
+//      r-th pair) that the wrapper allocates;
 //   2. NB SchNet interaction blocks: per pair tile the distance weights
 //      (sigmoid(sum relu(d dw1k + dw1b) dw2k + dw2b) times the envelope,
 //      per conv), both filter MLPs on the cd-rounded e32 tile, and the
@@ -12,6 +19,11 @@
 //      node tail;
 //   3. NL GIN layers on the f32 e32;
 //   4. both pair-score heads, masked by em (global) and lm (local).
+// Every pair phase walks tiles of consecutive working pairs. Off the list
+// em = lm = 0, where every message is +-0 and both heads are multiplied by
+// 0, so each per-node sum (which starts at +0) and each plane holds the
+// bits the whole triangle gives; every product row depends on its own
+// operand row only.
 // The function and its rounding points are documented beside the wrapper
 // (kernels/monolithic.py); `mono_forward_plain` there is the plain
 // version this kernel is held to.
@@ -29,17 +41,17 @@
 // graphs of chip_smoke.py's K6 case (14990 of 63488 pairs in em), the
 // products are ~18 GFLOP, 0.018 ms at 989 TFLOP/s bf16, and the bytes
 // (distances, masks, types, embeddings, weights, planes) ~8 MB, 0.002 ms.
-// This first kernel runs some 120x above that (PERF.md): legacy mma.sync
-// through wmma, not wgmma; every pair of the bucket encoded and scored,
-// masked ones too (the TPU kernel's schedule); the encoder's weights
-// restaged for every 32-pair tile; barriers between every step of a tile.
+// It runs far above that (PERF.md): legacy mma.sync through wmma, not
+// wgmma; the encoder's weights restaged for every 32-pair tile; barriers
+// between every step of a tile; one CTA per graph (B = 48 leaves SMs idle).
 //
 // Node regions (h, hl, the node temporaries NF and XB, the small per-node
 // arrays) live in shared memory or, by layout level, in a per-graph
 // global scratch (kernels/monolithic.py layout mirrors Regions): the same
 // code at every level, and the same bits. Aggregation walks each node's
 // incidence list in increasing pair order (ops/pairs.py): no atomics, so
-// two launches give the same bits.
+// two launches give the same bits. The working lists live in shared
+// memory where they fit beside the rest, else in the graph's scratch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (kernels/build.py).
@@ -89,7 +101,7 @@ struct Args {
   const long long* pi;     // (P,) endpoint i
   const long long* pj;     // (P,) endpoint j
   const int* inc_ptr;      // (N + 1,) CSR offsets
-  const unsigned* inc;     // (2P,) pair << shift | other endpoint
+  const unsigned* inc;     // (2P,) pair << shift | other endpoint (triu)
   const void* wt;          // cd weights
   const float* wf;         // f32 weights, biases and scalars
   const int* offs;         // offset table
@@ -100,7 +112,9 @@ struct Args {
   long long scratch_stride;
   int B, N, P, H, DW, NB, NL, NP;
   int inc_shift;
-  int inc_offset;          // byte offset of the staged lists, 0: global
+  int lists_offset;        // byte offset of the working lists in shared
+                           // memory, or -1: at lists_goffset in scratch
+  long long lists_goffset;
   int level;               // 0: node regions shared; 1: NF, XB global;
                            // 2: every node-sized region global
   int resident;            // bf16 weights staged in shared memory (WR)
@@ -317,15 +331,16 @@ __device__ void load_rows(T* dst, int ld, const float* src, int p0,
   }
 }
 
-// Each node's incidence entries in the pair tile ending at `pend` (K1's
-// ballot cursors, csrc/stack_packed.cu): from endq[n] to the first entry
-// at or past pend, which becomes the new endq[n]; cur[n] keeps the start.
-__device__ void tile_cursors(const unsigned* inc, int shift, const int* incp,
+// Each node's incidence entries in the tile of working rows ending at
+// `pend` (K1's ballot cursors, csrc/stack_packed.cu): from endq[n] to the
+// first entry at or past pend, which becomes the new endq[n]; cur[n] keeps
+// the start; ince[n] ends the node's list.
+__device__ void tile_cursors(const unsigned* inc, int shift, const int* ince,
                              int* cur, int* endq, int N, int pend) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int n = warp; n < N; n += NWARPS) {
     int q = endq[n];
-    const int q0 = q, qe = incp[n + 1];
+    const int q0 = q, qe = ince[n];
     unsigned in;
     do {
       in = __ballot_sync(0xffffffffu, q + lane < qe
@@ -338,6 +353,26 @@ __device__ void tile_cursors(const unsigned* inc, int shift, const int* incp,
     }
   }
 }
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~15; }
+
+// A graph's working lists (kernels/monolithic.py lists_bytes mirrors
+// this): the working pairs (16-bit), the scan's bit words and bases per 32
+// pairs, each node's list end, the working count, and the re-coded
+// incidence entries (2P at most)
+struct Lists {
+  size_t plist, bits, base, ince, meta, inc, total;
+  __host__ __device__ Lists(int P, int NP) {
+    const size_t nc = (P + 31) / 32;
+    plist = 0;
+    bits = plist + round16(2 * (size_t)P);
+    base = bits + round16(4 * nc);
+    ince = base + round16(4 * nc);
+    meta = ince + round16(4 * (size_t)NP);
+    inc = meta + 16;
+    total = inc + 8 * (size_t)P;
+  }
+};
 
 // Bytes of each group of regions for cd values of S bytes (kernels/
 // monolithic.py region_bytes mirrors this).
@@ -404,12 +439,6 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
   const int o_fgin = o_head + 2 * S_PER_HEAD;
   const int o_fhead = o_fgin + a.NL * GF_PER_LAYER;
 
-  const unsigned* inc = a.inc;
-  if (a.inc_offset) {
-    unsigned* staged = reinterpret_cast<unsigned*>(smem + a.inc_offset);
-    for (int q = threadIdx.x; q < 2 * P; q += NTHREADS) staged[q] = inc[q];
-    inc = staged;
-  }
   const int shift = a.inc_shift;
   const unsigned omask = (1u << shift) - 1u;
   for (int n = threadIdx.x; n <= NP; n += NTHREADS)
@@ -426,6 +455,79 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
   const int* tpg = a.tp + (size_t)b * P;
   float* E = a.e32 + (size_t)b * P * H;
 
+  // ---- 0. the working list and this graph's incidence lists ----------------
+  const Lists ls(P, NP);
+  unsigned char* lmem = a.lists_offset >= 0
+      ? smem + a.lists_offset
+      : a.scratch + (size_t)b * a.scratch_stride + a.lists_goffset;
+  unsigned short* plist = reinterpret_cast<unsigned short*>(lmem + ls.plist);
+  unsigned* wbits = reinterpret_cast<unsigned*>(lmem + ls.bits);
+  int* wbase = reinterpret_cast<int*>(lmem + ls.base);
+  int* ince = reinterpret_cast<int*>(lmem + ls.ince);
+  int* meta = reinterpret_cast<int*>(lmem + ls.meta);
+  unsigned* inc = reinterpret_cast<unsigned*>(lmem + ls.inc);
+  {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int NC = (P + 31) / 32;
+    for (int k = warp; k < NC; k += NWARPS) {
+      const int p = 32 * k + lane;
+      const unsigned m = __ballot_sync(
+          0xffffffffu, p < P && (emg[p] != 0.f || lmg[p] != 0.f));
+      if (lane == 0) {
+        wbits[k] = m;
+        wbase[k] = __popc(m);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {   // exclusive scan of the counts, 32 words at a time
+      int run = 0;
+      for (int k0 = 0; k0 < NC; k0 += 32) {
+        const int k = k0 + lane, c = k < NC ? wbase[k] : 0;
+        int s = c;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int t = __shfl_up_sync(0xffffffffu, s, o);
+          if (lane >= o) s += t;
+        }
+        if (k < NC) wbase[k] = run + s - c;
+        run += __shfl_sync(0xffffffffu, s, 31);
+      }
+      if (lane == 0) meta[0] = run;
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < P; p += NTHREADS) {
+      const unsigned m = wbits[p >> 5], bit = 1u << (p & 31);
+      if (m & bit) {
+        plist[wbase[p >> 5] + __popc(m & (bit - 1u))] = (unsigned short)p;
+      } else {
+        a.out0[(size_t)b * P + p] = 0.f;
+        a.out1[(size_t)b * P + p] = 0.f;
+      }
+    }
+    // each node's entries on working pairs, in order, from its own start
+    for (int n = warp; n < N; n += NWARPS) {
+      const int q1 = a.inc_ptr[n + 1];
+      int w = a.inc_ptr[n];
+      for (int q = w; q < q1; q += 32) {
+        bool keep = false;
+        unsigned code = 0u;
+        if (q + lane < q1) {
+          const unsigned iq = a.inc[q + lane];
+          const int p = (int)(iq >> shift);
+          const unsigned m = wbits[p >> 5], bit = 1u << (p & 31);
+          keep = (m & bit) != 0u;
+          code = ((unsigned)(wbase[p >> 5] + __popc(m & (bit - 1u)))
+                  << shift) | (iq & omask);
+        }
+        const unsigned km = __ballot_sync(0xffffffffu, keep);
+        if (keep) inc[w + __popc(km & ((1u << lane) - 1u))] = code;
+        w += __popc(km);
+      }
+      if (lane == 0) ince[n] = w;
+    }
+    __syncthreads();
+  }
+  const int Pe = meta[0];
+
   // ---- 1. edge encoder: e32 = MLP(gelu(d kfe + bfe), type tables) ---------
   {
     const T* kfe = wt + offs[E_KFE];
@@ -439,14 +541,14 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
     const float* b1 = wf + offs[o_ef + EF_B1];
     const float* b3 = wf + offs[o_ef + EF_B3];
     const int H4 = H / 4;
-    for (int p0 = 0; p0 < P; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    for (int p0 = 0; p0 < Pe; p0 += TP) {
+      const int rows = min(TP, Pe - p0);
       __syncthreads();
       for (int e = threadIdx.x; e < TP * H4; e += NTHREADS) {
         const int r = e / H4, c = 4 * (e % H4);
         float4 v = f4(0.f, 0.f, 0.f, 0.f);
         if (r < rows) {
-          const float d = dpg[p0 + r];
+          const float d = dpg[plist[p0 + r]];
           const float4 k = ld4(kfe + c), bb = ldg4(bfe + c);
           v = f4(gelu_(d * k.x + bb.x), gelu_(d * k.y + bb.y),
                  gelu_(d * k.z + bb.z), gelu_(d * k.w + bb.w));
@@ -470,7 +572,7 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
               const float4 bias = ldg4(b1 + c);
               v = f4(x.x + bias.x, x.y + bias.y, x.z + bias.z, x.w + bias.w);
             } else {
-              const int t = tpg[p0 + r];
+              const int t = tpg[plist[p0 + r]];
               const float4 row = (unsigned)t < TYPE_ROWS
                   ? ld4(table + (size_t)t * H + c) : f4(0.f, 0.f, 0.f, 0.f);
               v = f4(gelu_(x.x + row.x), gelu_(x.y + row.y),
@@ -547,15 +649,16 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
     }
     __syncthreads();
 
-    for (int p0 = 0; p0 < P; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    for (int p0 = 0; p0 < Pe; p0 += TP) {
+      const int rows = min(TP, Pe - p0);
       load_rows(EPT, LDE, E, p0, rows, C);
       // the distance weight times the envelope, per conv and pair
       if (threadIdx.x < 2 * TP) {
         const int conv = threadIdx.x / TP, r = threadIdx.x % TP;
         float wv = 0.f;
         if (r < rows) {
-          const float d = dpg[p0 + r];
+          const int p = plist[p0 + r];
+          const float d = dpg[p];
           const float* k1 = f_dw + conv * 3 * DW;
           const float* b1 = k1 + DW;
           const float* k2 = b1 + DW;
@@ -563,11 +666,11 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
           for (int k = 0; k < DW; ++k)
             s += fmaxf(d * k1[k] + b1[k], 0.f) * k2[k];
           wv = sigmoid_(s + f_dwb[conv])
-               * (envelope<SMOOTH>(d, cutoff) * emg[p0 + r]);
+               * (envelope<SMOOTH>(d, cutoff) * emg[p]);
         }
         WE[threadIdx.x] = wv;
       }
-      tile_cursors(inc, shift, incp, cur, endq, N, p0 + TP);
+      tile_cursors(inc, shift, ince, cur, endq, N, p0 + TP);
       __syncthreads();
       // filter MLPs: v = ssp(e @ [fa1 | fa2] + ba) rounded; f = v @ fb + bb
       mma_tiles(VF, LDV, TP, FW, EPT, LDE, b_fa, ld_fa, C);
@@ -586,7 +689,7 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
                 nullptr, 0, nullptr, 0, 0, F1 / 16);
       __syncthreads();
       // agg_n += cd(wp_p * x_other), wp_p = cd(f_p * wedge_p), over this
-      // tile's pairs incident to n, in pair order
+      // tile's working pairs incident to n, in pair order
       for (int e = threadIdx.x; e < N * FW / 4; e += NTHREADS) {
         const int n = e / (FW / 4), c = 4 * (e % (FW / 4));
         const float* wep = WE + (c < F1 ? 0 : TP);
@@ -679,11 +782,12 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
       NF[(e / H) * LDF + e % H] = 0.f;
     for (int n = threadIdx.x; n < N; n += NTHREADS) endq[n] = incp[n];
     __syncthreads();
-    for (int p0 = 0; p0 < P; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    for (int p0 = 0; p0 < Pe; p0 += TP) {
+      const int rows = min(TP, Pe - p0);
       if (threadIdx.x < TP)
-        WE[threadIdx.x] = threadIdx.x < rows ? lmg[p0 + threadIdx.x] : 0.f;
-      tile_cursors(inc, shift, incp, cur, endq, N, p0 + TP);
+        WE[threadIdx.x] =
+            threadIdx.x < rows ? lmg[plist[p0 + threadIdx.x]] : 0.f;
+      tile_cursors(inc, shift, ince, cur, endq, N, p0 + TP);
       __syncthreads();
       for (int e = threadIdx.x; e < N * H / 4; e += NTHREADS) {
         const int n = e / (H / 4), c = 4 * (e % (H / 4));
@@ -758,14 +862,15 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS)
       XB[(e / H) * LDX + e % H] = T(rnd<T>(hs[e]));
     __syncthreads();
-    for (int p0 = 0; p0 < P; p0 += TP) {
-      const int rows = min(TP, P - p0);
+    for (int p0 = 0; p0 < Pe; p0 += TP) {
+      const int rows = min(TP, Pe - p0);
       load_rows(EPT, LDE, E, p0, rows, C);
       for (int e = threadIdx.x; e < TP * H / 4; e += NTHREADS) {
         const int r = e / (H / 4), c = 4 * (e % (H / 4));
         float4 v = f4(0.f, 0.f, 0.f, 0.f);
         if (r < rows) {
-          const int i = (int)a.pi[p0 + r], j = (int)a.pj[p0 + r];
+          const int p = plist[p0 + r];
+          const int i = (int)a.pi[p], j = (int)a.pj[p];
           const float4 xi = ld4(XB + i * LDX + c), xj = ld4(XB + j * LDX + c);
           v = f4(xi.x * xj.x, xi.y * xj.y, xi.z * xj.z, xi.w * xj.w);
         }
@@ -793,7 +898,10 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
             s += act_<GELU>(VF[r * LDV + k] + f_b2[k]) * f_w3[k];
           for (int o = 16; o > 0; o >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (lane == 0) out[p0 + r] = (s + b3) * mask[p0 + r];
+          if (lane == 0) {
+            const int p = plist[p0 + r];
+            out[p] = (s + b3) * mask[p];
+          }
         }
       }
       __syncthreads();
@@ -827,7 +935,8 @@ static KernelFn pick(int smooth, int gelu) {
 // f32: 1 for cd f32 (wt holds f32), 0 for bf16. scratch holds
 // scratch_stride bytes per graph for the regions `level` moves to global
 // memory; e32 holds B x P x H floats (kernels/monolithic.py chooses and
-// allocates both). The pair list is the bucket's full triangle, P pairs.
+// allocates both; scratch also holds the working lists where shared
+// memory does not). The pair list is the bucket's full triangle, P pairs.
 extern "C" int mono_launch(
     int f32, int smooth, int gelu, const void* dp, const void* em,
     const void* lm, const void* tp, const void* h0, const void* hl0,
@@ -862,22 +971,29 @@ extern "C" int mono_launch(
   a.cutoff = cutoff;
   const int S = f32 ? 4 : 2;
   const Regions rg(a.NP, H, S);
+  const Lists ls(P, a.NP);
   if (level < 0 || level > 2 || H % 32 != 0 || DW < 1 || B < 1
-      || P != N * (N - 1) / 2 || inc_shift < 1 || inc_shift > 31
-      || (size_t)scratch_stride < rg.global(level)
-      || (level > 0 && scratch == nullptr))
+      || P != N * (N - 1) / 2 || P > 65535 || inc_shift < 1
+      || inc_shift > 31 || (size_t)scratch_stride < rg.global(level))
     return (int)cudaErrorInvalidValue;
   if (rg.shared(level) > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   const size_t base = (rg.shared(level) + 127) / 128 * 128;
   a.resident = !f32 && base + weight_region_bytes(H) <= MAX_SMEM_BYTES;
   a.wr_offset = (int)base;
   size_t smem = a.resident ? base + weight_region_bytes(H) : rg.shared(level);
-  const size_t inc_off = (smem + 15) / 16 * 16;
-  a.inc_offset = 0;
-  if (inc_off + 8 * (size_t)P <= MAX_SMEM_BYTES) {
-    a.inc_offset = (int)inc_off;
-    smem = inc_off + 8 * (size_t)P;
+  // the working lists: in shared memory after the rest where they fit,
+  // else after the node regions in the graph's scratch
+  const size_t lists_off = round16(smem);
+  a.lists_offset = -1;
+  a.lists_goffset = (long long)((rg.global(level) + 255) / 256 * 256);
+  if (lists_off + ls.total <= MAX_SMEM_BYTES) {
+    a.lists_offset = (int)lists_off;
+    smem = lists_off + ls.total;
+  } else if ((size_t)scratch_stride < a.lists_goffset + ls.total) {
+    return (int)cudaErrorInvalidValue;
   }
+  if ((rg.global(level) > 0 || a.lists_offset < 0) && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   const KernelFn fn = f32 ? pick<float>(smooth, gelu)
                           : pick<bf16>(smooth, gelu);
   cudaError_t err = cudaFuncSetAttribute(

@@ -45,10 +45,17 @@ kernel walks explicit endpoint and incidence lists, as K1 does.
 Design (csrc/mono.cu): one CTA per graph, 512 threads, K1's layout of
 node regions (shared memory, or a per-graph global scratch by `layout`
 levels) and its fixed-order per-node aggregation, bitwise repeatable.
-Phase 1 encodes the pairs tile by tile into an f32 per-graph scratch e32
-((B, P, H), allocated once and reused by `MonoParams.buffer`; 32.5 MB at
-B=128, N=32, H=128, inside the 50 MB L2), which the later phases read
-back, rounding on load where cd is bf16. Products are bf16 `wmma`
+Each CTA first lists its graph's working pairs (em or lm nonzero; lm is a
+subset of em, ops/graph.py working_graph) in pair order and filters the
+incidence lists to them; every pair phase walks only those, and both
+planes are written 0 off them. Off the list every message is +-0 and
+both heads are multiplied by 0, so this gives the bits of the whole
+triangle (`mono_forward_plain` over a graph's working pairs alone equals
+it over the triangle; tests/test_torch_port_mono.py). Phase 1 encodes the
+working pairs tile by tile into an f32 per-graph scratch e32 ((B, P, H),
+row r of a graph its r-th working pair, allocated once and reused by
+`MonoParams.buffer`; 32.5 MB at B=128, N=32, H=128, inside the 50 MB L2),
+which the later phases read back, rounding on load where cd is bf16. Products are bf16 `wmma`
 fragments with f32 accumulators at bf16, and f32 fused multiply-adds on
 CUDA cores at f32.
 """
@@ -314,6 +321,13 @@ def mono_forward_plain(dp, em, lm, tp, h0, hl0, params: MonoParams,
     return scores(hg, 0, em), scores(hl, 1, lm)
 
 
+def working_pairs(em, lm) -> list:
+    """Each graph's working pairs (em or lm nonzero), in pair order, as
+    K6 lists them (csrc/mono.cu phase 0): a list of B int64 tensors."""
+    keep = (em != 0) | (lm != 0)
+    return [torch.nonzero(k).flatten() for k in keep]
+
+
 def mono_forward(dp, em, lm, tp, h0, hl0, params: MonoParams,
                  pairs: PairList, *, level: Optional[int] = None):
     """K6. CPU tensors run the plain version; CUDA tensors launch the
@@ -352,12 +366,37 @@ def smem_bytes(n: int, h: int, itemsize: int, level: int = 0) -> int:
             + (states + small if level < 2 else 0))
 
 
-def scratch_bytes(n: int, h: int, itemsize: int, level: int) -> int:
-    """Node-region scratch per graph at a level, in 256-byte units."""
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def lists_bytes(n: int) -> int:
+    """Bytes of one graph's working lists (csrc/mono.cu Lists): the
+    working pairs as 16-bit indices, the scan's bit words and bases per 32
+    pairs, each node's list end, the working count and the re-coded
+    incidence entries."""
+    p, np_ = n * (n - 1) // 2, -(-n // 16) * 16
+    nc = -(-p // 32)
+    return _r16(2 * p) + 2 * _r16(4 * nc) + _r16(4 * np_) + 16 + 8 * p
+
+
+def launch_bytes(n: int, h: int, itemsize: int, level: int) -> Tuple[int,
+                                                                       int]:
+    """(dynamic shared memory, scratch bytes per graph) of a launch at a
+    layout level (csrc/mono.cu mono_launch): the shared regions, the bf16
+    weight region where it fits after them, then the working lists in
+    shared memory where they fit, else after the node regions in the
+    scratch."""
     states, small, temps, _ = region_bytes(n, h, itemsize)
-    raw = (temps if level >= 1 else 0) + (states + small if level >= 2
-                                          else 0)
-    return -(-raw // 256) * 256
+    shared = smem_bytes(n, h, itemsize, level)
+    staged = -(-shared // 128) * 128 + weight_region_bytes(h)
+    if itemsize == 2 and staged <= MAX_SMEM:
+        shared = staged
+    node = (temps if level >= 1 else 0) + (states + small if level >= 2
+                                           else 0)
+    if _r16(shared) + lists_bytes(n) <= MAX_SMEM:
+        return _r16(shared) + lists_bytes(n), -(-node // 256) * 256
+    return shared, -(-(-(-node // 256) * 256 + lists_bytes(n)) // 256) * 256
 
 
 def weight_region_bytes(h: int) -> int:
@@ -370,10 +409,10 @@ def weight_region_bytes(h: int) -> int:
 
 
 def layout(n: int, h: int, itemsize: int) -> Tuple[int, int, int]:
-    """(level, shared bytes, scratch bytes per graph): at bf16 the
-    smallest level at which the staged weights fit beside the shared
-    regions, else (and at f32, which stages none) the smallest level that
-    fits."""
+    """(level, shared bytes, scratch bytes per graph of the launch): at
+    bf16 the smallest level at which the staged weights fit beside the
+    shared regions, else (and at f32, which stages none) the smallest
+    level that fits."""
     fits = [lv for lv in (0, 1, 2)
             if smem_bytes(n, h, itemsize, lv) <= MAX_SMEM]
     if not fits:
@@ -383,8 +422,7 @@ def layout(n: int, h: int, itemsize: int) -> Tuple[int, int, int]:
               and -(-smem_bytes(n, h, itemsize, lv) // 128) * 128
               + weight_region_bytes(h) <= MAX_SMEM]
     level = (staged or fits)[0]
-    return (level, smem_bytes(n, h, itemsize, level),
-            scratch_bytes(n, h, itemsize, level))
+    return (level, *launch_bytes(n, h, itemsize, level))
 
 
 def _pack(params: MonoParams, device) -> tuple:
@@ -510,7 +548,7 @@ def _launch(dp, em, lm, tp, h0, hl0, params: MonoParams, pairs: PairList,
         level = layout(n, h, itemsize)[0]
     if smem_bytes(n, h, itemsize, level) > MAX_SMEM:
         raise ValueError(f"layout level {level} does not fit N={n}, H={h}")
-    per_graph = scratch_bytes(n, h, itemsize, level)
+    per_graph = launch_bytes(n, h, itemsize, level)[1]
     for name, t in (("dp", dp), ("em", em), ("lm", lm)):
         _check(name, t, (b, p), torch.float32, dev)
     _check("tp", tp, (b, p), torch.int32, dev)

@@ -511,14 +511,26 @@ MONO_DRUGS = ((3e-2, 1e-4, 5e-3), (0.25, 1e-2, 0.1))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,h,n,b", [
-    ("bfloat16", 64, 32, 8), ("float32", 64, 32, 8),
-    ("bfloat16", 128, 32, 16), ("float32", 128, 32, 16),
-    ("bfloat16", 128, 64, 4)])
-def test_cuda_mono_matches_plain(card, dtype, h, n, b):
+@pytest.mark.parametrize("dtype,h,n,b,variant", [
+    ("bfloat16", 64, 32, 8, ""), ("float32", 64, 32, 8, ""),
+    ("bfloat16", 128, 32, 16, ""), ("float32", 128, 32, 16, ""),
+    ("bfloat16", 128, 64, 4, ""),
+    # the working list: the whole triangle, the bond graph, one graph
+    # with no working pair, and ragged tiles (N = 20, 40)
+    ("bfloat16", 64, 32, 8, "em_all_ones"),
+    ("float32", 64, 32, 8, "em_all_ones"),
+    ("bfloat16", 64, 32, 8, "em_is_lm"), ("float32", 64, 32, 8, "em_is_lm"),
+    ("bfloat16", 64, 32, 8, "empty_graph"),
+    ("float32", 64, 32, 8, "empty_graph"),
+    ("bfloat16", 64, 20, 8, ""), ("bfloat16", 128, 40, 8, ""),
+    ("float32", 64, 40, 8, "")])
+def test_cuda_mono_matches_plain(card, dtype, h, n, b, variant):
     """K6 at a small width and at full width (N = 64: node temporaries in
     global memory, the cosine envelope), one launch counted per call, two
-    launches bitwise equal."""
+    launches bitwise equal, every layout level that fits giving the same
+    bits; with em all ones (the working list is the triangle), em = lm,
+    one graph's masks zeroed (an empty list: both planes 0) and N = 20,
+    40."""
     from agdiff_torch.kernels import monolithic as k6
     from agdiff_torch.models.mono_forward import build_monolithic_forward
 
@@ -528,7 +540,9 @@ def test_cuda_mono_matches_plain(card, dtype, h, n, b):
                               num_convs_local=2 if h == 64 else 4)
     model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
     fwd = build_monolithic_forward(cfg, model)
-    mols = load_fixture() if n == 32 else load_fixture("drugs_synthetic")[:1]
+    mols = [m for m in (load_fixture() if n <= 40 else
+                        load_fixture("drugs_synthetic")[:1])
+            if m.num_nodes <= n]
     batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
                           device=card)
     gen = torch.Generator(device=card).manual_seed(0)
@@ -536,19 +550,34 @@ def test_cuda_mono_matches_plain(card, dtype, h, n, b):
         batch.pos.shape, generator=gen, device=card)
         * batch.node_mask[..., None])
     kw, _ = fwd.kernel_inputs(batch)
+    if variant == "em_all_ones":
+        kw["em"] = torch.ones_like(kw["em"])
+    elif variant == "em_is_lm":
+        kw["em"] = kw["lm"].clone()
+    elif variant == "empty_graph":
+        kw["em"], kw["lm"] = kw["em"].clone(), kw["lm"].clone()
+        kw["em"][1] = 0.0
+        kw["lm"][1] = 0.0
     name = k6.variant(fwd.compute_dtype)
     before = k6.launches[name]
     got = k6.mono_forward(**kw)
     assert k6.launches[name] == before + 1
     again = k6.mono_forward(**kw)
     ref = k6.mono_forward_plain(**kw)
+    itemsize = 2 if fwd.compute_dtype == torch.bfloat16 else 4
+    levels = [k6.mono_forward(**kw, level=lv) for lv in (0, 1, 2)
+              if k6.smem_bytes(n, h, itemsize, lv) <= k6.MAX_SMEM]
     torch.cuda.synchronize()
+    assert len(levels) >= 2
     limits = MONO_DRUGS if n == 64 else MONO[fwd.compute_dtype]
-    for g, a, r, mask, lim in zip(got, again, ref, (kw["em"] > 0,
-                                                      kw["lm"] > 0), limits):
+    for k, (g, a, r, mask, lim) in enumerate(zip(
+            got, again, ref, (kw["em"] > 0, kw["lm"] > 0), limits)):
         assert torch.equal(g, a)
+        assert all(torch.equal(g, lv[k]) for lv in levels)
         _within_limits(g[mask], r[mask], lim)
-        assert float(g[~mask].abs().max()) == 0.0
+        assert not bool(g[~mask].any())
+        if variant == "empty_graph":
+            assert not bool(g[1].any())
 
 
 @pytest.mark.cuda

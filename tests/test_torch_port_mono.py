@@ -33,6 +33,7 @@ from agdiff_tpu.sampling.langevin import (
     langevin_dynamics_sample as jax_ld,
 )
 
+from agdiff_torch.data.bucketing import pad_molecules
 from agdiff_torch.data.fixture import load_fixture
 from agdiff_torch.eval.generate import GenerationRunner
 from agdiff_torch.kernels import monolithic as k6
@@ -338,3 +339,100 @@ def test_runner_runs_mono_at_every_bucket(setup):
     res = wide.run([small], num_confs=2)[0].meta["pos_gen"]
     assert np.isfinite(res).all() and wide.forward("mono").calls == 1
     assert wide._bucket_for(small) == 48
+
+
+# ---- K6 walks only the working graph's pairs ---------------------------------
+
+def _fixture_inputs(setup, case, dtype):
+    """K6's inputs on a fixture bucket at 6 A positions (numpy, seeded):
+    QM9 (bucket 32) or Drugs (bucket 64, the two molecules that fit),
+    with em = lm ('bond_graph_only') or one graph's masks zeroed
+    ('empty_graph')."""
+    _, cfg, _, _, _, _, model = setup
+    drugs = case == "drugs"
+    mols = (load_fixture("drugs_synthetic")[:2] if drugs
+            else load_fixture())
+    batch = pad_molecules(mols, 64 if drugs else 32)
+    rng = np.random.default_rng(len(case))
+    pos = torch.from_numpy(6.0 * rng.standard_normal(
+        tuple(batch.pos.shape)).astype(np.float32))
+    batch = batch.replace(pos=pos * batch.node_mask[..., None])
+    fwd = build_monolithic_forward(cfg, model, dtype)
+    kw, _ = fwd.kernel_inputs(batch,
+                              extend_radius=case != "bond_graph_only")
+    if case == "empty_graph":
+        for key in ("em", "lm"):
+            kw[key] = kw[key].clone()
+            kw[key][1] = 0.0
+    return kw
+
+
+def _row_product(x, w):
+    """x @ w as a sum over k in increasing order: each row's bits depend
+    on that row alone, as in K6's products. (A CPU BLAS handles a
+    matrix's last rows with other kernels, so there a row's bits can
+    depend on how many rows the matrix has.)"""
+    acc = x[..., :1] * w[0]
+    for k in range(1, w.shape[0]):
+        acc = acc + x[..., k:k + 1] * w[k]
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["qm9", "drugs", "bond_graph_only",
+                                  "empty_graph"])
+def test_plain_over_working_pairs_equals_the_triangle(setup, case, dtype,
+                                                      monkeypatch):
+    """What K6's compaction rests on: graph by graph (B = 1), the plain
+    twin over the graph's working pairs alone (em or lm nonzero, in pair
+    order) gives the bits of the twin over the whole triangle on those
+    pairs, and the triangle's planes are 0 off them. Off the list every
+    message is +-0 and both heads are multiplied by 0; lm is a subset of
+    em. Covers em = lm, a graph with no working pair and working counts
+    that are not multiples of 32 or 64. Products are row-independent
+    (_row_product) in both runs."""
+    torch.set_num_threads(2)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", _row_product)
+    kw = _fixture_inputs(setup, case, dtype)
+    assert bool(((kw["lm"] != 0) <= (kw["em"] != 0)).all())
+    if case == "bond_graph_only":
+        assert torch.equal(kw["em"], kw["lm"])
+    lists = k6.working_pairs(kw["em"], kw["lm"])
+    counts = [len(w) for w in lists]
+    assert any(c % 32 for c in counts) and any(c % 64 for c in counts)
+    assert (0 in counts) == (case == "empty_graph")
+    for g, keep in enumerate(lists):
+        one = {k: (v[g:g + 1] if isinstance(v, torch.Tensor) else v)
+               for k, v in kw.items()}
+        full = k6.mono_forward_plain(**one)
+        # the list, then pair 0 with em = lm = 0 to a multiple of 64
+        # entries, as K6 pads its last tile with rows that add nothing
+        # (so that no CPU vector loop leaves a scalar tail either)
+        idx = torch.cat([keep, keep.new_zeros(-len(keep) % 64)])
+        cut = dict(one, pairs=dataclasses.replace(
+            kw["pairs"], iu=kw["pairs"].iu[idx], ju=kw["pairs"].ju[idx]))
+        for key in ("dp", "em", "lm", "tp"):
+            cut[key] = one[key][:, idx]
+            if key in ("em", "lm"):
+                cut[key][:, len(keep):] = 0.0
+        part = k6.mono_forward_plain(**cut)
+        for plane, got in zip(full, part):
+            assert torch.equal(plane[:, keep], got[:, :len(keep)]), (case, g)
+            off = torch.ones(plane.shape[1], dtype=torch.bool)
+            off[keep] = False
+            assert bool((plane[:, off] == 0).all())
+
+
+@pytest.mark.parametrize("n,itemsize,want", [
+    (32, 2, (0, 230896, 0)), (32, 4, (0, 173952, 0)),
+    (64, 2, (1, 229712, 100352)), (64, 4, (1, 155872, 134144)),
+    (96, 2, (2, 189232, 250624))])
+def test_layout_and_working_lists_at_the_main_widths(n, itemsize, want):
+    """Pinned sums at H = 128 (csrc/mono.cu mirrors them): the layout
+    level, the launch's shared memory (the working lists included where
+    they fit) and the scratch per graph; at N = 64, level 0 (bf16) the
+    lists do not fit beside the regions and go to the scratch."""
+    assert k6.layout(n, 128, itemsize) == want
+    assert want[1] <= k6.MAX_SMEM
+    assert k6.lists_bytes(32) == 5232 and k6.lists_bytes(64) == 20944
+    assert k6.launch_bytes(64, 128, 2, 0) == (213764, 20992)
