@@ -13,19 +13,25 @@
 // The functions and where their operands round are documented beside the
 // wrappers (kernels/fused.py).
 //
-// Design. K3 at f32 and K4: one block of FT_THREADS threads per node
-// row (b, i); its N pairs (b, i, j) run in tiles of FT_ROWS rows through
-// the matrix products of filter_mlp.cuh on CUDA cores (f32 fused
-// multiply-adds on f32 or bf16-valued operands: true f32 at f32). K3 at
-// bf16: a persistent grid of as many blocks of TC_THREADS as the card
-// holds at once (one an SM at the default widths), each walking a
-// contiguous share of the groups of node rows (two rows, one 64-pair
-// tile, at N = 32) through filter_tile_tc on the tensor cores, with the
+// Design. K4: one block of FT_THREADS threads per node row (b, i); its N
+// pairs (b, i, j) run in tiles of FT_ROWS rows through the matrix
+// products of filter_mlp.cuh on CUDA cores (f32 fused multiply-adds on
+// f32 or bf16-valued operands: true f32 at f32). K3, both forms: a
+// persistent grid of as many blocks of TC_THREADS as the card holds at
+// once (one an SM at the default widths), each walking a contiguous share
+// of the groups of node rows. At bf16 a group is two rows, one 64-pair
+// tile, at N = 32, through filter_tile_tc on the tensor cores, with the
 // packed filter weights staged once per block (layout level 0; level 1,
-// for C above 288 at F1 = 128, F2 = 64, reads them from L2). K3 sums each
-// column f of a row in one thread, over j in increasing order, so the
-// result reproduces bit for bit at any grid. K5 is a streaming pass: one
-// thread per four columns of a row (b, i), over j in increasing order.
+// for C above 288 at F1 = 128, F2 = 64, reads them from L2). At f32 a
+// group is two rows, one 64-pair tile, at N = 32, through register units
+// of f32 fused multiply-adds on CUDA cores (no TF32), with fa and fb1
+// staged once per block (level 0; level 1 fa only; level 2 neither; level
+// 3, 32-pair tiles, takes the widths and C the others do not). K3 sums
+// each column f of a row in one thread, over j in increasing order, and
+// every product over k in increasing order, so the result reproduces bit
+// for bit at any grid and level, and at f32 the one-block-per-row form's
+// bits. K5 is a streaming pass: one thread per four columns of a row
+// (b, i), over j in increasing order.
 //
 // Bounds at B = 128, N = 32, C = H = 128 (chip_smoke.py computes them from
 // each run's shapes): K3 and K4 do ~11-12 GFLOP a launch; at f32 on CUDA
@@ -63,44 +69,329 @@ struct BlockAggArgs {
   int B, N;
 };
 
-// f32: one block per node row, on CUDA cores (filter_tile)
-__device__ void block_agg_cuda_cores(const BlockAggArgs<float>& a,
-                                     float* smem) {
-  const int C = a.fw.C, F1 = a.fw.F1, F2 = a.fw.F2, FW = F1 + F2;
-  const int N = a.N, ldt = FW + 4;
-  float* E = smem;                      // C x FT_LD
-  float* V = E + C * FT_LD;             // FW x FT_LD
-  float* Tt = V + FW * FT_LD;           // FT_ROWS x ldt
-  float* W = Tt + FT_ROWS * ldt;        // 2 x FT_ROWS
-  const int row = blockIdx.x, b = row / N;
-  const float* e = a.e + (size_t)row * N * C;
-  const int f = threadIdx.x;
-  float acc = 0.f;
-  for (int j0 = 0; j0 < N; j0 += FT_ROWS) {
-    const int rows = min(FT_ROWS, N - j0);
-    load_tile_kmajor(E, e + (size_t)j0 * C, rows, C);
-    if (threadIdx.x < FT_ROWS) {
-      const int r = threadIdx.x;
-      W[r] = r < rows ? a.w1[(size_t)row * N + j0 + r] : 0.f;
-      W[FT_ROWS + r] = r < rows ? a.w2[(size_t)row * N + j0 + r] : 0.f;
+// The f32 form (kernels/fused.py block_agg_smem_f32 and f32_one_pass
+// mirror its sizes). Levels 0-2 take F32_ROWS = 64 pairs a tile and keep
+// each layer's results in registers until the whole block has read the
+// layer's operand, so that E, V and Tt share one region (one pass of
+// units a layer); level 3 takes 32 pairs, with V in a region of its own
+// and any number of passes (the widths and C the one-pass levels do not
+// take). Shared memory: [fa = fa1 | fa2, C x F6 (levels 0, 1)] [fb1, F1 x
+// F1 (level 0)] [E | V | Tt, or E | Tt then V] [w1, w2 of the tile]; F6
+// is F1 + F2 rounded up to 6 (zero columns), E k-major C x (R + 4), V
+// k-major FW x (R + 4), Tt row-major R x (FW + 4). fb2, and fa and fb1
+// where they are not staged, are read through L1.
+#define F32_ROWS 64
+__host__ __device__ inline int f32_rows(int level) {
+  return level < 3 ? F32_ROWS : FT_ROWS;
+}
+__host__ __device__ inline int f32_f6(int F1, int F2) {
+  return (F1 + F2 + 5) / 6 * 6;
+}
+// warp tiles of a layer at R pairs a tile (8 row groups of F32_RU rows by
+// 4 column groups a warp): layer 1 (units 4 x 6), and fb1 (4 x 4) and fb2
+// (4 x 2) of layer 2. Larger units spill at 512 threads (128 registers).
+#define F32_RU 4
+__host__ __device__ inline int f32_tiles1(int R, int F1, int F2) {
+  return R / (8 * F32_RU) * ((f32_f6(F1, F2) + 23) / 24);
+}
+__host__ __device__ inline int f32_tiles2(int R, int F1, int F2) {
+  const int wtr = R / (8 * F32_RU);
+  const int a = wtr * ((F1 + 15) / 16), b = wtr * ((F2 + 7) / 8);
+  return a > b ? a : b;
+}
+__host__ __device__ inline size_t f32_r1_bytes(int C, int FW, int level) {
+  const int R = f32_rows(level);
+  size_t m = (size_t)C * (R + 4);
+  const size_t t = (size_t)R * (FW + 4), v = (size_t)FW * (R + 4);
+  m = m > t ? m : t;
+  if (level < 3) m = m > v ? m : v;
+  return 4 * m;
+}
+
+// acc[i][j] += sum_k A[k][r0 + i] W[k][j] (i < RU, j < CU), k in
+// increasing order, fused multiply-adds: A k-major in shared memory
+// (stride lda), W row-major (stride ldw) at the unit's first column, in
+// shared memory or (GLOBAL) read through L1. RU is a multiple of 4; CU = 6
+// (three float2 loads), 4 or 2.
+template <int RU, int CU, bool GLOBAL>
+__device__ __forceinline__ void unit_fma(const float* A, int lda,
+                                         const float* W, int ldw, int K,
+                                         int r0, float acc[RU][CU]) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float a[RU], w[CU];
+#pragma unroll
+    for (int i = 0; i < RU; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(A + k * lda + r0 + i);
+      a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
     }
-    __syncthreads();
-    filter_tile<float, false>(E, V, Tt, ldt, a.fw);
-    if (f < FW) {
-      const bool first = f < F1;
-      const float* h = first ? a.h1 + (size_t)b * N * F1 + f
-                             : a.h2 + (size_t)b * N * F2 + (f - F1);
-      const int ldh = first ? F1 : F2;
-      const float* w = W + (first ? 0 : FT_ROWS);
-      for (int r = 0; r < rows; ++r)
-        acc += (Tt[r * ldt + f] * w[r]) * h[(size_t)(j0 + r) * ldh];
+    const float* wk = W + (size_t)k * ldw;
+    if constexpr (CU == 4) {
+      const float4 v = GLOBAL ? __ldg(reinterpret_cast<const float4*>(wk))
+                              : *reinterpret_cast<const float4*>(wk);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < CU; j += 2) {
+        const float2 v =
+            GLOBAL ? __ldg(reinterpret_cast<const float2*>(wk + j))
+                   : *reinterpret_cast<const float2*>(wk + j);
+        w[j] = v.x;
+        w[j + 1] = v.y;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RU; ++i)
+#pragma unroll
+      for (int j = 0; j < CU; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
   }
-  if (f < F1)
-    a.out1[(size_t)row * F1 + f] = acc;
-  else if (f < FW)
-    a.out2[(size_t)row * F2 + (f - F1)] = acc;
+}
+
+// f32 on CUDA cores, true f32 (no TF32): a persistent block walks its
+// contiguous share of the groups of node rows (block_agg_groups at R rows
+// a tile), as the bf16 form does. Per tile:
+//   layer 1, V = ssp(E @ [fa1 | fa2] + ba) (units of RU rows x 6
+//     columns);
+//   layer 2, Tt = [V1 @ fb1 + bb1 | V2 @ fb2 + bb2] (RU x 4 and RU x 2);
+//   each output (b, i, f) summed by one thread over j in increasing order;
+// a warp's units are 8 row groups (lane & 7) by 4 column groups
+// (lane >> 3). The next tile's edge features load into registers under
+// the second layer and the aggregation. Every product takes k in
+// increasing order from 0 and the sums take j in increasing order, as the
+// one-block-per-row form did: the same bits. LEVEL 0 stages fa and fb1
+// once per block, 1 fa only; 2 and 3 read fa column by column from fa1,
+// fa2 through L1.
+template <int LEVEL>
+__device__ void block_agg_f32(const BlockAggArgs<float>& a, char* smem) {
+  constexpr bool ALIAS = LEVEL < 3;
+  constexpr int R = ALIAS ? F32_ROWS : FT_ROWS, LDA = R + 4;
+  constexpr int RU = F32_RU;
+  constexpr int PF = 4;   // float4 loads a thread holds for the next tile
+  const int C = a.fw.C, F1 = a.fw.F1, F2 = a.fw.F2, FW = F1 + F2;
+  const int F6 = f32_f6(F1, F2), N = a.N, ldt = FW + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = TC_THREADS / 32, wtr = R / (8 * RU);
+  char* p = smem;
+  float* fa_s = reinterpret_cast<float*>(p);
+  if (LEVEL <= 1) p += 4 * (size_t)C * F6;
+  float* fb1_s = reinterpret_cast<float*>(p);
+  if (LEVEL == 0) p += 4 * (size_t)F1 * F1;
+  float* E = reinterpret_cast<float*>(p);
+  float* Tt = E;
+  p += f32_r1_bytes(C, FW, LEVEL);
+  float* V = ALIAS ? E : reinterpret_cast<float*>(p);
+  if (!ALIAS) p += 4 * (size_t)FW * LDA;
+  float* Wt = reinterpret_cast<float*>(p);
+  if (LEVEL <= 1)
+    for (int q = threadIdx.x; q < C * F6; q += TC_THREADS) {
+      const int k = q / F6, c = q % F6;
+      fa_s[q] = c < F1 ? a.fw.fa1[(size_t)k * F1 + c]
+                       : c < FW ? a.fw.fa2[(size_t)k * F2 + c - F1] : 0.f;
+    }
+  if (LEVEL == 0)
+    for (int q = threadIdx.x; q < F1 * F1; q += TC_THREADS)
+      fb1_s[q] = a.fw.fb1[q];
+  const float beta1 = *a.fw.beta1, beta2 = *a.fw.beta2;
+  const int rows_total = a.B * N;
+  const int rpg = N <= R ? R / N : 1;
+  const int tiles = N <= R ? 1 : (N + R - 1) / R;
+  const int groups = (rows_total + rpg - 1) / rpg;
+  const int per = groups / gridDim.x, extra = groups % gridDim.x;
+  const int g0 = blockIdx.x * per + min((int)blockIdx.x, extra);
+  const int g1 = g0 + per + ((int)blockIdx.x < extra ? 1 : 0);
+  const int n1 = f32_tiles1(R, F1, F2), n2 = f32_tiles2(R, F1, F2);
+  const int n2a = wtr * ((F1 + 15) / 16), n2b = wtr * ((F2 + 7) / 8);
+  const int C4 = C / 4;
+  const bool prefetch = R * C4 <= PF * TC_THREADS;
+  // the tile (grp, tile) k-major into E (rows across lanes, zero rows past
+  // `rows`), through registers (pf) when `prefetch`
+  float4 pf[PF];
+  float pw = 0.f;   // thread t < 2R: w1 (t < R) or w2 of row t % R
+  auto fetch = [&](int grp, int tile) {
+    const int row0 = grp * rpg, nrows = min(rpg, rows_total - row0);
+    const int rows = N <= R ? nrows * N : min(R, N - tile * R);
+    const size_t q0 = (size_t)row0 * N + tile * R;
+    const float* src = a.e + q0 * C;
+    if (threadIdx.x < 2 * R) {
+      const int r = threadIdx.x % R;
+      pw = r < rows ? (threadIdx.x < R ? a.w1 : a.w2)[q0 + r] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int q = threadIdx.x + u * TC_THREADS, r = q % R, k = 4 * (q / R);
+      pf[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < R * C4 && r < rows)
+        pf[u] = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * C + k));
+    }
+  };
+  auto put = [&]() {
+    if (threadIdx.x < 2 * R) Wt[threadIdx.x] = pw;
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int q = threadIdx.x + u * TC_THREADS, r = q % R, k = 4 * (q / R);
+      if (q < R * C4) {
+        E[k * LDA + r] = pf[u].x;
+        E[(k + 1) * LDA + r] = pf[u].y;
+        E[(k + 2) * LDA + r] = pf[u].z;
+        E[(k + 3) * LDA + r] = pf[u].w;
+      }
+    }
+  };
+  if (prefetch && g0 < g1) {
+    fetch(g0, 0);
+    put();
+  }
+  float carry = 0.f;   // N > R: thread f's sum over earlier tiles
+  for (int grp = g0; grp < g1; ++grp) {
+    const int row0 = grp * rpg, nrows = min(rpg, rows_total - row0);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int j0 = tile * R;
+      const int rows = N <= R ? nrows * N : min(R, N - j0);
+      const size_t q0 = (size_t)row0 * N + j0;
+      if (!prefetch) {
+        const float* src = a.e + q0 * C;
+        for (int q = threadIdx.x; q < R * C4; q += TC_THREADS) {
+          const int r = q % R, k = 4 * (q / R);
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < rows)
+            v = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * C + k));
+          E[k * LDA + r] = v.x;
+          E[(k + 1) * LDA + r] = v.y;
+          E[(k + 2) * LDA + r] = v.z;
+          E[(k + 3) * LDA + r] = v.w;
+        }
+        for (int r = threadIdx.x; r < R; r += TC_THREADS) {
+          Wt[r] = r < rows ? a.w1[q0 + r] : 0.f;
+          Wt[R + r] = r < rows ? a.w2[q0 + r] : 0.f;
+        }
+      }
+      __syncthreads();
+      for (int ps = 0; ps * nwarps < n1; ++ps) {
+        const int wt = warp + ps * nwarps;
+        const int r0 = RU * ((wt % wtr) * 8 + (lane & 7));
+        const int c0 = 6 * ((wt / wtr) * 4 + (lane >> 3));
+        const bool on = wt < n1 && c0 < F6;
+        float acc[RU][6] = {};
+        if (on) {
+          if (LEVEL <= 1) {
+            unit_fma<RU, 6, false>(E, LDA, fa_s + c0, F6, C, r0, acc);
+          } else {   // fa1, fa2 through L1, column by column
+            const float* col[6];
+            int ld[6];
+#pragma unroll
+            for (int j = 0; j < 6; ++j) {
+              const int c = min(c0 + j, FW - 1);
+              col[j] = c < F1 ? a.fw.fa1 + c : a.fw.fa2 + (c - F1);
+              ld[j] = c < F1 ? F1 : F2;
+            }
+#pragma unroll 2
+            for (int k = 0; k < C; ++k) {
+              float av[RU];
+#pragma unroll
+              for (int i = 0; i < RU; i += 4) {
+                const float4 v =
+                    *reinterpret_cast<const float4*>(E + k * LDA + r0 + i);
+                av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z;
+                av[i + 3] = v.w;
+              }
+#pragma unroll
+              for (int j = 0; j < 6; ++j) {
+                const float w = __ldg(col[j] + (size_t)k * ld[j]);
+#pragma unroll
+                for (int i = 0; i < RU; ++i)
+                  acc[i][j] = fmaf(av[i], w, acc[i][j]);
+              }
+            }
+          }
+        }
+        if (ALIAS) __syncthreads();   // every unit has read E
+        if (on) {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) {
+            const int c = c0 + j;
+            if (c >= FW) break;
+            const bool first = c < F1;
+            const float ba = first ? a.fw.ba1[c] : a.fw.ba2[c - F1];
+            const float beta = first ? beta1 : beta2;
+#pragma unroll
+            for (int i = 0; i < RU; i += 4) {
+              float v[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                v[u] = rnd<float>(
+                    softplus_<false>(beta * (acc[i + u][j] + ba)) - FT_LN2);
+              *reinterpret_cast<float4*>(V + c * LDA + r0 + i) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // the next tile's edge features, under the second layer
+      const bool more = tile + 1 < tiles || grp + 1 < g1;
+      if (prefetch && more)
+        fetch(tile + 1 < tiles ? grp : grp + 1,
+              tile + 1 < tiles ? tile + 1 : 0);
+      for (int ps = 0; ps * nwarps < n2; ++ps) {
+        const int wt = warp + ps * nwarps;
+        const int r0 = RU * ((wt % wtr) * 8 + (lane & 7));
+        const int cg = (wt / wtr) * 4 + (lane >> 3);
+        const bool on1 = wt < n2a && 4 * cg < F1;
+        const bool on2 = wt < n2b && 2 * cg < F2;
+        float acc1[RU][4] = {}, acc2[RU][2] = {};
+        if (on1)
+          unit_fma<RU, 4, LEVEL != 0>(V, LDA,
+                                      (LEVEL == 0 ? fb1_s : a.fw.fb1) + 4 * cg,
+                                      F1, F1, r0, acc1);
+        if (on2)
+          unit_fma<RU, 2, true>(V + F1 * LDA, LDA, a.fw.fb2 + 2 * cg, F2, F2,
+                                r0, acc2);
+        if (ALIAS) __syncthreads();   // every unit has read V
+        if (on1) {
+          const int c0 = 4 * cg;
+#pragma unroll
+          for (int i = 0; i < RU; ++i)
+            *reinterpret_cast<float4*>(Tt + (r0 + i) * ldt + c0) =
+                make_float4(acc1[i][0] + a.fw.bb1[c0],
+                            acc1[i][1] + a.fw.bb1[c0 + 1],
+                            acc1[i][2] + a.fw.bb1[c0 + 2],
+                            acc1[i][3] + a.fw.bb1[c0 + 3]);
+        }
+        if (on2) {
+          const int c0 = 2 * cg;
+#pragma unroll
+          for (int i = 0; i < RU; ++i)
+            *reinterpret_cast<float2*>(Tt + (r0 + i) * ldt + F1 + c0) =
+                make_float2(acc2[i][0] + a.fw.bb2[c0],
+                            acc2[i][1] + a.fw.bb2[c0 + 1]);
+        }
+      }
+      __syncthreads();
+      const int jn = N <= R ? N : rows;
+      for (int o = threadIdx.x; o < nrows * FW; o += TC_THREADS) {
+        const int rl = o / FW, f = o % FW, row = row0 + rl, b = row / N;
+        const bool first = f < F1;
+        const float* h = first ? a.h1 + (size_t)b * N * F1 + f
+                               : a.h2 + (size_t)b * N * F2 + (f - F1);
+        const int ldh = first ? F1 : F2;
+        const float* w = Wt + (first ? 0 : R);
+        const int rb = N <= R ? rl * N : 0;
+        float acc = tile ? carry : 0.f;
+#pragma unroll 8
+        for (int r = 0; r < jn; ++r)
+          acc += (Tt[(rb + r) * ldt + f] * w[rb + r])
+                 * __ldg(h + (size_t)(j0 + r) * ldh);
+        if (tile + 1 < tiles)
+          carry = acc;
+        else if (first)
+          a.out1[(size_t)row * F1 + f] = acc;
+        else
+          a.out2[(size_t)row * F2 + (f - F1)] = acc;
+      }
+      __syncthreads();
+      if (prefetch && more) put();
+    }
+  }
 }
 
 // bf16: a persistent block walks its contiguous share of the groups of
@@ -177,23 +468,27 @@ __device__ void block_agg_tc(const BlockAggArgs<bf16>& a, char* smem) {
   }
 }
 
-// LEVEL (bf16): 0 stages the packed weights in shared memory, 1 reads
-// them from global memory (kernels/fused.py block_agg_level)
+// LEVEL (kernels/fused.py block_agg_level): at bf16 0 stages the packed
+// weights in shared memory, 1 reads them from global memory; at f32 0
+// stages fa and fb1, 1 fa, 2 neither (64-pair tiles, one pass of units),
+// 3 neither (32-pair tiles, any widths)
 template <typename T, int LEVEL>
-__global__ void __launch_bounds__(sizeof(T) == 2 ? TC_THREADS : FT_THREADS)
+__global__ void __launch_bounds__(TC_THREADS)
     block_agg_kernel(BlockAggArgs<T> a) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (std::is_same<T, bf16>::value)
     block_agg_tc<LEVEL == 0>(a, reinterpret_cast<char*>(smem));
   else
-    block_agg_cuda_cores(a, smem);
+    block_agg_f32<LEVEL>(a, reinterpret_cast<char*>(smem));
 }
 
-// kernels/fused.py block_agg_smem mirrors these
-static size_t block_agg_smem_f32(int C, int F1, int F2) {
-  const size_t fw = F1 + F2;
-  return 4 * ((size_t)C * FT_LD + fw * FT_LD + FT_ROWS * (fw + 4)
-              + 2 * FT_ROWS);
+// kernels/fused.py block_agg_smem_f32 and block_agg_smem mirror these
+static size_t block_agg_smem_f32(int C, int F1, int F2, int level) {
+  const int FW = F1 + F2, R = f32_rows(level);
+  return (level <= 1 ? 4 * (size_t)C * f32_f6(F1, F2) : 0)
+         + (level == 0 ? 4 * (size_t)F1 * F1 : 0)
+         + f32_r1_bytes(C, FW, level)
+         + (level == 3 ? 4 * (size_t)FW * (R + 4) : 0) + 4 * 2 * (size_t)R;
 }
 
 static size_t block_agg_smem_tc(int C, int F1, int F2, int level) {
@@ -236,24 +531,21 @@ static int block_agg_run(const BlockAggArgs<T>& a, int* grid_out,
   const int C = a.fw.C, F1 = a.fw.F1, F2 = a.fw.F2;
   const bool tc = std::is_same<T, bf16>::value;
   const size_t smem = tc ? block_agg_smem_tc(C, F1, F2, LEVEL)
-                         : block_agg_smem_f32(C, F1, F2);
+                         : block_agg_smem_f32(C, F1, F2, LEVEL);
   cudaError_t err = cudaFuncSetAttribute(
       block_agg_kernel<T, LEVEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = tc ? TC_THREADS : FT_THREADS;
-  int grid = a.B * a.N;
-  if (tc) {
-    const int N = a.N, rpg = N <= TC_ROWS ? TC_ROWS / N : 1;
-    const int groups = (a.B * N + rpg - 1) / rpg;
-    int resident = 0;
-    const int rc = resident_blocks(
-        reinterpret_cast<const void*>(block_agg_kernel<T, LEVEL>), threads,
-        smem, &resident);
-    if (rc) return rc;
-    grid = min(groups, resident);
-  }
-  block_agg_kernel<T, LEVEL><<<grid, threads, smem, stream>>>(a);
+  const int N = a.N, tile = tc ? TC_ROWS : f32_rows(LEVEL);
+  const int rpg = N <= tile ? tile / N : 1;
+  const int groups = (a.B * N + rpg - 1) / rpg;
+  int resident = 0;
+  const int rc = resident_blocks(
+      reinterpret_cast<const void*>(block_agg_kernel<T, LEVEL>), TC_THREADS,
+      smem, &resident);
+  if (rc) return rc;
+  const int grid = min(groups, resident);
+  block_agg_kernel<T, LEVEL><<<grid, TC_THREADS, smem, stream>>>(a);
   *grid_out = grid;
   return (int)cudaGetLastError();
 }
@@ -285,8 +577,8 @@ static void fill_args(BlockAggArgs<T>& a, const void* e, const void* w1,
   a.B = B; a.N = N;
 }
 
-// bf16_: 0 for f32 operands (CUDA cores, level 0, a block per node row),
-// 1 for bf16 (tensor cores, a persistent grid; level 0 or 1). wts: fa1,
+// bf16_: 0 for f32 operands (CUDA cores; level 0 to 3), 1 for bf16
+// (tensor cores; level 0 or 1); both on a persistent grid. wts: fa1,
 // fa2, fb1, fb2 (of the operand type), ba1, ba2, bb1, bb2, beta1, beta2
 // (f32); packed: the bf16 weights as pack_filter_weights lays them out
 // (bf16 only). *grid_out: the blocks launched.
@@ -297,7 +589,11 @@ extern "C" int block_agg_launch(int bf16_, const void* e, const void* w1,
                                 int B, int N, int C, int F1, int F2,
                                 int level, int* grid_out, void* stream) {
   if (C % 4 || F1 % 4 || F2 % 4 || F1 + F2 > FT_THREADS || N < 1 || B < 1
-      || level < 0 || level > (bf16_ ? 1 : 0)
+      || level < 0 || level > (bf16_ ? 1 : 3)
+      // the one-pass f32 levels: every unit of a layer in one pass
+      || (!bf16_ && level < 3
+          && (f32_tiles1(F32_ROWS, F1, F2) > TC_THREADS / 32
+              || f32_tiles2(F32_ROWS, F1, F2) > TC_THREADS / 32))
       || (bf16_ && (packed == nullptr
                     || reinterpret_cast<uintptr_t>(packed) % 16)))
     return (int)cudaErrorInvalidValue;
@@ -306,7 +602,10 @@ extern "C" int block_agg_launch(int bf16_, const void* e, const void* w1,
     BlockAggArgs<float> a;
     fill_args(a, e, w1, w2, h1, h2, wts, packed, out1, out2, B, N, C, F1,
               F2);
-    return block_agg_run<float, 0>(a, grid_out, s);
+    return level == 0 ? block_agg_run<float, 0>(a, grid_out, s)
+           : level == 1 ? block_agg_run<float, 1>(a, grid_out, s)
+           : level == 2 ? block_agg_run<float, 2>(a, grid_out, s)
+                        : block_agg_run<float, 3>(a, grid_out, s);
   }
   BlockAggArgs<bf16> a;
   fill_args(a, e, w1, w2, h1, h2, wts, packed, out1, out2, B, N, C, F1, F2);

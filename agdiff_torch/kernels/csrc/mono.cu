@@ -28,10 +28,15 @@
 // (kernels/monolithic.py); `mono_forward_plain` there is the plain
 // version this kernel is held to.
 //
-// The cd type T is a template parameter. At bf16, products are wmma
-// 16x16x16 fragments with f32 accumulators on rows padded by 16 bytes,
-// with the weights staged in shared memory where they fit, as in K1
-// (csrc/stack_packed.cu). At f32 they are f32 fused multiply-adds on CUDA
+// The cd type T is a template parameter. At bf16, the SchNet filter MLPs
+// run on 64-pair tiles through K2's and K3's tensor-core tile
+// (filter_mlp.cuh filter_tile_tc: mma.sync.m16n8k16, bias, ssp and the
+// bf16 rounding on the accumulators, the filter weights packed once per
+// block set by the wrapper in lane order); the other products are wmma
+// 16x16x16 fragments with f32 accumulators on rows padded by 16 bytes;
+// weights are staged in shared memory where they fit (the filter set once
+// per block), as in K1 (csrc/stack_packed.cu), else read from L2 with the
+// same loads and the same bits. At f32 they are f32 fused multiply-adds on CUDA
 // cores, each thread a 4 x 4 tile, weights read from global memory: no
 // TF32. Every other value is f32; rnd<T> rounds where the TPU kernel
 // rounds (a no-op at f32). The envelope (cosine or Gaussian) and the head
@@ -62,8 +67,9 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "filter_mlp.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 #define TP 32             // pairs per tile (kernels/monolithic.py TILE_P)
 #define NTHREADS 512
@@ -80,8 +86,9 @@ typedef __nv_bfloat16 bf16;
 //   [NL x GF_PER_LAYER f32][2 x SF_PER_HEAD f32]
 enum { E_KFE, E_T0, E_W0A, E_W1, E_T2, E_W2A, E_W3, E_PER };
 enum { EF_BFE, EF_B1, EF_B3, EF_PER };
+// W_TC: fa, fb1, fb2 packed for filter_tile_tc (bf16; empty at f32)
 enum { W_FA, W_FB1, W_FB2, W_L1, W_L2A, W_L2B, W_LIN, W_ATT0, W_SE0, W_SE1,
-       W_PER_BLOCK };
+       W_TC, W_PER_BLOCK };
 // F_BETA: beta1, beta2, act_beta; F_DW: dw1k, dw1b, dw2k of conv 1, then
 // of conv 2 (DW each); F_DWB: dw2b of conv 1 and 2
 enum { F_BA, F_BB, F_L1B, F_L2AB, F_L2BB, F_LINB, F_ATT0B, F_ATT1K, F_ATT1B,
@@ -130,15 +137,6 @@ struct Strides {
         LDB(H + H / 2 + 8) {}
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<bf16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // Four consecutive values as float4 (generic pointers: shared or global
 // memory; every caller's column is a multiple of 4 and rows are aligned).
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -164,18 +162,11 @@ __device__ __forceinline__ void st4(bf16* p, float4 v) {
   u.y = *reinterpret_cast<unsigned*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
 }
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float softplus_(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
 __device__ __forceinline__ float sigmoid_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 __device__ __forceinline__ float ssp(float x, float beta) {
-  return softplus_(beta * x) - LN2F;
+  return softplus_<false>(beta * x) - LN2F;
 }
 // jax.nn.gelu's default, the tanh form
 __device__ __forceinline__ float gelu_(float x) {
@@ -375,7 +366,13 @@ struct Lists {
 };
 
 // Bytes of each group of regions for cd values of S bytes (kernels/
-// monolithic.py region_bytes mirrors this).
+// monolithic.py region_bytes mirrors this). The pair tile holds the
+// 32-pair tile of the wmma phases or, at bf16, the 64-pair filter tile
+// (E | Tt, V, the distance weights), whichever is larger.
+__host__ __device__ inline size_t tc_tile_bytes(int H) {
+  const TcDims d = tc_dims(H, H, H / 2);
+  return tc_r1_bytes(d) + tc_v_bytes(d) + 2 * TC_ROWS * 4;
+}
 struct Regions {
   size_t states, small, temps, tile;
   __host__ __device__ Regions(int NP, int H, int S) {
@@ -385,6 +382,7 @@ struct Regions {
     temps = (size_t)NP * st.LDF * 4 + (size_t)NP * st.LDX * S;
     tile = (size_t)TP * st.LDE * S + (size_t)TP * st.LDV * 4
            + (size_t)TP * st.LDB * S + 2 * TP * 4;
+    if (S == 2 && tc_tile_bytes(H) > tile) tile = tc_tile_bytes(H);
   }
   size_t shared(int level) const {
     return tile + (level < 1 ? temps : 0) + (level < 2 ? states + small : 0);
@@ -418,15 +416,30 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
   float* hl = reinterpret_cast<float*>(take(sg, (size_t)NP * H * 4));
   float* NF = reinterpret_cast<float*>(take(tg, (size_t)NP * LDF * 4));
   T* XB = reinterpret_cast<T*>(take(tg, (size_t)NP * LDX * sizeof(T)));
-  T* EPT = reinterpret_cast<T*>(take(false, TP * LDE * sizeof(T)));
-  float* VF = reinterpret_cast<float*>(take(false, TP * LDV * 4));
-  T* VB = reinterpret_cast<T*>(take(false, TP * LDB * sizeof(T)));
-  float* WE = reinterpret_cast<float*>(take(false, 2 * TP * 4));
+  unsigned char* tile =
+      take(false, Regions(NP, H, sizeof(T)).tile);   // the pair tile
+  T* EPT = reinterpret_cast<T*>(tile);
+  float* VF = reinterpret_cast<float*>(tile + TP * LDE * sizeof(T));
+  T* VB = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(VF)
+                               + TP * LDV * 4);
+  float* WE = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(VB)
+                                       + TP * LDB * sizeof(T));
   int* cur = reinterpret_cast<int*>(take(sg, (size_t)NP * 4));
   int* endq = reinterpret_cast<int*>(take(sg, (size_t)NP * 4));
   float* gate = reinterpret_cast<float*>(take(sg, (size_t)NP * 4));
   int* incp = reinterpret_cast<int*>(take(sg, ((size_t)NP + 1) * 4));
   T* WR = a.resident ? reinterpret_cast<T*>(smem + a.wr_offset) : nullptr;
+  // the SchNet pair loop's tile: at bf16 filter_tile_tc's (TR = TC_ROWS
+  // pairs; E | Tt, V, the distance weights), at f32 the 32-pair one
+  constexpr bool TC = std::is_same<T, bf16>::value;
+  constexpr int TR = TC ? TC_ROWS : TP;
+  const TcDims td = tc_dims(C, F1, F2);
+  bf16* ET = reinterpret_cast<bf16*>(tile);
+  float* TT = reinterpret_cast<float*>(tile);
+  bf16* VT = reinterpret_cast<bf16*>(tile + tc_r1_bytes(td));
+  float* WT = TC ? reinterpret_cast<float*>(tile + tc_r1_bytes(td)
+                                            + tc_v_bytes(td))
+                 : WE;
 
   const T* wt = static_cast<const T*>(a.wt);
   const float* wf = a.wf;
@@ -632,29 +645,35 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
       NF[n * LDF + c] = 0.f;  // aggregation sums start at zero
     }
     for (int n = threadIdx.x; n < N; n += NTHREADS) endq[n] = incp[n];
-    const T *b_fa = w_fa, *b_fb1 = w_fb1, *b_fb2 = w_fb2;
-    int ld_fa = FW, ld_fb1 = F1, ld_fb2 = F2;
-    if constexpr (std::is_same<T, bf16>::value) {
+    // the filter weights: at bf16 the packed set for filter_tile_tc,
+    // staged once per block where the weight region is
+    const bf16* w_tc = nullptr;
+    if constexpr (TC) {
+      w_tc = wt + ob[W_TC];
       if (WR != nullptr) {
-        bf16* w = WR;
-        b_fa = w;
-        ld_fa = stage_w(w, w_fa, C, FW);
-        w += C * ld_fa;
-        b_fb1 = w;
-        ld_fb1 = stage_w(w, w_fb1, F1, F1);
-        w += F1 * ld_fb1;
-        b_fb2 = w;
-        ld_fb2 = stage_w(w, w_fb2, F2, F2);
+        stage_tc_weights(WR, w_tc, tc_weight_elems(td));
+        w_tc = WR;
       }
     }
+    const FilterTC ftc{nullptr, f_ba, f_ba + F1, f_bb, f_bb + F1,
+                       wf + of[F_BETA], wf + of[F_BETA] + 1};
     __syncthreads();
 
-    for (int p0 = 0; p0 < Pe; p0 += TP) {
-      const int rows = min(TP, Pe - p0);
-      load_rows(EPT, LDE, E, p0, rows, C);
+    for (int p0 = 0; p0 < Pe; p0 += TR) {
+      const int rows = min(TR, Pe - p0);
+      if constexpr (TC) {   // TC_ROWS rows of e32 at bf16, zero past rows
+        for (int e = threadIdx.x; e < TC_ROWS * (C / 4); e += NTHREADS) {
+          const int r = e / (C / 4), c = 4 * (e % (C / 4));
+          float4 v = f4(0.f, 0.f, 0.f, 0.f);
+          if (r < rows) v = ld4(E + (size_t)(p0 + r) * H + c);
+          st4(ET + r * td.lde + c, v);
+        }
+      } else {
+        load_rows(EPT, LDE, E, p0, rows, C);
+      }
       // the distance weight times the envelope, per conv and pair
-      if (threadIdx.x < 2 * TP) {
-        const int conv = threadIdx.x / TP, r = threadIdx.x % TP;
+      if (threadIdx.x < 2 * TR) {
+        const int conv = threadIdx.x / TR, r = threadIdx.x % TR;
         float wv = 0.f;
         if (r < rows) {
           const int p = plist[p0 + r];
@@ -668,31 +687,39 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
           wv = sigmoid_(s + f_dwb[conv])
                * (envelope<SMOOTH>(d, cutoff) * emg[p]);
         }
-        WE[threadIdx.x] = wv;
+        WT[threadIdx.x] = wv;
       }
-      tile_cursors(inc, shift, ince, cur, endq, N, p0 + TP);
+      tile_cursors(inc, shift, ince, cur, endq, N, p0 + TR);
       __syncthreads();
       // filter MLPs: v = ssp(e @ [fa1 | fa2] + ba) rounded; f = v @ fb + bb
-      mma_tiles(VF, LDV, TP, FW, EPT, LDE, b_fa, ld_fa, C);
-      __syncthreads();
-      for (int e = threadIdx.x; e < TP * FW / 4; e += NTHREADS) {
-        const int r = e / (FW / 4), c = 4 * (e % (FW / 4));
-        const float beta = c < F1 ? beta1 : beta2;
-        const float4 v = ld4(VF + r * LDV + c), bias = ldg4(f_ba + c);
-        st4(VB + r * LDB + c,
-            f4(ssp(v.x + bias.x, beta), ssp(v.y + bias.y, beta),
-               ssp(v.z + bias.z, beta), ssp(v.w + bias.w, beta)));
+      if constexpr (TC) {
+        if (WR != nullptr)
+          filter_tile_tc<false, true>(ET, VT, TT, rows, w_tc, ftc, td);
+        else
+          filter_tile_tc<false, false>(ET, VT, TT, rows, w_tc, ftc, td);
+      } else {
+        mma_tiles(VF, LDV, TP, FW, EPT, LDE, w_fa, FW, C);
+        __syncthreads();
+        for (int e = threadIdx.x; e < TP * FW / 4; e += NTHREADS) {
+          const int r = e / (FW / 4), c = 4 * (e % (FW / 4));
+          const float beta = c < F1 ? beta1 : beta2;
+          const float4 v = ld4(VF + r * LDV + c), bias = ldg4(f_ba + c);
+          st4(VB + r * LDB + c,
+              f4(ssp(v.x + bias.x, beta), ssp(v.y + bias.y, beta),
+                 ssp(v.z + bias.z, beta), ssp(v.w + bias.w, beta)));
+        }
+        __syncthreads();
+        mma_tiles(VF, LDV, TP, F1, VB, LDB, w_fb1, F1, F1);
+        mma_tiles(VF + F1, LDV, TP, F2, VB + F1, LDB, w_fb2, F2, F2,
+                  nullptr, 0, nullptr, 0, 0, F1 / 16);
+        __syncthreads();
       }
-      __syncthreads();
-      mma_tiles(VF, LDV, TP, F1, VB, LDB, b_fb1, ld_fb1, F1);
-      mma_tiles(VF + F1, LDV, TP, F2, VB + F1, LDB, b_fb2, ld_fb2, F2,
-                nullptr, 0, nullptr, 0, 0, F1 / 16);
-      __syncthreads();
       // agg_n += cd(wp_p * x_other), wp_p = cd(f_p * wedge_p), over this
-      // tile's working pairs incident to n, in pair order
+      // tile's working pairs incident to n, in pair order (f: the filter
+      // output with its bias bb, which filter_tile_tc adds)
       for (int e = threadIdx.x; e < N * FW / 4; e += NTHREADS) {
         const int n = e / (FW / 4), c = 4 * (e % (FW / 4));
-        const float* wep = WE + (c < F1 ? 0 : TP);
+        const float* wep = WT + (c < F1 ? 0 : TR);
         const float4 bias = ldg4(f_bb + c);
         float4 acc = ld4(NF + n * LDF + c);
         const int qe = endq[n];
@@ -701,12 +728,18 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
           const unsigned iq = inc[q];
           const int lp = (int)(iq >> shift) - p0, o = iq & omask;
           const float w = wep[lp];
-          const float4 v = ld4(VF + lp * LDV + c);
+          float4 v;
+          if constexpr (TC) {
+            v = ld4(TT + lp * td.ldt + c);
+          } else {
+            const float4 u = ld4(VF + lp * LDV + c);
+            v = f4(u.x + bias.x, u.y + bias.y, u.z + bias.z, u.w + bias.w);
+          }
           const float4 x = ld4(XB + o * LDX + c);
-          acc.x += rnd<T>(rnd<T>((v.x + bias.x) * w) * x.x);
-          acc.y += rnd<T>(rnd<T>((v.y + bias.y) * w) * x.y);
-          acc.z += rnd<T>(rnd<T>((v.z + bias.z) * w) * x.z);
-          acc.w += rnd<T>(rnd<T>((v.w + bias.w) * w) * x.w);
+          acc.x += rnd<T>(rnd<T>(v.x * w) * x.x);
+          acc.y += rnd<T>(rnd<T>(v.y * w) * x.y);
+          acc.z += rnd<T>(rnd<T>(v.z * w) * x.z);
+          acc.w += rnd<T>(rnd<T>(v.w * w) * x.w);
         }
         st4(NF + n * LDF + c, acc);
       }

@@ -31,7 +31,11 @@ dtype, a shape, a device mismatch, an activation other than relu. K3 at
 bf16 runs on the tensor cores over a persistent grid
 (`block_agg_schedule`), with the filter weights packed once per weight
 set (`prepared_filter`, `pack_filter_weights`) and staged in shared
-memory (layout level 0) or read from L2 (level 1, `block_agg_level`);
+memory (layout level 0) or read from L2 (level 1, `block_agg_level`); at
+f32 it runs true-f32 register units on CUDA cores over the same kind of
+persistent grid (64-pair tiles; 32 at level 3), with fa and fb1 staged
+once per block where they fit (levels 0-3), the one-block-per-row form's
+bits;
 `block_agg_launch` forces a level for tests. K5 is a
 fused elementwise pass plus a reduction, which Triton could express; it is
 CUDA C++ here too, so that the port has one build path. `launches` counts
@@ -59,6 +63,7 @@ MAX_FILTER_WIDTH = 256   # F1 + F2: one thread a column (csrc/fused.cu)
 MAX_SMEM = 232448        # bytes of shared memory a block may use on Hopper
 TC_ROWS = 64             # pairs of a tensor-core tile (csrc/filter_mlp.cuh)
 TC_PAD = 8               # bf16 elements padding each operand row
+FT_ROWS = 32             # pairs of a CUDA-core tile (K3 at f32)
 
 # kernel launches per variant ('<kernel>:<f32|bf16>'); plain calls do not
 # count
@@ -115,29 +120,71 @@ def block_agg_smem(c: int, f1: int, f2: int, level: int) -> int:
             + 2 * TC_ROWS * 4)
 
 
-def block_agg_level(c: int, f1: int, f2: int) -> Optional[int]:
-    """The layout level of the bf16 K3 at these widths: the lowest that
-    fits in shared memory (0 to C = 288 at F1 = 128, F2 = 64), None if
-    none does."""
-    fits = [lv for lv in (0, 1) if block_agg_smem(c, f1, f2, lv) <= MAX_SMEM]
+F32_ROWS = 64            # pairs of the f32 K3's one-pass tiles (levels 0-2)
+
+
+def f32_rows(level: int) -> int:
+    """Pairs a tile of the f32 K3 at a layout level (csrc/fused.cu)."""
+    return F32_ROWS if level < 3 else FT_ROWS
+
+
+def f32_one_pass(f1: int, f2: int) -> bool:
+    """Whether the f32 K3's units of each layer fit one pass of the 16
+    warps at 64-pair tiles (levels 0-2): a warp takes 32 rows and 24
+    columns of layer 1, 16 of fb1, 8 of fb2; two warps down a tile."""
+    f6 = -(-(f1 + f2) // 6) * 6
+    return max(2 * -(-f6 // 24), 2 * -(-f1 // 16), 2 * -(-f2 // 8)) <= 16
+
+
+def block_agg_smem_f32(c: int, f1: int, f2: int, level: int) -> int:
+    """Shared memory of one f32 K3 block (csrc/fused.cu
+    block_agg_smem_f32): fa = [fa1 | fa2] at F1 + F2 rounded up to 6
+    columns (levels 0, 1), fb1 (level 0), then E, V and Tt in one region
+    (levels 0-2, 64-pair tiles) or E | Tt and V (level 3, 32 pairs), and
+    the tile's distance weights."""
+    fw, r = f1 + f2, f32_rows(level)
+    f6 = -(-fw // 6) * 6
+    region = max(c * (r + 4), r * (fw + 4), fw * (r + 4) if level < 3 else 0)
+    return ((4 * c * f6 if level <= 1 else 0)
+            + (4 * f1 * f1 if level == 0 else 0) + 4 * region
+            + (4 * fw * (r + 4) if level == 3 else 0) + 4 * 2 * r)
+
+
+def block_agg_level(c: int, f1: int, f2: int,
+                    dtype: torch.dtype = torch.bfloat16) -> Optional[int]:
+    """The layout level of K3 at these widths: the lowest that fits in
+    shared memory, None if none does. bf16: 0 stages the packed weights
+    (to C = 288 at F1 = 128, F2 = 64), 1 reads them from L2. f32: 0 stages
+    fa and fb1 (to C = 148), 1 fa (to C = 220), 2 neither (to C = 852),
+    each on 64-pair tiles where the widths take one pass of units; 3, on
+    32-pair tiles, takes the rest (to C = 1420)."""
+    if dtype == torch.float32:
+        fits = [lv for lv in (0, 1, 2, 3)
+                if block_agg_smem_f32(c, f1, f2, lv) <= MAX_SMEM
+                and (lv == 3 or f32_one_pass(f1, f2))]
+    else:
+        fits = [lv for lv in (0, 1)
+                if block_agg_smem(c, f1, f2, lv) <= MAX_SMEM]
     return fits[0] if fits else None
 
 
-def block_agg_groups(b: int, n: int) -> tuple:
-    """The bf16 K3's unit of work (csrc/fused.cu block_agg_tc): (node rows
-    per group, tiles per group, groups). A group is TC_ROWS // N whole
-    node rows in one tile when N <= TC_ROWS, else one node row in
-    ceil(N / TC_ROWS) tiles."""
-    rpg = TC_ROWS // n if n <= TC_ROWS else 1
-    tiles = 1 if n <= TC_ROWS else -(-n // TC_ROWS)
+def block_agg_groups(b: int, n: int, rows: int = TC_ROWS) -> tuple:
+    """K3's unit of work (csrc/fused.cu block_agg_tc, block_agg_f32) for
+    tiles of `rows` pairs (TC_ROWS at bf16, f32_rows at f32): (node rows
+    per group, tiles per group, groups). A group is rows // N whole node
+    rows in one tile when N <= rows, else one node row in ceil(N / rows)
+    tiles."""
+    rpg = rows // n if n <= rows else 1
+    tiles = 1 if n <= rows else -(-n // rows)
     return rpg, tiles, -(-(b * n) // rpg)
 
 
-def block_agg_schedule(b: int, n: int, grid: int) -> List[List[int]]:
+def block_agg_schedule(b: int, n: int, grid: int,
+                       rows: int = TC_ROWS) -> List[List[int]]:
     """The node rows (b * N + i) each block of a grid of `grid` sums, in
     its order: block k takes a contiguous share of the groups, the first
     groups % grid blocks one more than the rest."""
-    rpg, _, groups = block_agg_groups(b, n)
+    rpg, _, groups = block_agg_groups(b, n, rows)
     per, extra = divmod(groups, grid)
     out = []
     for k in range(grid):
@@ -288,9 +335,9 @@ def interaction_block_aggregate(edge_attr, w_edge1, w_edge2, h1, h2, conv1,
 def block_agg_launch(edge_attr, w_edge1, w_edge2, h1, h2, conv1, conv2, *,
                      level: Optional[int] = None):
     """K3's CUDA kernel on CUDA tensors (interaction_block_aggregate's
-    arguments). `level` forces a layout level of the bf16 kernel (tests
-    and chip_smoke.py; `block_agg_level` picks it otherwise); the f32
-    kernel has level 0 only."""
+    arguments). `level` forces a layout level (tests and chip_smoke.py;
+    `block_agg_level` picks it otherwise): 0 or 1 at bf16, 0 to 3 at
+    f32 (0-2 only where `f32_one_pass`), each giving the same bits."""
     dev, cd = _device_and_dtype(edge_attr, "edge_attr")
     b, n, n2, c = edge_attr.shape
     f1, f2 = conv1["fb"][0].shape[1], conv2["fb"][0].shape[1]
@@ -301,14 +348,15 @@ def block_agg_launch(edge_attr, w_edge1, w_edge2, h1, h2, conv1, conv2, *,
         raise ValueError(f"kernel needs C, F1, F2 % 4 == 0 and F1 + F2 <= "
                          f"{MAX_FILTER_WIDTH} (C={c}, F1={f1}, F2={f2})")
     bf = cd == torch.bfloat16
-    check("edge_attr", edge_attr, (b, n, n, c), cd, dev, align=8 if bf else 0)
+    check("edge_attr", edge_attr, (b, n, n, c), cd, dev, align=8 if bf else 16)
     check("w_edge1", w_edge1, (b, n, n), torch.float32, dev)
     check("w_edge2", w_edge2, (b, n, n), torch.float32, dev)
     check("h1", h1, (b, n, f1), torch.float32, dev)
     check("h2", h2, (b, n, f2), torch.float32, dev)
-    lv = layout_level(level, block_agg_level(c, f1, f2) if bf else 0,
-                  (0, 1) if bf else (0,),
-                  lambda x: block_agg_smem(c, f1, f2, x) if bf else 0)
+    lv = layout_level(level, block_agg_level(c, f1, f2, cd),
+                      (0, 1) if bf else (0, 1, 2, 3),
+                      lambda x: (block_agg_smem if bf else block_agg_smem_f32)(
+                          c, f1, f2, x))
     wts, packed = prepared_filter(conv1, conv2, c, cd, dev)
     out1 = torch.empty((b, n, f1), dtype=torch.float32, device=dev)
     out2 = torch.empty((b, n, f2), dtype=torch.float32, device=dev)

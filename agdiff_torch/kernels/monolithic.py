@@ -55,9 +55,11 @@ it over the triangle; tests/test_torch_port_mono.py). Phase 1 encodes the
 working pairs tile by tile into an f32 per-graph scratch e32 ((B, P, H),
 row r of a graph its r-th working pair, allocated once and reused by
 `MonoParams.buffer`; 32.5 MB at B=128, N=32, H=128, inside the 50 MB L2),
-which the later phases read back, rounding on load where cd is bf16. Products are bf16 `wmma`
-fragments with f32 accumulators at bf16, and f32 fused multiply-adds on
-CUDA cores at f32.
+which the later phases read back, rounding on load where cd is bf16. At
+bf16 the SchNet filter MLPs run on K2's and K3's tensor-core tile (64
+pairs, the filter weights packed per block by `_pack`) and the other
+products are bf16 `wmma` fragments with f32 accumulators; at f32 every
+product is f32 fused multiply-adds on CUDA cores.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from agdiff_torch.kernels.fused import TC_ROWS, pack_filter_weights, tc_regions
 from agdiff_torch.kernels.fused import check as _check
 from agdiff_torch.nn.common import activation_by_name, gelu
 from agdiff_torch.nn.schnet import envelope
@@ -344,7 +347,8 @@ def region_bytes(n: int, h: int, itemsize: int) -> Tuple[int, int, int, int]:
     """Bytes of one CTA's groups of regions (csrc/mono.cu Regions, with
     its padded strides), for cd values of `itemsize` bytes: node states h
     and hl, the small per-node arrays, the node temporaries NF and XB, and
-    the pair tile."""
+    the pair tile (at bf16 the larger of the 32-pair tile and the 64-pair
+    filter tile, kernels/fused.py tc_regions)."""
     np_ = -(-n // 16) * 16
     fw = h + h // 2
     ldf, ldx, lde, ldv, ldb = 2 * h + 4, 2 * h + 8, h + 8, fw + 4, fw + 8
@@ -353,6 +357,9 @@ def region_bytes(n: int, h: int, itemsize: int) -> Tuple[int, int, int, int]:
     temps = np_ * ldf * 4 + np_ * ldx * itemsize
     tile = (TILE_P * lde * itemsize + TILE_P * ldv * 4
             + TILE_P * ldb * itemsize + 2 * TILE_P * 4)
+    if itemsize == 2:
+        tc = tc_regions(h, h, h // 2)
+        tile = max(tile, tc["r1"] + tc["v"] + 2 * TC_ROWS * 4)
     return states, small, temps, tile
 
 
@@ -409,26 +416,27 @@ def weight_region_bytes(h: int) -> int:
 
 
 def layout(n: int, h: int, itemsize: int) -> Tuple[int, int, int]:
-    """(level, shared bytes, scratch bytes per graph of the launch): at
-    bf16 the smallest level at which the staged weights fit beside the
-    shared regions, else (and at f32, which stages none) the smallest
-    level that fits."""
+    """(level, shared bytes, scratch bytes per graph of the launch): the
+    smallest level that fits. The bf16 weights are staged where they fit
+    beside it (to N = 16 at H = 128): restaging a product's weights for
+    each call costs more than reading them from L2, so node regions in
+    shared memory come first (PERF.md: at B=128, N=32 level 0 without
+    staged weights reads ~0.8 ms of card time against ~0.9 at level 1 with
+    them)."""
     fits = [lv for lv in (0, 1, 2)
             if smem_bytes(n, h, itemsize, lv) <= MAX_SMEM]
     if not fits:
         raise ValueError(f"H={h} needs {smem_bytes(n, h, itemsize, 2)} "
                          f"bytes of shared memory at every level")
-    staged = [lv for lv in fits if itemsize == 2
-              and -(-smem_bytes(n, h, itemsize, lv) // 128) * 128
-              + weight_region_bytes(h) <= MAX_SMEM]
-    level = (staged or fits)[0]
-    return (level, *launch_bytes(n, h, itemsize, level))
+    return (fits[0], *launch_bytes(n, h, itemsize, fits[0]))
 
 
 def _pack(params: MonoParams, device) -> tuple:
     """Flat cd and f32 weight buffers and the int32 offset table the
     kernel indexes (csrc/mono.cu, enum order): the encoder's cd and f32
-    entries, every block's cd entries, every block's f32 entries, the GIN
+    entries, every block's cd entries (at bf16 also the filter matrices
+    packed for the tensor-core tile, kernels/fused.py
+    pack_filter_weights; empty at f32), every block's f32 entries, the GIN
     and head cd entries, then the GIN and head f32 entries. Each entry
     starts at a multiple of 16 elements."""
     cached = params._packed.get(device)
@@ -465,6 +473,9 @@ def _pack(params: MonoParams, device) -> tuple:
         wt(w["bk_att0k"][k])                              # W_ATT0
         wt(w["bk_se0"][k])                                # W_SE0
         wt(w["bk_se1"][k])                                # W_SE1
+        wt(pack_filter_weights(w["c1_fa"][k], w["c2_fa"][k], w["c1_fb"][k],
+                               w["c2_fb"][k]) if cd == torch.bfloat16
+           else w["w1"].new_zeros(0))                     # W_TC
     for k in range(nb):
         wf(torch.cat([w["c1_ba"][k], w["c2_ba"][k]]))     # F_BA
         wf(torch.cat([w["c1_bb"][k], w["c2_bb"][k]]))     # F_BB
@@ -496,8 +507,8 @@ def _pack(params: MonoParams, device) -> tuple:
         wf(w["sc_g3k"][s])                                # SF_W3
         wf(w["sc_g3b"][s])                                # SF_B3
     ot, of = toffs, foffs
-    table = (ot[:7] + of[:3] + ot[7:7 + 10 * nb] + of[3:3 + 12 * nb]
-             + ot[7 + 10 * nb:] + of[3 + 12 * nb:])
+    table = (ot[:7] + of[:3] + ot[7:7 + 11 * nb] + of[3:3 + 12 * nb]
+             + ot[7 + 11 * nb:] + of[3 + 12 * nb:])
     packed = (torch.cat(tparts).contiguous(), torch.cat(fparts).contiguous(),
               torch.tensor(table, dtype=torch.int32, device=device))
     params._packed[device] = packed

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the engine paths A ('pallas' f32), B ('pallas' bf16) and
-D ('pk') on one H100, for any checkout of this repository.
+"""Device time of the engine paths A ('pallas' f32), B ('pallas' bf16), D
+('pk'), E and E-drugs ('mono') on one H100, for any checkout of this
+repository.
 
-    python3 chip_profile.py [--root DIR] [--repeat K]
+    python3 chip_profile.py [--root DIR] [--repeat K] [--paths A,B,D,E,E-drugs]
 
 DIR is a checkout (default: the one holding this script); its
 agdiff_torch and chip_smoke.py are imported, so the same script reads an
@@ -11,9 +12,11 @@ read in one call compare on one card. Each path is profiled K times
 (default 1) with DIR's chip_smoke.profile_slice, as its phase 6 does: 20
 ladder steps of one chunk of 128 conformers of the first QM9 fixture
 molecule in bucket 32, at the full width of configs/qm9_default.yml (A)
-or qm9_fast.yml (B, D), seeded random weights. Prints the device busy
-time, the idle share and the hand kernels' time; the rows go to
-chiprun_out/chip_profile.json.
+or qm9_fast.yml (B, D, E), and (E-drugs) of 48 conformers of the first
+Drugs fixture molecule in bucket 64 at drugs_fast.yml, seeded random
+weights. Prints the device busy time, the idle share and the hand
+kernels' time; the rows go to chiprun_out/chip_profile.json under the
+working directory (chip_profile_<DIR's name>.json for another checkout).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ def main() -> int:
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)))
     parser.add_argument("--repeat", type=int, default=1)
+    parser.add_argument("--paths", default="A,B,D,E,E-drugs")
     args = parser.parse_args()
     import torch
 
@@ -42,6 +46,7 @@ def main() -> int:
     from agdiff_torch.data.fixture import load_fixture
     from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
     from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
     from agdiff_torch.models.schedules import make_diffusion
     from agdiff_torch.models.weights import init_random
 
@@ -58,26 +63,39 @@ def main() -> int:
 
     fcfg, fmodel = model("qm9_default.yml")
     qcfg, qmodel = model("qm9_fast.yml")
+    dcfg, dmodel = model("drugs_fast.yml")
+    qmol, dmol = load_fixture()[0], load_fixture("drugs_synthetic")[0]
+    fdiff = make_diffusion(fcfg)
+    k6 = {"K6": "mono_kernel"}
+    # label: forward, hand kernels, diffusion, molecule, bucket, chunk
     paths = {
-        "path_A": (build_fast_forward(fcfg, fmodel, "pallas"),
-                   {"K3": "block_agg_kernel", "K5": "gine_kernel"}),
-        "path_B": (build_fast_forward(qcfg, qmodel, "pallas"),
-                   {"K3": "block_agg_kernel"}),
-        "path_D": (build_fast_forward(qcfg, qmodel, "pk"),
-                   {"K2": "packed_block_kernel"}),
+        "A": lambda: (build_fast_forward(fcfg, fmodel, "pallas"),
+                      {"K3": "block_agg_kernel", "K5": "gine_kernel"},
+                      fdiff, qmol, 32, cs.CHUNK),
+        "B": lambda: (build_fast_forward(qcfg, qmodel, "pallas"),
+                      {"K3": "block_agg_kernel"}, fdiff, qmol, 32, cs.CHUNK),
+        "D": lambda: (build_fast_forward(qcfg, qmodel, "pk"),
+                      {"K2": "packed_block_kernel"}, fdiff, qmol, 32,
+                      cs.CHUNK),
+        "E": lambda: (build_monolithic_forward(qcfg, qmodel), k6, fdiff,
+                      qmol, 32, cs.CHUNK),
+        "E-drugs": lambda: (build_monolithic_forward(dcfg, dmodel), k6,
+                            make_diffusion(dcfg), dmol, 64, cs.DRUGS_CHUNK),
     }
-    diffusion = make_diffusion(fcfg)
-    mol = load_fixture()[0]
+    chosen = {p: paths[p]() for p in args.paths.split(",")}
     report = {"card": card, "root": root, "profiles": {}, "runs": []}
     for k in range(args.repeat):
-        for label, (fwd, kernels) in paths.items():
-            cs.profile_slice(fwd, diffusion, mol, 32, cs.CHUNK, label,
-                             report, kernels)
+        for p, (fwd, kernels, diff, mol, bucket, chunk) in chosen.items():
+            label = "path_" + p
+            cs.profile_slice(fwd, diff, mol, bucket, chunk, label, report,
+                             kernels)
             report["runs"].append(dict(run=k, label=label,
                                        **report["profiles"][label]))
-    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(root, "chiprun_out", "chip_profile.json"),
-              "w") as f:
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = "chip_profile" + ("" if root == here
+                             else "_" + os.path.basename(root)) + ".json"
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(report, f, indent=1)
     return 0
 

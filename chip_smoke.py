@@ -39,8 +39,9 @@ Phases, each of which fails the run:
      dropped filter or first-layer bias, the softplus shift dropped, the
      mask ignored, the relu dropped), each timed as a lone call (`ms`)
      and behind a card spin (`ms_spun`); K2 and K3 print the layout level
-     and grid of their launch, and at bf16 the other layout level must
-     give the same bits (timed beside it);
+     and grid of their launch, and their other layout levels (K2 and K3
+     bf16: 1; K3 f32: 1, 2 and 3) must give the same bits (timed beside
+     it);
   4. the QM9 slice: GenerationRunner generates conformers for the
      molecules of agdiff_torch/data/fixtures/qm9_synthetic.json on the
      'pksf' engine (bucket 32, chunk 128, w_global 0.3, a 500-step suffix
@@ -72,8 +73,11 @@ Phases, each of which fails the run:
      B=48/N=64, and at f32 on qm9_default.yml at B=128/N=32 and on
      drugs_fast.yml at B=48/N=64, with planted faults (the type tables
      replaced by their row 0, the cutoff mask dropped, lm ignored, the
-     softplus shift dropped), two launches and every layout level giving
-     the same bits, each case timed beside its bound; at Drugs size the
+     softplus shift dropped, each graph's last working pair dropped), two
+     launches and every layout level giving the same bits, each case
+     timed beside its bound (as a lone call, behind a card spin, and at
+     every layout level), with its working-pair share of the triangle and
+     the tiles K6 walks; at Drugs size the
      plain version on the CPU and the plain version fed K6's own encoder
      output are read beside it, to show where bf16 differences start;
      the engine is
@@ -853,8 +857,8 @@ def check_new_kernels(fwds, batch, report) -> tuple:
             args, outs, faults, limits_for(("agg1", "agg2"), e.dtype),
             block_agg_work, PEAK_BF16 if bf else PEAK_F32, report,
             launch=lambda name=name: fused.last_launch[name],
-            levels={1: lambda args=args: fused.block_agg_launch(
-                *args, level=1)} if bf else None)
+            levels={lv: lambda args=args, lv=lv: fused.block_agg_launch(
+                *args, level=lv) for lv in ((1,) if bf else (1, 2, 3))})
         failures += f
 
     args, _ = capture(fwds["pallas_f32"], batch, "gine_aggregate")
@@ -1119,6 +1123,11 @@ def mono_faults(kw) -> list:
         finally:
             setattr(k6, name, saved)
 
+    # a compaction fault: each graph's last working pair left out
+    em, lm = kw["em"].clone(), kw["lm"].clone()
+    for g, keep in enumerate(k6.working_pairs(kw["em"], kw["lm"])):
+        if len(keep):
+            em[g, keep[-1]] = lm[g, keep[-1]] = 0.0
     return [
         ("type tables replaced by row 0", plain(**dict(
             kw, params=dataclasses.replace(prm, w={**prm.w, **row0},
@@ -1126,6 +1135,8 @@ def mono_faults(kw) -> list:
         ("cutoff mask dropped", patched("envelope", no_cutoff)),
         ("lm ignored", plain(**dict(kw, lm=torch.ones_like(kw["lm"])))),
         ("softplus shift dropped", patched("LN2", 0.0)),
+        ("each graph's last working pair dropped",
+         plain(**dict(kw, em=em, lm=lm))),
     ]
 
 
@@ -1153,13 +1164,24 @@ def check_k6(kw, label, limits, report, cpu_params=None) -> tuple:
     repro = all(torch.equal(g, a) for g, a in zip(got, again))
     n, h = kw["h0"].shape[1:]
     itemsize = 2 if kw["params"].cd == torch.bfloat16 else 4
-    levels = {lv: all(torch.equal(g, a) for g, a in zip(
-        got, k6.mono_forward(**kw, level=lv)))
-        for lv in (0, 1, 2) if k6.smem_bytes(n, h, itemsize, lv)
-        <= k6.MAX_SMEM}
+    levels, level_ms = {}, {}
+    for lv in (0, 1, 2):
+        if k6.smem_bytes(n, h, itemsize, lv) <= k6.MAX_SMEM:
+            levels[lv] = all(torch.equal(g, a) for g, a in zip(
+                got, k6.mono_forward(**kw, level=lv)))
+            level_ms[lv] = cuda_time(
+                lambda lv=lv: k6.mono_forward(**kw, level=lv))
     faults = {name: mono_errors(out, ref, kw)
               for name, out in mono_faults(kw)}
     ms, plain_ms = cuda_time(kernel), cuda_time(plain)
+    ms_spun = cuda_time(kernel, spin=True)
+    # the working lists K6 walks: pairs, 32-pair tiles (encoder, GIN,
+    # heads) and, at bf16, 64-pair filter tiles (SchNet), over all graphs
+    counts = [len(w) for w in k6.working_pairs(kw["em"], kw["lm"])]
+    b, p = kw["dp"].shape
+    walked = dict(pairs=sum(counts), share=sum(counts) / (b * p),
+                  tiles32=sum(-(-c // 32) for c in counts),
+                  tiles64=sum(-(-c // 64) for c in counts))
     cross = e32 = on_e32 = None
     if cpu_params is not None:   # after the timings
         on_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
@@ -1170,12 +1192,18 @@ def check_k6(kw, label, limits, report, cpu_params=None) -> tuple:
         # where the difference starts: the encoder output the kernel's last
         # launch left in its scratch, against the plain encoder's, and the
         # kernel against the plain version fed the kernel's e32
+        # (row r of a graph's scratch holds its r-th working pair; the
+        # other pairs take the plain encoder's rows, which nothing reads)
         b, p = kw["dp"].shape
         h = kw["h0"].shape[2]
-        e_k = kw["params"].buffer(kw["dp"].device, "e32", 0)[
-            :b * p * h * 4].view(torch.float32).view(b, p, h).clone()
-        e32 = errors(e_k, k6.encode_plain(kw["dp"], kw["tp"],
-                                          kw["params"].w))
+        rows = kw["params"].buffer(kw["dp"].device, "e32", 0)[
+            :b * p * h * 4].view(torch.float32).view(b, p, h)
+        e_plain = k6.encode_plain(kw["dp"], kw["tp"], kw["params"].w)
+        e_k = e_plain.clone()
+        for g, keep in enumerate(k6.working_pairs(kw["em"], kw["lm"])):
+            e_k[g, keep] = rows[g, :len(keep)]
+        work = (kw["em"] != 0) | (kw["lm"] != 0)
+        e32 = errors(e_k[work], e_plain[work])
         saved, k6.encode_plain = k6.encode_plain, lambda *a: e_k
         try:
             on_e32 = mono_errors(got, k6.mono_forward_plain(**kw), kw)
@@ -1194,12 +1222,13 @@ def check_k6(kw, label, limits, report, cpu_params=None) -> tuple:
                                       else 4)[0],
                outputs=outs, limits=limits, planted_faults=faults,
                bitwise_reproducible=repro, levels_same_bits=levels,
+               level_ms=level_ms, working=walked,
                plain_cpu_vs_plain=cross, e32_vs_plain=e32,
                kernel_vs_plain_on_kernel_e32=on_e32,
                max_abs_err=max(outs[k]["max_abs_err"]
                                for k in ("global", "local")),
-               ms=ms, plain_ms=plain_ms, library_ms=None, flops=flops,
-               bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               ms=ms, ms_spun=ms_spun, plain_ms=plain_ms, library_ms=None,
+               flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     report["mono_checks"].append(row)
 
@@ -1212,12 +1241,18 @@ def check_k6(kw, label, limits, report, cpu_params=None) -> tuple:
 
     print(f"K6 {label} [{row['variant']}, layout {row['layout_level']}]: "
           f"B={b} N={n} P={p}, em pairs {row['em_pairs']:.0f}, lm pairs "
-          f"{row['lm_pairs']:.0f}; |kernel - plain| as shares of each "
+          f"{row['lm_pairs']:.0f}; working pairs {walked['pairs']} (share "
+          f"{walked['share']:.4f} of the triangle), tiles walked "
+          f"{walked['tiles32']} of 32 and {walked['tiles64']} of 64 pairs; "
+          f"|kernel - plain| as shares of each "
           f"plane's max|value| on its mask: {line(outs)}; two launches "
-          f"bitwise equal {repro}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"bitwise equal {repro}; kernel {ms:.3f} ms (spun {ms_spun:.3f}), "
+          f"plain {plain_ms:.3f} "
           f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); layout "
-          f"levels giving the chosen level's bits: {levels}", flush=True)
+          f"levels giving the chosen level's bits: {levels}, their ms: "
+          + ", ".join(f"{lv}: {t:.3f}" for lv, t in level_ms.items()),
+          flush=True)
     if cross is not None:
         print(f"  plain version on the CPU vs on the card: {line(cross)}",
               flush=True)

@@ -6,9 +6,12 @@ in global memory); each main-path case at a cluster of R = 1, 2 and 4
 CTAs per graph, the layout levels at R = 2, the choice of R and a refused
 R. K2-K5: each variant on the inputs its engine gives it
 at a small width, and the inputs their wrappers refuse; K3 at bf16 at N =
-20 and 40 (ragged 64-pair tiles) and B = 1, K2 at bf16 at N = 104 (layout
-level 1), both called directly at widths that are not multiples of 16, and
-both layout levels of each giving the same bits. Imports no JAX,
+20 and 40 (ragged 64-pair tiles) and B = 1, K3 at f32 (persistent, 64-pair
+tiles) at N = 20, 40 and B = 1, K2 at bf16 at N = 104 (layout level 1),
+both called directly at widths that are not multiples of 16, and every
+layout level of each giving the same bits. K6 at small and full width,
+with em all ones, em = lm, a graph with no working pair and N = 20, 40,
+every layout level giving the same bits. Imports no JAX,
 so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -325,6 +328,10 @@ def _expected_level(wrapper, args):
     ("interaction_block_aggregate", "pallas", "bfloat16", dict(n=20)),
     ("interaction_block_aggregate", "pallas", "bfloat16", dict(n=40)),
     ("interaction_block_aggregate", "pallas", "bfloat16", dict(b=1)),
+    # K3 at f32 on its persistent grid: a row in two 32-pair tiles (N =
+    # 40, above), ragged tiles, and fewer node rows than blocks
+    ("interaction_block_aggregate", "pallas", "float32", dict(n=20)),
+    ("interaction_block_aggregate", "pallas", "float32", dict(b=1)),
     # K2 at the largest N the CUDA-core form took at H = 128: level 1
     ("packed_block_aggregate", "pk", "bfloat16", dict(n=104, hidden=128))])
 def test_cuda_new_kernels_match_plain(card, wrapper, engine, dtype, kw):
@@ -349,6 +356,13 @@ def test_cuda_new_kernels_match_plain(card, wrapper, engine, dtype, kw):
     got, ref, again = ((t,) if isinstance(t, torch.Tensor) else t
                        for t in (got, ref, again))
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+    if wrapper == "interaction_block_aggregate":
+        name = fused.variant("block_agg", args[0].dtype)
+        b, n = args[0].shape[:2]
+        launch = fused.last_launch[name]
+        rows = (fused.TC_ROWS if dtype == "bfloat16"
+                else fused.f32_rows(launch["level"]))
+        assert 1 <= launch["grid"] <= fused.block_agg_groups(b, n, rows)[2]
     if dtype == "bfloat16" and wrapper in ("packed_block_aggregate",
                                            "interaction_block_aggregate"):
         name = (k2.variant(torch.bfloat16, akw.get("approx", False))
@@ -416,16 +430,18 @@ def _numpy_block(card, b, n, c, f1, f2, dtype, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 1])
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_k2_k3_at_widths_not_multiples_of_16(card, kernel, dtype):
-    """C = 36, F1 = 20, F2 = 12 (multiples of 4, not of 16): the
-    tensor-core tile zero-pads them; the f32 kernels take them as they
-    did."""
+def test_cuda_k2_k3_at_widths_not_multiples_of_16(card, kernel, dtype, b):
+    """C = 36, F1 = 20, F2 = 12 (multiples of 4, not of 16), B = 3 and 1:
+    the tensor-core tile zero-pads them; K3 at f32 takes F1 + F2 = 32
+    columns in units of 6 (zero-padded to 36 in its staged fa); K2 at f32
+    takes them as it did."""
     from agdiff_torch.kernels import block_packed as k2
     from agdiff_torch.kernels import fused
 
-    x = _numpy_block(card, 3, 20, 36, 20, 12, dtype)
+    x = _numpy_block(card, b, 20, 36, 20, 12, dtype)
     c1, c2 = x["convs"]
     if kernel == "K3":
         args = (*x["dense"], c1, c2)
@@ -444,18 +460,28 @@ def test_cuda_k2_k3_at_widths_not_multiples_of_16(card, kernel, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,approx", [("K2", False), ("K2", True),
-                                          ("K3", False)])
+                                          ("K3", False), ("K3-f32", False)])
 def test_cuda_k2_k3_layout_levels_give_the_same_bits(card, kernel, approx):
     """Level 1 (weights read from L2) against level 0 (weights staged in
-    shared memory) at bf16, at the main widths (C = F1 = 128, F2 = 64) and
-    at widths that are not multiples of 16."""
+    shared memory) at bf16, and K3's f32 levels 0 (fa and fb1 staged), 1
+    (fa), 2 (neither) and 3 (32-pair tiles), at the main widths (C = F1 =
+    128, F2 = 64) and at widths that are not multiples of 16."""
     from agdiff_torch.kernels import block_packed as k2
     from agdiff_torch.kernels import fused
 
     for n, (c, f1, f2) in ((32, (128, 128, 64)), (20, (36, 20, 12))):
-        x = _numpy_block(card, 4, n, c, f1, f2, torch.bfloat16, seed=n)
+        dtype = torch.float32 if kernel == "K3-f32" else torch.bfloat16
+        x = _numpy_block(card, 4, n, c, f1, f2, dtype, seed=n)
         c1, c2 = x["convs"]
-        if kernel == "K3":
+        if kernel == "K3-f32":
+            outs = [fused.block_agg_launch(*x["dense"], c1, c2, level=lv)
+                    for lv in (0, 1, 2, 3)]
+            assert fused.last_launch["block_agg:f32"]["level"] == 3
+            torch.cuda.synchronize()
+            for other in outs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
+            continue
+        elif kernel == "K3":
             outs = [fused.block_agg_launch(*x["dense"], c1, c2, level=lv)
                     for lv in (0, 1)]
             assert fused.last_launch["block_agg:bf16"]["level"] == 1

@@ -158,3 +158,52 @@ def test_every_shape_the_cuda_core_kernels_took_is_still_taken():
             while _parent_k3_fits(c + 4, f1, f2):
                 c += 4
             assert fused.block_agg_level(c, f1, f2) is not None, (c, f1, f2)
+
+
+# ---- K3 at f32: a persistent grid of CUDA-core tiles ------------------------
+
+@pytest.mark.parametrize("rows", [64, 32])
+@pytest.mark.parametrize("b,n,grid", [
+    (128, 32, 132), (1, 32, 132), (5, 20, 7), (3, 40, 264), (7, 65, 5)])
+def test_f32_block_agg_schedule_covers_every_row_once(b, n, grid, rows):
+    """The f32 K3 walks 64-pair tiles (levels 0-2: two node rows a tile
+    at N = 32, a row in two tiles at N = 65) or 32-pair tiles (level 3),
+    with the same contiguous shares."""
+    assert rows in (fused.f32_rows(0), fused.f32_rows(3))
+    rpg, tiles, groups = fused.block_agg_groups(b, n, rows)
+    assert rpg * min(n, rows) <= rows and tiles * rows >= n
+    grid = min(grid, groups)
+    sched = fused.block_agg_schedule(b, n, grid, rows)
+    assert [r for blk in sched for r in blk] == list(range(b * n))
+    sizes = [-(-len(blk) // rpg) for blk in sched]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_f32_block_agg_levels_at_the_main_widths():
+    """Pinned sums at C = F1 = 128, F2 = 64 (csrc/fused.cu
+    block_agg_smem_f32 mirrors them): fa (96 KB) and fb1 (64 KB) staged at
+    level 0, fa only at 1, neither at 2 and 3; the level boundaries in C;
+    widths whose units take more than one pass go to level 3."""
+    f32 = torch.float32
+    assert [fused.block_agg_smem_f32(128, 128, 64, lv)
+            for lv in (0, 1, 2, 3)] == [216576, 151040, 52736, 52992]
+    for c, lv in ((128, 0), (148, 0), (152, 1), (220, 1), (224, 2),
+                  (852, 2), (856, 3), (1420, 3), (1424, None)):
+        assert fused.block_agg_level(c, 128, 64, f32) == lv, c
+    assert fused.f32_one_pass(20, 12) and fused.f32_one_pass(64, 32)
+    assert not fused.f32_one_pass(128, 128)
+    assert fused.block_agg_level(128, 128, 128, f32) == 3
+    assert fused.block_agg_level(128, 128, 64) == 0   # bf16 unchanged
+
+
+def test_every_shape_the_f32_k3_took_is_still_taken():
+    """For widths that are multiples of 4 (F1 + F2 <= 256), the largest C
+    the one-block-per-row f32 K3 took gets a level of the persistent
+    one."""
+    for f1 in range(4, 253, 4):
+        for f2 in range(4, 257 - f1, 4):
+            c = 4
+            while _parent_k3_fits(c + 4, f1, f2):
+                c += 4
+            assert fused.block_agg_level(c, f1, f2, torch.float32) \
+                is not None, (c, f1, f2)

@@ -424,15 +424,16 @@ def test_plain_over_working_pairs_equals_the_triangle(setup, case, dtype,
 
 
 @pytest.mark.parametrize("n,itemsize,want", [
-    (32, 2, (0, 230896, 0)), (32, 4, (0, 173952, 0)),
-    (64, 2, (1, 229712, 100352)), (64, 4, (1, 155872, 134144)),
-    (96, 2, (2, 189232, 250624))])
+    (32, 2, (0, 166016, 0)), (32, 4, (0, 173952, 0)),
+    (64, 2, (1, 164832, 100352)), (64, 4, (1, 155872, 134144)),
+    (96, 2, (1, 224320, 150528))])
 def test_layout_and_working_lists_at_the_main_widths(n, itemsize, want):
     """Pinned sums at H = 128 (csrc/mono.cu mirrors them): the layout
-    level, the launch's shared memory (the working lists included where
-    they fit) and the scratch per graph; at N = 64, level 0 (bf16) the
-    lists do not fit beside the regions and go to the scratch."""
+    level (the smallest that fits), the launch's shared memory (the
+    working lists included where they fit) and the scratch per graph; at
+    N = 112 (bf16, level 1) the lists do not fit beside the regions and go
+    to the scratch after the node temporaries."""
     assert k6.layout(n, 128, itemsize) == want
     assert want[1] <= k6.MAX_SMEM
-    assert k6.lists_bytes(32) == 5232 and k6.lists_bytes(64) == 20944
-    assert k6.launch_bytes(64, 128, 2, 0) == (213764, 20992)
+    assert k6.lists_bytes(32) == 5232 and k6.lists_bytes(112) == 64192
+    assert k6.launch_bytes(112, 128, 2, 1) == (193796, 175616 + 64256)
