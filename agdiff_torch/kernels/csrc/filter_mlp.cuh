@@ -1,8 +1,9 @@
-// Device code shared by K2 (block_packed.cu) and K3, K4 (fused.cu): the
-// CFConv filter MLPs of one interaction block, in two forms.
+// Device code shared by K2 (block_packed.cu), K3, K4 (fused.cu) and K6
+// (mono.cu): the CFConv filter MLPs of one interaction block, in two
+// forms, and the tensor-core unit that K4's bf16 layers also run on.
 //
-// On CUDA cores (filter_tile, the f32 variants of K2 and K3, and K4's
-// gemm_unit), on a tile of FT_ROWS rows (pairs). Operands are held in
+// On CUDA cores (filter_tile and gemm_unit, K2's f32 variant), on a tile
+// of FT_ROWS rows (pairs). Operands are held in
 // shared memory as f32 in k-major order (row k of a tile is its k-th
 // feature, FT_LD floats apart), so that a thread reads the eight rows of
 // its unit as two float4 loads. A value of type T (float or bf16) is held
@@ -12,7 +13,8 @@
 // the products are true f32, not TF32: the tensor cores offer only TF32
 // for f32 operands, so the f32 variants stay here.
 //
-// On the tensor cores (filter_tile_tc, the bf16 variants of K2 and K3), on
+// On the tensor cores (filter_tile_tc, the bf16 variants of K2, K3 and
+// K6's filters; K4 at bf16 calls tc_unit with its own relu epilogues), on
 // a tile of TC_ROWS rows: bf16 x bf16 -> f32 products through
 // mma.sync.m16n8k16 in PTX, whose fragment layout is documented, so that
 // the epilogues (bias, ssp, bf16 rounding; bias) work on the accumulators

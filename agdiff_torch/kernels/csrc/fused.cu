@@ -13,10 +13,27 @@
 // The functions and where their operands round are documented beside the
 // wrappers (kernels/fused.py).
 //
-// Design. K4: one block of FT_THREADS threads per node row (b, i); its N
-// pairs (b, i, j) run in tiles of FT_ROWS rows through the matrix
-// products of filter_mlp.cuh on CUDA cores (f32 fused multiply-adds on
-// f32 or bf16-valued operands: true f32 at f32). K3, both forms: a
+// Design. K4: R blocks of TC_THREADS per graph (R from the occupancy
+// query: one at B = 128, more for fewer graphs). Every block of a graph
+// lists the graph's masked cells (i N + j, row-major) with a ballot of 32
+// cells a warp and a scan of the words' counts, in shared memory where the
+// list fits (else in the wrapper's scratch), writes 0 to its share of the
+// cells off the list, and takes 64-pair (bf16) or 32-pair (f32) tiles r,
+// r + R, ... of the list: (i, j) and (j, i) are separate entries (neither
+// the mask nor e is symmetric), and each cell is written by one block, in
+// one order, so the bits do not depend on R. At bf16 a tile [bf16(h_i h_j)
+// | e_ij] (the product from the graph's h, staged once; e gathered a
+// 256-byte row at a time in 16-byte loads) runs both layers on the tensor
+// cores (filter_mlp.cuh tc_unit, mma.sync.m16n8k16) with w1 and w2 packed
+// and staged once per block (level 0; level 1 reads them from L2), relu
+// epilogues on the accumulators, and the head (times w3, a quad's
+// shuffles, then the strips of a row in strip order) in f32. At f32 the
+// tile is k-major in shared memory and each layer runs 4 x 2 register
+// units of f32 fused multiply-adds on CUDA cores, k in increasing order,
+// and the head is one warp a row (a lane-strided sum and a butterfly):
+// the one-block-per-row form's order for every sum of a pair, so its
+// bits; w1 and w2 are staged once per block (level 0), w1 only (1) or
+// neither (2). K3, both forms: a
 // persistent grid of as many blocks of TC_THREADS as the card holds at
 // once (one an SM at the default widths), each walking a contiguous share
 // of the groups of node rows. At bf16 a group is two rows, one 64-pair
@@ -34,16 +51,24 @@
 // (b, i), over j in increasing order.
 //
 // Bounds at B = 128, N = 32, C = H = 128 (chip_smoke.py computes them from
-// each run's shapes): K3 and K4 do ~11-12 GFLOP a launch; at f32 on CUDA
-// cores (67 TFLOP/s) they are bound by operations, ~0.17 ms; at bf16 by
-// the bytes, ~0.012 ms (the 33.5 MB of edge features; the products take
-// ~0.012 ms at 989 TFLOP/s). K3 bf16 runs ~15x above that: a block's
+// each run's shapes): K3 does ~12 GFLOP a launch; at f32 on CUDA cores
+// (67 TFLOP/s) it is bound by operations, ~0.18 ms; at bf16 by the bytes,
+// ~0.012 ms (the 33.5 MB of edge features). K4 counts its masked pairs
+// only: with every real pair masked (46848 of 131072 cells) 3.85 GFLOP,
+// bound by operations at f32 (0.058 ms) and by bytes at bf16 (0.004 ms,
+// 13.8 MB). On an H100 80GB HBM3 at 700 W it reads 0.227 ms (f32) and
+// 0.055 ms (bf16) behind a card spin (PERF.md): one block a graph at B =
+// 128 makes the largest graph's tiles (16 f32 tiles for 23 atoms; the
+// mean is 11.75) the critical path; at f32 the first layer takes 0.65 of
+// a block's cycles (no register-unit shape read faster), at bf16 the
+// gathered tile load (0.38) waits un-overlapped beside the products
+// (0.37 + 0.15). K3 bf16 runs ~15x above its bound: a block's
 // cycles go to the first layer's products and its softplus (~0.47),
 // the second layer (~0.20), the tile load (~0.19) and the aggregation
 // (~0.14) (PERF.md, chip_stamps.py); mma.sync leaves the products
 // latency-bound at 16 warps an SM, the tile load is not overlapped (a
-// cp.async ring measured no faster), and wgmma is the next step. K4 bf16
-// still runs on CUDA cores. K5 reads 67 MB of f32 edge features for ~50
+// cp.async ring measured no faster), and wgmma is the next step. K5
+// reads 67 MB of f32 edge features for ~50
 // MFLOP: bound by bytes, ~0.02 ms.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -502,7 +527,7 @@ static size_t block_agg_smem_tc(int C, int F1, int F2, int level) {
 static int resident_blocks(const void* kernel, int threads, size_t smem,
                            int* out) {
   struct Seen { const void* kernel; int dev; size_t smem; int blocks; };
-  static Seen seen[8];
+  static Seen seen[32];
   static int n_seen = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -520,7 +545,7 @@ static int resident_blocks(const void* kernel, int threads, size_t smem,
                                                       threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  if (n_seen < 8) seen[n_seen++] = Seen{kernel, dev, smem, sms * per_sm};
+  if (n_seen < 32) seen[n_seen++] = Seen{kernel, dev, smem, sms * per_sm};
   *out = sms * per_sm;
   return 0;
 }
@@ -615,6 +640,36 @@ extern "C" int block_agg_launch(int bf16_, const void* e, const void* w1,
 
 // ---- K4 --------------------------------------------------------------------
 
+// The pair lists of one graph (csrc side of kernels/fused.py
+// pair_lists_bytes): the mask's ballot words and their exclusive bases,
+// one word per 32 cells, the masked count, and the masked cells (i N + j)
+// in increasing order, as 16-bit indices (N <= 256). In shared memory
+// where they fit, else in the CTA's share of the wrapper's scratch.
+__host__ __device__ inline size_t r16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+__host__ __device__ inline size_t pair_lists_bytes(int N) {
+  const size_t nc = ((size_t)N * N + 31) / 32;
+  return 2 * r16(4 * nc) + 16 + r16(2 * (size_t)N * N);
+}
+
+struct PairLists {
+  unsigned* bits;
+  int* base;
+  int* count;
+  unsigned short* cells;
+};
+
+__device__ inline PairLists pair_lists_at(char* p, int N) {
+  const size_t nc = ((size_t)N * N + 31) / 32;
+  PairLists l;
+  l.bits = reinterpret_cast<unsigned*>(p);
+  l.base = reinterpret_cast<int*>(p + r16(4 * nc));
+  l.count = reinterpret_cast<int*>(p + 2 * r16(4 * nc));
+  l.cells = reinterpret_cast<unsigned short*>(p + 2 * r16(4 * nc) + 16);
+  return l;
+}
+
 template <typename T>
 struct PairScoreArgs {
   const T* h;              // (B, N, C) node states at the operand type
@@ -626,83 +681,452 @@ struct PairScoreArgs {
   const float* b2;         // (H2,)
   const T* w3;             // (H2, 1)
   const float* b3;         // (1,)
+  const bf16* wp;          // bf16: w1 and w2 packed (pack_pair_score_weights)
   float* out;              // (B, N, N)
-  int N, C, H1, H2;
+  char* scratch;           // the lists of each CTA when not in shared memory
+  int B, N, C, H1, H2;
+  int R;                   // CTAs per graph
+  size_t lists_at;         // byte offset of the lists in shared memory
+  int lists_smem;          // 1: lists in shared memory, 0: in the scratch
+  int vec8;                // bf16: 16-byte loads of e (C % 8, aligned)
 };
 
-template <typename T>
-__global__ void __launch_bounds__(FT_THREADS)
-    pair_score_kernel(PairScoreArgs<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const int N = a.N, C = a.C, H1 = a.H1, H2 = a.H2, ldy = H2 + 4;
-  float* A = smem;                      // 2C x FT_LD: h_i h_j, then e
-  float* X = A + 2 * C * FT_LD;         // H1 x FT_LD
-  float* Y = X + H1 * FT_LD;            // FT_ROWS x ldy
-  float* hi = Y + FT_ROWS * ldy;        // C
-  const int row = blockIdx.x, b = row / N;
-  for (int k = threadIdx.x; k < C; k += FT_THREADS)
-    hi[k] = to_f(a.h[(size_t)row * C + k]);
+// The graph's masked cells, listed by every CTA of the graph: a ballot of
+// 32 cells a warp, an exclusive scan of the words' counts, then each cell
+// at its rank; CTA r writes 0 to the cells off the list in its share
+// (cells q with q / TC_THREADS = r mod R). Returns the count; starts after
+// the caller's staging, ends with the block synchronised.
+__device__ int pair_list(const unsigned char* m, float* out, int NN, int r,
+                         int R, const PairLists& l) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int NC = (NN + 31) / 32;
+  // K4: stage and scan the mask
+  for (int k = warp; k < NC; k += TC_THREADS / 32) {
+    const int q = 32 * k + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, q < NN && m[q] != 0);
+    if (lane == 0) {
+      l.bits[k] = bits;
+      l.base[k] = __popc(bits);
+    }
+  }
   __syncthreads();
-  const T* hb = a.h + (size_t)b * N * C;
-  const T* e = a.e + (size_t)row * N * C;
-  for (int j0 = 0; j0 < N; j0 += FT_ROWS) {
-    const int rows = min(FT_ROWS, N - j0);
-    // prod = h_i h_j at the operand type (rounded when bf16)
-    for (int q = threadIdx.x; q < FT_ROWS * C; q += FT_THREADS) {
-      const int r = q / C, k = q % C;
-      A[k * FT_LD + r] =
-          r < rows ? rnd<T>(hi[k] * to_f(hb[(size_t)(j0 + r) * C + k]))
-                   : 0.f;
-    }
-    load_tile_kmajor(A + C * FT_LD, e + (size_t)j0 * C, rows, C);
-    __syncthreads();
-    // x = relu([prod | e] @ w1 + b1), rounded to the operand type
-    const int g1 = H1 / 4, g2 = H2 / 4;
-    for (int u = threadIdx.x; u < (FT_ROWS / 8) * g1; u += FT_THREADS) {
-      const int c = 4 * (u % g1), r0 = 8 * (u / g1);
-      float acc[8][4];
-      zero_acc(acc);
-      gemm_unit(A, a.w1 + c, H1, 2 * C, r0, acc);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          X[(c + j) * FT_LD + r0 + i] =
-              rnd<T>(fmaxf(acc[i][j] + a.b1[c + j], 0.f));
-    }
-    __syncthreads();
-    // y = relu(x @ w2 + b2), f32
-    for (int u = threadIdx.x; u < (FT_ROWS / 8) * g2; u += FT_THREADS) {
-      const int c = 4 * (u % g2), r0 = 8 * (u / g2);
-      float acc[8][4];
-      zero_acc(acc);
-      gemm_unit(X, a.w2 + c, H2, H1, r0, acc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Y[(r0 + i) * ldy + c + j] = fmaxf(acc[i][j] + a.b2[c + j], 0.f);
-    }
-    __syncthreads();
-    // s = sum_c y w3 + b3 in f32, one warp a row; zero off the mask
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < rows; r += FT_THREADS / 32) {
-      float s = 0.f;
-      for (int c = lane; c < H2; c += 32) s += Y[r * ldy + c] * to_f(a.w3[c]);
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) {
-        const size_t cell = (size_t)row * N + j0 + r;
-        a.out[cell] = a.mask[cell] ? s + a.b3[0] : 0.f;
+  if (warp == 0) {   // exclusive scan of the counts, 32 words at a time
+    int run = 0;
+    for (int k0 = 0; k0 < NC; k0 += 32) {
+      const int k = k0 + lane, c = k < NC ? l.base[k] : 0;
+      int s = c;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, s, o);
+        if (lane >= o) s += t;
       }
+      if (k < NC) l.base[k] = run + s - c;
+      run += __shfl_sync(0xffffffffu, s, 31);
+    }
+    if (lane == 0) *l.count = run;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < NN; q += TC_THREADS) {
+    const unsigned bits = l.bits[q >> 5], bit = 1u << (q & 31);
+    if (bits & bit)
+      l.cells[l.base[q >> 5] + __popc(bits & (bit - 1u))] =
+          (unsigned short)q;
+  }
+  // K4: zero fill
+  for (int q = r * TC_THREADS + threadIdx.x; q < NN; q += R * TC_THREADS)
+    if (!(l.bits[q >> 5] & (1u << (q & 31)))) out[q] = 0.f;
+  __syncthreads();
+  return *l.count;
+}
+
+// bf16 x bf16 products of two packed pairs, each rounded to bf16
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x, uint32_t y) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&y));
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a.x * b.x, a.y * b.y);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The bf16 tile: rows [0, rows) are the list's entries q0.., each
+// [bf16(h_i h_j) in columns [0, Cp) | e_ij in [Cp, 2Cp)], zero-padded;
+// rows past `rows` that the products read (to 32 or TC_ROWS) are 0. V
+// elements (8: 16-byte loads, 4: 8-byte) a thread at a time.
+template <int V>
+__device__ void load_pair_tile(bf16* A, int lda, const bf16* hs,
+                               const bf16* eb, const unsigned short* cells,
+                               int rows, int N, int C, int Cp) {
+  typedef typename std::conditional<V == 8, uint4, uint2>::type Vec;
+  constexpr int W = V / 2;   // 32-bit words a chunk
+  const int cpv = Cp / V, rows_read = rows > 32 ? TC_ROWS : 32;
+  for (int q = threadIdx.x; q < rows_read * 2 * cpv; q += TC_THREADS) {
+    const int rr = q / (2 * cpv), c = q % (2 * cpv);
+    const bool edge = c >= cpv;
+    const int k = V * (edge ? c - cpv : c);
+    Vec v;
+    uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int u = 0; u < W; ++u) vw[u] = 0u;
+    if (rr < rows && k < C) {
+      const int p = cells[rr], i = p / N, j = p - i * N;
+      if (edge) {
+        v = __ldg(reinterpret_cast<const Vec*>(eb + (size_t)p * C + k));
+      } else {
+        const Vec x = *reinterpret_cast<const Vec*>(hs + i * C + k);
+        const Vec y = *reinterpret_cast<const Vec*>(hs + j * C + k);
+        const uint32_t* xw = reinterpret_cast<const uint32_t*>(&x);
+        const uint32_t* yw = reinterpret_cast<const uint32_t*>(&y);
+#pragma unroll
+        for (int u = 0; u < W; ++u) vw[u] = mul_bf16x2(xw[u], yw[u]);
+      }
+    }
+    *reinterpret_cast<Vec*>(A + rr * lda + (edge ? Cp : 0) + k) = v;
+  }
+}
+
+// Shared memory of a K4 block without h and the lists (kernels/fused.py
+// pair_score_smem mirrors it). bf16: [w1 | w2 packed (level 0)] then,
+// after h, [A: TC_ROWS x (2Cp + TC_PAD)] [X: TC_ROWS x (H1p + TC_PAD)]
+// [the head's partial sums: H2p / 16 x TC_ROWS f32]. f32: [w1 (levels 0,
+// 1)] [w2 (level 0)] [A k-major, 2C x FT_LD, later Y, FT_ROWS x (H2 + 4)]
+// [X k-major, H1 x FT_LD].
+static size_t pair_score_smem(bool bf, int C, int H1, int H2, int level) {
+  if (bf) {
+    const size_t Cp = pad16(C), H1p = pad16(H1), H2p = pad16(H2);
+    return (level == 0 ? 2 * (2 * Cp * H1p + H1p * H2p) : 0)
+           + 2 * (size_t)TC_ROWS * (2 * Cp + TC_PAD)
+           + 2 * (size_t)TC_ROWS * (H1p + TC_PAD)
+           + 4 * (size_t)TC_ROWS * (H2p / 16);
+  }
+  const size_t a = (size_t)2 * C * FT_LD, y = (size_t)FT_ROWS * (H2 + 4);
+  return (level <= 1 ? 4 * (size_t)2 * C * H1 : 0)
+         + (level == 0 ? 4 * (size_t)H1 * H2 : 0) + 4 * (a > y ? a : y)
+         + 4 * (size_t)H1 * FT_LD;
+}
+// the graph's h staged at bf16 (f32 reads it through L1)
+__host__ __device__ inline size_t pair_score_h_bytes(bool bf, int N,
+                                                     int C) {
+  return bf ? r16(2 * (size_t)N * C) : 0;
+}
+
+// bf16 on the tensor cores. Per tile of TC_ROWS list entries:
+//   layer 1, X = bf16(relu([h_i h_j | e] @ w1 + b1)), mma over K = 2Cp;
+//   layer 2, y = relu(X @ w2 + b2) in f32 on the accumulators, times w3,
+//     summed over a lane's columns, its quad (shuffles) and, through
+//     shared memory, the strips of its rows in strip order; + b3.
+// W_SMEM stages the packed w1, w2 once per block (level 0); else they are
+// read from L2 with the same loads and products.
+template <bool W_SMEM>
+__device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
+  const int N = a.N, NN = N * N, C = a.C, H1 = a.H1, H2 = a.H2;
+  const int Cp = pad16(C), H1p = pad16(H1), H2p = pad16(H2);
+  const int lda = 2 * Cp + TC_PAD, ldx = H1p + TC_PAD, s2 = H2p / 16;
+  const int b = blockIdx.x / a.R, r = blockIdx.x % a.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, nw = TC_THREADS / 32;
+  const size_t w1n = (size_t)2 * Cp * H1p, wn = w1n + (size_t)H1p * H2p;
+  char* p = smem;
+  const bf16* W = a.wp;
+  if (W_SMEM) {
+    stage_tc_weights(reinterpret_cast<bf16*>(p), a.wp, wn);
+    W = reinterpret_cast<const bf16*>(p);
+    p += 2 * wn;
+  }
+  bf16* hs = reinterpret_cast<bf16*>(p);
+  p += pair_score_h_bytes(true, N, C);
+  bf16* A = reinterpret_cast<bf16*>(p);
+  p += 2 * (size_t)TC_ROWS * lda;
+  bf16* X = reinterpret_cast<bf16*>(p);
+  p += 2 * (size_t)TC_ROWS * ldx;
+  float* part = reinterpret_cast<float*>(p);
+  const PairLists l = pair_lists_at(
+      a.lists_smem ? smem + a.lists_at
+                   : a.scratch + blockIdx.x * pair_lists_bytes(N), N);
+  {
+    const uint2* src = reinterpret_cast<const uint2*>(a.h + (size_t)b * N * C);
+    uint2* dst = reinterpret_cast<uint2*>(hs);
+    for (int q = threadIdx.x; q < N * C / 4; q += TC_THREADS)
+      dst[q] = __ldg(src + q);
+  }
+  float* out = a.out + (size_t)b * NN;
+  const int count = pair_list(a.mask + (size_t)b * NN, out, NN, r, a.R, l);
+  const bf16* eb = a.e + (size_t)b * NN * C;
+  const bf16* W2 = W + w1n;
+  const float b3 = a.b3[0];
+  const int tiles = (count + TC_ROWS - 1) / TC_ROWS;
+  for (int tile = r; tile < tiles; tile += a.R) {
+    const int q0 = tile * TC_ROWS, rows = min(TC_ROWS, count - q0);
+    const int halves = rows > 32 ? 2 : 1;
+    // K4: tile load with the product
+    if (a.vec8)
+      load_pair_tile<8>(A, lda, hs, eb, l.cells + q0, rows, N, C, Cp);
+    else
+      load_pair_tile<4>(A, lda, hs, eb, l.cells + q0, rows, N, C, Cp);
+    __syncthreads();
+    // K4: layer 1
+    for (int u = warp; u < halves * (H1p / 16); u += nw) {
+      const int ct = u / halves, r0 = 32 * (u % halves);
+      float acc[2][2][4] = {};
+      tc_unit<W_SMEM>(acc, A + r0 * lda, lda,
+                      W + (size_t)ct * (2 * Cp / 16) * TC_BLOCK, 2 * Cp / 16,
+                      lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = 16 * ct + 8 * n + 2 * t;   // H1 % 4 == 0: c + 1 too
+        const bool real = c < H1;
+        const float b0 = real ? a.b1[c] : 0.f, b1 = real ? a.b1[c + 1] : 0.f;
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(
+                X + (r0 + 16 * m + g + 8 * h) * ldx + c) =
+                real ? __floats2bfloat162_rn(
+                           fmaxf(acc[m][n][2 * h] + b0, 0.f),
+                           fmaxf(acc[m][n][2 * h + 1] + b1, 0.f))
+                     : __floats2bfloat162_rn(0.f, 0.f);
+      }
+    }
+    __syncthreads();
+    // K4: layer 2 and the head
+    for (int u = warp; u < halves * s2; u += nw) {
+      const int ct = u / halves, r0 = 32 * (u % halves);
+      float acc[2][2][4] = {};
+      tc_unit<W_SMEM>(acc, X + r0 * ldx, ldx,
+                      W2 + (size_t)ct * (H1p / 16) * TC_BLOCK, H1p / 16, lane);
+      float s[2][2] = {};   // rows 16m + g + 8h
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = 16 * ct + 8 * n + 2 * t;
+        if (c < H2) {
+          const float b0 = a.b2[c], b1 = a.b2[c + 1];
+          const float v0 = to_f(a.w3[c]), v1 = to_f(a.w3[c + 1]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              s[m][h] += fmaxf(acc[m][n][2 * h] + b0, 0.f) * v0
+                         + fmaxf(acc[m][n][2 * h + 1] + b1, 0.f) * v1;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = s[m][h];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (t == 0) part[ct * TC_ROWS + r0 + 16 * m + g + 8 * h] = v;
+        }
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < rows; q += TC_THREADS) {
+      float s = part[q];
+      for (int ct = 1; ct < s2; ++ct) s += part[ct * TC_ROWS + q];
+      out[l.cells[q0 + q]] = s + b3;
+    }
+  }
+}
+
+// One f32 layer of K4 on a tile of FT_ROWS rows: out = relu(A @ W + bias)
+// for rows [0, rows), A k-major (stride FT_LD), W (K x H) row-major in
+// shared memory or (GLOBAL) read through L1; out k-major (KMAJOR, stride
+// ldo, the next layer's operand) or row-major. Units of RU rows x CU
+// columns, k in increasing order from 0 (unit_fma); a warp's FT_ROWS / RU
+// row groups by 32 RU / FT_ROWS column groups, warps round-robin over
+// the column strips.
+template <int RU, int CU, bool GLOBAL, bool KMAJOR>
+__device__ __forceinline__ void pair_score_layer(const float* A,
+                                                 const float* W,
+                                                 const float* bias, int K,
+                                                 int H, float* out, int ldo,
+                                                 int rows) {
+  constexpr int G = FT_ROWS / RU, CW = 32 / G * CU;
+  const int lane = threadIdx.x & 31, r0 = RU * (lane % G);
+  for (int wt = threadIdx.x >> 5; wt * CW < H; wt += TC_THREADS / 32) {
+    const int c0 = wt * CW + CU * (lane / G);
+    if (c0 >= H || r0 >= rows) continue;
+    float acc[RU][CU] = {};
+    unit_fma<RU, CU, GLOBAL>(A, FT_LD, W + c0, H, K, r0, acc);
+#pragma unroll
+    for (int j = 0; j < CU; ++j) {
+      const float bj = bias[c0 + j];
+#pragma unroll
+      for (int i = 0; i < RU; ++i) {
+        const float v = fmaxf(acc[i][j] + bj, 0.f);
+        if (KMAJOR)
+          out[(c0 + j) * ldo + r0 + i] = v;
+        else
+          out[(r0 + i) * ldo + c0 + j] = v;
+      }
+    }
+  }
+}
+
+// f32 on CUDA cores, true f32 (no TF32), in the one-block-per-row form's
+// order for every sum of a pair (so its bits): per tile of FT_ROWS list
+// entries (A k-major, rows across lanes),
+//   layer 1, X = relu(A @ w1 + b1), k = 0 .. 2C - 1 (units of 4 rows x 4
+//     columns, f32 fused multiply-adds, pair_score_layer);
+//   layer 2, Y = relu(X @ w2 + b2), k = 0 .. H1 - 1, Y in A's region;
+//   the head, one warp a row: a lane-strided sum of Y w3 and a butterfly,
+//     + b3;
+// the next tile's operands load into registers under the layers.
+// LEVEL 0 stages w1 and w2 once per block, 1 w1, 2 neither (read through
+// L1).
+template <int LEVEL>
+__device__ void pair_score_f32(const PairScoreArgs<float>& a, char* smem) {
+  // 4 x 4 units: 8 warps a layer at H1 = 128 (4 at H2 = 64); 4 x 2 and
+  // 8 x 4 units read no faster on the card (PERF.md, K4 findings)
+  constexpr int R = FT_ROWS, LDA = FT_LD, RU = 4, CU = 4;
+  const int N = a.N, NN = N * N, C = a.C, H1 = a.H1, H2 = a.H2;
+  const int K1 = 2 * C, ldy = H2 + 4;
+  const int b = blockIdx.x / a.R, r = blockIdx.x % a.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = TC_THREADS / 32;
+  char* p = smem;
+  float* w1s = reinterpret_cast<float*>(p);
+  if (LEVEL <= 1) p += 4 * (size_t)K1 * H1;
+  float* w2s = reinterpret_cast<float*>(p);
+  if (LEVEL == 0) p += 4 * (size_t)H1 * H2;
+  float* A = reinterpret_cast<float*>(p);
+  float* Y = A;
+  {
+    const size_t ka = (size_t)K1 * LDA, ky = (size_t)R * ldy;
+    p += 4 * (ka > ky ? ka : ky);
+  }
+  float* X = reinterpret_cast<float*>(p);
+  const PairLists l = pair_lists_at(
+      a.lists_smem ? smem + a.lists_at
+                   : a.scratch + blockIdx.x * pair_lists_bytes(N), N);
+  if (LEVEL <= 1)
+    for (int q = threadIdx.x; q < K1 * H1 / 4; q += TC_THREADS)
+      reinterpret_cast<float4*>(w1s)[q] = ldg4(a.w1 + 4 * q);
+  if (LEVEL == 0)
+    for (int q = threadIdx.x; q < H1 * H2 / 4; q += TC_THREADS)
+      reinterpret_cast<float4*>(w2s)[q] = ldg4(a.w2 + 4 * q);
+  float* out = a.out + (size_t)b * NN;
+  const int count = pair_list(a.mask + (size_t)b * NN, out, NN, r, a.R, l);
+  const float* hb = a.h + (size_t)b * N * C;
+  const float* eb = a.e + (size_t)b * NN * C;
+  const float* W1 = LEVEL <= 1 ? w1s : a.w1;
+  const float* W2 = LEVEL == 0 ? w2s : a.w2;
+  const int tiles = (count + R - 1) / R;
+  // A tile's operands, k-major into A (zero rows past `rows`): a thread's
+  // first PF float4s through registers (pf), loaded for the next tile
+  // under this tile's layers (all of them at C <= 128), the rest at put
+  // time
+  constexpr int PF = 4;
+  const int total = R * (K1 / 4);
+  float4 pf[PF];
+  auto operand = [&](int q, int q0, int rows) {
+    const int rr = q % R, k = 4 * (q / R);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (rr < rows) {
+      const int pc = l.cells[q0 + rr], i = pc / N, j = pc - i * N;
+      if (k < C) {
+        const float4 x = ldg4(hb + (size_t)i * C + k);
+        const float4 y = ldg4(hb + (size_t)j * C + k);
+        v = make_float4(x.x * y.x, x.y * y.y, x.z * y.z, x.w * y.w);
+      } else {
+        v = ldg4(eb + (size_t)pc * C + (k - C));
+      }
+    }
+    return v;
+  };
+  auto put = [&](int q, const float4& v) {
+    const int rr = q % R, k = 4 * (q / R);
+    A[k * LDA + rr] = v.x;
+    A[(k + 1) * LDA + rr] = v.y;
+    A[(k + 2) * LDA + rr] = v.z;
+    A[(k + 3) * LDA + rr] = v.w;
+  };
+  auto fetch = [&](int tile) {
+    const int q0 = tile * R, rows = min(R, count - q0);
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int q = threadIdx.x + u * TC_THREADS;
+      if (q < total) pf[u] = operand(q, q0, rows);
+    }
+  };
+  if (r < tiles) fetch(r);
+  for (int tile = r; tile < tiles; tile += a.R) {
+    const int q0 = tile * R, rows = min(R, count - q0);
+    // K4: tile load with the product
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int q = threadIdx.x + u * TC_THREADS;
+      if (q < total) put(q, pf[u]);
+    }
+    for (int q = threadIdx.x + PF * TC_THREADS; q < total; q += TC_THREADS)
+      put(q, operand(q, q0, rows));
+    __syncthreads();
+    if (tile + a.R < tiles) fetch(tile + a.R);
+    // K4: layer 1
+    pair_score_layer<RU, CU, LEVEL == 2, true>(A, W1, a.b1, K1, H1, X, LDA,
+                                               rows);
+    __syncthreads();
+    // K4: layer 2 and the head
+    pair_score_layer<RU, CU, LEVEL != 0, false>(X, W2, a.b2, H1, H2, Y, ldy,
+                                                rows);
+    __syncthreads();
+    for (int rr = warp; rr < rows; rr += nw) {
+      float s = 0.f;
+      for (int c = lane; c < H2; c += 32) s += Y[rr * ldy + c] * a.w3[c];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) out[l.cells[q0 + rr]] = s + a.b3[0];
     }
     __syncthreads();
   }
 }
 
+// LEVEL (kernels/fused.py pair_score_level): at bf16 0 stages the packed
+// weights, 1 reads them from L2; at f32 0 stages w1 and w2, 1 w1, 2
+// neither
+template <typename T, int LEVEL>
+__global__ void __launch_bounds__(TC_THREADS)
+    pair_score_kernel(PairScoreArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (std::is_same<T, bf16>::value)
+    pair_score_tc<LEVEL == 0>(a, reinterpret_cast<char*>(smem));
+  else
+    pair_score_f32<LEVEL>(a, reinterpret_cast<char*>(smem));
+}
+
+// The launch at a level: its CTAs per graph R are `ranks` when > 0, else
+// as many as fill the card's resident blocks (SMs x blocks an SM at this
+// shared memory) over the B graphs, at most one a tile of the full N x N
+// list; *ranks_out gets R. launch = 0 only plans.
+template <typename T, int LEVEL>
+static int pair_score_run(PairScoreArgs<T> a, int ranks, int launch,
+                          int* ranks_out, cudaStream_t stream) {
+  const size_t smem = a.lists_at + (a.lists_smem ? pair_lists_bytes(a.N) : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_score_kernel<T, LEVEL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (ranks <= 0) {
+    int resident = 0;
+    const int rc = resident_blocks(
+        reinterpret_cast<const void*>(pair_score_kernel<T, LEVEL>),
+        TC_THREADS, smem, &resident);
+    if (rc) return rc;
+    const int tile = std::is_same<T, bf16>::value ? TC_ROWS : FT_ROWS;
+    ranks = max(1, min(resident / a.B, (a.N * a.N + tile - 1) / tile));
+  }
+  *ranks_out = ranks;
+  if (!launch) return 0;
+  a.R = ranks;
+  pair_score_kernel<T, LEVEL><<<a.B * a.R, TC_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-static int pair_score_run(const void* h, const void* e, const void* mask,
-                          const void* const* wts, void* out, int B, int N,
-                          int C, int H1, int H2, cudaStream_t stream) {
+static int pair_score_go(const void* h, const void* e, const void* mask,
+                         const void* const* wts, const void* packed,
+                         void* out, void* scratch, int B, int N, int C,
+                         int H1, int H2, int level, int lists_smem,
+                         int ranks, int launch, int* ranks_out,
+                         cudaStream_t s) {
+  const bool bf = std::is_same<T, bf16>::value;
   PairScoreArgs<T> a;
   a.h = static_cast<const T*>(h);
   a.e = static_cast<const T*>(e);
@@ -713,30 +1137,51 @@ static int pair_score_run(const void* h, const void* e, const void* mask,
   a.b2 = static_cast<const float*>(wts[3]);
   a.w3 = static_cast<const T*>(wts[4]);
   a.b3 = static_cast<const float*>(wts[5]);
+  a.wp = static_cast<const bf16*>(packed);
   a.out = static_cast<float*>(out);
-  a.N = N; a.C = C; a.H1 = H1; a.H2 = H2;
-  const size_t smem = 4 * ((size_t)2 * C * FT_LD + (size_t)H1 * FT_LD
-                           + (size_t)FT_ROWS * (H2 + 4) + C);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_score_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pair_score_kernel<T><<<B * N, FT_THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  a.scratch = static_cast<char*>(scratch);
+  a.B = B; a.N = N; a.C = C; a.H1 = H1; a.H2 = H2; a.R = 1;
+  a.lists_at = pair_score_smem(bf, C, H1, H2, level)
+               + pair_score_h_bytes(bf, N, C);
+  a.lists_smem = lists_smem;
+  a.vec8 = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(e) % 16 == 0);
+  if constexpr (std::is_same<T, bf16>::value)
+    return level == 0 ? pair_score_run<T, 0>(a, ranks, launch, ranks_out, s)
+                      : pair_score_run<T, 1>(a, ranks, launch, ranks_out, s);
+  else
+    return level == 0   ? pair_score_run<T, 0>(a, ranks, launch, ranks_out, s)
+           : level == 1 ? pair_score_run<T, 1>(a, ranks, launch, ranks_out, s)
+                        : pair_score_run<T, 2>(a, ranks, launch, ranks_out, s);
 }
 
-// wts: w1, b1, w2, b2, w3, b3 (weights of the operand type, biases f32)
+// bf16_: 0 for f32 operands (CUDA cores; level 0 to 2), 1 for bf16
+// (tensor cores; level 0 or 1). wts: w1, b1, w2, b2, w3, b3 (weights of
+// the operand type, biases f32); packed: w1 and w2 as
+// pack_pair_score_weights lays them out (bf16 only). lists_smem: 1 keeps
+// each CTA's pair lists in shared memory, 0 in `scratch`
+// (pair_lists_bytes(N) a CTA, B x R CTAs). ranks: CTAs per graph, 0 to
+// let the card's occupancy choose; *ranks_out: those launched. launch = 0
+// only plans (sets *ranks_out).
 extern "C" int pair_score_launch(int bf16_, const void* h, const void* e,
                                  const void* mask, const void* const* wts,
-                                 void* out, int B, int N, int C, int H1,
-                                 int H2, void* stream) {
-  if (C % 4 || H1 % 4 || H2 % 4 || N < 1 || B < 1)
+                                 const void* packed, void* out,
+                                 void* scratch, int B, int N, int C, int H1,
+                                 int H2, int level, int lists_smem,
+                                 int ranks, int launch, int* ranks_out,
+                                 void* stream) {
+  if (C % 4 || H1 % 4 || H2 % 4 || N < 1 || N > 256 || B < 1
+      || level < 0 || level > (bf16_ ? 1 : 2)
+      || (launch && !lists_smem && scratch == nullptr)
+      || (bf16_ && (packed == nullptr
+                    || reinterpret_cast<uintptr_t>(packed) % 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_ ? pair_score_run<bf16>(h, e, mask, wts, out, B, N, C, H1, H2,
-                                      s)
-               : pair_score_run<float>(h, e, mask, wts, out, B, N, C, H1, H2,
-                                       s);
+  return bf16_ ? pair_score_go<bf16>(h, e, mask, wts, packed, out, scratch,
+                                     B, N, C, H1, H2, level, lists_smem,
+                                     ranks, launch, ranks_out, s)
+               : pair_score_go<float>(h, e, mask, wts, packed, out, scratch,
+                                      B, N, C, H1, H2, level, lists_smem,
+                                      ranks, launch, ranks_out, s);
 }
 
 // ---- K5 --------------------------------------------------------------------

@@ -36,7 +36,14 @@ f32 it runs true-f32 register units on CUDA cores over the same kind of
 persistent grid (64-pair tiles; 32 at level 3), with fa and fb1 staged
 once per block where they fit (levels 0-3), the one-block-per-row form's
 bits;
-`block_agg_launch` forces a level for tests. K5 is a
+`block_agg_launch` forces a level for tests. K4 walks each graph's
+masked pairs only (`pair_score_pairs` mirrors its list; every other cell
+is written 0 by the kernel), R blocks a graph; at bf16 on the tensor
+cores with w1 and w2 packed once per weight set
+(`pack_pair_score_weights`), at f32 on CUDA cores with the
+one-block-per-row form's bits; `pair_score_level` and `pair_score_layout`
+mirror its shared memory and `pair_score_launch` forces a level or R for
+tests. K5 is a
 fused elementwise pass plus a reduction, which Triton could express; it is
 CUDA C++ here too, so that the port has one build path. `launches` counts
 the kernel launches per variant; the plain twins count nothing.
@@ -48,6 +55,7 @@ csrc/fused.cu.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from collections import Counter
 from typing import Dict, List, Optional
@@ -194,6 +202,100 @@ def block_agg_schedule(b: int, n: int, grid: int,
     return out
 
 
+# ---- K4's layout (csrc/fused.cu) ---------------------------------------------
+
+MAX_PAIR_N = 256         # K4 lists cells as 16-bit indices
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def pair_lists_bytes(n: int) -> int:
+    """Bytes of one CTA's pair lists (csrc/fused.cu pair_lists_bytes): the
+    mask's ballot words and their bases (one each per 32 cells), the
+    count, and the masked cells as 16-bit indices."""
+    nc = -(-n * n // 32)
+    return 2 * _r16(4 * nc) + 16 + _r16(2 * n * n)
+
+
+def pair_score_smem(c: int, h1: int, h2: int, dtype: torch.dtype,
+                    level: int) -> int:
+    """Shared memory of a K4 block without h and the lists (csrc/fused.cu
+    pair_score_smem). bf16: the packed w1 and w2 (level 0), the tile
+    [h_i h_j | e] (TC_ROWS x (2Cp + TC_PAD)), the first layer's output
+    (TC_ROWS x (H1p + TC_PAD)) and the head's partial sums. f32: w1
+    (levels 0, 1), w2 (level 0), the tile k-major (2C x (FT_ROWS + 4),
+    later the second layer's output) and the first layer's output."""
+    if dtype == torch.bfloat16:
+        cp, h1p, h2p = pad16(c), pad16(h1), pad16(h2)
+        return ((2 * (2 * cp * h1p + h1p * h2p) if level == 0 else 0)
+                + 2 * TC_ROWS * (2 * cp + TC_PAD)
+                + 2 * TC_ROWS * (h1p + TC_PAD) + 4 * TC_ROWS * (h2p // 16))
+    ld = FT_ROWS + 4
+    return ((4 * 2 * c * h1 if level <= 1 else 0)
+            + (4 * h1 * h2 if level == 0 else 0)
+            + 4 * max(2 * c * ld, FT_ROWS * (h2 + 4)) + 4 * h1 * ld)
+
+
+def pair_score_h_bytes(n: int, c: int, dtype: torch.dtype) -> int:
+    """The graph's h, staged at bf16 (f32 reads it through L1)."""
+    return _r16(2 * n * c) if dtype == torch.bfloat16 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def pair_score_level(n: int, c: int, h1: int, h2: int,
+                     dtype: torch.dtype) -> Optional[int]:
+    """K4's layout level: the lowest whose regions and h fit in shared
+    memory, None if none does. At H1 = 128, H2 = 64, N = 32: bf16 0 stages
+    the packed weights (to C = 224), 1 reads them from L2; f32 0 stages w1
+    and w2 (to C = 136), 1 w1 (to C = 160), 2 neither."""
+    levels = (0, 1) if dtype == torch.bfloat16 else (0, 1, 2)
+    fits = [lv for lv in levels
+            if pair_score_smem(c, h1, h2, dtype, lv)
+            + pair_score_h_bytes(n, c, dtype) <= MAX_SMEM]
+    return fits[0] if fits else None
+
+
+@functools.lru_cache(maxsize=None)
+def pair_score_layout(n: int, c: int, h1: int, h2: int, dtype: torch.dtype,
+                      level: Optional[int] = None) -> tuple:
+    """(level, shared bytes, lists in shared memory) of a K4 launch at
+    `level` (default pair_score_level's): the lists go to the wrapper's
+    scratch where they do not fit beside the regions."""
+    lv = pair_score_level(n, c, h1, h2, dtype) if level is None else level
+    if lv is None:
+        return None, None, False
+    shared = pair_score_smem(c, h1, h2, dtype, lv) + pair_score_h_bytes(
+        n, c, dtype)
+    if shared + pair_lists_bytes(n) <= MAX_SMEM:
+        return lv, shared + pair_lists_bytes(n), True
+    return lv, shared, False
+
+
+def pair_score_pairs(mask: torch.Tensor) -> List[torch.Tensor]:
+    """Each graph's list as K4 builds it: the masked cells i * N + j of
+    its (N, N) plane in increasing order (the ballot words' order, each
+    word's set bits from the lowest)."""
+    return [torch.nonzero(m.reshape(-1)).reshape(-1) for m in mask]
+
+
+def pack_pair_score_weights(w1: torch.Tensor,
+                            w2: torch.Tensor) -> torch.Tensor:
+    """K4's w1 and w2 as its tensor-core tiles read them: w1's rows [0, C)
+    (the products' side) at rows [0, Cp) and its rows [C, 2C) at [Cp, Cp +
+    C) of a (2Cp, H1p) matrix, then w2 (H1p, H2p), each pack_matrix'ed, in
+    one flat buffer."""
+    c2, h1 = w1.shape
+    c, cp = c2 // 2, pad16(c2 // 2)
+    w = w1.new_zeros(2 * cp, h1)
+    w[:c] = w1[:c]
+    w[cp:cp + c] = w1[c:]
+    return torch.cat([pack_matrix(w, 2 * cp, pad16(h1)),
+                      pack_matrix(w2, pad16(h1), pad16(w2.shape[1]))
+                      ]).contiguous()
+
+
 def _fragment_order() -> torch.Tensor:
     """Where each of the 256 values of a packed 16 x 16 block comes from,
     as k * 16 + n: lane (g, t) = (lane // 4, lane % 4) holds (k, n) =
@@ -256,32 +358,60 @@ def unpack_filter_weights(packed, c: int, f1: int, f2: int) -> tuple:
     return fa[:, :f1], fa[:, f1p:f1p + f2], fb1, fb2
 
 
-# prepared filter weights by the identity of their source tensors (held
-# here, so an id is not reused while its entry lives), checked against
-# their versions
+# prepared weights by the identity of their source tensors (held here, so
+# an id is not reused while its entry lives), checked against their
+# versions
 _PREPARED: Dict[tuple, tuple] = {}
+
+
+def _prepared(srcs, key, make):
+    """make(), once per set of source tensors `srcs` and `key` while none
+    of them changes in place (the forwards keep their weights), so that a
+    launch does not redo its casts, checks and packing."""
+    key = (tuple(id(t) for t in srcs), key)
+    versions = tuple(getattr(t, "_version", None) for t in srcs)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[1] == versions:
+        return hit[2]
+    value = make()
+    if None not in versions:
+        if len(_PREPARED) >= 64:
+            _PREPARED.pop(next(iter(_PREPARED)))
+        _PREPARED[key] = (srcs, versions, value)
+    return value
 
 
 def prepared_filter(conv1, conv2, c, cd, device) -> tuple:
     """(filter_weights(...), pack_filter_weights of the four matrices at
     bf16, or None at f32) for two convs, made once per weight set and
-    dtype (the forwards keep their conv dicts), so that a launch does not
-    redo ten casts and checks and a pack."""
+    dtype."""
     srcs = tuple(t for conv in (conv1, conv2)
                  for t in (*conv["fa"], *conv["fb"], conv["beta"]))
-    key = (tuple(id(t) for t in srcs), cd, str(device), c)
-    versions = tuple(getattr(t, "_version", None) for t in srcs)
-    hit = _PREPARED.get(key)
-    if hit is not None and hit[1] == versions:
-        return hit[2]
-    wts = filter_weights(conv1, conv2, c, cd, device)
-    packed = (pack_filter_weights(*wts[:4]).contiguous()
-              if cd == torch.bfloat16 else None)
-    if None not in versions:
-        if len(_PREPARED) >= 64:
-            _PREPARED.pop(next(iter(_PREPARED)))
-        _PREPARED[key] = (srcs, versions, (wts, packed))
-    return wts, packed
+
+    def make():
+        wts = filter_weights(conv1, conv2, c, cd, device)
+        return wts, (pack_filter_weights(*wts[:4]).contiguous()
+                     if cd == torch.bfloat16 else None)
+    return _prepared(srcs, ("filter", cd, str(device), c), make)
+
+
+def prepared_head(ws, c, cd, device) -> tuple:
+    """(K4's six weights as the kernel reads them, w1 and w2 packed for the
+    tensor cores at bf16 or None at f32), made once per weight set and
+    dtype."""
+    w1, b1, w2, b2, w3, b3 = ws
+    h1, h2 = w1.shape[1], w2.shape[1]
+
+    def make():
+        wts = [weight(w1, (2 * c, h1), cd, device),
+               weight(b1, (h1,), None, device),
+               weight(w2, (h1, h2), cd, device),
+               weight(b2, (h2,), None, device),
+               weight(w3, (h2, 1), cd, device),
+               weight(b3, (1,), None, device)]
+        return wts, (pack_pair_score_weights(wts[0], wts[2])
+                     if cd == torch.bfloat16 else None)
+    return _prepared(tuple(ws), ("head", cd, str(device), c), make)
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -297,17 +427,25 @@ def interaction_block_aggregate_plain(edge_attr, w_edge1, w_edge2, h1, h2,
     return tuple(out)
 
 
+def pair_score_rows(prod, edge_attr, w1, b1, w2, b2, w3, b3,
+                    activation: str = "relu"):
+    """K4's MLP on rows of pairs: prod (..., C) the products h_i h_j and
+    edge_attr (..., C) e_ij at the operand dtype; returns (...) f32. The
+    plain version's arithmetic, row by row."""
+    cd = prod.dtype
+    act = activation_by_name(activation)
+    c = prod.shape[-1]
+    w1, w2, w3 = w1.to(cd), w2.to(cd), w3.to(cd)
+    x = act(_dot(prod, w1[:c], cd) + _dot(edge_attr, w1[c:], cd) + b1)
+    y = act(_dot(x, w2, cd) + b2)
+    return (y * w3[:, 0].float()).sum(-1) + b3.float()[0]
+
+
 def pair_score_mlp_plain(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3,
                          activation: str = "relu"):
     """Plain PyTorch version of K4: (B, N, N) f32."""
-    cd = h.dtype
-    act = activation_by_name(activation)
-    c = h.shape[-1]
-    w1, w2, w3 = w1.to(cd), w2.to(cd), w3.to(cd)
     prod = h[:, :, None, :] * h[:, None, :, :]
-    x = act(_dot(prod, w1[:c], cd) + _dot(edge_attr, w1[c:], cd) + b1)
-    y = act(_dot(x, w2, cd) + b2)
-    s = (y * w3[:, 0].float()).sum(-1) + b3.float()[0]
+    s = pair_score_rows(prod, edge_attr, w1, b1, w2, b2, w3, b3, activation)
     return torch.where(edge_mask, s, torch.zeros((), device=s.device))
 
 
@@ -397,27 +535,60 @@ def pair_score_mlp(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3,
     if h.device.type == "cpu":
         return pair_score_mlp_plain(h, edge_attr, edge_mask, w1, b1, w2, b2,
                                     w3, b3, activation)
-    dev, cd = _device_and_dtype(h, "h")
     if activation != "relu":
         raise NotImplementedError("the CUDA kernel implements relu heads")
+    return pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3)
+
+
+def pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3, *,
+                      level: Optional[int] = None,
+                      ranks: Optional[int] = None):
+    """K4's CUDA kernel on CUDA tensors (pair_score_mlp's arguments, relu
+    heads). `level` forces a layout level (0 or 1 at bf16, 0 to 2 at f32;
+    pair_score_level picks it otherwise) and `ranks` the CTAs per graph
+    (the card's occupancy picks it otherwise): tests and chip_smoke.py;
+    every level and R give the same bits."""
+    dev, cd = _device_and_dtype(h, "h")
     b, n, c = h.shape
     h1, h2 = w1.shape[1], w2.shape[1]
-    if c % 4 or h1 % 4 or h2 % 4:
-        raise ValueError(f"kernel needs C, H1, H2 % 4 == 0 (C={c}, H1={h1}, "
-                         f"H2={h2})")
-    check("h", h, (b, n, c), cd, dev)
-    check("edge_attr", edge_attr, (b, n, n, c), cd, dev)
+    if c % 4 or h1 % 4 or h2 % 4 or n > MAX_PAIR_N:
+        raise ValueError(f"kernel needs C, H1, H2 % 4 == 0 and N <= "
+                         f"{MAX_PAIR_N} (C={c}, H1={h1}, H2={h2}, N={n})")
+    bf = cd == torch.bfloat16
+    check("h", h, (b, n, c), cd, dev, align=8 if bf else 16)
+    check("edge_attr", edge_attr, (b, n, n, c), cd, dev,
+          align=8 if bf else 16)
     check("edge_mask", edge_mask, (b, n, n), torch.bool, dev)
-    wts = [weight(w1, (2 * c, h1), cd, dev), weight(b1, (h1,), None, dev),
-           weight(w2, (h1, h2), cd, dev), weight(b2, (h2,), None, dev),
-           weight(w3, (h2, 1), cd, dev), weight(b3, (1,), None, dev)]
+    if ranks is not None and ranks < 1:
+        raise ValueError(f"ranks={ranks}: at least one CTA a graph")
+    wts, packed = prepared_head((w1, b1, w2, b2, w3, b3), c, cd, dev)
+    lv = layout_level(level, pair_score_level(n, c, h1, h2, cd),
+                      (0, 1) if bf else (0, 1, 2),
+                      lambda x: pair_score_smem(c, h1, h2, cd, x)
+                      + pair_score_h_bytes(n, c, cd))
+    in_smem = pair_score_layout(n, c, h1, h2, cd, lv)[2]
     out = torch.empty((b, n, n), dtype=torch.float32, device=dev)
     lib = _lib()
+    got = ctypes.c_int(0)
+    args = [int(bf), *_ptrs(h, edge_attr, edge_mask), _ptr_array(wts),
+            None if packed is None else packed.data_ptr(), out.data_ptr()]
+    scratch = None
+    if not in_smem:
+        if ranks is None:   # plan: the R the launch takes, for the scratch
+            err = lib.pair_score_launch(*args, None, b, n, c, h1, h2, lv, 0,
+                                        0, 0, ctypes.byref(got), _stream(dev))
+            _raise_on(lib, err, "pair_score")
+            ranks = got.value
+        scratch = torch.empty(b * ranks * pair_lists_bytes(n),
+                              dtype=torch.uint8, device=dev)
     err = lib.pair_score_launch(
-        int(cd == torch.bfloat16), *_ptrs(h, edge_attr, edge_mask),
-        _ptr_array(wts), out.data_ptr(), b, n, c, h1, h2, _stream(dev))
+        *args, None if scratch is None else scratch.data_ptr(), b, n, c, h1,
+        h2, lv, int(in_smem), ranks or 0, 1, ctypes.byref(got), _stream(dev))
     _raise_on(lib, err, "pair_score")
-    launches[variant("pair_score", cd)] += 1
+    name = variant("pair_score", cd)
+    launches[name] += 1
+    last_launch[name] = dict(level=lv, ranks=got.value, grid=b * got.value,
+                             lists="smem" if in_smem else "scratch")
     return out
 
 
@@ -535,7 +706,8 @@ def _lib():
             ctypes.c_void_p)
         lib.block_agg_launch.argtypes = [i] + [p] * 5 + [pp, p, p, p] \
             + [i] * 6 + [ctypes.POINTER(i), p]
-        lib.pair_score_launch.argtypes = [i, p, p, p, pp, p] + [i] * 5 + [p]
+        lib.pair_score_launch.argtypes = [i, p, p, p, pp, p, p, p] \
+            + [i] * 9 + [ctypes.POINTER(i), p]
         lib.gine_launch.argtypes = [p] * 4 + [i] * 3 + [p]
         for fn in (lib.block_agg_launch, lib.pair_score_launch,
                    lib.gine_launch):

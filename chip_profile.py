@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device time of the engine paths A ('pallas' f32), B ('pallas' bf16), D
-('pk'), E and E-drugs ('mono') on one H100, for any checkout of this
-repository.
+"""Device time of the engine paths A ('pallas' f32), B ('pallas' bf16), C
+and C-bf16 ('pallas' with pack_pairs=False, f32 and bf16), D ('pk'), E and
+E-drugs ('mono') on one H100, for any checkout of this repository.
 
-    python3 chip_profile.py [--root DIR] [--repeat K] [--paths A,B,D,E,E-drugs]
+    python3 chip_profile.py [--root DIR] [--repeat K]
+                            [--paths A,B,C,C-bf16,D,E,E-drugs]
 
 DIR is a checkout (default: the one holding this script); its
 agdiff_torch and chip_smoke.py are imported, so the same script reads an
@@ -11,12 +12,14 @@ older checkout unpacked beside this one (git archive), and two checkouts
 read in one call compare on one card. Each path is profiled K times
 (default 1) with DIR's chip_smoke.profile_slice, as its phase 6 does: 20
 ladder steps of one chunk of 128 conformers of the first QM9 fixture
-molecule in bucket 32, at the full width of configs/qm9_default.yml (A)
-or qm9_fast.yml (B, D, E), and (E-drugs) of 48 conformers of the first
-Drugs fixture molecule in bucket 64 at drugs_fast.yml, seeded random
-weights. Prints the device busy time, the idle share and the hand
-kernels' time; the rows go to chiprun_out/chip_profile.json under the
-working directory (chip_profile_<DIR's name>.json for another checkout).
+molecule in bucket 32, at the full width of configs/qm9_default.yml (A,
+C) or qm9_fast.yml (B, C-bf16, D, E), and (E-drugs) of 48 conformers of
+the first Drugs fixture molecule in bucket 64 at drugs_fast.yml, seeded
+random weights. The default set is A, B, D, E and E-drugs; C and C-bf16
+are named with --paths. Prints the device busy time, the idle share and
+the hand kernels' time; the rows go to chiprun_out/chip_profile.json
+under the working directory (chip_profile_<DIR's name>.json for another
+checkout).
 """
 
 from __future__ import annotations
@@ -74,6 +77,15 @@ def main() -> int:
                       fdiff, qmol, 32, cs.CHUNK),
         "B": lambda: (build_fast_forward(qcfg, qmodel, "pallas"),
                       {"K3": "block_agg_kernel"}, fdiff, qmol, 32, cs.CHUNK),
+        "C": lambda: (build_fast_forward(fcfg, fmodel, "pallas",
+                                         pack_pairs=False),
+                      {"K3": "block_agg_kernel", "K5": "gine_kernel",
+                       "K4": "pair_score_kernel"}, fdiff, qmol, 32, cs.CHUNK),
+        "C-bf16": lambda: (build_fast_forward(qcfg, qmodel, "pallas",
+                                              pack_pairs=False),
+                           {"K3": "block_agg_kernel",
+                            "K4": "pair_score_kernel"}, fdiff, qmol, 32,
+                           cs.CHUNK),
         "D": lambda: (build_fast_forward(qcfg, qmodel, "pk"),
                       {"K2": "packed_block_kernel"}, fdiff, qmol, 32,
                       cs.CHUNK),

@@ -38,7 +38,13 @@ Phases, each of which fails the run:
      (f32) or qm9_fast.yml (bf16), B=128, N=32, with planted faults (a
      dropped filter or first-layer bias, the softplus shift dropped, the
      mask ignored, the relu dropped), each timed as a lone call (`ms`)
-     and behind a card spin (`ms_spun`); K2 and K3 print the layout level
+     and behind a card spin (`ms_spun`); K4 also on the local head's
+     inputs (its second call) and on a mask of every real-atom pair, with
+     each mask's density and the bound over its masked pairs beside the
+     bound over all N x N pairs, and a third planted fault (each graph's
+     last masked pair dropped), and on the global head's inputs at
+     positions spread 6 A (the ladder's top, a sparse radius mask); K2,
+     K3 and K4 print the layout level
      and grid of their launch, and their other layout levels (K2 and K3
      bf16: 1; K3 f32: 1, 2 and 3) must give the same bits (timed beside
      it);
@@ -646,10 +652,10 @@ def kernel_counters() -> dict:
             "monolithic": monolithic.launches}
 
 
-def capture(fwd, batch, name):
-    """The arguments of the first call of models/fast_forward.<name> (a
-    kernel wrapper) while fwd runs on batch: the inputs that path gives
-    that kernel."""
+def capture(fwd, batch, name, index=0):
+    """The arguments of the first call (or the call `index`) of
+    models/fast_forward.<name> (a kernel wrapper) while fwd runs on batch:
+    the inputs that path gives that kernel."""
     from agdiff_torch.models import fast_forward as ff
 
     real, calls = getattr(ff, name), []
@@ -663,7 +669,7 @@ def capture(fwd, batch, name):
         fwd(batch)
     finally:
         setattr(ff, name, real)
-    return calls[0]
+    return calls[index]
 
 
 def nbytes(*ts) -> int:
@@ -692,12 +698,20 @@ def block_agg_work(args):
     return flops, io
 
 
-def pair_score_work(args):
+def pair_score_work(args, dense=False):
+    """(FLOPs, bytes) of K4 on these inputs: the products, both layers and
+    the head on each masked pair (each pair of the N x N plane when
+    `dense`, the count of the earlier bound), reading e only on those
+    pairs, h, the mask and the weights once, and writing every output
+    cell once."""
     h, e, mask, w1, b1, w2, b2, w3, b3 = args
     b, n, c = h.shape
     h1, h2 = w2.shape
-    flops = b * n * n * (c + 2 * (2 * c * h1 + h1 * h2) + 2 * h2)
-    return flops, nbytes(h, e, mask, w1, b1, w2, b2, w3, b3) + 4 * b * n * n
+    pairs = b * n * n if dense else int(mask.sum())
+    flops = pairs * (c + 2 * (2 * c * h1 + h1 * h2) + 2 * h2)
+    io = nbytes(h, mask, w1, b1, w2, b2, w3, b3) + 4 * b * n * n \
+        + pairs * c * e.element_size()
+    return flops, io
 
 
 def gine_work(args):
@@ -823,6 +837,81 @@ def shift_dropped(fn):
     return run
 
 
+def last_pair_dropped(plain, mask):
+    """plain() with each graph's last masked pair set to 0, as a kernel
+    that drops the last entry of its list would leave it (a planted
+    fault)."""
+    def run():
+        out = plain().clone()
+        flat, m = out.view(out.shape[0], -1), mask.view(mask.shape[0], -1)
+        last = m & (m.cumsum(1) == m.sum(1, keepdim=True))
+        flat[last] = 0.0
+        return out
+    return run
+
+
+def check_k4(label, fwd, batch, limits_for, report, failures) -> dict:
+    """K4 on path `label`'s inputs at four masks: the global head's
+    (the first call), the local head's (the second), every real-atom pair
+    (i != j) on the global head's h and e, the worst case, and the global
+    head's at positions spread MONO_POS_SCALE (as the ladder's top gives
+    them, where the radius mask is sparse; at the batch's unit-scale
+    positions every real pair is within the cutoff). Each mask's
+    density and the bound over its pairs beside the dense count's bound;
+    planted faults: the first-layer bias dropped, the mask ignored, each
+    graph's last masked pair dropped. Returns the rows by name (the global
+    head's under the variant's own name)."""
+    import torch
+
+    from agdiff_torch.kernels import fused
+
+    rows = {}
+    node = batch.node_mask
+    real = (node[:, :, None] & node[:, None, :]
+            & ~torch.eye(node.shape[1], dtype=torch.bool, device=node.device))
+    glob = capture(fwd, batch, "pair_score_mlp")
+    spread = batch.replace(pos=batch.pos * MONO_POS_SCALE)
+    for case, (args, kw) in (
+            ("global", glob),
+            ("local", capture(fwd, batch, "pair_score_mlp", 1)),
+            ("all_real", ((*glob[0][:2], real, *glob[0][3:]), glob[1])),
+            ("global_spread", capture(fwd, spread, "pair_score_mlp"))):
+        h, e, mask, w1, b1, w2, b2, w3, b3 = args
+
+        def kern(*a, kw=kw):
+            return fused.pair_score_mlp(*a, **kw)
+
+        def plain(*a, kw=kw):
+            return fused.pair_score_mlp_plain(*a, **kw)
+
+        outs = [("score", 0, mask, None), ("off_mask", 0, ~mask, "score")]
+        faults = [
+            ("first-layer bias dropped", lambda: plain(
+                h, e, mask, w1, torch.zeros_like(b1), w2, b2, w3, b3)),
+            ("mask ignored", lambda: plain(
+                h, e, torch.ones_like(mask), w1, b1, w2, b2, w3, b3)),
+            ("each graph's last masked pair dropped", last_pair_dropped(
+                lambda: plain(*args), mask))]
+        name = fused.variant("pair_score", h.dtype)
+        peak = PEAK_F32 if h.dtype == torch.float32 else PEAK_BF16
+        pairs, cells = int(mask.sum()), mask.numel()
+        dense_flops, dense_io = pair_score_work(args, dense=True)
+        dense_ms = max(dense_flops / peak, dense_io / PEAK_BYTES) * 1e3
+        print(f"{name} path {label}, {case} mask: {pairs} of {cells} "
+              f"ordered pairs (density {pairs / cells:.4f}; {int(real.sum())} "
+              f"real pairs); bound over the masked pairs below, over all "
+              f"N x N pairs {dense_ms:.4f} ms", flush=True)
+        row, f = check_kernel(
+            f"path {label} {case}", name, kern, plain, args, outs, faults,
+            limits_for(("score", "off_mask"), h.dtype), pair_score_work,
+            peak, report, launch=lambda name=name: fused.last_launch[name])
+        row.update(mask_pairs=pairs, mask_cells=cells,
+                   density=pairs / cells, dense_bound_ms=dense_ms)
+        failures += f
+        rows[name if case == "global" else f"{name} {case}"] = row
+    return rows
+
+
 def check_new_kernels(fwds, batch, report) -> tuple:
     """K3 (f32, bf16), K5, K4 (f32, bf16) and K2 (exact, '-approx') against
     their plain versions on the inputs of the paths' first call, with
@@ -875,27 +964,8 @@ def check_new_kernels(fwds, batch, report) -> tuple:
     failures += f
 
     for label, key in (("C", "dense_f32"), ("C-bf16", "dense_bf16")):
-        args, kw = capture(fwds[key], batch, "pair_score_mlp")
-        h, e, mask, w1, b1, w2, b2, w3, b3 = args
-
-        def kern(*a):
-            return fused.pair_score_mlp(*a, **kw)
-
-        def plain(*a):
-            return fused.pair_score_mlp_plain(*a, **kw)
-
-        outs = [("score", 0, mask, None), ("off_mask", 0, ~mask, "score")]
-        faults = [
-            ("first-layer bias dropped", lambda: plain(
-                h, e, mask, w1, torch.zeros_like(b1), w2, b2, w3, b3)),
-            ("mask ignored", lambda: plain(
-                h, e, torch.ones_like(mask), w1, b1, w2, b2, w3, b3))]
-        name = fused.variant("pair_score", h.dtype)
-        rows[name], f = check_kernel(
-            f"path {label}", name, kern, plain, args, outs, faults,
-            limits_for(("score", "off_mask"), h.dtype), pair_score_work,
-            PEAK_F32 if h.dtype == torch.float32 else PEAK_BF16, report)
-        failures += f
+        rows.update(check_k4(label, fwds[key], batch, limits_for, report,
+                             failures))
 
     for label, key in (("D", "pk"), ("D'", "pk_approx")):
         args, kw = capture(fwds[key], batch, "packed_block_aggregate")

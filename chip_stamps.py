@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a K2, K3 or K6 block's cycles go, phase by phase, on one H100,
-and whether two checkouts' kernels give the same bits.
+"""Where a K2, K3, K4 or K6 block's cycles go, phase by phase, on one
+H100, and whether two checkouts' kernels give the same bits.
 
     python3 chip_stamps.py [--root DIR] [--save FILE] [--compare FILE]
 
@@ -16,14 +16,18 @@ thread 0 of each block adds the clock64() cycles since its previous stamp
 to that barrier's counter (atomicAdd into a __device__ array, under the
 block's current phase); each kernel entry starts the clock. A barrier
 closes the phase before it, so its counter holds the phase's cycles,
-waits for the slowest warp included. In mono.cu the phase is set at the
-comments that open each part of the forward (PHASES): the encoder, the
-SchNet node side (node input and tail), the SchNet pair loop, GIN and the
-heads; so a product() barrier, which every part shares, is counted by
-part. The script runs, on the inputs chip_smoke.py gives them:
-  * K3 and K2 at bf16 and K3 at f32 on the inputs the engines 'pallas'
-    and 'pk' give them at the full width of configs/qm9_fast.yml
-    (qm9_default.yml for f32), B=128, N=32 (phase 3b);
+waits for the slowest warp included. The phase is set at the comments
+that open each part (PHASES): in mono.cu the encoder, the SchNet node
+side (node input and tail), the SchNet pair loop, GIN and the heads, so
+that a product() barrier, which every part shares, is counted by part; in
+fused.cu K4's weight staging and mask scan, zero fill, tile load with the
+product, first layer, and second layer with the head. The script runs, on
+the inputs chip_smoke.py gives them:
+  * K3 and K2 at bf16, K3 and K2 at f32 (K2's on path D's inputs taken at
+    f32) and K4 at f32 and bf16 (the global head's first call,
+    pack_pairs=False) on the inputs the engines 'pallas' and 'pk' give
+    them at the full width of configs/qm9_fast.yml (qm9_default.yml for
+    f32), B=128, N=32 (phase 3b);
   * K6 in chip_smoke.py's four phase-5b cases (bf16 and f32, QM9
     B=128/N=32 and Drugs B=48/N=64, positions spread MONO_POS_SCALE),
     each from a generator seeded by the case, so both checkouts get the
@@ -52,12 +56,20 @@ import sys
 
 SOURCES = ("fused", "block_packed", "mono")
 STAMP_MAX = 128
-# mono.cu's parts: (comment that opens it, phase); phase 0 is the prologue
-PHASES = ((r"// ---- 1\. ", 1), (r"// node input x", 2),
-          (r"// the distance weight times the envelope", 3),
-          (r"// node tail", 2), (r"// ---- 3\. ", 4), (r"// ---- 4\. ", 5))
+# the parts of a kernel: (file, comment that opens it, phase); phase 0 is
+# the prologue
+PHASES = (("mono.cu", r"// ---- 1\. ", 1), ("mono.cu", r"// node input x", 2),
+          ("mono.cu", r"// the distance weight times the envelope", 3),
+          ("mono.cu", r"// node tail", 2), ("mono.cu", r"// ---- 3\. ", 4),
+          ("mono.cu", r"// ---- 4\. ", 5),
+          ("fused.cu", r"// K4: stage and scan the mask", 6),
+          ("fused.cu", r"// K4: zero fill", 7),
+          ("fused.cu", r"// K4: tile load with the product", 8),
+          ("fused.cu", r"// K4: layer 1", 9),
+          ("fused.cu", r"// K4: layer 2 and the head", 10))
 PHASE_NAMES = ("prologue", "encoder", "schnet_node", "schnet_pairs", "gin",
-               "heads")
+               "heads", "k4_stage_scan", "k4_zero_fill", "k4_tile_load",
+               "k4_layer1", "k4_layer2_head")
 PRELUDE = r'''// ---- stamps (chip_stamps.py) ----
 #pragma once
 #include <cuda_runtime.h>
@@ -119,8 +131,8 @@ def stamp_sources(csrc: str, out: str) -> list:
             elif ENTRY.search(line):
                 line = ENTRY.sub(r"\1 STAMP_ENTRY();", line)
             done.append(line)
-            for pattern, phase in PHASES:
-                if name == "mono.cu" and re.match(r"\s*" + pattern, line):
+            for where, pattern, phase in PHASES:
+                if name == where and re.match(r"\s*" + pattern, line):
                     done.append(f"STAMP_PHASE({phase});")
         if name.endswith(".cu"):
             done.append(EXPORTS)
@@ -216,10 +228,22 @@ def main() -> int:
             ("K2 bf16", k2, "packed_block_aggregate",
              build_fast_forward(qcfg, qmodel, "pk"), "packed_block:bf16"),
             ("K3 f32", fused, "interaction_block_aggregate",
-             build_fast_forward(fcfg, fmodel, "pallas"), "block_agg:f32")):
+             build_fast_forward(fcfg, fmodel, "pallas"), "block_agg:f32"),
+            ("K4 f32", fused, "pair_score_mlp",
+             build_fast_forward(fcfg, fmodel, "pallas", pack_pairs=False),
+             "pair_score:f32"),
+            ("K4 bf16", fused, "pair_score_mlp",
+             build_fast_forward(qcfg, qmodel, "pallas", pack_pairs=False),
+             "pair_score:bf16")):
         cases[label] = (mod, name, var, "fused" if mod is fused
                         else "block_packed")
         inputs[label] = cs.capture(fwd, batch, name)
+    # K2's f32 variant (no engine runs it) on path D's inputs at f32
+    a, kw = inputs["K2 bf16"]
+    cases["K2 f32"] = (k2, "packed_block_aggregate", "packed_block:f32",
+                       "block_packed")
+    inputs["K2 f32"] = ([x.float() if isinstance(x, torch.Tensor) else x
+                         for x in a], kw)
     for label, kw in mono_cases(cs, root, dev).items():
         cases[label] = (k6, "mono_forward", None, "mono")
         inputs[label] = ((), kw)
@@ -227,7 +251,8 @@ def main() -> int:
     def run(label):
         mod, name, _, _ = cases[label]
         a, kw = inputs[label]
-        return getattr(mod, name)(*a, **kw)
+        out = getattr(mod, name)(*a, **kw)
+        return (out,) if isinstance(out, torch.Tensor) else out
 
     build.build_all(SOURCES)
     outputs, plain_ms = {}, {}
@@ -275,7 +300,7 @@ def main() -> int:
             raise SystemExit("stamp_read failed")
         stamped_ms = cs.cuda_time(lambda label=label: run(label))
         # the launch's grid; a checkout without last_launch runs a block
-        # per graph (K2, K6) or per node row (K3)
+        # per graph (K2, K6) or per node row (K3, K4)
         a, kw = inputs[label]
         if mod is k6:
             blocks = kw["dp"].shape[0]
@@ -301,12 +326,12 @@ def main() -> int:
         print(f"{label}: {plain_ms[label]:.3f} ms unstamped, "
               f"{stamped_ms:.3f} ms stamped; {blocks} blocks, "
               f"{total / blocks:.0f} cycles a block", flush=True)
-        if mod is k6:
+        if len(phases) > 1:
             print("  by phase: " + ", ".join(
                 f"{p} {s:.3f}" for p, s in phases.items()), flush=True)
         for r in rows:
             print(f"  {r['share']:.3f}  {r['cycles']:10.0f}  "
-                  f"{r['phase'] + '  ' if mod is k6 else ''}"
+                  f"{r['phase'] + '  ' if len(phases) > 1 else ''}"
                   f"{r['file']}:{r['line']}  after: {r['before']}",
                   flush=True)
     here = os.path.dirname(os.path.abspath(__file__))

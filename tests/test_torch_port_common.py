@@ -125,6 +125,17 @@ def jax_variables(jcfg, jbatch, seed=9):
     return model, perturb(variables)
 
 
+def row_product(x, w):
+    """x @ w as a sum over k in increasing order: each row's bits depend
+    on that row alone, as in the kernels' products. (A CPU BLAS handles a
+    matrix's last rows with other kernels, so there a row's bits can
+    depend on how many rows the matrix has.)"""
+    acc = x[..., :1] * w[0]
+    for k in range(1, w.shape[0]):
+        acc = acc + x[..., k:k + 1] * w[k]
+    return acc
+
+
 def port_model(cfg, variables):
     model = DualEncoderEpsNetwork(cfg)
     load_jax_variables(model, variables)

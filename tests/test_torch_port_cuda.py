@@ -9,7 +9,10 @@ at a small width, and the inputs their wrappers refuse; K3 at bf16 at N =
 20 and 40 (ragged 64-pair tiles) and B = 1, K3 at f32 (persistent, 64-pair
 tiles) at N = 20, 40 and B = 1, K2 at bf16 at N = 104 (layout level 1),
 both called directly at widths that are not multiples of 16, and every
-layout level of each giving the same bits. K6 at small and full width,
+layout level of each giving the same bits. K4 over its masked pairs on
+both heads' inputs, at N = 20, 40, 64, 128 and B = 1, with an asymmetric
+mask and e, every real pair and an empty graph, every layout level and
+CTAs-per-graph R giving the same bits. K6 at small and full width,
 with em all ones, em = lm, a graph with no working pair and N = 20, 40,
 every layout level giving the same bits. Imports no JAX,
 so that it runs on a machine without it:
@@ -268,9 +271,10 @@ NEW_LIMITS = {torch.float32: (1e-5, 1e-6, 5e-6),
               torch.bfloat16: (1e-2, 1e-6, 3e-4)}
 
 
-def _first_call(fwd, batch, name):
-    """The arguments of the first call of models/fast_forward.<name> (a
-    kernel wrapper) while fwd runs on batch."""
+def _first_call(fwd, batch, name, index=0):
+    """The arguments of the first call (or the call `index`) of
+    models/fast_forward.<name> (a kernel wrapper) while fwd runs on
+    batch."""
     from agdiff_torch.models import fast_forward as ff
 
     real, calls = getattr(ff, name), []
@@ -284,7 +288,7 @@ def _first_call(fwd, batch, name):
         fwd(batch)
     finally:
         setattr(ff, name, real)
-    return calls[0]
+    return calls[index]
 
 
 def _small_forward(card, dtype, engine, n=32, b=8, hidden=64, **kw):
@@ -494,6 +498,124 @@ def test_cuda_k2_k3_layout_levels_give_the_same_bits(card, kernel, approx):
         torch.cuda.synchronize()
         for a, b in zip(*outs):
             assert torch.equal(a, b)
+
+
+def _k4_inputs(card, dtype, head, n, b, variant):
+    """K4's arguments on a 'pallas' forward with pack_pairs=False at H =
+    64 (128 at N = 128): the global head's (head 0) or the local head's (1), or the global
+    head's h with a random asymmetric mask and random e ('asymmetric'), a
+    mask of every real-atom pair ('all_real'), or graph 1's mask emptied
+    ('empty_graph')."""
+    fwd, batch = _small_forward(card, dtype, "pallas", n=n, b=b,
+                                hidden=128 if n == 128 else 64,
+                                pack_pairs=False)
+    h, e, mask, *w = _first_call(fwd, batch, "pair_score_mlp", head)[0]
+    rng = np.random.default_rng(n + b)
+    if variant == "asymmetric":
+        mask = torch.from_numpy(rng.random(tuple(mask.shape)) < 0.3).to(card)
+        e = torch.from_numpy(rng.normal(0, 0.5, tuple(e.shape)).astype(
+            np.float32)).to(card, e.dtype)
+        assert not torch.equal(mask, mask.transpose(1, 2))
+    elif variant == "all_real":
+        real = batch.node_mask
+        mask = (real[:, :, None] & real[:, None, :]
+                & ~torch.eye(n, dtype=torch.bool, device=card))
+    elif variant == "empty_graph":
+        mask = mask.clone()
+        mask[1] = False
+    return (h, e, mask, *w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head,n,b,variant", [
+    ("float32", 0, 32, 8, ""), ("bfloat16", 0, 32, 8, ""),
+    ("float32", 1, 32, 8, ""), ("bfloat16", 1, 32, 8, ""),
+    ("float32", 0, 20, 8, ""), ("bfloat16", 0, 20, 8, ""),
+    ("float32", 0, 40, 8, ""), ("bfloat16", 0, 40, 8, ""),
+    ("float32", 0, 64, 4, ""), ("bfloat16", 1, 64, 4, ""),
+    ("float32", 0, 32, 1, ""), ("bfloat16", 0, 32, 1, ""),
+    ("float32", 0, 32, 8, "asymmetric"), ("bfloat16", 0, 32, 8, "asymmetric"),
+    ("float32", 0, 32, 8, "empty_graph"),
+    ("bfloat16", 0, 32, 8, "empty_graph"),
+    ("float32", 0, 32, 8, "all_real"), ("bfloat16", 0, 32, 8, "all_real"),
+    # f32 at N = 128, H = 128: the lists go to the scratch at level 0
+    ("float32", 0, 128, 2, "")])
+def test_cuda_k4_masked_pairs_match_plain(card, dtype, head, n, b, variant):
+    """K4 over each graph's masked pairs against the plain version on the
+    mask (within NEW_LIMITS) and exactly 0 off it, one launch counted per
+    call, two launches bitwise equal, and every layout level that fits and
+    every CTAs-per-graph R (1, 2, 3) giving the same bits: both heads,
+    N = 20, 40, 64, 128, B = 1, an asymmetric mask and e, every real pair,
+    a graph with no masked pair."""
+    from agdiff_torch.kernels import fused
+
+    args = _k4_inputs(card, dtype, head, n, b, variant)
+    h, mask = args[0], args[2]
+    name = fused.variant("pair_score", h.dtype)
+    before = fused.launches[name]
+    got = fused.pair_score_mlp(*args)
+    assert fused.launches[name] == before + 1
+    launch = dict(fused.last_launch[name])
+    assert launch["grid"] == b * launch["ranks"]
+    c, h1, h2 = h.shape[-1], args[3].shape[1], args[5].shape[1]
+    level, _, in_smem = fused.pair_score_layout(n, c, h1, h2, h.dtype)
+    assert launch["level"] == level
+    assert launch["lists"] == ("smem" if in_smem else "scratch")
+    if n == 128:
+        assert launch["lists"] == "scratch"
+    again = fused.pair_score_mlp(*args)
+    ref = fused.pair_score_mlp_plain(*args)
+    levels = [lv for lv in ((0, 1) if dtype == "bfloat16" else (0, 1, 2))
+              if fused.pair_score_smem(c, h1, h2, h.dtype, lv)
+              + fused.pair_score_h_bytes(n, c, h.dtype) <= fused.MAX_SMEM]
+    others = [fused.pair_score_launch(*args, level=lv) for lv in levels]
+    others += [fused.pair_score_launch(*args, ranks=r) for r in (1, 2, 3)]
+    torch.cuda.synchronize()
+    assert len(levels) >= 2
+    assert torch.equal(got, again)
+    assert all(torch.equal(got, o) for o in others)
+    if mask.any():
+        _within_limits(got[mask], ref[mask], NEW_LIMITS[h.dtype])
+    assert not bool(got[~mask].any())
+    if variant == "empty_graph":
+        assert not bool(got[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h1,h2", [(36, 20, 12), (160, 160, 80)])
+def test_cuda_k4_at_widths_off_the_main_path(card, dtype, c, h1, h2):
+    """K4 on numpy-made inputs at C = 36, H1 = 20, H2 = 12 (not multiples
+    of 16 or 8: zero-padded tiles, 8-byte loads of e) and at C = 160 (the
+    f32 tile's operands beyond the four a thread holds in registers),
+    N = 20, B = 3, a random asymmetric mask: within NEW_LIMITS on the mask,
+    0 off it, every level and R the same bits."""
+    from agdiff_torch.kernels import fused
+
+    rng = np.random.default_rng(c)
+    b, n = 3, 20
+
+    def t(*shape, scale=1.0, dt=torch.float32):
+        return torch.from_numpy((scale * rng.standard_normal(shape))
+                                .astype(np.float32)).to(card, dt)
+
+    args = (t(b, n, c, dt=dtype), t(b, n, n, c, scale=0.5, dt=dtype),
+            torch.from_numpy(rng.random((b, n, n)) < 0.4).to(card),
+            t(2 * c, h1, scale=(2 * c) ** -0.5, dt=dtype), t(h1, scale=0.1),
+            t(h1, h2, scale=h1 ** -0.5, dt=dtype), t(h2, scale=0.1),
+            t(h2, 1, scale=h2 ** -0.5, dt=dtype), t(1, scale=0.1))
+    mask = args[2]
+    got = fused.pair_score_mlp(*args)
+    ref = fused.pair_score_mlp_plain(*args)
+    levels = [lv for lv in ((0, 1) if dtype == torch.bfloat16 else (0, 1, 2))
+              if fused.pair_score_smem(c, h1, h2, dtype, lv)
+              + fused.pair_score_h_bytes(n, c, dtype) <= fused.MAX_SMEM]
+    others = [fused.pair_score_launch(*args, level=lv) for lv in levels]
+    others += [fused.pair_score_launch(*args, ranks=r) for r in (1, 3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, o) for o in others)
+    _within_limits(got[mask], ref[mask], NEW_LIMITS[dtype])
+    assert not bool(got[~mask].any())
 
 
 @pytest.mark.cuda

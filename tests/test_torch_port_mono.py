@@ -54,6 +54,7 @@ from test_torch_port_common import (
     jax_variables,
     molecules,
     port_model,
+    row_product,
 )
 
 F32_TOL = 2e-4
@@ -367,17 +368,6 @@ def _fixture_inputs(setup, case, dtype):
     return kw
 
 
-def _row_product(x, w):
-    """x @ w as a sum over k in increasing order: each row's bits depend
-    on that row alone, as in K6's products. (A CPU BLAS handles a
-    matrix's last rows with other kernels, so there a row's bits can
-    depend on how many rows the matrix has.)"""
-    acc = x[..., :1] * w[0]
-    for k in range(1, w.shape[0]):
-        acc = acc + x[..., k:k + 1] * w[k]
-    return acc
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["qm9", "drugs", "bond_graph_only",
                                   "empty_graph"])
@@ -390,9 +380,9 @@ def test_plain_over_working_pairs_equals_the_triangle(setup, case, dtype,
     message is +-0 and both heads are multiplied by 0; lm is a subset of
     em. Covers em = lm, a graph with no working pair and working counts
     that are not multiples of 32 or 64. Products are row-independent
-    (_row_product) in both runs."""
+    (row_product) in both runs."""
     torch.set_num_threads(2)
-    monkeypatch.setattr(torch.Tensor, "__matmul__", _row_product)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", row_product)
     kw = _fixture_inputs(setup, case, dtype)
     assert bool(((kw["lm"] != 0) <= (kw["em"] != 0)).all())
     if case == "bond_graph_only":
