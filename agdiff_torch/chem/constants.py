@@ -5,4 +5,34 @@ UNSPECIFIED = 0, which doubles as the radius-edge type); k-hop extended
 edges get type NUM_BOND_TYPES + k - 1 (23, 24 for k = 2, 3).
 """
 
-NUM_BOND_TYPES = 22
+import enum
+
+
+class BondType(enum.IntEnum):
+    """RDKit's BondType names in its 2022+ order (22 entries)."""
+
+    UNSPECIFIED = 0
+    SINGLE = 1
+    DOUBLE = 2
+    TRIPLE = 3
+    QUADRUPLE = 4
+    QUINTUPLE = 5
+    HEXTUPLE = 6
+    ONEANDAHALF = 7
+    TWOANDAHALF = 8
+    THREEANDAHALF = 9
+    FOURANDAHALF = 10
+    FIVEANDAHALF = 11
+    AROMATIC = 12
+    IONIC = 13
+    HYDROGEN = 14
+    THREECENTER = 15
+    DATIVEONE = 16
+    DATIVE = 17
+    DATIVEL = 18
+    DATIVER = 19
+    OTHER = 20
+    ZERO = 21
+
+
+NUM_BOND_TYPES = len(BondType)  # 22

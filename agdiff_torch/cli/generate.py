@@ -2,9 +2,11 @@
 scripts/test.py).
 
 Usage:
-  python -m agdiff_torch.cli.generate model.pt --test_set test.npz \
-      --fast --engine mono [--out_dir samples] [--start_idx 0 --end_idx 200] \
-      [--num_confs 2x] [--n_steps 5000] [--device cpu]
+  python -m agdiff_torch.cli.generate model.pt (--test_set test.npz |
+      --synthetic 8 [--synthetic_heavy 20]) --fast --engine mono \
+      [--out_dir samples] [--start_idx 0 --end_idx 200] [--num_confs 2x] \
+      [--n_steps 5000] [--ladder strided --sampling_type generalized \
+      --eta 0 --solver heun] [--denoise_tail 10] [--device cpu]
 
 The checkpoint is a reference .pt; its model config travels in it
 (reference: test.py:111), and the sampling hyperparameters are flags
@@ -12,8 +14,10 @@ The checkpoint is a reference .pt; its model config travels in it
 molecule as it is done (a rerun skips those that exist unless
 --no_resume), and samples_all.npz at the end, in the JAX package's format.
 --fast samples with the folded engines (the runner's choice, or
---engine); without it, with the dense module. The run is on the CUDA card
-unless --device says otherwise.
+--engine); without it, with the dense module. The run is on the CUDA card,
+where each ladder replays CUDA graphs, unless --device says otherwise.
+--synthetic takes the molecules from data/synthetic.py with the JAX
+CLI's arguments (seed 7, three reference conformers).
 """
 
 from __future__ import annotations
@@ -35,18 +39,50 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("ckpt", help="reference .pt checkpoint")
     ap.add_argument("--out_dir", default=None)
-    ap.add_argument("--test_set", required=True,
-                    help=".npz test set (chem/mol.save_molecules format)")
+    ap.add_argument("--test_set", default=None,
+                    help=".npz test set (chem/mol.save_molecules format); "
+                         "required without --synthetic")
+    ap.add_argument("--synthetic", type=int, default=0,
+                    help="generate for this many synthetic molecules "
+                         "(data/synthetic.py, seed 7, 3 reference "
+                         "conformers) instead of a test set")
+    ap.add_argument("--synthetic_heavy", type=int, default=None,
+                    help="max heavy atoms of the synthetic molecules "
+                         "(default QM9-like 4-9; 20 ~= Drugs-size)")
+    ap.add_argument("--synthetic_rigid", action="store_true",
+                    help="deterministic tetrahedral geometry")
+    ap.add_argument("--synthetic_multiref", action="store_true",
+                    help="reference conformers are distinct torsion "
+                         "conformers instead of jitters of one structure")
+    ap.add_argument("--synthetic_chem", default="tree",
+                    choices=["tree", "rich"])
     ap.add_argument("--start_idx", type=int, default=0)
     ap.add_argument("--end_idx", type=int, default=200)
     ap.add_argument("--num_confs", default="2x")
     ap.add_argument("--n_steps", type=int, default=5000)
+    ap.add_argument("--ladder", default="suffix",
+                    choices=["suffix", "strided"],
+                    help="suffix = the last n_steps noise levels (the "
+                         "reference); strided = n_steps levels over the "
+                         "whole schedule")
     ap.add_argument("--step_lr", type=float, default=1e-6)
     ap.add_argument("--w_global", type=float, default=1.0)
     ap.add_argument("--global_start_sigma", type=float, default=0.5)
     ap.add_argument("--clip", type=float, default=1000.0)
     ap.add_argument("--clip_local", type=float, default=None)
     ap.add_argument("--clip_pos", type=float, default=None)
+    ap.add_argument("--denoise_tail", type=int, default=0,
+                    help="extra noise-free steps at the last noise level")
+    ap.add_argument("--sampling_type", default="ld",
+                    choices=["ld", "generalized"],
+                    help="'ld' = the reference's annealed Langevin; "
+                         "'generalized' = DDIM (with --ladder strided for "
+                         "few-step sampling)")
+    ap.add_argument("--eta", type=float, default=1.0,
+                    help="'generalized' noise (0 = deterministic DDIM)")
+    ap.add_argument("--solver", default="euler", choices=["euler", "heun"],
+                    help="'generalized' solver; 'heun' is second order "
+                         "(--eta 0, two forwards a step)")
     ap.add_argument("--seed", type=int, default=2021)
     ap.add_argument("--chunk_size", type=int, default=64)
     ap.add_argument("--no_resume", action="store_true")
@@ -63,6 +99,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    if not args.synthetic and not args.test_set:
+        ap.error("--test_set is required without --synthetic")
 
     from agdiff_torch.cli._common import get_logger, load_inference_bundle
     from agdiff_torch.data.dataset import PackedConformationDataset
@@ -76,11 +114,25 @@ def main(argv=None):
     logger = get_logger("generate", out_dir)
     logger.info("checkpoint: %s -> out: %s", args.ckpt, out_dir)
     config, model = load_inference_bundle(args.ckpt, args.dtype, logger)
-    dataset = PackedConformationDataset(args.test_set).molecules
+    if args.synthetic:
+        from agdiff_torch.data.synthetic import heavy_range, synthetic_dataset
+
+        kw = {}
+        if args.synthetic_heavy is not None:
+            lo, hi = heavy_range(args.synthetic_heavy)
+            kw = dict(min_heavy=lo, max_heavy=hi)
+        dataset = synthetic_dataset(
+            args.synthetic, seed=7, num_conformers=3,
+            rigid=args.synthetic_rigid, chem=args.synthetic_chem,
+            multiref=args.synthetic_multiref, **kw)
+    else:
+        dataset = PackedConformationDataset(args.test_set).molecules
     scfg = SamplerConfig(
-        n_steps=args.n_steps, step_lr=args.step_lr, w_global=args.w_global,
-        global_start_sigma=args.global_start_sigma, clip=args.clip,
-        clip_local=args.clip_local, clip_pos=args.clip_pos)
+        n_steps=args.n_steps, ladder=args.ladder, step_lr=args.step_lr,
+        w_global=args.w_global, global_start_sigma=args.global_start_sigma,
+        clip=args.clip, clip_local=args.clip_local, clip_pos=args.clip_pos,
+        denoise_tail=args.denoise_tail, sampling_type=args.sampling_type,
+        eta=args.eta, solver=args.solver)
     runner = GenerationRunner(
         model, config.model, make_diffusion(config.model), scfg,
         buckets=config.buckets, chunk_size=args.chunk_size,

@@ -1,11 +1,12 @@
 """Small molecule sets stored as JSON under data/fixtures/.
 
-qm9_synthetic.json holds the output of the JAX package's
+qm9_synthetic.json holds the output of data/synthetic.py's
 `synthetic_dataset(4, seed=7, num_conformers=2)` (QM9-sized molecules of
 17-23 atoms with two reference conformers each). drugs_synthetic.json
 holds `synthetic_dataset(2, seed=7, min_heavy=H, max_heavy=H,
 num_conformers=2)` for H = 20 and then H = 28 (Drugs-sized molecules of
-50, 56, 69 and 73 atoms). Tests keep each equal to its source.
+50, 56, 69 and 73 atoms). The JAX package's generator gives the same
+molecules; tests keep each fixture equal to both.
 """
 
 from __future__ import annotations

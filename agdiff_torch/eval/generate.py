@@ -23,6 +23,14 @@ through build_fast_sampler(build_fast_forward(cfg, model, "pallas"),
 (models/dualenc.py), as JAX's build_sampler path does, and `engine` has
 no effect (:253-283).
 
+On a CUDA device each ladder replays CUDA graphs (sampling/graphed.py;
+graph=False runs the eager loop): a sampler per (engine, retry,
+capacity), and in it one set of graphs per batch shape and pair list,
+captured at the first run or by `warm`, which captures every ladder
+`generate_molecule` will run, as the JAX runner's warm compiles them
+(agdiff_tpu/eval/generate.py:334-395). The retry with clip_local = 20 is
+a sampler, and graphs, of its own.
+
 `run` writes <out_dir>/samples_<i>.npz as each molecule is done and
 samples_all.npz at the end, in the JAX package's format (`load_samples`
 reads either package's files), and skips molecules whose file exists
@@ -68,7 +76,7 @@ class GenerationRunner:
                  diffusion: Diffusion, sampler_config: SamplerConfig,
                  buckets: Sequence[int] = (32, 64), chunk_size: int = 64,
                  device=None, engine: Optional[str] = None,
-                 use_fast: bool = True, logger=None):
+                 use_fast: bool = True, logger=None, graph: bool = True):
         if engine is not None and engine.startswith("pallas"):
             raise ValueError(
                 "GenerationRunner does not take engine 'pallas': the JAX "
@@ -89,6 +97,7 @@ class GenerationRunner:
         self.engine = engine
         self.use_fast = use_fast
         self.logger = logger
+        self.graph = graph   # False: the eager loop on a CUDA device too
         self.forwards: Dict[Optional[str], object] = {}
         self._samplers: Dict[tuple, object] = {}
 
@@ -138,14 +147,24 @@ class GenerationRunner:
 
     def _sampler(self, engine: Optional[str], retry: bool,
                  capacity: Optional[int] = None):
+        """The sampler of an (engine, retry, capacity). Its graphs are
+        keyed further by batch shape (bucket and batch size), device and
+        pair list (sampling/langevin.py Sampler), so that together the
+        keys hold everything a graph bakes in. A tight engine's capacity
+        is the molecule's, and `run` does not come back to a molecule, so
+        a new capacity frees the samplers (and graphs) of the others."""
         key = (engine, retry, capacity)
         if key not in self._samplers:
+            if capacity is not None:
+                for k in [k for k in self._samplers if k[:2] == key[:2]]:
+                    self._samplers.pop(k).release()
             cfg = self.retry_config if retry else self.sampler_config
             self._samplers[key] = (
-                build_sampler(self.model, self.diffusion, cfg)
+                build_sampler(self.model, self.diffusion, cfg,
+                              graph=self.graph)
                 if engine == MODULE else
                 build_fast_sampler(self.forward(engine), self.diffusion, cfg,
-                                   pair_capacity=capacity))
+                                   pair_capacity=capacity, graph=self.graph))
         return self._samplers[key]
 
     def num_samples_for(self, mol: Molecule, num_confs="2x") -> int:
@@ -174,6 +193,49 @@ class GenerationRunner:
             self.buckets = tuple(sorted(set(self.buckets) | {bucket}))
             return bucket
 
+    def _batch(self, mol: Molecule, bucket: int, bsz: int):
+        return pad_molecules([mol] * bsz, bucket,
+                             edge_order=self.model_config.edge_order,
+                             batch_size=bsz, device=self.device)
+
+    def warm(self, mol: Molecule, num_samples: Optional[int] = None,
+             retry: bool = False, all_sizes: bool = False) -> List[tuple]:
+        """Capture the graphs of every ladder generate_molecule(mol,
+        num_samples) will run (agdiff_tpu/eval/generate.py:334-395; a
+        capture first runs each step kind twice eagerly, a ladder runs
+        no further): each batch size its chunks
+        take (num_samples default: one chunk), with retry=True the
+        clip_local retry's too, with all_sizes=True every batch size
+        `_batch_size_for` can give (powers of two from 8 to chunk_size).
+        A tight engine's graphs hold the molecule's own pair list, so
+        another molecule of the bucket captures at its first run, which
+        frees the earlier molecule's graphs of that batch size. Returns
+        the (bucket, batch size, retry) ladders newly captured; none on
+        the CPU, which runs the eager loop."""
+        num_samples = num_samples or self.chunk_size
+        bucket = self._bucket_for(mol)
+        engine = self._engine_for(bucket)
+        capacity = self._capacity_for(mol, engine)
+        sizes = set()
+        remaining = num_samples
+        while remaining > 0:
+            count = min(remaining, self.chunk_size)
+            sizes.add(self._batch_size_for(count))
+            remaining -= count
+        if all_sizes:
+            b = 8
+            while b < self.chunk_size:
+                sizes.add(self._batch_size_for(b))
+                b *= 2
+            sizes.add(self.chunk_size)
+        captured = []
+        for bsz in sorted(sizes):
+            batch = self._batch(mol, bucket, bsz)
+            for r in ((False, True) if retry else (False,)):
+                if self._sampler(engine, r, capacity).warm(batch):
+                    captured.append((bucket, bsz, r))
+        return captured
+
     def generate_molecule(self, mol: Molecule, num_samples: int,
                           generator: torch.Generator) -> np.ndarray:
         """num_samples conformers of `mol` as (num_samples, N, 3)."""
@@ -186,9 +248,7 @@ class GenerationRunner:
         while remaining > 0:
             count = min(remaining, self.chunk_size)
             bsz = self._batch_size_for(count)
-            batch = pad_molecules([mol] * bsz, bucket,
-                                  edge_order=self.model_config.edge_order,
-                                  batch_size=bsz, device=self.device)
+            batch = self._batch(mol, bucket, bsz)
             pos_init = torch.randn(batch.pos.shape, generator=generator,
                                    device=self.device)
             result = self._sampler(engine, False, capacity)(

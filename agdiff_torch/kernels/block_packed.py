@@ -38,7 +38,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from agdiff_torch.kernels import fused
+from agdiff_torch.kernels import fused, hold
 from agdiff_torch.ops import approx as ax
 from agdiff_torch.ops.pairs import PairList, gather_nodes, scatter_nodes
 
@@ -159,6 +159,7 @@ def packed_block_launch(e_packed, we1, we2, x1, x2, conv1, conv2,
     out2 = torch.empty((b, n, f2), dtype=torch.float32, device=dev)
     lib = _lib()
     ptrs = [e_packed, we1, we2, x1, x2, pairs.iu, pairs.ju]
+    hold(*wts, packed)
     err = lib.packed_block_launch(
         int(bf), int(approx), *[t.data_ptr() for t in ptrs],
         fused._ptr_array(wts), None if packed is None else packed.data_ptr(),

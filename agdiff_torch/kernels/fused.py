@@ -63,6 +63,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from agdiff_torch.kernels import hold
 from agdiff_torch.nn.common import activation_by_name
 
 LN2 = math.log(2.0)
@@ -498,6 +499,7 @@ def block_agg_launch(edge_attr, w_edge1, w_edge2, h1, h2, conv1, conv2, *,
     wts, packed = prepared_filter(conv1, conv2, c, cd, dev)
     out1 = torch.empty((b, n, f1), dtype=torch.float32, device=dev)
     out2 = torch.empty((b, n, f2), dtype=torch.float32, device=dev)
+    hold(*wts, packed)
     lib = _lib()
     grid = ctypes.c_int(0)
     err = lib.block_agg_launch(
@@ -581,6 +583,7 @@ def pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3, *,
             ranks = got.value
         scratch = torch.empty(b * ranks * pair_lists_bytes(n),
                               dtype=torch.uint8, device=dev)
+    hold(*wts, packed)
     err = lib.pair_score_launch(
         *args, None if scratch is None else scratch.data_ptr(), b, n, c, h1,
         h2, lv, int(in_smem), ranks or 0, 1, ctypes.byref(got), _stream(dev))

@@ -73,6 +73,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from agdiff_torch.kernels import hold
 from agdiff_torch.kernels.fused import TC_ROWS, pack_filter_weights, tc_regions
 from agdiff_torch.kernels.fused import check as _check
 from agdiff_torch.nn.common import activation_by_name, gelu
@@ -577,6 +578,7 @@ def _launch(dp, em, lm, tp, h0, hl0, params: MonoParams, pairs: PairList,
     lib = _lib()
     ptrs = [dp, em, lm, tp, h0, hl0, pairs.iu, pairs.ju, pairs.inc_ptr,
             pairs.inc, wt, wf, offs, out0, out1, e32, scratch]
+    hold(e32, scratch)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.mono_launch(int(cd == torch.float32), int(params.smooth),

@@ -24,6 +24,7 @@ reproduces run to run. A pad slot is in no node's list.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, fields
 from typing import Optional
 
@@ -45,6 +46,9 @@ class PairList:
     tight: bool = False      # a molecule's list, not the bucket's triangle
     num_valid: int = 0       # V; valid slots come first (the largest V
                              # of the batch for a per-graph list)
+    key: tuple = ()          # the list's identity from its host data:
+                             # equal keys, equal lists (a CUDA graph
+                             # captured on one list replays only for it)
 
     @property
     def shared(self) -> bool:
@@ -109,6 +113,8 @@ def _shared_list(iu, ju, n, capacity, tight, device) -> PairList:
     slot = np.zeros((n, n), np.int64)
     slot[iu, ju] = np.arange(v)
     slot[ju, iu] = np.arange(v)
+    digest = hashlib.blake2b(np.stack([iu, ju]).astype(np.int64).tobytes(),
+                             digest_size=8).hexdigest()
     iu_p = np.concatenate([iu, np.zeros(pad, np.int64)])
     ju_p = np.concatenate([ju, np.zeros(pad, np.int64)])
     return PairList(
@@ -119,6 +125,7 @@ def _shared_list(iu, ju, n, capacity, tight, device) -> PairList:
         inc_ptr=torch.from_numpy(ptr),
         inc=torch.from_numpy(inc.astype(np.uint32).view(np.int32)),
         inc_shift=shift, tight=tight, num_valid=v,
+        key=("tight" if tight else "triu", n, capacity, v, shift, digest),
     ).to(device)
 
 
@@ -162,7 +169,8 @@ def prepare_pairs(node_mask, capacity: int) -> PairList:
     stacked = {f: torch.stack([getattr(pl, f) for pl in lists])
                for f in ("idx", "valid", "iu", "ju", "slot")}
     return PairList(**stacked, tight=True,
-                    num_valid=max(pl.num_valid for pl in lists)
+                    num_valid=max(pl.num_valid for pl in lists),
+                    key=("per-graph",) + tuple(pl.key for pl in lists)
                     ).to(node_mask.device)
 
 

@@ -1,38 +1,76 @@
-"""Annealed Langevin dynamics, the reference 'ld' update (port of
-agdiff_tpu/sampling/langevin.py:100-291, suffix ladder).
+"""The sampler: annealed Langevin dynamics and DDIM over a ladder of noise
+levels (port of agdiff_tpu/sampling/langevin.py).
 
-Per step i (the last n_steps noise levels, highest first):
-    step = step_lr * (sigma_i / 0.01)^2
-    pos <- pos + step * eps_pos / sigma_i + sqrt(2 * step) * xi
-then non-finite entries are flagged per graph and zeroed, each graph is
-re-centred, and positions are optionally clipped. The ladder is a Python
-loop over steps; the flags stay on the device, so a run syncs only at the
-end. Every forward call gets the config's `extend_order` and
-`extend_radius` (agdiff_tpu/sampling/langevin.py:177-189). The forward's
-pair list depends only on the node mask: the sampler builds it once per
-ladder and passes it to every step (the JAX package's `forward.prepare`
-hoist, models/tight_forward.py:388-392). `build_sampler` runs the ladder
-on the dense module (models/dualenc.py), `build_fast_sampler` on a folded
-forward.
+The ladder is a table of (i, j) per step: the current noise level i and
+the next one j, -1 after the last (the clean end, sigma 0). `ladder`
+'suffix' takes the last n_steps levels of the schedule, highest first
+(the reference's semantics); 'strided' takes n_steps levels evenly spaced
+over the whole schedule, round(linspace(T - 1, 0, n)) with
+round-half-even, in float32 as XLA computes it (`ladder_indices`: float64
+or another float32 order lands on the other side of some ties). Per
+step, with eps_pos the assembled drift (`assemble_drift`):
+
+* 'ld' (the reference's update): step = step_lr * (sigma_i / 0.01)^2,
+  pos <- pos + step * eps_pos / sigma_i + sqrt(2 * step) * xi;
+* 'generalized' (DDIM in the model's scaled parameterisation):
+  a_j = 1 and sigma_j = 0 at j = -1;
+  s2 = clip(eta^2 sigma_j^2 (1 - a_i / a_j) / (1 - a_i), 0, sigma_j^2);
+  pos <- pos + (sqrt(sigma_j^2 - s2) - sigma_i) * (-eps_pos) + sqrt(s2) xi,
+  the noise added even at eta = 0, as JAX adds it; solver 'heun' (eta 0
+  only) evaluates the drift again at the predicted point and sigma_j and
+  averages the two slopes; at j = -1 that second evaluation still runs
+  and is selected away, so that the step has no branch.
+
+Then non-finite entries are flagged per graph and zeroed, each graph is
+re-centred, and positions are optionally clipped. `denoise_tail` adds
+noise-free 'ld' steps at the last level; `traj_stride` keeps pos after
+every traj_stride steps (the steps left over run after the last entry).
+
+A `Ladder` holds one ladder's state on the device: positions, flags, a
+step counter, the (i, j) table and the sigma and alpha tables. Every
+per-step scalar is read on the device through the counter, so one block
+of steps serves every block of the ladder: it is the function
+sampling/graphed.py captures as a CUDA graph and replays, and the eager
+loop calls the same function. The ladder runs in blocks of BLOCK_STEPS
+steps (traj_stride steps when a trajectory is kept), then the steps left
+over, then the tail; each block's noise is one draw of (S, B, N, 3) from
+the generator, or the block's slice of an injected `noise` of shape
+(n_steps, B, N, 3) (tests replay the JAX package's noise so), so eager
+and graphed runs draw the same numbers. The forward's pair list depends
+only on the node mask: it is built once per ladder and passed to every
+forward call, with the config's `extend_order` and `extend_radius`.
+`build_sampler` runs the ladder on the dense module (models/dualenc.py),
+`build_fast_sampler` on a folded forward; on a CUDA device both replay
+CUDA graphs unless asked for graph=False.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from agdiff_torch.models.schedules import Diffusion
 from agdiff_torch.ops.geometry import center_pos, clip_norm, eq_transform_dense
+from agdiff_torch.sampling.graphed import LadderGraphs
+
+# steps per block of the ladder without a trajectory: a graph of 20 steps
+# holds ~3000 launches on the K1 and K6 engines (~150 a step), and a
+# 5000-step ladder is 250 replays of it
+BLOCK_STEPS = 20
 
 
 @dataclass(frozen=True)
 class SamplerConfig:
-    """Sampling hyperparameters (reference scripts/test.py defaults)."""
+    """Sampling hyperparameters (reference scripts/test.py defaults; the
+    fields and defaults of the JAX package's SamplerConfig)."""
 
     n_steps: int = 5000
+    ladder: str = "suffix"       # 'suffix' | 'strided' (module docstring)
+    unroll: int = 1              # JAX's scan unroll; no effect here
     step_lr: float = 1.0e-6
     w_global: float = 1.0
     global_start_sigma: float = 0.5
@@ -41,6 +79,11 @@ class SamplerConfig:
     clip_pos: Optional[float] = None
     extend_order: bool = False   # the test-time adjacency is pre-extended
     extend_radius: bool = True
+    traj_stride: int = 0         # 0: no trajectory; k: pos every k steps
+    denoise_tail: int = 0        # noise-free 'ld' steps at the last level
+    sampling_type: str = "ld"    # 'ld' | 'generalized' (DDIM)
+    eta: float = 1.0             # 'generalized' noise: 0 = deterministic
+    solver: str = "euler"        # 'generalized': 'euler' | 'heun' (eta 0)
 
     def with_clip_local(self, value: float) -> "SamplerConfig":
         return dataclasses.replace(self, clip_local=value)
@@ -49,6 +92,53 @@ class SamplerConfig:
 class SampleResult(NamedTuple):
     pos: torch.Tensor        # (B, N, 3)
     nan_flags: torch.Tensor  # (B,) bool: a non-finite value appeared
+    traj: Optional[torch.Tensor] = None  # (n_steps // traj_stride, B, N, 3)
+
+
+def validate(cfg: SamplerConfig) -> None:
+    """JAX's checks (agdiff_tpu/sampling/langevin.py:156-163)."""
+    if cfg.sampling_type not in ("ld", "generalized"):
+        raise ValueError(f"unknown sampling_type {cfg.sampling_type!r}")
+    if cfg.solver not in ("euler", "heun"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
+    if (cfg.solver == "heun" and cfg.sampling_type == "generalized"
+            and cfg.eta != 0.0):
+        raise ValueError("solver='heun' integrates the probability-flow "
+                         "ODE and requires eta=0")
+
+
+def ladder_indices(num_timesteps: int, n_steps: int,
+                   ladder: str = "suffix") -> np.ndarray:
+    """The n_steps noise levels of a ladder, highest first (int64).
+    'strided' is jnp.round(jnp.linspace(T - 1, 0, n)) as XLA computes it
+    in float32: start * (1 - k * (1 / (n - 1))) for k < n - 1 (XLA turns
+    the division by n - 1 into a product with its reciprocal, which
+    decides the ties: 16.499996, not 16.500002, at T = 100, n = 7), then
+    the end point, rounded half to even."""
+    t, n = num_timesteps, n_steps
+    if n < 1:
+        raise ValueError(f"n_steps={n}: at least one step")
+    if ladder == "strided":
+        if n == 1:
+            out = np.float32([t - 1])
+        else:
+            frac = np.arange(n - 1, dtype=np.float32) * (
+                np.float32(1) / np.float32(n - 1))
+            out = np.concatenate([np.float32(t - 1) * (np.float32(1) - frac)
+                                  + np.float32(0) * frac, np.float32([0])])
+        return np.round(out).astype(np.int64)
+    if ladder != "suffix":
+        raise ValueError(f"unknown ladder {ladder!r}")
+    if n > t:
+        raise ValueError(f"n_steps={n} exceeds the schedule's {t} levels")
+    return np.arange(t - 1, t - n - 1, -1, dtype=np.int64)
+
+
+def ladder_table(num_timesteps: int, n_steps: int,
+                 ladder: str = "suffix") -> np.ndarray:
+    """(n_steps, 2) (i, j) per step: each level and the next, -1 last."""
+    idx = ladder_indices(num_timesteps, n_steps, ladder)
+    return np.stack([idx, np.concatenate([idx[1:], [-1]])], axis=1)
 
 
 def assemble_drift(out, pos, sigma, cfg: SamplerConfig):
@@ -69,79 +159,271 @@ def assemble_drift(out, pos, sigma, cfg: SamplerConfig):
     return node_eq_local + node_eq_global * cfg.w_global
 
 
+class Ladder:
+    """One ladder's state and step function on the batch's device.
+
+    The batch's fields are copied into tensors of the ladder's own
+    (`load`), so that a captured graph reads the same memory on every
+    run. `plan` lists the blocks: ('ladder', S, first step, keep pos
+    after) and ('tail', S, ...). The table holds the ladder's rows, then
+    the tail's (the last level twice); j = -1 is stored as T, where the
+    sigma table holds 0 and the alpha table 1, JAX's values at j = -1.
+    """
+
+    def __init__(self, forward_fn: Callable, batch, diffusion: Diffusion,
+                 config: SamplerConfig, pairs=None):
+        validate(config)
+        cfg = self.config = config
+        self.forward_fn, self.pairs = forward_fn, pairs
+        dev = batch.pos.device
+        t = self.num_timesteps = diffusion.num_timesteps
+        rows = ladder_table(t, cfg.n_steps, cfg.ladder)
+        last = rows[-1, 0]
+        rows = np.concatenate([rows, np.full((cfg.denoise_tail, 2), last)])
+        rows[rows < 0] = t
+        self.table = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+        self.sigmas = torch.cat([
+            torch.as_tensor(diffusion.sigmas, dtype=torch.float32),
+            torch.zeros(1)]).to(dev)
+        self.alphas = torch.cat([
+            torch.as_tensor(diffusion.alphas, dtype=torch.float32),
+            torch.ones(1)]).to(dev)
+        self.batch = batch.replace(**{
+            f.name: getattr(batch, f.name).clone()
+            for f in dataclasses.fields(batch)})
+        self.pos = self.batch.pos
+        self.mask3 = self.batch.node_mask[..., None].float()
+        self.flags = torch.zeros(batch.num_graphs, dtype=torch.bool,
+                                 device=dev)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.fwd_kwargs = dict(extend_order=cfg.extend_order,
+                               extend_radius=cfg.extend_radius)
+        if pairs is not None:
+            self.fwd_kwargs["pairs"] = pairs
+        self.plan = self._plan()
+        size = max([s for kind, s, _, _ in self.plan if kind == "ladder"])
+        self.noise = torch.zeros((size,) + tuple(batch.pos.shape),
+                                 device=dev)
+
+    def _plan(self) -> List[Tuple[str, int, int, bool]]:
+        cfg = self.config
+        stride = cfg.traj_stride if cfg.traj_stride > 0 else BLOCK_STEPS
+        full, rest = divmod(cfg.n_steps, stride)
+        plan = [("ladder", stride, k * stride, cfg.traj_stride > 0)
+                for k in range(full)]
+        if rest:
+            plan.append(("ladder", rest, full * stride, False))
+        full, rest = divmod(cfg.denoise_tail, BLOCK_STEPS)
+        plan += [("tail", BLOCK_STEPS, cfg.n_steps + k * BLOCK_STEPS, False)
+                 for k in range(full)]
+        if rest:
+            plan.append(("tail", rest, cfg.n_steps + full * BLOCK_STEPS,
+                         False))
+        return plan
+
+    def load(self, batch, pos_init) -> None:
+        """Copy the batch in and start the ladder: pos = pos_init *
+        sigma_max over real nodes, no flags, step 0."""
+        for f in dataclasses.fields(batch):
+            if f.name != "pos":
+                getattr(self.batch, f.name).copy_(getattr(batch, f.name))
+        self.mask3.copy_(self.batch.node_mask[..., None].float())
+        self.pos.copy_(pos_init.to(self.pos.device)
+                       * self.sigmas[self.num_timesteps - 1] * self.mask3)
+        self.flags.zero_()
+        self.counter.zero_()
+
+    def eps_at(self, pos, sigma):
+        """The assembled drift at positions `pos` and noise level
+        `sigma` (a (1,) tensor)."""
+        out = self.forward_fn(self.batch.replace(pos=pos), **self.fwd_kwargs)
+        return assemble_drift(out, pos, sigma, self.config)
+
+    def step(self, noise: Optional[torch.Tensor], update: str) -> None:
+        """One step at the counter's row, in place; `noise` (B, N, 3) or
+        None (the tail)."""
+        cfg, pos, mask3 = self.config, self.pos, self.mask3
+        ij = self.table.index_select(0, self.counter)[0]
+        i, j = ij[0:1], ij[1:2]
+        sigma_i = self.sigmas.index_select(0, i)
+        eps_pos = self.eps_at(pos, sigma_i)
+        if update == "generalized":
+            a_i = self.alphas.index_select(0, i)
+            a_j = self.alphas.index_select(0, j)
+            sigma_j = self.sigmas.index_select(0, j)
+            sig2_j = sigma_j * sigma_j
+            s2 = (cfg.eta ** 2) * sig2_j * (1.0 - a_i / a_j) / (1.0 - a_i)
+            s2 = torch.minimum(torch.clamp(s2, min=0.0), sig2_j)
+            c_eps = torch.sqrt(sig2_j - s2)
+            eps_hat = -eps_pos
+            pos_next = pos + (c_eps - sigma_i) * eps_hat
+            if cfg.solver == "heun":
+                # eta = 0, so pos_next is the Euler predictor; at j = -1
+                # the corrected step is computed and selected away
+                eps_hat2 = -self.eps_at(pos_next, torch.sqrt(sig2_j))
+                pos_heun = pos + (c_eps - sigma_i) * 0.5 * (eps_hat
+                                                            + eps_hat2)
+                pos_next = torch.where(j < self.num_timesteps, pos_heun,
+                                       pos_next)
+            if noise is not None:
+                pos_next = pos_next + noise * mask3 * torch.sqrt(s2)
+        else:
+            step_size = cfg.step_lr * (sigma_i / 0.01) ** 2
+            pos_next = pos + step_size * eps_pos / sigma_i
+            if noise is not None:
+                pos_next = pos_next + noise * mask3 * torch.sqrt(
+                    step_size * 2.0)
+        finite = torch.isfinite(pos_next)
+        self.flags |= ~finite.all(dim=2).all(dim=1)
+        pos_next = torch.where(finite, pos_next, torch.zeros_like(pos_next))
+        pos_next = center_pos(pos_next, self.batch.node_mask)
+        if cfg.clip_pos is not None:
+            pos_next = torch.clamp(pos_next, -cfg.clip_pos, cfg.clip_pos)
+        pos.copy_(pos_next)
+        self.counter += 1
+
+    def block(self, kind: str, size: int) -> None:
+        """`size` steps from the counter's row: the function a graph
+        captures. 'ladder' steps read the noise buffer's first `size`
+        entries; 'tail' steps are noise-free 'ld' steps."""
+        for s in range(size):
+            if kind == "tail":
+                self.step(None, "ld")
+            else:
+                self.step(self.noise[s], self.config.sampling_type)
+
+    def draw(self, size: int, start: int, generator=None,
+             noise: Optional[torch.Tensor] = None) -> None:
+        """The next ladder block's noise into the buffer: steps [start,
+        start + size) of `noise`, else one draw from `generator`."""
+        buf = self.noise[:size]
+        if noise is not None:
+            buf.copy_(noise[start:start + size])
+        else:
+            buf.normal_(generator=generator)
+
+    def run(self, generator=None, noise: Optional[torch.Tensor] = None,
+            replay: Optional[Callable[[str, int], None]] = None
+            ) -> SampleResult:
+        """Every block of the plan from the loaded state, each by
+        `replay(kind, size)` (a graph) or by `block` (eagerly)."""
+        if noise is not None and noise.shape[0] != self.config.n_steps:
+            raise ValueError(f"noise has {noise.shape[0]} steps, expected "
+                             f"{self.config.n_steps}")
+        traj = []
+        for kind, size, start, keep in self.plan:
+            if kind == "ladder":
+                self.draw(size, start, generator, noise)
+            (replay or self.block)(kind, size)
+            if keep:
+                traj.append(self.pos.clone())
+        if self.config.traj_stride > 0:
+            traj = (torch.stack(traj) if traj else
+                    self.pos.new_zeros((0,) + tuple(self.pos.shape)))
+        else:
+            traj = None
+        return SampleResult(self.pos.clone(), self.flags.clone(), traj)
+
+
 def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
                              diffusion: Diffusion, config: SamplerConfig,
                              generator: Optional[torch.Generator] = None,
                              noise: Optional[torch.Tensor] = None,
                              pairs=None) -> SampleResult:
-    """Run the ladder. pos_init is standard normal noise (scaled here by the
-    largest sigma). The per-step noise comes from `generator`, or from
-    `noise` of shape (n_steps, B, N, 3) when given (tests replay the JAX
-    package's noise that way). `pairs`, when given, goes to every forward
-    call."""
-    cfg = config
-    dev = batch.pos.device
-    sigmas = torch.as_tensor(diffusion.sigmas, dtype=torch.float32,
-                             device=dev)
-    T = diffusion.num_timesteps
-    mask3 = batch.node_mask[..., None].float()
-    pos = pos_init * sigmas[-1] * mask3
-    nan_flags = torch.zeros(batch.num_graphs, dtype=torch.bool, device=dev)
-    if noise is not None and noise.shape[0] != cfg.n_steps:
-        raise ValueError(f"noise has {noise.shape[0]} steps, expected "
-                         f"{cfg.n_steps}")
-    fwd_kwargs = dict(extend_order=cfg.extend_order,
-                      extend_radius=cfg.extend_radius)
-    if pairs is not None:
-        fwd_kwargs["pairs"] = pairs
-    for k, i in enumerate(range(T - 1, T - cfg.n_steps - 1, -1)):
-        sigma = sigmas[i]
-        out = forward_fn(batch.replace(pos=pos), **fwd_kwargs)
-        eps_pos = assemble_drift(out, pos, sigma, cfg)
-        step_size = cfg.step_lr * (sigma / 0.01) ** 2
-        xi = (noise[k].to(dev) if noise is not None else
-              torch.randn(pos.shape, generator=generator, device=dev))
-        pos_next = (pos + step_size * eps_pos / sigma
-                    + xi * mask3 * torch.sqrt(step_size * 2.0))
-        finite = torch.isfinite(pos_next)
-        nan_flags = nan_flags | ~finite.all(dim=2).all(dim=1)
-        pos_next = torch.where(finite, pos_next, torch.zeros_like(pos_next))
-        pos = center_pos(pos_next, batch.node_mask)
-        if cfg.clip_pos is not None:
-            pos = torch.clamp(pos, -cfg.clip_pos, cfg.clip_pos)
-    return SampleResult(pos=pos, nan_flags=nan_flags)
+    """Run the ladder eagerly. pos_init is standard normal noise (scaled
+    here by the largest sigma). The noise comes from `generator`, one draw
+    per block, or from `noise` of shape (n_steps, B, N, 3). `pairs`, when
+    given, goes to every forward call."""
+    ladder = Ladder(forward_fn, batch, diffusion, config, pairs)
+    ladder.load(batch, pos_init)
+    return ladder.run(generator, noise)
 
 
-def build_sampler(model, diffusion: Diffusion, config: SamplerConfig):
-    """A sampler on the dense module path (agdiff_tpu/sampling/langevin.py
-    build_sampler): run(batch, pos_init, generator=None, noise=None) ->
-    SampleResult, the module in eval mode without gradients."""
+class Sampler:
+    """run(batch, pos_init, generator=None, noise=None) -> SampleResult
+    over a forward. A forward with `prepare` gets its pair list built once
+    per ladder (at `pair_capacity` pairs for a tight forward; it must hold
+    every graph's real pairs). On a CUDA device the ladder replays CUDA
+    graphs (sampling/graphed.py), one set per batch shape and pair list,
+    captured at the first run or at `warm`, unless graph=False asks for
+    the eager loop; a capture error raises. A tight list is one
+    molecule's, and a runner does not come back to a molecule it has
+    done, so the sampler keeps the graphs of one tight list per batch
+    shape: a new list's capture frees the last one's graphs and their
+    memory. The CPU, which has no graphs, runs the eager loop."""
+
+    def __init__(self, forward_fn: Callable, diffusion: Diffusion,
+                 config: SamplerConfig, pair_capacity: Optional[int] = None,
+                 graph: bool = True):
+        validate(config)
+        self.forward_fn, self.diffusion, self.config = (forward_fn,
+                                                        diffusion, config)
+        self.pair_capacity, self.graph = pair_capacity, graph
+        self.ladders: Dict[tuple, LadderGraphs] = {}
+
+    def pairs(self, batch):
+        prepare = getattr(self.forward_fn, "prepare", None)
+        return None if prepare is None else prepare(batch, self.pair_capacity)
+
+    def graphed(self, batch) -> bool:
+        return self.graph and batch.pos.device.type == "cuda"
+
+    def _graphs(self, batch, pairs) -> Tuple[LadderGraphs, bool]:
+        """The graphs of this batch shape and pair list, captured if new
+        (and whether they were)."""
+        key = (tuple(batch.pos.shape), str(batch.pos.device),
+               None if pairs is None else pairs.key)
+        graphs = self.ladders.get(key)
+        if graphs is not None:
+            return graphs, False
+        if pairs is not None and pairs.tight:
+            self.release([k for k, g in self.ladders.items()
+                          if k[:2] == key[:2] and g.ladder.pairs.tight])
+        ladder = Ladder(self.forward_fn, batch, self.diffusion, self.config,
+                        pairs)
+        graphs = self.ladders[key] = LadderGraphs(ladder, batch)
+        return graphs, True
+
+    def release(self, keys=None) -> None:
+        """Drop the graphs of `keys` (default: all) and give their memory
+        pools back to the device."""
+        keys = list(self.ladders) if keys is None else keys
+        for k in keys:
+            del self.ladders[k]
+        if keys:
+            torch.cuda.empty_cache()
+
+    def warm(self, batch) -> bool:
+        """Capture the graphs a run on this batch's shape and pair list
+        replays; False when they exist already or the sampler runs
+        eagerly."""
+        if not self.graphed(batch):
+            return False
+        return self._graphs(batch, self.pairs(batch))[1]
 
     @torch.no_grad()
-    def run(batch, pos_init, generator=None, noise=None):
-        return langevin_dynamics_sample(model.eval(), batch, pos_init,
-                                        diffusion, config,
-                                        generator=generator, noise=noise)
+    def __call__(self, batch, pos_init, generator=None,
+                 noise: Optional[torch.Tensor] = None) -> SampleResult:
+        pairs = self.pairs(batch)
+        if not self.graphed(batch):
+            return langevin_dynamics_sample(
+                self.forward_fn, batch, pos_init, self.diffusion,
+                self.config, generator=generator, noise=noise, pairs=pairs)
+        return self._graphs(batch, pairs)[0].run(batch, pairs, pos_init,
+                                                 generator, noise)
 
-    return run
+
+def build_sampler(model, diffusion: Diffusion, config: SamplerConfig,
+                  graph: bool = True) -> Sampler:
+    """A sampler on the dense module path (agdiff_tpu/sampling/langevin.py
+    build_sampler): the module in eval mode without gradients."""
+    return Sampler(model.eval(), diffusion, config, graph=graph)
 
 
 def build_fast_sampler(forward_fn: Callable, diffusion: Diffusion,
                        config: SamplerConfig,
-                       pair_capacity: Optional[int] = None):
-    """A sampler closure over a forward (models/fast_forward.py,
-    models/tight_forward.py): run(batch, pos_init, generator=None,
-    noise=None) -> SampleResult. A forward with `prepare` gets its pair
-    list built once per ladder, at `pair_capacity` pairs for a tight
-    forward; it must hold every graph's real pairs (eval/generate.py
-    sizes it)."""
-
-    def run(batch, pos_init, generator=None, noise=None):
-        prepare = getattr(forward_fn, "prepare", None)
-        pairs = None if prepare is None else prepare(batch, pair_capacity)
-        return langevin_dynamics_sample(forward_fn, batch, pos_init,
-                                        diffusion, config,
-                                        generator=generator, noise=noise,
-                                        pairs=pairs)
-
-    return run
+                       pair_capacity: Optional[int] = None,
+                       graph: bool = True) -> Sampler:
+    """A sampler over a folded forward (models/fast_forward.py,
+    models/tight_forward.py, models/mono_forward.py)."""
+    return Sampler(forward_fn, diffusion, config, pair_capacity, graph)

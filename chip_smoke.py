@@ -99,12 +99,42 @@ Phases, each of which fails the run:
      molecules as an .npz (20 steps), and a second run must resume
      without generating;
   6. where the time goes: torch.profiler over a few ladder steps of one
-     chunk of each slice, and of paths A, B, D and E, gives each hand
+     chunk of each slice, and of paths A, B, D and E, run eagerly
+     (graph=False, the loop of earlier records), gives each hand
      kernel's share of the device time, the device's idle share and the
      largest kernels;
-  7. one JSON line lists each kernel variant and its numbers, then the
+  7. graphed ladders (sampling/graphed.py; the runs of phases 4, 5 and 5b
+     already replay graphs, the runner's default on a card): the same
+     seed through the graphed ladder and the eager loop must give
+     torch.equal positions and flags (and trajectories) on K1 over the
+     triu set (QM9 'pksf', B=128, 200 steps), K1 over tight lists
+     (Drugs 'tight-pksf', the 50- and then the 56-atom molecule in
+     bucket 64 at one capacity, B=48, 100 steps each, then the first
+     again: each new list's capture frees the last list's graphs), K6
+     ('mono' bf16, 100 steps), K3-K5 (path C, f32, and C-bf16, 20 steps)
+     and K2 (path D, 20 steps), and the sampler modes on 'pksf' (the
+     strided ladder with DDIM at eta 1, 100 steps; Heun at eta 0, 50
+     steps; a denoise tail of 10; a trajectory every 10 steps); each
+     case also runs eagerly twice, and the two must agree bit for bit;
+     each case prints its NaN flags and largest |position| (with random
+     weights at full width the ladders diverge, which K1 and K6 do not
+     flag, so finiteness is not checked here), each ladder's memory pool
+     and the device memory reserved at the case's peak;
+     GenerationRunner after `warm` (the retry's graphs too) gives the
+     eager runner's samples bit for bit on the QM9 fixtures; 20 graphed
+     steps of QM9, Drugs and paths E, C, C-bf16 and D are profiled
+     (chip_profile.py --graph), and each hand kernel's name must appear
+     in the replays' window as many times as the replays ran it (its
+     graph's captured count times the replays); ms per step graphed and
+     eager, capture times and idle shares are printed. The launch counts
+     of phases 4-5b and of the kernels line, on graphed paths, are the
+     launches recorded at capture times the replays
+     (chip_smoke.launch_counts); these profiles are what shows the
+     replays run the kernels;
+  8. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
-Details also go to chiprun_out/chip_smoke.json.
+Every phase prints its seconds. Details also go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -176,6 +206,16 @@ REPLACES = {
     "packed_block_approx": "agdiff_tpu/ops/pallas/block_packed.py:53",
     "mono": "agdiff_tpu/ops/pallas/monolithic.py:240",
 }
+
+
+# the launch counter names of each hand kernel (graphed profiles)
+KERNEL_COUNTERS = {"K1": "stack_packed/", "K2": "block_packed/",
+                   "K3": "fused/block_agg:", "K4": "fused/pair_score:",
+                   "K5": "fused/gine:", "K6": "monolithic/"}
+# phase 7: graphed ladders
+GRAPH_QM9_STEPS = 200
+GRAPH_STEPS = 100       # Drugs (each molecule), E, the sampler modes
+GRAPH_SHORT_STEPS = 20  # paths C, C-bf16 and D
 
 
 def card_line() -> str:
@@ -511,6 +551,7 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
 
     from agdiff_torch.kernels import stack_packed as k1
     from agdiff_torch.models.fast_forward import engine_options
+    from agdiff_torch.sampling import graphed
 
     for m in mols:
         got = runner._engine_for(runner._bucket_for(m))
@@ -520,15 +561,19 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
     name = k1.variant(mode, approx, tight)
     fwd = runner.forward(engine)
     torch.cuda.synchronize()
-    k1.launches.clear()
+    for c in kernel_counters().values():
+        c.clear()
     calls0 = fwd.calls
     t0 = time.time()
     results = runner.run(mols, seed=SEED, num_confs=num_confs)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches, forwards = k1.launches[name], fwd.calls - calls0
+    counts = launch_counts()
+    launches = counts.pop(f"stack_packed/{name}", 0)
+    forwards = fwd.calls - calls0
     ranks = k1.last_launch.get("ranks")
-    others = {k: c for k, c in k1.launches.items() if k != name and c}
+    others = {k: c for k, c in counts.items()
+              if k.startswith("stack_packed/") and c}
     for m in results:
         pg = m.meta["pos_gen"]
         if pg.shape != (num_confs, m.num_nodes, 3):
@@ -557,14 +602,18 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
 
 
 def profile_slice(fwd, diffusion, mol, bucket, chunk, label, report,
-                  kernels, capacity=None):
+                  kernels, capacity=None, graph=False):
     """Where the time goes: torch.profiler over PROFILE_STEPS ladder steps
     of one chunk (`mol` repeated `chunk` times in `bucket`) on the forward
     `fwd`, with the pair list built once as the runner does (at
-    `capacity` for a tight forward). Reports the device's busy time (the
-    union of kernel intervals), its idle share of the host-clock window,
-    each hand kernel's share (`kernels`: label -> a substring of its
-    name), and the kernels that took the most time."""
+    `capacity` for a tight forward), eagerly or (`graph`) as replays of
+    the ladder's CUDA graphs, captured by a first run outside the window.
+    Reports the device's busy time (the union of kernel intervals), its
+    idle share of the host-clock window, each hand kernel's share
+    (`kernels`: label -> a substring of its name), and the kernels that
+    took the most time; for graphs also the capture's seconds and, per
+    hand kernel, the launches the window shows against those the replays
+    ran (each graph's captured count times its replays)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -578,13 +627,14 @@ def profile_slice(fwd, diffusion, mol, bucket, chunk, label, report,
     dev = torch.device("cuda")
     sampler = build_fast_sampler(
         fwd, diffusion, SamplerConfig(n_steps=PROFILE_STEPS, w_global=0.3),
-        pair_capacity=capacity)
+        pair_capacity=capacity, graph=graph)
     batch = pad_molecules([mol] * chunk, bucket, batch_size=chunk,
                           device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pos0 = torch.randn(batch.pos.shape, generator=gen, device=dev)
     sampler(batch, pos0, generator=gen)
     torch.cuda.synchronize()
+    graphs = next(iter(sampler.ladders.values())) if graph else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -597,21 +647,39 @@ def profile_slice(fwd, diffusion, mol, bucket, chunk, label, report,
         print(f"profile {label}: the profiler recorded no device kernels; "
               f"device busy share not measured", flush=True)
         report["profiles"][label] = None
-        return
+        return None
     busy, end = 0.0, float("-inf")
     by_name = {}
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
+    span = end - spans[0][0]   # the first kernel's start to the last end
     own = {k: sum(t for n, t in by_name.items() if sub in n)
            for k, sub in kernels.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    report["profiles"][label] = dict(
+    row = report["profiles"][label] = dict(
         steps=PROFILE_STEPS, batch=chunk, bucket=bucket, wall_us=wall_us,
         device_busy_us=busy, idle_share=1.0 - busy / wall_us,
         kernels_us=own, kernel_shares={k: t / busy for k, t in own.items()},
-        kernels=len(spans), top=[dict(name=n[:80], us=t) for n, t in top])
+        kernels=len(spans), top=[dict(name=n[:80], us=t) for n, t in top],
+        graph=graph, device_span_us=span, gap_share=1.0 - busy / span)
+    if graph:
+        seen = {k: sum(1 for _, _, n in spans if sub in n)
+                for k, sub in kernels.items()}
+        ran = {k: sum(graphs.captured[(kind, size)][0][name]
+                      for kind, size, _, _ in graphs.ladder.plan
+                      for name in graphs.captured[(kind, size)][0]
+                      if name.startswith(KERNEL_COUNTERS[k]))
+               for k in kernels}
+        row.update(capture_s=graphs.capture_s, launches_seen=seen,
+                   launches_replayed=ran, replays=len(graphs.ladder.plan))
+        print(f"profile {label} (graphed): capture {graphs.capture_s:.3f} "
+              f"s; hand-kernel launches in the window {seen}, run by "
+              f"{len(graphs.ladder.plan)} replays {ran}; from the first "
+              f"kernel's start to the last one's end {span / 1e3:.3f} ms, "
+              f"idle between kernels there {1.0 - busy / span:.3f}",
+              flush=True)
     shares = ", ".join(f"{k} {t / 1e3:.3f} ms = {t / busy:.3f}"
                        for k, t in own.items())
     print(f"profile {label}: {PROFILE_STEPS} steps of B={chunk} N={bucket}: "
@@ -620,6 +688,7 @@ def profile_slice(fwd, diffusion, mol, bucket, chunk, label, report,
           f"of device time: {shares}; {len(spans)} kernels", flush=True)
     for n, t in top:
         print(f"  {t / 1e3:9.3f} ms  {n[:80]}", flush=True)
+    return row
 
 
 # ---- K2-K5 ------------------------------------------------------------------
@@ -643,13 +712,28 @@ SHORT_STEPS = 20        # paths C and D'
 
 
 def kernel_counters() -> dict:
-    """Every launch counter of the port, by kernel module."""
+    """Every launch counter of the port, by kernel module, and the count
+    of launches run by CUDA-graph replays."""
     from agdiff_torch.kernels import block_packed, fused, monolithic
     from agdiff_torch.kernels import stack_packed as k1
+    from agdiff_torch.sampling import graphed
 
     return {"stack_packed": k1.launches, "fused": fused.launches,
             "block_packed": block_packed.launches,
-            "monolithic": monolithic.launches}
+            "monolithic": monolithic.launches, "captured": graphed.captured,
+            "replayed": graphed.replayed}
+
+
+def launch_counts() -> dict:
+    """The launches by "<module>/<variant>": the wrappers' counts (eager
+    launches, and a graph's launches once, at capture, where none runs)
+    less the captured ones, plus each replay's captured count. For a
+    graphed run this is what the captures recorded times the replays, not
+    a count of what ran: phase 7's profiles of the replays are that."""
+    from agdiff_torch.sampling import graphed
+
+    out = (graphed.kernel_counts() + graphed.replayed) - graphed.captured
+    return {k: n for k, n in out.items() if n}
 
 
 def capture(fwd, batch, name, index=0):
@@ -1018,8 +1102,9 @@ def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
     build_fast_sampler on `fwd`. Every
     launch count is set to 0 just before and read just after: each
     (counter, variant) of `per_forward` must have launched that many times
-    per forward run, and no other kernel at all; every position must be
-    finite."""
+    per forward run (on graphed ladders: recorded at capture times the
+    replays, launch_counts), and no other kernel at all; every position
+    must be finite."""
     import numpy as np
     import torch
 
@@ -1055,8 +1140,7 @@ def run_path(label, fwd, diffusion, mols, n_steps, per_forward, report,
     torch.cuda.synchronize()
     wall = time.time() - t0
     forwards = fwd.calls - calls0
-    counts = {f"{mod}/{name}": n for mod, c in counters.items()
-              for name, n in c.items() if n}
+    counts = launch_counts()
     want = {f"{mod}/{name}": k * forwards
             for (mod, name), k in per_forward.items()}
     for m, pg in zip(mols, positions):
@@ -1410,6 +1494,132 @@ def run_cli(model, cfg, mols, report) -> dict:
     return row
 
 
+def graph_case(label, fwd, diffusion, batches, config, report,
+               capacity=None) -> dict:
+    """The same seed through one graphed sampler and the eager loop, for
+    each batch in turn (a second graphed run of the first batch comes
+    last when there are several): two eager runs, and two graphed runs,
+    must give torch.equal positions, flags (and trajectory). Times one
+    eager and one graphed run of each (the graphs captured before) per
+    ladder step; records the NaN flags, the largest |position|, each
+    ladder's memory pool and the peak device memory reserved."""
+    import torch
+
+    from agdiff_torch.sampling.langevin import build_fast_sampler
+
+    graphed = build_fast_sampler(fwd, diffusion, config,
+                                 pair_capacity=capacity)
+    eager = build_fast_sampler(fwd, diffusion, config,
+                               pair_capacity=capacity, graph=False)
+    dev = batches[0].pos.device
+
+    def run(sampler, batch):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pos0 = torch.randn(batch.pos.shape, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(batch, pos0, generator=gen)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / config.n_steps
+
+    def same(a, b):
+        return (torch.equal(a.pos, b.pos)
+                and torch.equal(a.nan_flags, b.nan_flags)
+                and (a.traj is None or torch.equal(a.traj, b.traj)))
+
+    order = list(batches) + (list(batches[:1]) if len(batches) > 1 else [])
+    rows, captures = [], []
+    torch.cuda.empty_cache()   # the earlier cases' freed graphs and blocks
+    torch.cuda.reset_peak_memory_stats(dev)
+    for batch in order:
+        e1, ms_e = run(eager, batch)
+        e2, _ = run(eager, batch)
+        g1, _ = run(graphed, batch)
+        g2, ms_g = run(graphed, batch)
+        if not same(e1, e2):
+            raise SystemExit(f"graphs {label}: two eager runs differ")
+        if not (same(g1, e1) and same(g2, e1)):
+            rel = max(float((g.pos - e1.pos).abs().max()) for g in (g1, g2))
+            raise SystemExit(f"graphs {label}: graphed and eager differ "
+                             f"(max |difference| {rel:.3e})")
+        (key, g), = [kg for kg in graphed.ladders.items()
+                     if kg[0][0] == tuple(batch.pos.shape)]
+        if not captures or captures[-1]["graphs"] is not g:
+            captures.append(dict(graphs=g, key=str(key[2])[:60],
+                                 capture_s=g.capture_s,
+                                 pool_mb=g.pool_bytes / 2**20,
+                                 blocks=sorted(f"{kind}:{size}" for kind, size
+                                               in g.captured)))
+        rows.append(dict(batch=tuple(batch.pos.shape), bitwise=True,
+                         nan_flags=int(g1.nan_flags.sum()),
+                         max_abs_pos=float(g1.pos.abs().max()),
+                         ms_per_step_eager=ms_e, ms_per_step_graphed=ms_g,
+                         traj=None if g1.traj is None
+                         else tuple(g1.traj.shape)))
+    for c in captures:
+        del c["graphs"]
+    row = dict(steps=config.n_steps, cases=rows, ladders=captures,
+               ladders_kept=len(graphed.ladders),
+               ms_per_step_eager=rows[0]["ms_per_step_eager"],
+               ms_per_step_graphed=rows[0]["ms_per_step_graphed"],
+               capture_s=captures[0]["capture_s"],
+               max_reserved_mb=torch.cuda.max_memory_reserved(dev) / 2**20)
+    report["graphs"][label] = row
+
+    def case(r):
+        return (f"B,N={r['batch'][:2]} bitwise, {r['nan_flags']} flagged, "
+                f"max |pos| {r['max_abs_pos']:.3e}, "
+                f"{r['ms_per_step_graphed']:.3f} ms/step graphed, "
+                f"{r['ms_per_step_eager']:.3f} eager")
+
+    print(f"graphs {label}: {config.n_steps} steps, "
+          + "; ".join(case(r) for r in rows)
+          + f"; {len(captures)} ladder(s) captured in "
+          + ", ".join(f"{c['capture_s']:.3f} s ({c['pool_mb']:.1f} MiB "
+                      f"pool)" for c in captures)
+          + f", {row['ladders_kept']} kept; peak reserved "
+          f"{row['max_reserved_mb']:.1f} MiB", flush=True)
+    return row
+
+
+def check_runner_warm(model, cfg, mols, report) -> dict:
+    """GenerationRunner.warm on the QM9 fixtures, then the runner's samples
+    against an eager runner's (graph=False): equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    out, warmed = [], []
+    dev = torch.device("cuda")
+    for graph in (True, False):
+        runner = GenerationRunner(
+            model, cfg, make_diffusion(cfg),
+            SamplerConfig(n_steps=GRAPH_STEPS, w_global=0.3), buckets=(32,),
+            chunk_size=CHUNK, device=dev, graph=graph)
+        t0 = time.perf_counter()
+        warmed.append([w for m in mols for w in runner.warm(
+            m, num_samples=CHUNK, retry=True)])
+        if graph:
+            warm_s = time.perf_counter() - t0
+        out.append(runner.run(mols, seed=SEED, num_confs=CHUNK))
+    same = all(np.array_equal(a.meta["pos_gen"], b.meta["pos_gen"])
+               for a, b in zip(*out))
+    if warmed[0] != [(32, CHUNK, False), (32, CHUNK, True)] or warmed[1] \
+            or not same:
+        raise SystemExit(f"runner after warm: captured {warmed}, samples "
+                         f"equal to the eager runner's: {same}")
+    row = dict(captured=warmed[0], warm_s=warm_s, bitwise=same,
+               molecules=len(mols), conformers=CHUNK, steps=GRAPH_STEPS)
+    report["graphs"]["runner"] = row
+    print(f"graphs runner: warm captured {warmed[0]} in {warm_s:.3f} s; "
+          f"{len(mols)} molecules x {CHUNK} conformers equal to the eager "
+          f"runner's bit for bit", flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1453,6 +1663,17 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)
 
+    report["phase_s"] = {}
+    mark = [time.time()]
+
+    def phase_done(name):
+        """Record and print the seconds since the last phase ended."""
+        now = time.time()
+        report["phase_s"][name] = now - mark[0]
+        mark[0] = now
+        print(f"phase {name}: {report['phase_s'][name]:.1f} s", flush=True)
+        dump()
+
     # ---- 2. build ----------------------------------------------------------
     t0 = time.time()
     logs = build.build_all(SOURCES)
@@ -1465,6 +1686,7 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    phase_done("2 build")
 
     # ---- 3. K1 against its plain version ------------------------------------
     dev = torch.device("cuda")
@@ -1532,7 +1754,7 @@ def main() -> int:
                 kw, batch.node_mask, label, "full", False, QM9_LIMITS,
                 build_fast_forward(qcfg, qcpu, "pksf").stack, report, forced)
         failures += failed
-    dump()
+    phase_done("3 K1")
 
     # ---- 3b. K2-K5 against their plain versions -----------------------------
     fcfg = load_config(os.path.join(ROOT, "configs",
@@ -1551,7 +1773,7 @@ def main() -> int:
     qbatch = random_batch(qmols, 32, CHUNK, gen)
     new_rows, failed = check_new_kernels(fwds, qbatch, report)
     failures += failed
-    dump()
+    phase_done("3b K2-K5")
 
     # ---- 4. the QM9 slice ---------------------------------------------------
     check_engines(qfwd(pad_molecules(qmols, 32, device=dev)),
@@ -1598,7 +1820,7 @@ def main() -> int:
         paths[label] = run_path(label, pk_runner.forward(engine), fdiff,
                                 qmols, steps, {("block_packed", name): 6},
                                 report, runner=pk_runner)
-    dump()
+    phase_done("4 QM9 slice and paths A-D")
 
     # ---- 5. the Drugs slice -------------------------------------------------
     one = pad_molecules([dmols[0]] * 4, 64, device=dev)
@@ -1627,7 +1849,7 @@ def main() -> int:
             engine=engine)
         slices[engine] = run_slice(runner_v, engine, dmols[:1], DRUGS_CHUNK,
                                    f"drugs_{engine}", report)
-    dump()
+    phase_done("5 Drugs slice")
 
     # ---- 5b. engine 'mono': K6 ----------------------------------------------
     mono_rows = {}
@@ -1682,7 +1904,7 @@ def main() -> int:
                                 {("monolithic", var): 1}, report,
                                 runner=mono_runners[label], num_confs=chunk)
     run_cli(qmodel, qcfg, qmols, report)
-    dump()
+    phase_done("5b K6 and paths E")
 
     # ---- 6. where the time goes ---------------------------------------------
     k1_name = {"K1": "stack_kernel"}
@@ -1699,11 +1921,84 @@ def main() -> int:
                   {"K2": "packed_block_kernel"})
     profile_slice(mono_runners["E"].forward("mono"), fdiff, qmols[0], 32,
                   CHUNK, "path_E", report, {"K6": "mono_kernel"})
-    dump()
+    phase_done("6 profiles")
+
+    # ---- 7. graphed ladders -------------------------------------------------
+    report["graphs"] = {}
+    qdiff, ddiff = make_diffusion(qcfg), make_diffusion(dcfg)
+    qbig = pad_molecules([qmols[0]] * CHUNK, 32, batch_size=CHUNK,
+                         device=dev)
+    dbatches = [pad_molecules([m] * DRUGS_CHUNK, 64, batch_size=DRUGS_CHUNK,
+                              device=dev) for m in dmols[:2]]
+
+    def ladder(n_steps, **kw):
+        return SamplerConfig(n_steps=n_steps, w_global=0.3, **kw)
+
+    qm9_fwd = runner.forward("pksf")
+    graph_case("QM9", qm9_fwd, qdiff, [qbig], ladder(GRAPH_QM9_STEPS),
+               report)
+    # the 50- and 56-atom molecules at one capacity: graphs keyed by
+    # their tight lists, each new list's capture freeing the last one's
+    graph_case("Drugs", drugs.forward("tight-pksf"), ddiff, dbatches,
+               ladder(GRAPH_STEPS), report, capacity=pair_capacity_for(
+                   max(m.num_nodes for m in dmols[:2]), 256))
+    graph_case("E", mono_runners["E"].forward("mono"), qdiff, [qbig],
+               ladder(GRAPH_STEPS), report)
+    for label, key in (("C", "dense_f32"), ("C-bf16", "dense_bf16"),
+                       ("D", "pk")):
+        graph_case(label, fwds[key], fdiff, [qbig],
+                   ladder(GRAPH_SHORT_STEPS), report)
+    for label, kw in (
+            ("strided_ddim_eta1", dict(ladder="strided",
+                                       sampling_type="generalized",
+                                       eta=1.0)),
+            ("strided_heun_eta0", dict(ladder="strided",
+                                       sampling_type="generalized", eta=0.0,
+                                       solver="heun")),
+            ("denoise_tail", dict(denoise_tail=10)),
+            ("traj_stride", dict(traj_stride=10))):
+        steps = GRAPH_STEPS // 2 if "heun" in label else GRAPH_STEPS
+        graph_case(label, qm9_fwd, qdiff, [qbig], ladder(steps, **kw), report)
+    check_runner_warm(qmodel, qcfg, qmols, report)
+    # 20 graphed steps of each path: idle share, capture time, and each
+    # hand kernel's launches in the window against those the replays ran
+    for label, fwd_g, diff_g, mol, bucket, chunk, names, cap in (
+            ("graph_qm9", qm9_fwd, qdiff, qmols[0], 32, CHUNK, k1_name,
+             None),
+            ("graph_drugs", drugs.forward("tight-pksf"), ddiff, dmols[0], 64,
+             DRUGS_CHUNK, k1_name,
+             drugs._capacity_for(dmols[0], "tight-pksf")),
+            ("graph_path_E", mono_runners["E"].forward("mono"), fdiff,
+             qmols[0], 32, CHUNK, {"K6": "mono_kernel"}, None),
+            ("graph_path_C", fwds["dense_f32"], fdiff, qmols[0], 32, CHUNK,
+             {"K3": "block_agg_kernel", "K4": "pair_score_kernel",
+              "K5": "gine_kernel"}, None),
+            ("graph_path_C-bf16", fwds["dense_bf16"], fdiff, qmols[0], 32,
+             CHUNK, {"K3": "block_agg_kernel", "K4": "pair_score_kernel"},
+             None),
+            ("graph_path_D", fwds["pk"], fdiff, qmols[0], 32, CHUNK,
+             {"K2": "packed_block_kernel"}, None)):
+        row = profile_slice(fwd_g, diff_g, mol, bucket, chunk, label, report,
+                            names, capacity=cap, graph=True)
+        if row is None or row["launches_seen"] != row["launches_replayed"] \
+                or not all(row["launches_seen"].values()):
+            failures.append(f"{label}: the replays' profile shows "
+                            f"{row and row['launches_seen']}, the replays "
+                            f"ran {row and row['launches_replayed']}")
+    for label, prof in (("QM9", "graph_qm9"), ("Drugs", "graph_drugs"),
+                        ("E", "graph_path_E"), ("C-bf16",
+                                                "graph_path_C-bf16")):
+        g, p = report["graphs"][label], report["profiles"][prof]
+        print(f"graphed {label}: {g['ms_per_step_graphed']:.3f} ms/step "
+              f"(eager {g['ms_per_step_eager']:.3f}), capture "
+              f"{g['capture_s']:.3f} s; 20 graphed steps: idle share "
+              f"{p['idle_share']:.3f}, between kernels {p['gap_share']:.3f} "
+              f"({card})", flush=True)
+    phase_done("7 graphs")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 7. result lines ---------------------------------------------------
+    # ---- 8. result lines ---------------------------------------------------
     def entry(name, case, launches):
         c = cases[case]
         return dict(name=name, route="cuda",

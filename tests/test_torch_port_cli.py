@@ -27,6 +27,7 @@ from agdiff_tpu.train.import_torch import (
 from agdiff_torch.chem.mol import load_molecules, save_molecules
 from agdiff_torch.cli import generate as cli
 from agdiff_torch.data.dataset import PackedConformationDataset
+from agdiff_torch.data.synthetic import synthetic_dataset
 from agdiff_torch.eval import generate
 from agdiff_torch.models.reference_checkpoint import (
     export_reference_state_dict,
@@ -206,9 +207,9 @@ def test_cli_without_fast_takes_the_module_path(setup, monkeypatch):
     built = []
     real = generate.build_sampler
 
-    def spy(model, diffusion, config):
+    def spy(model, diffusion, config, **kw):
         built.append(type(model).__name__)
-        return real(model, diffusion, config)
+        return real(model, diffusion, config, **kw)
 
     monkeypatch.setattr(generate, "build_sampler", spy)
     monkeypatch.setattr(generate, "build_monolithic_forward", None)
@@ -217,3 +218,29 @@ def test_cli_without_fast_takes_the_module_path(setup, monkeypatch):
     assert built == ["DualEncoderEpsNetwork"]
     got = jax_load_samples(str(out / "samples_all.npz"))
     assert all(np.isfinite(m.meta["pos_gen"]).all() for m in got)
+
+
+def test_cli_synthetic_molecules_with_every_sampler_flag(setup, counted):
+    """--synthetic takes the molecules from data/synthetic.py (seed 7,
+    three reference conformers each) in place of --test_set, and the
+    sampler flags reach the runner: a strided Heun ladder with a denoise
+    tail writes every molecule's samples."""
+    ckpt, root = setup[4], setup[6]
+    out = root / "synthetic"
+    cli.main([ckpt, "--synthetic", "2", "--synthetic_heavy", "4",
+              "--ladder", "strided", "--sampling_type", "generalized",
+              "--eta", "0", "--solver", "heun", "--denoise_tail", "2",
+              "--n_steps", "4", "--chunk_size", "4", "--w_global", "0.3",
+              "--out_dir", str(out), "--device", "cpu"])
+    assert len(counted) == 2
+    got = jax_load_samples(str(out / "samples_all.npz"))
+    want = synthetic_dataset(2, seed=7, num_conformers=3, min_heavy=4,
+                             max_heavy=4)
+    assert len(got) == 2
+    for k, (mol, res) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(res.atom_type, mol.atom_type)
+        pg = res.meta["pos_gen"]
+        assert pg.shape == (6, mol.num_nodes, 3) and np.isfinite(pg).all()
+        assert os.path.exists(out / f"samples_{k}.npz")
+    with pytest.raises(SystemExit):
+        cli.main([ckpt, "--n_steps", "4", "--device", "cpu"])

@@ -747,3 +747,215 @@ def test_cuda_mono_wrapper_rejects_what_the_kernel_does_not_take(card):
         k6.mono_forward(**dict(kw, tp=kw["tp"].long()))
     with pytest.raises(ValueError):
         k6.mono_forward(**dict(kw, lm=kw["lm"].cpu()))
+
+
+# ---- the ladder as CUDA graphs (sampling/graphed.py) -------------------------
+
+def _samplers(fwd, config, capacity=None):
+    """A graphed sampler (the default on a card) and an eager one."""
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import build_fast_sampler
+
+    diffusion = make_diffusion(ModelConfig())
+    return (build_fast_sampler(fwd, diffusion, config,
+                               pair_capacity=capacity),
+            build_fast_sampler(fwd, diffusion, config,
+                               pair_capacity=capacity, graph=False))
+
+
+def _run(sampler, batch, seed=0):
+    """A ladder from a seeded start with a seeded generator."""
+    dev = batch.pos.device
+    pos0 = torch.randn(batch.pos.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    return sampler(batch, pos0, generator=torch.Generator(
+        device=dev).manual_seed(seed + 1))
+
+
+def _same_bits(a, b):
+    assert torch.equal(a.pos, b.pos)
+    assert torch.equal(a.nan_flags, b.nan_flags)
+    assert torch.isfinite(a.pos).all()
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_ladder_gives_the_eager_bits(card):
+    """K1 over the triu set: a 25-step ladder (a 20-step block and a
+    5-step one) graphed and eager give the same bits; a second run
+    replays the same graphs; each replay counts the launches its graph
+    captured, and the wrappers' counters move at capture only."""
+    from agdiff_torch.sampling import graphed as gr
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    fwd, batch = _small_forward(card, "bfloat16", "pksf")
+    graphed, eager = _samplers(fwd, SamplerConfig(n_steps=25, w_global=0.3))
+    name = "stack_packed/" + k1.variant("full", False, False)
+    want = _run(eager, batch)
+    _same_bits(_run(graphed, batch), want)
+    (graphs,) = graphed.ladders.values()
+    assert sorted(graphs.captured) == [("ladder", 5), ("ladder", 20)]
+    assert graphs.captured[("ladder", 20)][0][name] == 20
+    assert graphs.captured[("ladder", 5)][1] == 5
+    launched, replayed, calls = (gr.kernel_counts()[name], gr.replayed[name],
+                                 fwd.calls)
+    _same_bits(_run(graphed, batch), want)
+    assert len(graphed.ladders) == 1
+    assert gr.kernel_counts()[name] == launched
+    assert gr.replayed[name] == replayed + 25
+    assert fwd.calls == calls + 25
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_of_two_tight_molecules_in_one_bucket(card):
+    """Two Drugs molecules of 50 and 56 atoms in bucket 64 at one
+    capacity: their tight lists differ (V = 1225, 1540), so each has its
+    graphs, and runs of the first, the second and the first again each
+    give their eager bits; a new list's capture frees the last list's
+    graphs (one ladder is left), and graphs run with the other molecule's
+    list raise."""
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+                              num_convs_local=2, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    fwd = build_tight_forward(cfg, model, "tight-pksf")
+    mols = load_fixture("drugs_synthetic")[:2]
+    cap = pair_capacity_for(max(m.num_nodes for m in mols), 256)
+    graphed, eager = _samplers(fwd, SamplerConfig(n_steps=20, w_global=0.3),
+                               capacity=cap)
+    batches = [pad_molecules([m] * 8, 64, device=card) for m in mols]
+    seen = []
+    for batch in batches + batches[:1]:
+        _same_bits(_run(graphed, batch), _run(eager, batch))
+        (graphs,) = graphed.ladders.values()
+        seen.append(graphs)
+    assert [g.key[3] for g in seen] == [1225, 1540, 1225]
+    assert len({id(g) for g in seen}) == 3
+    with pytest.raises(ValueError, match="pair list"):
+        seen[0].run(batches[1], graphed.pairs(batches[1]),
+                    torch.zeros_like(batches[1].pos))
+
+
+@pytest.mark.cuda
+def test_cuda_runner_frees_each_molecules_graphs(card):
+    """The runner over four Drugs-size molecules in bucket 64 at B = 48
+    and width 128 (50 and 51 atoms at one pair capacity, then 53 and 56
+    atoms at two others): each molecule's tight list frees the last
+    molecule's graphs, so every sampler keeps at most one ladder, and the
+    device memory reserved after the last molecule exceeds that after the
+    first by less than one ladder's pool (keeping them all would add a
+    pool a molecule)."""
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=128, num_convs=2,
+                              num_convs_local=2, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    synth = synthetic_dataset(4, seed=1, min_heavy=20, max_heavy=24)
+    mols = [load_fixture("drugs_synthetic")[0], synth[0], synth[1],
+            synth[3]]
+    assert [m.num_nodes for m in mols] == [50, 51, 53, 56]
+    runner = GenerationRunner(model, cfg, make_diffusion(cfg),
+                              SamplerConfig(n_steps=5, w_global=0.3),
+                              buckets=(64,), chunk_size=48, device=card)
+    reserved, pools = [], []
+    for mol in mols:
+        runner.run([mol], seed=0, num_confs=48)
+        torch.cuda.synchronize(card)
+        samplers = runner._samplers.values()
+        assert len(samplers) <= 2   # the ladder and its clip_local retry
+        assert all(len(s.ladders) <= 1 for s in samplers)
+        reserved.append(torch.cuda.memory_reserved(card))
+        pools.append(sum(g.pool_bytes for s in samplers
+                         for g in s.ladders.values()))
+    assert min(pools) > 0
+    assert reserved[-1] - reserved[0] < max(pools), (reserved, pools)
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_survive_k6_scratch_growth(card):
+    """K6's scratch grows by replacing the cached tensor: a graph captured
+    on the small scratch holds it, so after a larger batch's capture has
+    grown it, both graphs still give their eager bits."""
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+                              num_convs_local=2, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    fwd = build_monolithic_forward(cfg, model)
+    graphed, eager = _samplers(fwd, SamplerConfig(n_steps=10, w_global=0.3))
+    mols = load_fixture()
+    small = pad_molecules(mols[:2] * 2, 32, device=card)
+    large = pad_molecules(mols * 8, 32, device=card)
+
+    def scratch():
+        return [v for (_, n), v in fwd.params._scratch.items()
+                if n == "e32"]
+
+    _same_bits(_run(graphed, small), _run(eager, small))
+    before = scratch()
+    _same_bits(_run(graphed, large), _run(eager, large))
+    assert len(before) == 1 and scratch()[0] is not before[0]
+    _same_bits(_run(graphed, small), _run(eager, small))
+    assert len(graphed.ladders) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_runner_warm_and_module_path(card):
+    """GenerationRunner.warm captures each ladder once; after it the runner
+    gives the eager runner's samples. The dense module path graphs too."""
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig, build_sampler
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+                              num_convs_local=2, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    mols = load_fixture()[:2]
+    out = []
+    for graph in (True, False):
+        runner = GenerationRunner(model, cfg, make_diffusion(cfg),
+                                  SamplerConfig(n_steps=12, w_global=0.3),
+                                  buckets=(32,), chunk_size=8, device=card,
+                                  graph=graph)
+        warmed = runner.warm(mols[0], retry=True)
+        assert warmed == ([(32, 8, False), (32, 8, True)] if graph
+                          else [])
+        assert runner.warm(mols[0]) == []
+        out.append(runner.run(mols, seed=3, num_confs=8))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a.meta["pos_gen"], b.meta["pos_gen"])
+    batch = pad_molecules(mols * 2, 32, device=card)
+    config = SamplerConfig(n_steps=5, w_global=0.3)
+    pos0 = torch.randn(batch.pos.shape, device=card)
+    runs = [build_sampler(model, make_diffusion(cfg), config, graph=g)(
+        batch, pos0, generator=torch.Generator(device=card).manual_seed(2))
+        for g in (True, False)]
+    _same_bits(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises(card):
+    """A forward that waits on the host cannot be captured: the sampler
+    raises, and does not fall back to the eager loop."""
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import (
+        SamplerConfig,
+        build_fast_sampler,
+    )
+
+    fwd, batch = _small_forward(card, "bfloat16", "pksf")
+
+    def syncing(b, **kw):
+        float(b.pos.sum())
+        return fwd(b, **kw)
+
+    syncing.prepare = fwd.prepare
+    sampler = build_fast_sampler(syncing, make_diffusion(ModelConfig()),
+                                 SamplerConfig(n_steps=3))
+    with pytest.raises(RuntimeError):
+        sampler(batch, torch.randn(batch.pos.shape, device=card))
+    assert sampler.ladders == {}
