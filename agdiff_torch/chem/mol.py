@@ -1,12 +1,14 @@
 """Host-side molecule (port of agdiff_tpu/chem/mol.py: the fields padding
-and generation read, and the .npz format, :97-155, which both packages
-read and write alike)."""
+and generation read, the bond helpers the symmetry-aware RMSD reads,
+:67-97, and the .npz format, :97-155, which both packages read and write
+alike)."""
 
 from __future__ import annotations
 
 import ast
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -55,6 +57,32 @@ class Molecule:
         adj = np.zeros((n, n), dtype=np.int32)
         adj[self.bond_index[0], self.bond_index[1]] = self.bond_type
         return adj
+
+    def undirected_bonds(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(E/2, 2) unique undirected bond pairs and their types."""
+        i, j = self.bond_index
+        keep = i < j
+        return np.stack([i[keep], j[keep]], axis=1), self.bond_type[keep]
+
+    def with_pos(self, pos: np.ndarray) -> "Molecule":
+        return dataclasses.replace(self, pos=np.asarray(pos, np.float32))
+
+    def heavy_atom_subset(self) -> "Molecule":
+        """The molecule without its hydrogens, bonds renumbered (the
+        reference's RemoveHs before GetBestRMS, chem.py:133-137)."""
+        keep = self.atom_type != 1
+        new_index = -np.ones(self.num_nodes, dtype=np.int32)
+        new_index[keep] = np.arange(int(keep.sum()), dtype=np.int32)
+        i, j = self.bond_index
+        bond_keep = keep[i] & keep[j]
+        return Molecule(
+            atom_type=self.atom_type[keep], pos=self.pos[keep],
+            bond_index=np.stack([new_index[i[bond_keep]],
+                                 new_index[j[bond_keep]]]),
+            bond_type=self.bond_type[bond_keep],
+            pos_ref=None if self.pos_ref is None else self.pos_ref.reshape(
+                -1, self.num_nodes, 3)[:, keep].reshape(-1, 3),
+            smiles=self.smiles, meta=dict(self.meta))
 
     # --- serialization: one .npz-able dict per molecule ---
     def to_arrays(self) -> Dict[str, np.ndarray]:

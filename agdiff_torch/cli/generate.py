@@ -17,7 +17,10 @@ molecule as it is done (a rerun skips those that exist unless
 --engine); without it, with the dense module. The run is on the CUDA card,
 where each ladder replays CUDA graphs, unless --device says otherwise.
 --synthetic takes the molecules from data/synthetic.py with the JAX
-CLI's arguments (seed 7, three reference conformers).
+CLI's arguments (seed 7, three reference conformers). --packed runs
+eval/generate.py's PackedGenerationRunner: each chunk holds samples of
+several molecules of a bucket (of one atom count at a tight engine's
+bucket) instead of one molecule repeated.
 """
 
 from __future__ import annotations
@@ -93,6 +96,9 @@ def main(argv=None):
                          "= the whole forward as one K6 launch")
     ap.add_argument("--fast", action="store_true",
                     help="the folded engines instead of the dense module")
+    ap.add_argument("--packed", action="store_true",
+                    help="pack samples of several molecules of a bucket "
+                         "into each chunk (PackedGenerationRunner)")
     ap.add_argument("--dtype", default=None,
                     choices=[None, "float32", "bfloat16"],
                     help="override the checkpoint config's compute dtype")
@@ -104,7 +110,10 @@ def main(argv=None):
 
     from agdiff_torch.cli._common import get_logger, load_inference_bundle
     from agdiff_torch.data.dataset import PackedConformationDataset
-    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.eval.generate import (
+        GenerationRunner,
+        PackedGenerationRunner,
+    )
     from agdiff_torch.models.schedules import make_diffusion
     from agdiff_torch.sampling.langevin import SamplerConfig
 
@@ -133,7 +142,8 @@ def main(argv=None):
         clip=args.clip, clip_local=args.clip_local, clip_pos=args.clip_pos,
         denoise_tail=args.denoise_tail, sampling_type=args.sampling_type,
         eta=args.eta, solver=args.solver)
-    runner = GenerationRunner(
+    runner_cls = PackedGenerationRunner if args.packed else GenerationRunner
+    runner = runner_cls(
         model, config.model, make_diffusion(config.model), scfg,
         buckets=config.buckets, chunk_size=args.chunk_size,
         device=args.device,

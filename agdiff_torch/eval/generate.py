@@ -37,13 +37,18 @@ reads either package's files), and skips molecules whose file exists
 when resuming. Molecule i's generator is seeded from its dataset index
 (seed + i, where JAX folds i into its key), so a resumed run or a
 partial range gives the conformers of a whole run.
+
+`PackedGenerationRunner` (agdiff_tpu/eval/generate.py:543-717) fills each
+chunk with samples of different molecules of one bucket instead of one
+molecule repeated; at a tight engine's bucket, of one atom count, so
+that the chunk shares one pair list (and one set of CUDA graphs).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -336,3 +341,136 @@ def load_samples(path: str) -> List[Molecule]:
                 mol.meta["pos_gen"] = pos_gen
             out.append(mol)
     return out
+
+
+def slot_seed(*words: int) -> int:
+    """A generator seed (63 bits) from a tuple of integers, each taken
+    as 32 bits: the port's fold_in of (seed, dataset index, sample
+    index), or of a chunk's ladder seed and number."""
+    state = np.random.SeedSequence([w & 0xFFFFFFFF for w in words])
+    lo, hi = (int(x) for x in state.generate_state(2, np.uint32))
+    return (hi & 0x7FFFFFFF) << 32 | lo
+
+
+class PackedGenerationRunner(GenerationRunner):
+    """Generation with molecules packed across a chunk (port of
+    agdiff_tpu/eval/generate.py:543-717). The base runner runs one
+    molecule repeated per chunk, so a molecule that needs fewer samples
+    than the chunk leaves slots idle; this runner groups the requests by
+    bucket and expands them into per-sample slots (molecule, sample), so
+    that every chunk is full but a group's last. At a bucket whose engine
+    is a tight one (TIGHT_FROM_BUCKET and above at bf16, or by override)
+    the groups are also by atom count (:604-612): the molecules of a
+    chunk then share one tight pair list, which the kernels need, and the
+    chunk replays one set of CUDA graphs; each new list's capture frees
+    the last list's graphs (Sampler.release, as per molecule in the base
+    runner). A chunk short of the batch size is padded with its last
+    molecule.
+
+    Each slot's start is drawn from a generator of its own, seeded from
+    (seed, dataset index, sample index), or from (item_seeds[i][0],
+    item_seeds[i][1], sample index): a sample's start does not depend on
+    what it was batched with. The ladder's noise is the chunk's: a
+    generator seeded from (seed ^ 0x5EED, chunk number), the chunk
+    number counting over the run, as JAX folds the chunk number into its
+    run key; a flagged chunk is rerun from the same starts with clip_local
+    = 20, its noise seeded from (seed ^ 0x5EED, chunk number, 1), and the
+    flagged slots take the retry's samples. With a noise-free ladder
+    (DDIM at eta 0) a request's samples are then those it gets alone,
+    bit for bit where the chunk's batch size is the same."""
+
+    def _starts(self, keys: List[Tuple[int, int, int]], bucket: int):
+        """(B, bucket, 3) starts, one draw of each slot's own generator
+        (on the host, so every device gets the same starts)."""
+        starts = [torch.randn((bucket, 3), generator=torch.Generator()
+                              .manual_seed(slot_seed(*k))) for k in keys]
+        return torch.stack(starts).to(self.device)
+
+    def run(self, dataset: Sequence[Molecule], out_dir: Optional[str] = None,
+            seed: int = 0, num_confs="2x", start_idx: int = 0,
+            end_idx: Optional[int] = None, resume: bool = True,
+            save: bool = True,
+            item_seeds: Optional[Sequence[Tuple[int, int]]] = None
+            ) -> List[Molecule]:
+        """As GenerationRunner.run, on packed chunks. num_confs may be a
+        per-item list of sample counts (indexed by dataset index);
+        item_seeds, a per-item (seed, index) list, seeds item i's starts
+        in place of (seed, i)."""
+        save = save and out_dir is not None
+        if save:
+            os.makedirs(out_dir, exist_ok=True)
+        end_idx = len(dataset) if end_idx is None else min(end_idx,
+                                                           len(dataset))
+        if item_seeds is not None and len(item_seeds) != len(dataset):
+            raise ValueError(f"{len(item_seeds)} item seeds for "
+                             f"{len(dataset)} molecules")
+        todo, results = [], {}
+        for i in range(start_idx, end_idx):
+            mol = dataset[i]
+            path = os.path.join(out_dir, f"samples_{i}.npz") if save else None
+            if save and resume and os.path.exists(path):
+                results[i] = load_samples(path)[0]
+                continue
+            ns = (int(num_confs[i]) if isinstance(num_confs, (list, tuple))
+                  else self.num_samples_for(mol, num_confs))
+            todo.append((i, mol, ns))
+        groups: Dict[tuple, list] = {}
+        for i, mol, ns in todo:
+            bucket = self._bucket_for(mol)
+            size = (mol.num_nodes
+                    if self._engine_for(bucket) in _TIGHT_ENGINES else None)
+            groups.setdefault((bucket, size), []).append((i, mol, ns))
+
+        collected: Dict[int, list] = {i: [] for i, _, _ in todo}
+        chunk_no = 0   # over the run: each chunk's ladder noise its own
+        for (bucket, _), items in groups.items():
+            engine = self._engine_for(bucket)
+            capacity = self._capacity_for(items[0][1], engine)
+            slots = [(i, mol, k) for i, mol, ns in items for k in range(ns)]
+            for start in range(0, len(slots), self.chunk_size):
+                chunk = slots[start:start + self.chunk_size]
+                mols = [mol for _, mol, _ in chunk]
+                bsz = self._batch_size_for(len(chunk))
+                batch = pad_molecules(
+                    mols + [mols[-1]] * (bsz - len(chunk)), bucket,
+                    edge_order=self.model_config.edge_order, batch_size=bsz,
+                    device=self.device)
+                keys = [(seed, i, k) if item_seeds is None else
+                        (item_seeds[i][0], item_seeds[i][1], k)
+                        for i, _, k in chunk]
+                pos_init = self._starts(
+                    keys + [(0, 0, 0)] * (bsz - len(chunk)), bucket)
+                run = (seed ^ 0x5EED, chunk_no)
+                chunk_no += 1
+                result = self._sampler(engine, False, capacity)(
+                    batch, pos_init, generator=torch.Generator(
+                        device=self.device).manual_seed(slot_seed(*run)))
+                pos, flags = result.pos, result.nan_flags
+                if bool(flags.any()):
+                    if self.logger:
+                        self.logger.warning(
+                            "NaN in %d/%d samples; retrying with "
+                            "clip_local", int(flags.sum()), len(flags))
+                    retry = self._sampler(engine, True, capacity)(
+                        batch, pos_init, generator=torch.Generator(
+                            device=self.device).manual_seed(
+                                slot_seed(*run, 1)))
+                    pos = torch.where(flags[:, None, None], retry.pos, pos)
+                pos = pos.cpu().numpy()
+                for slot, (i, mol, _) in enumerate(chunk):
+                    collected[i].append(pos[slot, :mol.num_nodes])
+
+        for i, mol, ns in todo:
+            pos_gen = np.stack(collected[i], axis=0)
+            if save:
+                _save_with_gen(os.path.join(out_dir, f"samples_{i}.npz"),
+                               mol, pos_gen)
+            if self.logger:
+                self.logger.info("molecule %d: %d samples (packed chunks)",
+                                 i, ns)
+            results[i] = dataclasses.replace(
+                mol, meta={**mol.meta, "pos_gen": pos_gen})
+        ordered = [results[i] for i in sorted(results)]
+        if save:
+            _save_all(os.path.join(out_dir, "samples_all.npz"), ordered)
+        return ordered

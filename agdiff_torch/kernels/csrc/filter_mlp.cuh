@@ -58,6 +58,22 @@ template <> __device__ __forceinline__ float rnd<bf16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// max and min that keep NaN, as the reference's relu and clamps do (CUDA's
+// fmaxf(NaN, 0.f) is 0, which hid a diverging graph from the sampler's
+// guard): PTX max.NaN / min.NaN (sm_80 and later), the bits of fmaxf and
+// fminf on every other input. relu(x) is every kernel's relu.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float relu(float x) { return fmax_nan(x, 0.f); }
+
 // four consecutive values from global memory (read-only path) as float4;
 // p is 16-byte (f32) or 8-byte (bf16) aligned
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -77,7 +93,7 @@ __device__ __forceinline__ float4 ldg4(const bf16* p) {
 template <bool APPROX>
 __device__ __forceinline__ float softplus_(float x) {
   if (APPROX) {
-    const float t = fminf(fabsf(x), 8.f);
+    const float t = fmin_nan(fabsf(x), 8.f);
     float acc = -5.52531068e-07f;
     acc = acc * t + 2.03902123e-05f;
     acc = acc * t - 3.09991317e-04f;
@@ -87,9 +103,9 @@ __device__ __forceinline__ float softplus_(float x) {
     acc = acc * t + 1.24495898e-01f;
     acc = acc * t - 5.00341100e-01f;
     acc = acc * t + 6.93209096e-01f;
-    return fmaxf(x, 0.f) + acc;
+    return relu(x) + acc;
   }
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+  return relu(x) + log1pf(expf(-fabsf(x)));
 }
 
 // acc[i][j] += sum_k A[k][r0 + i] * W[k][j] for i < 8, j < 4: A k-major in

@@ -880,8 +880,8 @@ __device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
             *reinterpret_cast<__nv_bfloat162*>(
                 X + (r0 + 16 * m + g + 8 * h) * ldx + c) =
                 real ? __floats2bfloat162_rn(
-                           fmaxf(acc[m][n][2 * h] + b0, 0.f),
-                           fmaxf(acc[m][n][2 * h + 1] + b1, 0.f))
+                           relu(acc[m][n][2 * h] + b0),
+                           relu(acc[m][n][2 * h + 1] + b1))
                      : __floats2bfloat162_rn(0.f, 0.f);
       }
     }
@@ -903,8 +903,8 @@ __device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
           for (int m = 0; m < 2; ++m)
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              s[m][h] += fmaxf(acc[m][n][2 * h] + b0, 0.f) * v0
-                         + fmaxf(acc[m][n][2 * h + 1] + b1, 0.f) * v1;
+              s[m][h] += relu(acc[m][n][2 * h] + b0) * v0
+                         + relu(acc[m][n][2 * h + 1] + b1) * v1;
         }
       }
 #pragma unroll
@@ -951,7 +951,7 @@ __device__ __forceinline__ void pair_score_layer(const float* A,
       const float bj = bias[c0 + j];
 #pragma unroll
       for (int i = 0; i < RU; ++i) {
-        const float v = fmaxf(acc[i][j] + bj, 0.f);
+        const float v = relu(acc[i][j] + bj);
         if (KMAJOR)
           out[(c0 + j) * ldo + r0 + i] = v;
         else
@@ -1205,10 +1205,10 @@ __global__ void __launch_bounds__(256)
     const float mj = m[j] ? 1.f : 0.f;
     const float4 xv = ldg4(xb + (size_t)j * C);
     const float4 ev = ldg4(er + (size_t)j * C);
-    acc.x += fmaxf(xv.x + ev.x, 0.f) * mj;
-    acc.y += fmaxf(xv.y + ev.y, 0.f) * mj;
-    acc.z += fmaxf(xv.z + ev.z, 0.f) * mj;
-    acc.w += fmaxf(xv.w + ev.w, 0.f) * mj;
+    acc.x += relu(xv.x + ev.x) * mj;
+    acc.y += relu(xv.y + ev.y) * mj;
+    acc.z += relu(xv.z + ev.z) * mj;
+    acc.w += relu(xv.w + ev.w) * mj;
   }
   *reinterpret_cast<float4*>(out + row * C + c) = acc;
 }

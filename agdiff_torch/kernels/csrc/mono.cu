@@ -175,7 +175,7 @@ __device__ __forceinline__ float gelu_(float x) {
 }
 template <bool GELU>
 __device__ __forceinline__ float act_(float x) {
-  return GELU ? gelu_(x) : fmaxf(x, 0.f);
+  return GELU ? gelu_(x) : relu(x);
 }
 template <bool SMOOTH>
 __device__ __forceinline__ float envelope(float d, float cutoff) {
@@ -683,7 +683,7 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
           const float* k2 = b1 + DW;
           float s = 0.f;
           for (int k = 0; k < DW; ++k)
-            s += fmaxf(d * k1[k] + b1[k], 0.f) * k2[k];
+            s += relu(d * k1[k] + b1[k]) * k2[k];
           wv = sigmoid_(s + f_dwb[conv])
                * (envelope<SMOOTH>(d, cutoff) * emg[p]);
         }
@@ -772,7 +772,7 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
       for (int n = warp; n < NP; n += NWARPS) {
         float s = 0.f;
         for (int k = lane; k < H / 2; k += 32)
-          s += fmaxf(NF[n * LDF + H + k] + f_att0b[k], 0.f) * f_att1k[k];
+          s += relu(NF[n * LDF + H + k] + f_att0b[k]) * f_att1k[k];
         for (int o = 16; o > 0; o >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, o);
         if (lane == 0) gate[n] = sigmoid_(s + att1b);
@@ -791,7 +791,7 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
       float s = 0.f;
       for (int c = 0; c < H; ++c)
         s += to_f(XB[n * LDX + c]) * to_f(w_se0[c * R + k]);
-      NF[n * LDF + H + k] = rnd<T>(fmaxf(s, 0.f));
+      NF[n * LDF + H + k] = rnd<T>(relu(s));
     }
     __syncthreads();
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
@@ -833,10 +833,10 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
           const float m = WE[p - p0];
           const float4 x = ld4(hl + o * H + c);
           const float4 ev = ld4(E + (size_t)p * H + c);
-          acc.x += rnd<T>(fmaxf(rnd<T>(x.x) + ev.x, 0.f) * m);
-          acc.y += rnd<T>(fmaxf(rnd<T>(x.y) + ev.y, 0.f) * m);
-          acc.z += rnd<T>(fmaxf(rnd<T>(x.z) + ev.z, 0.f) * m);
-          acc.w += rnd<T>(fmaxf(rnd<T>(x.w) + ev.w, 0.f) * m);
+          acc.x += rnd<T>(relu(rnd<T>(x.x) + ev.x) * m);
+          acc.y += rnd<T>(relu(rnd<T>(x.y) + ev.y) * m);
+          acc.z += rnd<T>(relu(rnd<T>(x.z) + ev.z) * m);
+          acc.w += rnd<T>(relu(rnd<T>(x.w) + ev.w) * m);
         }
         st4(NF + n * LDF + c, acc);
       }
@@ -849,13 +849,13 @@ __global__ void __launch_bounds__(NTHREADS) mono_kernel(Args a) {
     product(NF, LDF, NP, H, XB, LDX, w_g0, H, WR);
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
       const int n = e / H, c = e % H;
-      XB[n * LDX + c] = T(rnd<T>(fmaxf(NF[n * LDF + c] + f_g0[c], 0.f)));
+      XB[n * LDX + c] = T(rnd<T>(relu(NF[n * LDF + c] + f_g0[c])));
     }
     product(NF, LDF, NP, H, XB, LDX, w_g1, H, WR);
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
       const int n = e / H, c = e % H;
       float v = NF[n * LDF + c] + f_g1[c];
-      if (li < a.NL - 1) v = fmaxf(v, 0.f);
+      if (li < a.NL - 1) v = relu(v);
       hl[e] += v;
     }
     __syncthreads();

@@ -179,10 +179,26 @@ __device__ __forceinline__ void add_msg(float4& acc, float4 t, float4 x) {
   acc.z += bfr(t.z * x.z);
   acc.w += bfr(t.w * x.w);
 }
+// max and min that keep NaN, as the reference's relu and clamps do (CUDA's
+// fmaxf(NaN, 0.f) is 0, which hid a diverging graph from the sampler's
+// guard): PTX max.NaN / min.NaN (sm_80 and later), the bits of fmaxf and
+// fminf on every other input. relu(x) is the kernel's relu.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float relu(float x) { return fmax_nan(x, 0.f); }
 // '-approx' (ops/approx.py, same coefficients): max(x, 0) plus a degree-8
-// polynomial in min(|x|, 8); sigmoid through an odd Pade [5/4] tanh.
+// polynomial in min(|x|, 8); sigmoid through an odd Pade [5/4] tanh; a
+// NaN goes through both, as through the plain version's torch.clamp.
 __device__ __forceinline__ float softplus_approx(float x) {
-  const float t = fminf(fabsf(x), 8.f);
+  const float t = fmin_nan(fabsf(x), 8.f);
   float acc = -5.52531068e-07f;
   acc = acc * t + 2.03902123e-05f;
   acc = acc * t - 3.09991317e-04f;
@@ -192,18 +208,18 @@ __device__ __forceinline__ float softplus_approx(float x) {
   acc = acc * t + 1.24495898e-01f;
   acc = acc * t - 5.00341100e-01f;
   acc = acc * t + 6.93209096e-01f;
-  return fmaxf(x, 0.f) + acc;
+  return relu(x) + acc;
 }
 __device__ __forceinline__ float tanh_approx(float x) {
-  const float y = fminf(fmaxf(x, -4.f), 4.f), y2 = y * y;
+  const float y = fmin_nan(fmax_nan(x, -4.f), 4.f), y2 = y * y;
   const float r = y * (945.f + 105.f * y2 + y2 * y2)
                   / (945.f + 420.f * y2 + 15.f * y2 * y2);
-  return fminf(fmaxf(r, -1.f), 1.f);
+  return fmin_nan(fmax_nan(r, -1.f), 1.f);
 }
 template <bool APPROX>
 __device__ __forceinline__ float softplus_(float x) {
   if (APPROX) return softplus_approx(x);
-  return fmaxf(x, 0.f) + __logf(1.f + __expf(-fabsf(x)));
+  return relu(x) + __logf(1.f + __expf(-fabsf(x)));
 }
 template <bool APPROX>
 __device__ __forceinline__ float sigmoid_(float x) {
@@ -656,7 +672,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
       for (int n = warp; n < NP; n += NWARPS) {
         float s = 0.f;
         for (int k = lane; k < H / 2; k += 32)
-          s += bfr(fmaxf(NF[n * LDF + H + k] + f_att0b[k], 0.f))
+          s += bfr(relu(NF[n * LDF + H + k] + f_att0b[k]))
                * b2f(s_att1[k]);
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
         if (lane == 0) gate[n] = sigmoid_<APPROX>(s + f_att1b[0]);
@@ -675,7 +691,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
       float s = 0.f;
       for (int c = 0; c < H; ++c)
         s += b2f(XB[n * LDX + c]) * b2f(s_se0[c * R + k]);
-      NF[n * LDF + H + k] = bfr(fmaxf(s, 0.f));
+      NF[n * LDF + H + k] = bfr(relu(s));
     }
     __syncthreads();
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
@@ -730,10 +746,10 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
           const int lp = (int)(iq >> shift) - p0, o = iq & omask;
           const float m = WE[lp];
           const float4 x = ld4(hl + o * H + c), ev = ldb4(EPT + lp * LDE + c);
-          acc.x += bfr(fmaxf((bfr(x.x) + ev.x) * m, 0.f));
-          acc.y += bfr(fmaxf((bfr(x.y) + ev.y) * m, 0.f));
-          acc.z += bfr(fmaxf((bfr(x.z) + ev.z) * m, 0.f));
-          acc.w += bfr(fmaxf((bfr(x.w) + ev.w) * m, 0.f));
+          acc.x += bfr(relu((bfr(x.x) + ev.x) * m));
+          acc.y += bfr(relu((bfr(x.y) + ev.y) * m));
+          acc.z += bfr(relu((bfr(x.z) + ev.z) * m));
+          acc.w += bfr(relu((bfr(x.w) + ev.w) * m));
         }
         st4(NF + n * LDF + c, acc);
       }
@@ -745,7 +761,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
     __syncthreads();
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
       const int n = e / H, c = e % H;
-      XB[n * LDX + c] = __float2bfloat16(fmaxf(NF[n * LDF + c] + f_g0[c], 0.f));
+      XB[n * LDX + c] = __float2bfloat16(relu(NF[n * LDF + c] + f_g0[c]));
     }
     __syncthreads();
     gemm_w(NF, LDF, NP, H, XB, LDX, w_g1, H, WR);
@@ -753,7 +769,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
     for (int e = threadIdx.x; e < NP * H; e += NTHREADS) {
       const int n = e / H, c = e % H;
       float v = NF[n * LDF + c] + f_g1[c];
-      if (li < a.NL - 1) v = fmaxf(v, 0.f);
+      if (li < a.NL - 1) v = relu(v);
       hl[e] += v;
     }
     __syncthreads();
@@ -819,8 +835,8 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
         const int r = e / (H / 4), c = 4 * (e % (H / 4));
         const float4 v = ld4(VF + r * LDV + c), bias = ldg4(f_b1 + c);
         stb4(VB + r * LDB + c,
-             make_float4(fmaxf(v.x + bias.x, 0.f), fmaxf(v.y + bias.y, 0.f),
-                         fmaxf(v.z + bias.z, 0.f), fmaxf(v.w + bias.w, 0.f)));
+             make_float4(relu(v.x + bias.x), relu(v.y + bias.y),
+                         relu(v.z + bias.z), relu(v.w + bias.w)));
       }
       __syncthreads();
       mma_tiles(VF, LDV, TP, H / 2, VB, LDB, b_w2, ld_w2, H);
@@ -830,7 +846,7 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
         for (int r = warp; r < rows; r += NWARPS) {
           float s = 0.f;
           for (int k = lane; k < H / 2; k += 32)
-            s += fmaxf(VF[r * LDV + k] + f_b2[k], 0.f) * f_w3[k];
+            s += relu(VF[r * LDV + k] + f_b2[k]) * f_w3[k];
           for (int o = 16; o > 0; o >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, o);
           if (lane == 0) out[p0 + r] = s + b3;

@@ -50,21 +50,21 @@ Phases, each of which fails the run:
      it);
   4. the QM9 slice: GenerationRunner generates conformers for the
      molecules of agdiff_torch/data/fixtures/qm9_synthetic.json on the
-     'pksf' engine (bucket 32, chunk 128, w_global 0.3, a 500-step suffix
+     'pksf' engine (bucket 32, chunk 128, w_global 0.3, a 250-step suffix
      of the 5000-step ladder) with seeded random weights; a small batch is
      also checked against the f32 plain engine; then the engines
      'pallas' (f32 against the f32 engine, 2e-4; bf16 within 5%; with
      pack_pairs=False against the packed form, 2e-4) and 'pk' (within 5%),
      and their paths over the same molecules, 128 conformers each: A
-     'pallas' f32 and B 'pallas' bf16 (build_fast_sampler, 100 steps), C
-     pack_pairs=False at f32 and at bf16 (20 steps), D 'pk' (100 steps)
+     'pallas' f32 and B 'pallas' bf16 (build_fast_sampler, 50 steps), C
+     pack_pairs=False at f32 and at bf16 (20 steps), D 'pk' (50 steps)
      and D' 'pk-approx' (20 steps) through GenerationRunner; each kernel's
      launches must equal the forwards run times its count per forward (K3
      6, K5 4, K4 2, K2 6) and no other kernel may launch;
   5. the Drugs slice: GenerationRunner on configs/drugs_fast.yml runs the
      molecules of agdiff_torch/data/fixtures/drugs_synthetic.json (50 and
      56 atoms in bucket 64, 69 and 73 atoms above it) on 'tight-pksf'
-     (chunk 48, w_global 0.3, 500 steps), and the engines 'tight-pks',
+     (chunk 48, w_global 0.3, 250 steps), and the engines 'tight-pks',
      'tight-pksg' and 'tight-pksf-approx' for a few steps each; a small
      batch is checked against the f32 'tight' engine, beside the same
      check with K1's plain version on the CPU;
@@ -107,18 +107,17 @@ Phases, each of which fails the run:
      already replay graphs, the runner's default on a card): the same
      seed through the graphed ladder and the eager loop must give
      torch.equal positions and flags (and trajectories) on K1 over the
-     triu set (QM9 'pksf', B=128, 200 steps), K1 over tight lists
+     triu set (QM9 'pksf', B=128, 100 steps), K1 over tight lists
      (Drugs 'tight-pksf', the 50- and then the 56-atom molecule in
-     bucket 64 at one capacity, B=48, 100 steps each, then the first
+     bucket 64 at one capacity, B=48, 50 steps each, then the first
      again: each new list's capture frees the last list's graphs), K6
-     ('mono' bf16, 100 steps), K3-K5 (path C, f32, and C-bf16, 20 steps)
+     ('mono' bf16, 50 steps), K3-K5 (path C, f32, and C-bf16, 20 steps)
      and K2 (path D, 20 steps), and the sampler modes on 'pksf' (the
-     strided ladder with DDIM at eta 1, 100 steps; Heun at eta 0, 50
+     strided ladder with DDIM at eta 1, 50 steps; Heun at eta 0, 25
      steps; a denoise tail of 10; a trajectory every 10 steps); each
      case also runs eagerly twice, and the two must agree bit for bit;
      each case prints its NaN flags and largest |position| (with random
-     weights at full width the ladders diverge, which K1 and K6 do not
-     flag, so finiteness is not checked here), each ladder's memory pool
+     weights at full width the ladders diverge), each ladder's memory pool
      and the device memory reserved at the case's peak;
      GenerationRunner after `warm` (the retry's graphs too) gives the
      eager runner's samples bit for bit on the QM9 fixtures; 20 graphed
@@ -131,7 +130,38 @@ Phases, each of which fails the run:
      launches recorded at capture times the replays
      (chip_smoke.launch_counts); these profiles are what shows the
      replays run the kernels;
-  8. one JSON line lists each kernel variant and its numbers, then the
+     then the NaN guard (the sampler flags a graph that went non-finite,
+     and the runner reruns it with clip_local 20): on each graphed path
+     (QM9 'pksf' with each sampler mode, Drugs 'tight-pksf', E, C,
+     C-bf16, D), atom 0 of graph 1 planted at NaN and at 1e30 A (whose
+     distances overflow to inf, as a diverging ladder's do), one forward
+     and a 4-step ladder through the hand kernels and through their plain
+     twins on the card must give the same per-graph flags, graph 1
+     flagged; the twins with every relu dropping NaN (the kernels' fmaxf
+     before this check) must give other flags, on every path whose
+     kernels hold a relu (D's K2 holds none); K4 (f32, bf16) and K5 with
+     a NaN edge feature on and off the mask give the plain twin's
+     non-finite elements (K4 0 off its mask, K5 NaN in the sum); and a
+     random-weight QM9 'pksf' ladder (100 steps) and Drugs 'tight-pksf'
+     ladder (50) through GenerationRunner report the graphs flagged and
+     the clip_local retry, and fail if a graph past 1e20 A (where a
+     squared distance overflows) is left unflagged;
+  8. the test set: 16 synthetic QM9-size molecules (9 heavy atoms, three
+     reference conformers) and 4 Drugs-size ones (20 heavy atoms, two
+     pairs of one atom count) through GenerationRunner and
+     PackedGenerationRunner (50 steps, clip_local 20, w_global 0.3, as
+     bench.py runs random weights; conformers/s of each, captures
+     included; K1 launched), the QM9 set also through `cli.generate
+     --packed` in a subprocess; each packed samples file is scored by
+     `python -m agdiff_torch.cli.eval_covmat` in a subprocess (every
+     molecule must survive the filter; COV-R and MAT-R printed, of random
+     weights), and each molecule's RMSD matrix natively and in numpy must
+     agree to 1e-9; with strided DDIM at eta 0 (8 steps) and item seeds,
+     a molecule packed with another at its own batch size gives its
+     samples alone bit for bit, and the whole set packed (other batch
+     sizes, another K1 cluster size) within the engine's limit (5% at
+     QM9 size, 15% at Drugs size) of the largest coordinate;
+  9. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -139,7 +169,9 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -150,7 +182,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 SEED = 0
-N_STEPS = 500
+N_STEPS = 250
 CHUNK = 128             # QM9 slice
 DRUGS_CHUNK = 48        # Drugs slice
 VARIANT_STEPS = 20      # ladder steps of each further engine
@@ -213,9 +245,23 @@ KERNEL_COUNTERS = {"K1": "stack_packed/", "K2": "block_packed/",
                    "K3": "fused/block_agg:", "K4": "fused/pair_score:",
                    "K5": "fused/gine:", "K6": "monolithic/"}
 # phase 7: graphed ladders
-GRAPH_QM9_STEPS = 200
-GRAPH_STEPS = 100       # Drugs (each molecule), E, the sampler modes
+GRAPH_QM9_STEPS = 100
+GRAPH_STEPS = 50        # Drugs (each molecule), E, the sampler modes
 GRAPH_SHORT_STEPS = 20  # paths C, C-bf16 and D
+# phase 7: the NaN guard. Planted in graph 1's atom 0: NaN (its distances
+# NaN), and 1e30 A (its distances overflow to inf, as a diverging
+# ladder's do); a ladder block of NAN_STEPS steps at the clean end.
+NAN_PLANTS = (("nan", float("nan")), ("far", 1e30))
+NAN_STEPS = 4
+# a recentred graph with an atom past this (A) has a pair whose squared
+# distance overflows float32 (3.4e38): its forward goes non-finite, so the
+# guard must have flagged it
+OVERFLOW_POS = 1e20
+# phase 8: the test set
+SET_STEPS = GRAPH_STEPS  # the runners' ladder (clip_local 20, bench.py's)
+SET_QM9, SET_DRUGS = 16, 4
+DDIM_STEPS = 8          # packed against alone: strided DDIM at eta 0
+RMSD_PATHS_TOL = 1e-9   # native against numpy confusion matrices (A)
 
 
 def card_line() -> str:
@@ -707,7 +753,7 @@ BF16_KERNEL_LIMITS = dict(max_rel=1e-2, median_rel=1e-6, p99_rel=3e-4,
                           beyond_1pct=1e-3)
 OFF_MASK_LIMITS = dict(max_rel=0.0, median_rel=0.0, p99_rel=0.0,
                        beyond_1pct=0.0)
-PATH_STEPS = 100        # paths A, B and D
+PATH_STEPS = 50         # paths A, B and D
 SHORT_STEPS = 20        # paths C and D'
 
 
@@ -1620,6 +1666,486 @@ def check_runner_warm(model, cfg, mols, report) -> dict:
     return row
 
 
+# ---- phase 7: the NaN guard ---------------------------------------------------
+
+# the kernel wrappers the forwards call: (forward module, kernel module,
+# wrapper); each kernel module holds the plain twin as <wrapper>_plain
+TWINS = (("fast_forward", "stack_packed", "packed_stack_forward"),
+         ("fast_forward", "fused", "interaction_block_aggregate"),
+         ("fast_forward", "fused", "pair_score_mlp"),
+         ("fast_forward", "fused", "gine_aggregate"),
+         ("fast_forward", "block_packed", "packed_block_aggregate"),
+         ("mono_forward", "monolithic", "mono_forward"))
+
+
+def dropping_nan(plain):
+    """A planted fault: `plain` with every relu it calls dropping NaN, as
+    CUDA's fmaxf(x, 0.f) did in the kernels before (torch.nan_to_num
+    after each relu; infinities kept)."""
+    import torch
+
+    def run(*args, **kw):
+        relu = torch.relu
+        torch.relu = lambda x: torch.nan_to_num(
+            relu(x), nan=0.0, posinf=float("inf"), neginf=float("-inf"))
+        try:
+            return plain(*args, **kw)
+        finally:
+            torch.relu = relu
+    return run
+
+
+@contextlib.contextmanager
+def plain_twins(drop_nan: bool = False):
+    """The forwards call every kernel's plain twin, on the card, in place
+    of its wrapper (which would launch the kernel); with drop_nan, the
+    twins with the planted fault of `dropping_nan`."""
+    import importlib
+
+    saved = []
+    try:
+        for fwd_mod, kernel_mod, name in TWINS:
+            fm = importlib.import_module(f"agdiff_torch.models.{fwd_mod}")
+            km = importlib.import_module(f"agdiff_torch.kernels.{kernel_mod}")
+            plain = getattr(km, name + "_plain")
+            saved.append((fm, name, getattr(fm, name)))
+            setattr(fm, name, dropping_nan(plain) if drop_nan else plain)
+        yield
+    finally:
+        for fm, name, fn in saved:
+            setattr(fm, name, fn)
+
+
+def graph_flags(out) -> list:
+    """Per graph: whether either score plane holds a non-finite value."""
+    import torch
+
+    planes = torch.stack([out.edge_inv_global.float(),
+                          out.edge_inv_local.float()], 1)
+    return (~torch.isfinite(planes)).flatten(1).any(1).tolist()
+
+
+def nan_gate(label, fwd, diffusion, batch, config, report, capacity=None,
+             relu=True) -> list:
+    """For each of NAN_PLANTS (atom 0 of graph 1): one forward and one
+    NAN_STEPS-step ladder (eager) through the hand kernels and through
+    their plain twins on the card. The per-graph flags (non-finite score
+    planes; the ladder's NaN flags) must be equal, with graph 1 flagged.
+    The twins with their relus dropping NaN (plain_twins(drop_nan=True))
+    must give other flags on some plant: a planted fault that must break
+    the gate, on every path whose kernels hold a relu (relu=True; K2,
+    path D's kernel, holds none). Returns the failures."""
+    import torch
+
+    from agdiff_torch.sampling.langevin import build_fast_sampler
+
+    failures, rows, broken = [], {}, False
+    for plant, value in NAN_PLANTS:
+        pos = batch.pos.clone()
+        pos[1, 0] = value
+        planted = batch.replace(pos=pos)
+        runs = {}
+        for twin in ("kernel", "plain", "fault"):
+            with (contextlib.nullcontext() if twin == "kernel"
+                  else plain_twins(twin == "fault")):
+                flags = graph_flags(fwd(planted))
+                sampler = build_fast_sampler(fwd, diffusion, config,
+                                             pair_capacity=capacity,
+                                             graph=False)
+                res = sampler(planted, pos, generator=torch.Generator(
+                    device=pos.device).manual_seed(SEED))
+                runs[twin] = (flags, res.nan_flags.tolist())
+        kernel, plain, fault = (runs[k] for k in ("kernel", "plain", "fault"))
+        ok = kernel == plain and kernel[0][1] and kernel[1][1]
+        broken |= fault != plain
+        rows[plant] = dict(
+            equal=ok, forward_flagged=[k for k, f in enumerate(kernel[0])
+                                       if f],
+            ladder_flagged=[k for k, f in enumerate(kernel[1]) if f],
+            fault_forward_flagged=[k for k, f in enumerate(fault[0]) if f],
+            fault_ladder_flagged=[k for k, f in enumerate(fault[1]) if f])
+        if not ok:
+            failures.append(f"NaN gate {label} ({plant}): kernel flags "
+                            f"{kernel}, plain twins' {plain}")
+    if relu and not broken:
+        failures.append(f"NaN gate {label}: the twins dropping NaN give the "
+                        f"same flags (a planted fault that passes)")
+    report.setdefault("nan_gate", {})[label] = dict(
+        plants=rows, fault_breaks=broken, fault_applies=relu,
+        steps=config.n_steps, batch=tuple(batch.pos.shape))
+    print(f"NaN gate {label}: " + "; ".join(
+        f"{p}: forward flags {r['forward_flagged']}, ladder flags "
+        f"{r['ladder_flagged']}, kernel = plain {r['equal']}; NaN-dropping "
+        f"twins flag {r['fault_forward_flagged']} / "
+        f"{r['fault_ladder_flagged']}" for p, r in rows.items())
+        + f"; the fault {'breaks' if broken else 'does not break'} it"
+        + ("" if relu else " (no relu in this path's kernel)"), flush=True)
+    return failures
+
+
+def nan_off_mask(fwds, batch, report) -> list:
+    """K4 (f32, bf16) and K5 on their first call's inputs (paths C and
+    C-bf16), one edge feature on the mask and one off it NaN in graph 1:
+    the kernel's non-finite elements are the plain twin's (K4: NaN on
+    the mask, 0 off it, as the reference's where; K5: the reference
+    applies the mask after the relu, so NaN off the mask reaches the
+    sum); the twin with its relu dropping NaN must differ."""
+    import torch
+
+    from agdiff_torch.kernels import fused
+
+    failures = []
+    for label, fwd, name in (("K4 f32", fwds["dense_f32"], "pair_score_mlp"),
+                             ("K4 bf16", fwds["dense_bf16"],
+                              "pair_score_mlp"),
+                             ("K5 f32", fwds["dense_f32"],
+                              "gine_aggregate")):
+        args, kw = capture(fwd, batch, name)
+        args = list(args)
+        e, mask, real = args[1].clone(), args[2], batch.node_mask[1]
+        on = torch.nonzero(mask[1] & real[:, None] & real[None, :])[0]
+        off = torch.nonzero(~mask[1] & real[:, None])[-1]
+        e[1, on[0], on[1]] = e[1, off[0], off[1]] = float("nan")
+        args[1] = e
+        got = getattr(fused, name)(*args, **kw)
+        ref = getattr(fused, name + "_plain")(*args, **kw)
+        bad = dropping_nan(getattr(fused, name + "_plain"))(*args, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(~torch.isfinite(got), ~torch.isfinite(ref))
+        if name == "pair_score_mlp":
+            want = bool(torch.isnan(got[1, on[0], on[1]])) and \
+                float(got[1, off[0], off[1]]) == 0.0
+        else:
+            want = bool(torch.isnan(got[1, off[0]]).all())
+        fault = not torch.equal(~torch.isfinite(bad), ~torch.isfinite(ref))
+        report.setdefault("nan_off_mask", {})[label] = dict(
+            same_pattern=same, reference_semantics=want, fault_breaks=fault,
+            non_finite=int((~torch.isfinite(got)).sum()))
+        print(f"NaN off the mask {label}: kernel's non-finite elements the "
+              f"plain twin's: {same} ({int((~torch.isfinite(got)).sum())}); "
+              f"as the reference masks: {want}; NaN-dropping twin differs: "
+              f"{fault}", flush=True)
+        if not (same and want and fault):
+            failures.append(f"NaN off the mask {label}: same {same}, "
+                            f"reference semantics {want}, fault breaks "
+                            f"{fault}")
+    return failures
+
+
+def runner_guard(label, runner, mols, num_confs, report) -> list:
+    """A random-weight ladder through the runner (no clip_local): how many
+    graphs its first ladder flagged, whether the clip_local retry ran,
+    and no graph of the first ladder past OVERFLOW_POS unflagged (what
+    NaN-dropping kernels gave: positions of 1e28-1e37 with no flag). Also
+    counts the graphs past sigma_max x bucket, a box a sane ladder stays
+    in."""
+    import torch
+
+    from agdiff_torch.eval.generate import RETRY_CLIP_LOCAL
+
+    firsts, retries = [], []
+    real = runner._sampler
+
+    def spy(engine, retry, capacity=None):
+        sampler = real(engine, retry, capacity)
+
+        def run(batch, pos_init, generator=None):
+            out = sampler(batch, pos_init, generator=generator)
+            (retries if retry else firsts).append(
+                (out, batch.node_mask, batch.pos.shape[1]))
+            return out
+        return run
+
+    runner._sampler = spy
+    try:
+        t0 = time.time()
+        runner.run(mols, seed=SEED, num_confs=num_confs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        del runner._sampler
+    sigma_max = float(runner.diffusion.sigmas[-1])
+    flagged = graphs = far = unflagged_far = boxed_out = 0
+    worst = 0.0
+    for out, mask, bucket in firsts:
+        reach = (out.pos.abs().amax(-1) * mask).amax(-1)
+        graphs += len(reach)
+        flagged += int(out.nan_flags.sum())
+        far += int((reach > OVERFLOW_POS).sum())
+        unflagged_far += int(((reach > OVERFLOW_POS) & ~out.nan_flags).sum())
+        boxed_out += int((reach > sigma_max * bucket).sum())
+        if (~out.nan_flags).any():
+            worst = max(worst, float(reach[~out.nan_flags].max()))
+    row = dict(graphs=graphs, flagged=flagged, retry_ladders=len(retries),
+               retry_clip_local=RETRY_CLIP_LOCAL, past_overflow=far,
+               unflagged_past_overflow=unflagged_far,
+               past_sigma_max_x_bucket=boxed_out,
+               max_abs_pos_unflagged=worst, wall_s=wall,
+               steps=runner.sampler_config.n_steps)
+    report.setdefault("runner_guard", {})[label] = row
+    print(f"runner guard {label}: {flagged} of {graphs} graphs flagged, "
+          f"{len(retries)} clip_local={RETRY_CLIP_LOCAL:g} retry ladders; "
+          f"{far} past {OVERFLOW_POS:g} A ({unflagged_far} unflagged), "
+          f"{boxed_out} past sigma_max x bucket; largest |pos| of an "
+          f"unflagged graph {worst:.3e} ({wall:.1f} s)", flush=True)
+    failures = []
+    if unflagged_far:
+        failures.append(f"runner guard {label}: {unflagged_far} graphs past "
+                        f"{OVERFLOW_POS:g} A not flagged")
+    if flagged and not retries:
+        failures.append(f"runner guard {label}: {flagged} flagged, no retry")
+    return failures
+
+
+# ---- phase 8: the test set ----------------------------------------------------
+
+def test_sets():
+    """QM9 size: SET_QM9 synthetic molecules of 9 heavy atoms (bench.py's
+    QM9 row) with three reference conformers each; Drugs size: SET_DRUGS
+    of 20 heavy atoms (bench.py's Drugs row), two pairs of one atom count
+    each, so that packed chunks of the tight engine hold two molecules."""
+    from agdiff_torch.data.synthetic import synthetic_dataset
+
+    qm9 = synthetic_dataset(SET_QM9, seed=SEED, min_heavy=9, max_heavy=9,
+                            num_conformers=3)
+    by_size = {}
+    for m in synthetic_dataset(6 * SET_DRUGS, seed=SEED, min_heavy=20,
+                               max_heavy=20, num_conformers=3):
+        by_size.setdefault(m.num_nodes, []).append(m)
+    pairs = [ms[:2] for _, ms in sorted(by_size.items()) if len(ms) > 1]
+    drugs = [m for pair in pairs[:SET_DRUGS // 2] for m in pair]
+    return qm9, drugs
+
+
+def generate_set(label, runner, mols, out_dir, report) -> dict:
+    """runner.run over a test set into out_dir, K1's counts set to 0
+    just before and read just after; conformers/s with the captures."""
+    import numpy as np
+    import torch
+
+    for c in kernel_counters().values():
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = runner.run(mols, out_dir, seed=SEED, resume=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k1 = sum(n for k, n in launch_counts().items()
+             if k.startswith("stack_packed/"))
+    n_conf = sum(m.meta["pos_gen"].shape[0] for m in out)
+    finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in out)
+    row = dict(runner=type(runner).__name__, molecules=len(out),
+               conformers=n_conf, wall_s=wall, conformers_per_s=n_conf / wall,
+               k1_launches=k1, finite=finite,
+               steps=runner.sampler_config.n_steps)
+    report["test_set"]["runs"][label] = row
+    print(f"test set {label}: {type(runner).__name__}, {len(out)} "
+          f"molecules, {n_conf} conformers in {wall:.2f} s: "
+          f"{row['conformers_per_s']:.2f} conformers/s "
+          f"({row['steps']} steps, captures included; K1 launches {k1})",
+          flush=True)
+    return row
+
+
+def start_scoring(samples):
+    """`python -m agdiff_torch.cli.eval_covmat` on a samples file, in a
+    subprocess started now (host only: it runs beside the card's work)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "agdiff_torch.cli.eval_covmat", samples,
+         "--num_workers", "1"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT)), time.time()
+
+
+def finish_scoring(label, started, samples, num_mols, report) -> list:
+    """Each molecule's RMSD matrix natively and in numpy (equal to
+    RMSD_PATHS_TOL), then the eval_covmat subprocess's scores: every
+    molecule must survive the filter."""
+    import numpy as np
+
+    from agdiff_torch.chem.rmsd import rmsd_confusion_matrix
+    from agdiff_torch.eval.generate import load_samples
+
+    diff = 0.0
+    for m in load_samples(samples):
+        n = m.num_nodes
+        refs = m.pos_ref.reshape(-1, n, 3)
+        gens = m.meta["pos_gen"]
+        diff = max(diff, float(np.abs(
+            rmsd_confusion_matrix(m, refs, gens)
+            - rmsd_confusion_matrix(m, refs, gens, use_native=False)).max()))
+    proc, t0 = started
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"eval_covmat exit {proc.returncode}:\n{err[-3000:]}")
+    wall = time.time() - t0
+    with np.load(os.path.splitext(samples)[0] + "_covmat.npz") as res:
+        covr, matr = res["CoverageR"], res["MatchingR"]
+        thresholds = res["thresholds"]
+    t = 0.5 if label.startswith("qm9") else 1.25   # the usual COV thresholds
+    k = int(np.argmin(np.abs(thresholds - t)))
+    row = dict(samples=os.path.relpath(samples, ROOT), molecules=num_mols,
+               scored=int(covr.shape[0]), cov_r_at=float(thresholds[k]),
+               cov_r_mean=float(covr[:, k].mean()) if len(covr) else None,
+               mat_r_mean=float(matr.mean()) if len(matr) else None,
+               native_vs_numpy_max=diff, eval_wall_s=wall,
+               weights="random")
+    report["test_set"]["scores"][label] = row
+    print(f"COV/MAT {label} (random weights; says nothing of quality): "
+          f"{row['scored']} of {num_mols} molecules scored, COV-R at "
+          f"{row['cov_r_at']:.2f} A {row['cov_r_mean']}, MAT-R "
+          f"{row['mat_r_mean']} A; native against numpy RMSD max |diff| "
+          f"{diff:.3e}; eval_covmat {wall:.1f} s (beside other work)",
+          flush=True)
+    failures = []
+    if row["scored"] != num_mols:
+        failures.append(f"COV/MAT {label}: {row['scored']} of {num_mols} "
+                        f"molecules survive the filter")
+    if not diff <= RMSD_PATHS_TOL:
+        failures.append(f"COV/MAT {label}: native and numpy RMSD differ by "
+                        f"{diff:.3e}")
+    return failures
+
+
+def packed_against_alone(label, runner_of, mols, tol, report) -> list:
+    """Strided DDIM at eta 0 (no noise), item seeds: molecule 0 with
+    molecule 1's samples (4 + 4 slots: the batch size of molecule 0
+    alone, 4 slots, both 8) gives its samples alone bit for bit; the
+    whole set packed (6 samples each: other batch sizes, hence another
+    K1 cluster size R) gives each molecule's samples alone within `tol`
+    (the engine's limit against f32: 5% at QM9 size, 15% at Drugs size)
+    of their largest coordinate. Samples the guard zeroed (all 0) are
+    counted; every molecule needs some that are not."""
+    import numpy as np
+
+    seeds = [(SEED + 1, i) for i in range(len(mols))]
+    runner = runner_of()
+
+    def run(ms, confs, idx):
+        return runner.run(ms, None, num_confs=confs,
+                          item_seeds=[seeds[i] for i in idx])
+
+    alone4 = run(mols[:1], [4], [0])[0].meta["pos_gen"]
+    pair = run(mols[:2], [4, 4], [0, 1])[0].meta["pos_gen"]
+    bitwise = bool(np.array_equal(pair, alone4))
+    everything = run(mols, [6] * len(mols), range(len(mols)))
+    rels, zeroed, scales = [], 0, []
+    for i, m in enumerate(everything):
+        alone = run(mols[i:i + 1], [6], [i])[0].meta["pos_gen"]
+        zeroed += int((np.abs(alone).reshape(len(alone), -1).max(1) == 0)
+                      .sum())
+        scales.append(float(np.abs(alone).max()))
+        rels.append(float(np.abs(m.meta["pos_gen"] - alone).max())
+                    / scales[-1])
+    worst = float(np.max(rels))   # NaN if any is
+    row = dict(bitwise_same_batch=bitwise, max_rel_other_batch=worst,
+               tol=tol, steps=DDIM_STEPS, zeroed_samples=zeroed,
+               min_scale=min(scales))
+    report["test_set"]["packed_vs_alone"][label] = row
+    print(f"packed against alone {label} (DDIM eta 0, {DDIM_STEPS} strided "
+          f"steps, item seeds): same batch size bit for bit {bitwise}; "
+          f"other batch sizes max |diff| {worst:.3e} of the largest "
+          f"coordinate (limit {tol}); {zeroed} of {6 * len(mols)} samples "
+          f"alone zeroed by the guard, least scale {min(scales):.3e} A",
+          flush=True)
+    failures = []
+    if not bitwise:
+        failures.append(f"packed against alone {label}: not bit for bit at "
+                        f"one batch size")
+    if not worst <= tol or not min(scales) > 0:
+        failures.append(f"packed against alone {label}: {worst:.3e} > "
+                        f"{tol} or a molecule's samples all zeroed")
+    return failures
+
+
+def run_test_set(qmodel, qcfg, dmodel, dconf, report, dev) -> list:
+    """Phase 8: the QM9- and Drugs-size test sets through
+    GenerationRunner and PackedGenerationRunner (the QM9 one also as the
+    CLI's --packed, in a subprocess), scored through cli.eval_covmat in
+    subprocesses that run while the card checks packed against alone."""
+    import dataclasses as dc
+
+    import torch
+
+    from agdiff_torch.chem.mol import save_molecules
+    from agdiff_torch.eval.generate import (
+        GenerationRunner,
+        PackedGenerationRunner,
+    )
+    from agdiff_torch.models.reference_checkpoint import (
+        export_reference_state_dict,
+    )
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    report["test_set"] = {"runs": {}, "scores": {}, "packed_vs_alone": {}}
+    root = os.path.join(OUT_DIR, "test_set")
+    qm9, drugs = test_sets()
+    ladder = SamplerConfig(n_steps=SET_STEPS, w_global=0.3,
+                           global_start_sigma=0.5, clip_local=20.0)
+    ddim = dc.replace(ladder, n_steps=DDIM_STEPS, ladder="strided",
+                      sampling_type="generalized", eta=0.0)
+    failures = []
+    sets = (("qm9", qm9, qmodel, qcfg, (32,), CHUNK, ENGINE_TOL),
+            ("drugs", drugs, dmodel, dconf.model, dconf.buckets,
+             DRUGS_CHUNK, DRUGS_ENGINE_TOL))
+    scoring, later = [], []
+    for name, mols, model, cfg, buckets, chunk, tol in sets:
+        report["test_set"][name] = dict(
+            atoms=[m.num_nodes for m in mols], refs=[m.num_ref for m in mols])
+
+        def runner(cls, scfg, model=model, cfg=cfg, buckets=buckets,
+                   chunk=chunk):
+            return cls(model, cfg, make_diffusion(cfg), scfg,
+                       buckets=buckets, chunk_size=chunk, device=dev)
+
+        solo = generate_set(f"{name}_solo", runner(GenerationRunner, ladder),
+                            mols, os.path.join(root, f"{name}_solo"), report)
+        packed = generate_set(
+            f"{name}_packed", runner(PackedGenerationRunner, ladder), mols,
+            os.path.join(root, f"{name}_packed"), report)
+        for row in (solo, packed):
+            if not (row["finite"] and row["k1_launches"]):
+                failures.append(f"test set {name}: {row}")
+        samples = os.path.join(root, f"{name}_packed", "samples_all.npz")
+        if name == "qm9":   # the same run as a user starts it
+            ckpt = os.path.join(root, "ckpt", "model.pt")
+            os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+            torch.save({"model": export_reference_state_dict(model),
+                        "config": {"model": dc.asdict(cfg)}}, ckpt)
+            test_set = os.path.join(root, "qm9.npz")
+            save_molecules(test_set, mols)
+            out_dir = os.path.join(root, "qm9_cli")
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "agdiff_torch.cli.generate", ckpt,
+                 "--test_set", test_set, "--fast", "--packed", "--n_steps",
+                 str(SET_STEPS), "--chunk_size", str(chunk), "--w_global",
+                 "0.3", "--clip_local", "20", "--seed", str(SEED),
+                 "--out_dir", out_dir, "--no_resume", "--device",
+                 dev.type],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"CLI --packed exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+            report["test_set"]["cli_packed_s"] = time.time() - t0
+            print(f"test set qm9: cli.generate --packed in "
+                  f"{time.time() - t0:.1f} s", flush=True)
+            samples = os.path.join(out_dir, "samples_all.npz")
+        scoring.append((name, samples, len(mols)))
+        later.append((name, functools.partial(
+            runner, PackedGenerationRunner, ddim), mols, tol))
+    # scored on the host while the card runs the checks below
+    scoring = [(name, start_scoring(samples), samples, num_mols)
+               for name, samples, num_mols in scoring]
+    for name, runner_of, mols, tol in later:
+        failures += packed_against_alone(name, runner_of, mols, tol, report)
+    for name, started, samples, num_mols in scoring:
+        failures += finish_scoring(name, started, samples, num_mols, report)
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -1994,11 +2520,52 @@ def main() -> int:
               f"{g['capture_s']:.3f} s; 20 graphed steps: idle share "
               f"{p['idle_share']:.3f}, between kernels {p['gap_share']:.3f} "
               f"({card})", flush=True)
-    phase_done("7 graphs")
+    # the NaN guard: each graphed path's kernels against their plain twins
+    # on planted positions, K4 and K5 with a NaN off the mask, then two
+    # random-weight ladders through the runner
+    drugs_cap = pair_capacity_for(dmols[0].num_nodes, 256)
+    for label, fwd_g, diff_g, batch_g, cfg_g, cap, relu in (
+            ("QM9", qm9_fwd, qdiff, qbig, ladder(NAN_STEPS), None, True),
+            ("QM9 strided_ddim_eta1", qm9_fwd, qdiff, qbig, ladder(
+                NAN_STEPS, ladder="strided", sampling_type="generalized",
+                eta=1.0), None, True),
+            ("QM9 strided_heun_eta0", qm9_fwd, qdiff, qbig, ladder(
+                NAN_STEPS, ladder="strided", sampling_type="generalized",
+                eta=0.0, solver="heun"), None, True),
+            ("QM9 denoise_tail", qm9_fwd, qdiff, qbig,
+             ladder(NAN_STEPS, denoise_tail=2), None, True),
+            ("QM9 traj_stride", qm9_fwd, qdiff, qbig,
+             ladder(NAN_STEPS, traj_stride=2), None, True),
+            ("Drugs", drugs.forward("tight-pksf"), ddiff, dbatches[0],
+             ladder(NAN_STEPS), drugs_cap, True),
+            ("E", mono_runners["E"].forward("mono"), qdiff, qbig,
+             ladder(NAN_STEPS), None, True),
+            ("C", fwds["dense_f32"], fdiff, qbig, ladder(NAN_STEPS), None,
+             True),
+            ("C-bf16", fwds["dense_bf16"], fdiff, qbig, ladder(NAN_STEPS),
+             None, True),
+            ("D", fwds["pk"], fdiff, qbig, ladder(NAN_STEPS), None, False)):
+        failures += nan_gate(label, fwd_g, diff_g, batch_g, cfg_g, report,
+                             capacity=cap, relu=relu)
+    failures += nan_off_mask(fwds, qbatch, report)
+    for label, model_g, cfg_g, buckets, chunk, mols_g, steps in (
+            ("QM9 pksf", qmodel, qcfg, (32,), CHUNK, qmols[:1],
+             GRAPH_QM9_STEPS),
+            ("Drugs tight-pksf", dmodel, dcfg, dconf.buckets, DRUGS_CHUNK,
+             dmols[:1], GRAPH_STEPS)):
+        failures += runner_guard(label, GenerationRunner(
+            model_g, cfg_g, make_diffusion(cfg_g), ladder(steps),
+            buckets=buckets, chunk_size=chunk, device=dev), mols_g, chunk,
+            report)
+    phase_done("7 graphs and the NaN guard")
+
+    # ---- 8. the test set: generate, then score ------------------------------
+    failures += run_test_set(qmodel, qcfg, dmodel, dconf, report, dev)
+    phase_done("8 test set")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 8. result lines ---------------------------------------------------
+    # ---- 9. result lines ---------------------------------------------------
     def entry(name, case, launches):
         c = cases[case]
         return dict(name=name, route="cuda",

@@ -34,7 +34,14 @@ the inputs chip_smoke.py gives them:
     same inputs;
 each once with the unstamped library (timed) and once stamped, and prints
 each (phase, barrier)'s source line, its mean cycles per block and its
-share. --save writes every case's unstamped outputs (and a checksum of
+share. Unstamped only (timed, outputs saved and compared, no stamped copy
+of their sources):
+  * K1 (csrc/stack_packed.cu) in chip_smoke.py's phase-3 variants: mode
+    'full' over the triu set at B=128/N=32 (configs/qm9_fast.yml), and
+    over the 50-atom Drugs molecule's tight list at B=48/N=64
+    (drugs_fast.yml) in modes 'full', 'schnet', 'gin' and 'full' with
+    '-approx', each from a generator seeded by the case;
+  * K5 (f32, path A's inputs) and K2 '-approx' (path D''s inputs). --save writes every case's unstamped outputs (and a checksum of
 its inputs) to FILE; --compare reads such a file, from another checkout,
 and prints for each case whether the outputs are torch.equal (and the
 largest difference), the parent-equality check of a kernel redesign that
@@ -174,6 +181,55 @@ def mono_cases(cs, root, dev):
     return out
 
 
+def k1_cases(cs, root, dev):
+    """chip_smoke.py's phase-3 K1 variants: label -> keyword arguments of
+    kernels/stack_packed.packed_stack_forward."""
+    import torch
+
+    from agdiff_torch.config import load_config
+    from agdiff_torch.data.fixture import load_fixture
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.models.tight_forward import build_tight_forward
+    from agdiff_torch.ops.pairs import pair_capacity_for
+    from agdiff_torch.models.weights import init_random
+
+    def model_of(name):
+        cfg = load_config(os.path.join(root, "configs", name)).model
+        return cfg, init_random(DualEncoderEpsNetwork(cfg),
+                                cs.SEED).to(dev).eval()
+
+    qcfg, qmodel = model_of("qm9_fast.yml")
+    dcfg, dmodel = model_of("drugs_fast.yml")
+    mol = load_fixture("drugs_synthetic")[0]
+    out = {}
+    for k, (label, engine) in enumerate((
+            ("K1 triu_B128_N32", "pksf"), ("K1 tight_B48_N64", "tight-pksf"),
+            ("K1 schnet_B48_N64", "tight-pks"),
+            ("K1 gin_B48_N64", "tight-pksg"),
+            ("K1 full_approx_B48_N64", "tight-pksf-approx"))):
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10 + k)
+        if engine == "pksf":
+            fwd = build_fast_forward(qcfg, qmodel, engine)
+            kw, _ = fwd.stack_inputs(cs.random_batch(load_fixture(), 32,
+                                                     cs.CHUNK, gen))
+        else:
+            fwd = build_tight_forward(dcfg, dmodel, engine)
+            batch = cs.random_batch([mol], 64, cs.DRUGS_CHUNK, gen)
+            kw, _ = fwd.stack_inputs(batch, fwd.prepare(
+                batch, pair_capacity_for(mol.num_nodes, 256)))
+        out[label] = dict(kw, mode=fwd.mode, approx=fwd.approx)
+    return out
+
+
+def bits(t):
+    """A float tensor's bit patterns, as integers of its width."""
+    import torch
+
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
 def checksum(args) -> float:
     import torch
 
@@ -203,6 +259,7 @@ def main() -> int:
     from agdiff_torch.kernels import block_packed as k2
     from agdiff_torch.kernels import build, fused
     from agdiff_torch.kernels import monolithic as k6
+    from agdiff_torch.kernels import stack_packed as k1
     from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
     from agdiff_torch.models.fast_forward import build_fast_forward
     from agdiff_torch.models.weights import init_random
@@ -247,6 +304,20 @@ def main() -> int:
     for label, kw in mono_cases(cs, root, dev).items():
         cases[label] = (k6, "mono_forward", None, "mono")
         inputs[label] = ((), kw)
+    # compared and timed, not stamped
+    unstamped = {"K5 f32", "K2 bf16-approx"}
+    for label, mod, name, fwd, var in (
+            ("K5 f32", fused, "gine_aggregate",
+             build_fast_forward(fcfg, fmodel, "pallas"), "gine:f32"),
+            ("K2 bf16-approx", k2, "packed_block_aggregate",
+             build_fast_forward(qcfg, qmodel, "pk-approx"),
+             "packed_block_approx:bf16")):
+        cases[label] = (mod, name, var, None)
+        inputs[label] = cs.capture(fwd, batch, name)
+    for label, kw in k1_cases(cs, root, dev).items():
+        cases[label] = (k1, "packed_stack_forward", None, None)
+        inputs[label] = ((), kw)
+        unstamped.add(label)
 
     def run(label):
         mod, name, _, _ = cases[label]
@@ -254,7 +325,7 @@ def main() -> int:
         out = getattr(mod, name)(*a, **kw)
         return (out,) if isinstance(out, torch.Tensor) else out
 
-    build.build_all(SOURCES)
+    build.build_all(SOURCES + ("stack_packed",))
     outputs, plain_ms = {}, {}
     for label in cases:
         outputs[label] = tuple(t.cpu() for t in run(label))
@@ -272,12 +343,20 @@ def main() -> int:
             ref = other["outputs"][label]
             same = all(torch.equal(a, b) for a, b in zip(outs, ref))
             diff = max(float((a - b).abs().max()) for a, b in zip(outs, ref))
-            row = dict(equal=same, max_abs_diff=diff,
+            # torch.equal takes -0.0 for 0.0: count the zeros whose sign
+            # moved, the one difference a NaN-keeping max may make
+            signs = sum(int(((a == b) & (bits(a) != bits(b))).sum())
+                        for a, b in zip(outs, ref))
+            row = dict(equal=same, max_abs_diff=diff, zero_signs=signs,
                        same_inputs=sums[label] == other["checksums"][label])
             report["compare"][label] = row
             print(f"{label}: torch.equal to {args.compare}: {same} (max "
-                  f"|diff| {diff:.3e}; same inputs {row['same_inputs']})",
-                  flush=True)
+                  f"|diff| {diff:.3e}; zeros of the other sign {signs}; "
+                  f"same inputs {row['same_inputs']})", flush=True)
+    for label in sorted(unstamped):
+        report["kernels"][label] = dict(variant=cases[label][2] or label,
+                                        ms=plain_ms[label])
+        print(f"{label}: {plain_ms[label]:.3f} ms unstamped", flush=True)
     stamped = os.path.join(build.BUILD_DIR, "stamped")
     shutil.rmtree(stamped, ignore_errors=True)
     labels = stamp_sources(build.CSRC, os.path.join(stamped, "csrc"))
@@ -287,6 +366,8 @@ def main() -> int:
     build.build_all(SOURCES)
     n_ph = len(PHASE_NAMES)
     for label, (mod, _, var, libname) in cases.items():
+        if label in unstamped:
+            continue
         lib = build.load(libname)
         lib.stamp_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
         run(label)

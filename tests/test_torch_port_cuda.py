@@ -959,3 +959,209 @@ def test_cuda_capture_failure_raises(card):
     with pytest.raises(RuntimeError):
         sampler(batch, torch.randn(batch.pos.shape, device=card))
     assert sampler.ladders == {}
+
+
+# ---- NaN through the kernels (the sampler's guard) ---------------------------
+# A NaN edge feature (a non-finite distance) must reach the kernel's output
+# as it reaches the plain version's, which is the reference's: a relu, max
+# or clamp that drops it hides a diverging graph from the sampler's guard.
+
+def _same_nan_pattern(got, ref, limits):
+    """The non-finite elements where the plain version has them, the
+    finite ones within `limits` of it."""
+    bad = ~torch.isfinite(ref)
+    assert torch.equal(~torch.isfinite(got), bad)
+    assert bool(bad.any()) and bool((~bad).any())
+    _within_limits(got[~bad], ref[~bad], limits)
+
+
+def _real_pair_slot(pairs, node_mask, g):
+    """A slot of the list whose pair joins two real atoms of graph g."""
+    iu, ju = pairs.iu, pairs.ju
+    if not pairs.shared:
+        iu, ju = iu[g], ju[g]
+    real = node_mask[g]
+    ok = real[iu] & real[ju] & (iu != ju)
+    if pairs.tight:
+        ok[pairs.num_valid:] = False
+    return int(torch.nonzero(ok)[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["triu_B48_N64", "tight_N64", "schnet_N64",
+                                   "gin_N64", "full_approx_N64"])
+def test_cuda_k1_keeps_nan(card, label):
+    """K1 with one real pair's edge features NaN (both planes) in graph
+    1: NaN where the plain version has it (every node and plane of that
+    graph), the rest within the case's limits."""
+    kw, mode, approx, real, limits = _k1_case(card, label)
+    slot = _real_pair_slot(kw["pairs"], real, 1)
+    for key in ("e_packed", "e_packed_local"):
+        kw[key] = kw[key].clone()
+        kw[key][1, slot] = float("nan")
+    got = k1.packed_stack_forward(**kw, mode=mode, approx=approx)
+    ref = k1.packed_stack_forward_plain(**kw, mode=mode, approx=approx)
+    torch.cuda.synchronize()
+    names = {"full": ("global", "local"), "gin": ("h", "hl"),
+             "schnet": ("h",)}[mode]
+    for name, g, r in zip(names, _k1_outputs(got, mode),
+                          _k1_outputs(ref, mode)):
+        if mode != "full":
+            g, r = g[real], r[real]
+        lim = (BF16_MAX, BF16_MEDIAN, BF16_P99) if limits is None \
+            else limits[name]
+        _same_nan_pattern(g, r, lim)
+        assert not bool(torch.isfinite(r if mode != "full" else r[1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper,engine,dtype,kw", [
+    ("interaction_block_aggregate", "pallas", "float32", {}),
+    ("interaction_block_aggregate", "pallas", "bfloat16", {}),
+    ("gine_aggregate", "pallas", "float32", {}),
+    ("pair_score_mlp", "pallas", "float32", dict(pack_pairs=False)),
+    ("pair_score_mlp", "pallas", "bfloat16", dict(pack_pairs=False)),
+    ("packed_block_aggregate", "pk", "bfloat16", {}),
+    ("packed_block_aggregate", "pk-approx", "bfloat16", {})])
+def test_cuda_new_kernels_keep_nan(card, wrapper, engine, dtype, kw):
+    """K3, K5, K4 and K2 with one real pair's edge features NaN in graph
+    1, and for K4 and K5 also one pair off the mask: the plain version's
+    NaN pattern (K4 writes 0 off its mask, as the reference's where does;
+    K5's reference applies the mask after the relu, so a NaN off the mask
+    reaches the sum), the rest within the kernel's limits."""
+    from agdiff_torch.kernels import block_packed as k2
+    from agdiff_torch.kernels import fused
+
+    fwd, batch = _small_forward(card, dtype, engine, **kw)
+    args, akw = _first_call(fwd, batch, wrapper)
+    args = list(args)
+    masked = wrapper in ("pair_score_mlp", "gine_aggregate")
+    at = 1 if masked else 0
+    e = args[at].clone()
+    real = batch.node_mask[1]
+    if wrapper == "packed_block_aggregate":
+        e[1, _real_pair_slot(args[7], batch.node_mask, 1)] = float("nan")
+    elif masked:   # one pair on the mask, one off it, both in real rows
+        mask = args[2]
+        on = torch.nonzero(mask[1] & real[:, None] & real[None, :])[0]
+        off = torch.nonzero(~mask[1] & real[:, None])[0]
+        e[1, on[0], on[1]] = e[1, off[0], off[1]] = float("nan")
+    else:
+        e[1, 0, 1] = e[1, 1, 0] = float("nan")
+    args[at] = e
+    module = k2 if wrapper == "packed_block_aggregate" else fused
+    got = getattr(module, wrapper)(*args, **akw)
+    ref = getattr(module, wrapper + "_plain")(*args, **akw)
+    torch.cuda.synchronize()
+    got, ref = ((t,) if isinstance(t, torch.Tensor) else t
+                for t in (got, ref))
+    limits = NEW_LIMITS[args[0].dtype]
+    for g, r in zip(got, ref):
+        if wrapper == "pair_score_mlp":
+            assert float(g[1, off[0], off[1]]) == 0.0
+            assert bool(torch.isnan(g[1, on[0], on[1]]))
+        elif wrapper == "gine_aggregate":
+            assert bool(torch.isnan(g[1, off[0]]).all())
+        node = batch.node_mask if wrapper != "pair_score_mlp" else \
+            torch.ones_like(g, dtype=torch.bool)
+        _same_nan_pattern(g[node], r[node], limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [("bfloat16", 32), ("float32", 32),
+                                     ("bfloat16", 64)])
+def test_cuda_mono_keeps_nan(card, dtype, n):
+    """K6 with one bonded pair's distance NaN in graph 1 (positions spread
+    6 A, as test_cuda_mono_matches_plain's): that graph's planes carry
+    NaN, as the plain version's do, every other graph keeps the bits it
+    has without the NaN, and cells off the working graph stay 0 (a cell
+    on it but off a plane's mask is that plane's score times 0, NaN for a
+    NaN score, as in the plain version and the reference). K6 walks only
+    the working graph's pairs, so NaN x 0 terms of the pairs off it,
+    which the plain version (and the reference) sum, do not reach it:
+    the pattern inside graph 1 may be narrower, the graph is flagged all
+    the same."""
+    from agdiff_torch.kernels import monolithic as k6
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
+
+    h = 128 if n == 64 else 64
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=h, dtype=dtype,
+                              smooth_conv=n == 64,
+                              num_convs=2 if h == 64 else 6,
+                              num_convs_local=2 if h == 64 else 4)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    fwd = build_monolithic_forward(cfg, model)
+    mols = [m for m in (load_fixture() if n <= 40 else
+                        load_fixture("drugs_synthetic")[:1])
+            if m.num_nodes <= n]
+    batch = pad_molecules([mols[i % len(mols)] for i in range(4)], n,
+                          device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    batch = batch.replace(pos=6.0 * torch.randn(
+        batch.pos.shape, generator=gen, device=card)
+        * batch.node_mask[..., None])
+    kw, _ = fwd.kernel_inputs(batch)
+    clean = k6.mono_forward(**kw)
+    kw["dp"] = kw["dp"].clone()
+    kw["dp"][1, int(torch.nonzero(kw["lm"][1] > 0)[0])] = float("nan")
+    got = k6.mono_forward(**kw)
+    ref = k6.mono_forward_plain(**kw)
+    torch.cuda.synchronize()
+    off = (kw["em"] == 0) & (kw["lm"] == 0)
+    for g, c, r in zip(got, clean, ref):
+        flagged = [bool((~torch.isfinite(t)).flatten(1).any(1)[k])
+                   for t in (g, r) for k in range(4)]
+        assert flagged[:4] == flagged[4:] == [False, True, False, False]
+        for k in (0, 2, 3):
+            assert torch.equal(g[k], c[k])
+        assert not bool(g[off].nan_to_num(1.0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,n", [("pksf", 32), ("tight-pksf", 64),
+                                      ("mono", 32)])
+def test_cuda_ladder_flags_a_diverged_graph(card, engine, n):
+    """One atom of graph 1 far out (1e30 A: its distances overflow to
+    inf, as a diverging ladder's do): the forward's planes are non-finite
+    in graph 1 only, on the card as on the CPU (the plain versions), and
+    a 4-step ladder flags graph 1 only."""
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig, \
+        build_fast_sampler
+
+    cfg = dataclasses.replace(ModelConfig(), num_convs=2, num_convs_local=2,
+                              dtype="bfloat16", smooth_conv=n == 64)
+    mols = (load_fixture() if n == 32 else load_fixture("drugs_synthetic"))
+    mols = [mols[0]] * 4 if engine.startswith("tight") else \
+        [mols[i % len(mols)] for i in range(4)]
+
+    def forward(dev):
+        m = init_random(DualEncoderEpsNetwork(cfg), 0).to(dev).eval()
+        if engine == "mono":
+            return build_monolithic_forward(cfg, m)
+        build = build_tight_forward if engine.startswith("tight") else \
+            build_fast_forward
+        return build(cfg, m, engine)
+
+    flags = []
+    for dev in (card, torch.device("cpu")):
+        batch = pad_molecules(mols, n, device=dev)
+        pos = batch.pos.clone()
+        pos[1, 0] = 1e30
+        batch = batch.replace(pos=pos)
+        fwd = forward(dev)
+        out = fwd(batch)
+        planes = (out.edge_inv_global, out.edge_inv_local)
+        flags.append([bool((~torch.isfinite(torch.stack(planes, 1)))
+                           .flatten(1).any(1)[k]) for k in range(4)])
+        sampler = build_fast_sampler(
+            fwd, make_diffusion(cfg), SamplerConfig(n_steps=4, w_global=0.3),
+            pair_capacity=(pair_capacity_for(mols[0].num_nodes, 256)
+                           if engine.startswith("tight") else None),
+            graph=False)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        res = sampler(batch, pos, generator=gen)
+        flags.append(res.nan_flags.cpu().tolist())
+    assert flags[0] == flags[2] == [False, True, False, False]
+    assert flags[1] == flags[3] == [False, True, False, False]

@@ -149,9 +149,9 @@ def test_entry_points_need_a_device_or_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of agdiff_torch, the CLI under cli/ among
-    them, loads neither jax nor agdiff_tpu, and no source names them in an
-    import."""
+    """Importing every module of agdiff_torch, the CLIs under cli/ and
+    the COV/MAT modules among them, loads neither jax nor agdiff_tpu, and
+    no source names them in an import."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
         "for m in pkgutil.walk_packages(agdiff_torch.__path__, "
@@ -160,7 +160,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'agdiff_tpu')]\n"
         "bad += [m for m in ('agdiff_torch.cli.generate', "
-        "'agdiff_torch.cli._common') if m not in sys.modules]\n"
+        "'agdiff_torch.cli._common', 'agdiff_torch.cli.eval_covmat', "
+        "'agdiff_torch.chem.rmsd', 'agdiff_torch.chem.native_rmsd', "
+        "'agdiff_torch.eval.covmat', 'agdiff_torch.eval.covmat_linear') "
+        "if m not in sys.modules]\n"
         "print(len(list(pkgutil.walk_packages(agdiff_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
