@@ -1,67 +1,82 @@
-"""Shared CLI plumbing (port of agdiff_tpu/cli/_common.py:58-104 and of
-agdiff_tpu/utils/logging.py::get_logger): a reference .pt checkpoint ->
-(config, module), and a logger to the console and <log_dir>/log.txt."""
+"""Shared CLI plumbing (port of agdiff_tpu/cli/_common.py:58-104): a log
+dir, checkpoint directory or reference .pt -> (config, module), and the
+logger of utils/logging.py."""
 
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 from agdiff_torch.config import Config
+from agdiff_torch.utils.logging import get_logger
+
+__all__ = ["get_logger", "load_inference_bundle", "resolve_checkpoint"]
 
 
-def get_logger(name: str, log_dir: Optional[str] = None) -> logging.Logger:
-    """The logger `name`, to the console and to <log_dir>/log.txt: a file
-    of an earlier call with another log_dir is closed, so that each run
-    of a process writes its own directory's log only."""
-    logger = logging.getLogger(name)
-    logger.setLevel(logging.DEBUG)
-    logger.propagate = False  # no duplicate lines through the root logger
-    formatter = logging.Formatter(
-        "[%(asctime)s::%(name)s::%(levelname)s] %(message)s")
-    if not any(type(h) is logging.StreamHandler for h in logger.handlers):
-        stream = logging.StreamHandler()
-        stream.setFormatter(formatter)
-        logger.addHandler(stream)
-    path = os.path.abspath(os.path.join(log_dir, "log.txt")) if log_dir \
-        else None
-    for h in [h for h in logger.handlers
-              if isinstance(h, logging.FileHandler)
-              and h.baseFilename != path]:
-        logger.removeHandler(h)
-        h.close()
-    if path and not any(isinstance(h, logging.FileHandler)
-                        for h in logger.handlers):
-        os.makedirs(log_dir, exist_ok=True)
-        fh = logging.FileHandler(path)
-        fh.setFormatter(formatter)
-        logger.addHandler(fh)
-    return logger
+def resolve_checkpoint(ckpt: str, ckpt_iter: Optional[int] = None
+                       ) -> Tuple[str, int]:
+    """A log dir (its checkpoint `ckpt_iter`, or the latest) or a path
+    (a checkpoint directory or a reference .pt, iteration 0) -> (path,
+    iteration)."""
+    from agdiff_torch.train.checkpoint import latest_checkpoint
+
+    if os.path.isdir(os.path.join(ckpt, "checkpoints")):
+        return latest_checkpoint(ckpt, ckpt_iter)
+    return ckpt, 0
 
 
-def load_inference_bundle(ckpt: str, dtype: Optional[str] = None,
-                          logger=None):
-    """A reference .pt checkpoint -> (Config, module in eval mode on the
-    CPU). The model config travels in the checkpoint (reference:
-    scripts/test.py:111); `dtype` overrides its compute dtype (bf16
-    sampling of an f32-trained model). The JAX package's own checkpoint
-    directories (orbax) and the EMA shadow are not read by the port
-    (ROADMAP.md, queue 1)."""
+def load_inference_bundle(ckpt: str, ckpt_iter: Optional[int] = None,
+                          dtype: Optional[str] = None, logger=None,
+                          use_ema: bool = False):
+    """A port log dir, a port checkpoint directory (train/checkpoint.py)
+    or a reference .pt -> (Config, module in eval mode on the CPU,
+    checkpoint path, iteration). The model config travels in the
+    checkpoint (reference: scripts/test.py:111); `dtype` overrides its
+    compute dtype (bf16 sampling of an f32-trained model). use_ema samples
+    with the EMA shadow's parameters and the raw running statistics, as
+    the JAX CLI does. The JAX package's orbax directories raise
+    (train/checkpoint.py)."""
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
     from agdiff_torch.models.reference_checkpoint import (
         load_reference_checkpoint,
     )
+    from agdiff_torch.train.checkpoint import load_checkpoint
 
-    if not ckpt.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{ckpt}: the port reads reference .pt checkpoints; the JAX "
-            f"package's checkpoint directories wait for the port of its "
-            f"checkpoint module (ROADMAP.md, queue 1)")
-    model, model_config = load_reference_checkpoint(ckpt)
-    if logger:
-        logger.info("imported reference torch checkpoint %s", ckpt)
+    path, it = resolve_checkpoint(ckpt, ckpt_iter)
+    if path.endswith((".pt", ".pth")):
+        if use_ema:
+            raise ValueError("--ema is not available for reference .pt "
+                             "checkpoints (no EMA shadow)")
+        model, model_config = load_reference_checkpoint(path)
+        config = Config(model=model_config)
+        if logger:
+            logger.info("imported reference torch checkpoint %s", path)
+    elif os.path.isdir(path):
+        state = load_checkpoint(path)
+        config = state["config"]
+        model = DualEncoderEpsNetwork(config.model)
+        model.load_state_dict(state["module"])
+        if use_ema:
+            if state.get("ema") is None:
+                raise ValueError(
+                    f"--ema requested but {path} has no EMA shadow (train "
+                    f"with train.ema_decay > 0)")
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(state["ema"][name])
+            if logger:
+                logger.info("sampling with the EMA weights")
+        if logger:
+            logger.info("loaded checkpoint %s (iteration %d)", path, it)
+    else:
+        raise FileNotFoundError(
+            f"{ckpt}: neither a log dir, a checkpoint directory nor a "
+            f"reference .pt")
     if dtype:
-        model_config = dataclasses.replace(model_config, dtype=dtype)
-        model.config = model_config
-    return Config(model=model_config), model
+        config = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, dtype=dtype))
+        model.config = config.model
+    return config, model.eval(), path, it

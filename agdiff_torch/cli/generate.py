@@ -2,15 +2,18 @@
 scripts/test.py).
 
 Usage:
-  python -m agdiff_torch.cli.generate model.pt (--test_set test.npz |
+  python -m agdiff_torch.cli.generate (model.pt | <log_dir> [--ckpt_iter N]
+      [--ema] | <log_dir>/checkpoints/<N>) (--test_set test.npz |
       --synthetic 8 [--synthetic_heavy 20]) --fast --engine mono \
       [--out_dir samples] [--start_idx 0 --end_idx 200] [--num_confs 2x] \
       [--n_steps 5000] [--ladder strided --sampling_type generalized \
       --eta 0 --solver heun] [--denoise_tail 10] [--device cpu]
 
-The checkpoint is a reference .pt; its model config travels in it
-(reference: test.py:111), and the sampling hyperparameters are flags
-(test.py:40-75 defaults). Samples go to <out_dir>/samples_<i>.npz, one per
+The checkpoint is a log dir of cli/train.py (its latest checkpoint, or
+--ckpt_iter's), one of its checkpoint directories, or a reference .pt; the
+model config travels in it (reference: test.py:111), and the sampling
+hyperparameters are flags (test.py:40-75 defaults). --ema samples with the
+EMA shadow's parameters and the raw running statistics. Samples go to <out_dir>/samples_<i>.npz, one per
 molecule as it is done (a rerun skips those that exist unless
 --no_resume), and samples_all.npz at the end, in the JAX package's format.
 --fast samples with the folded engines (the runner's choice, or
@@ -40,7 +43,15 @@ ENGINE_CHOICES = (["xla"] + [e for e in TRIU_ENGINES
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("ckpt", help="reference .pt checkpoint")
+    ap.add_argument("ckpt", help="log dir of cli/train.py, one of its "
+                                 "checkpoint directories, or a reference "
+                                 ".pt checkpoint")
+    ap.add_argument("--ckpt_iter", type=int, default=None,
+                    help="the log dir's checkpoint of this iteration "
+                         "(default: the latest)")
+    ap.add_argument("--ema", action="store_true",
+                    help="sample with the EMA shadow weights (a run "
+                         "trained with train.ema_decay > 0)")
     ap.add_argument("--out_dir", default=None)
     ap.add_argument("--test_set", default=None,
                     help=".npz test set (chem/mol.save_molecules format); "
@@ -108,7 +119,11 @@ def main(argv=None):
     if not args.synthetic and not args.test_set:
         ap.error("--test_set is required without --synthetic")
 
-    from agdiff_torch.cli._common import get_logger, load_inference_bundle
+    from agdiff_torch.cli._common import (
+        get_logger,
+        load_inference_bundle,
+        resolve_checkpoint,
+    )
     from agdiff_torch.data.dataset import PackedConformationDataset
     from agdiff_torch.eval.generate import (
         GenerationRunner,
@@ -117,12 +132,14 @@ def main(argv=None):
     from agdiff_torch.models.schedules import make_diffusion
     from agdiff_torch.sampling.langevin import SamplerConfig
 
+    ckpt_path, it = resolve_checkpoint(args.ckpt, args.ckpt_iter)
     out_dir = args.out_dir or os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(args.ckpt))) or ".",
-        "samples_0")
+        os.path.dirname(os.path.dirname(os.path.abspath(ckpt_path))) or ".",
+        f"samples_{it}")
     logger = get_logger("generate", out_dir)
-    logger.info("checkpoint: %s -> out: %s", args.ckpt, out_dir)
-    config, model = load_inference_bundle(args.ckpt, args.dtype, logger)
+    logger.info("checkpoint: %s -> out: %s", ckpt_path, out_dir)
+    config, model, _, _ = load_inference_bundle(
+        args.ckpt, args.ckpt_iter, args.dtype, logger, use_ema=args.ema)
     if args.synthetic:
         from agdiff_torch.data.synthetic import heavy_range, synthetic_dataset
 

@@ -7,7 +7,7 @@ are padded to N and B molecules of one bucket are collated densely.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,3 +73,12 @@ def repeat_molecule(mol: Molecule, num_repeats: int, max_nodes: int,
     """One molecule replicated num_repeats times (the generation pattern)."""
     return pad_molecules([mol] * num_repeats, max_nodes, edge_order,
                          device=device)
+
+
+def group_by_bucket(mols: List[Molecule],
+                    buckets: Sequence[int]) -> Dict[int, List[int]]:
+    """Molecule indices grouped by their bucket size, in index order."""
+    groups: Dict[int, List[int]] = {}
+    for idx, m in enumerate(mols):
+        groups.setdefault(pick_bucket(m.num_nodes, buckets), []).append(idx)
+    return groups

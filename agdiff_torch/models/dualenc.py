@@ -1,28 +1,50 @@
-"""DualEncoderEpsNetwork, dense eval forward (port of
+"""DualEncoderEpsNetwork, the dense module forward (port of
 agdiff_tpu/models/dualenc.py).
 
 This module path is the numerical anchor of the port: it runs in float32
 whatever `config.dtype` says (the dtype selects the fast engine's compute
 type, models/fast_forward.py) and is held against the JAX module's
-`apply(..., train=False)` by tests/test_torch_port_model.py. Submodule and
-parameter names follow the flax scopes, so models/weights.py maps a JAX
-variables tree onto it one to one.
+`apply(..., train=False)` by tests/test_torch_port_model.py, and in train
+mode against `apply(..., train=True, mutable=["batch_stats"])` and its
+gradients by tests/test_torch_port_train.py. Submodule and parameter names
+follow the flax scopes, so models/weights.py maps a JAX variables tree
+onto it one to one.
+
+`train=True` normalises with batch statistics and moves the running ones
+(nn/common.py::MaskedBatchNorm); the default, False, leaves them as they
+are, so no generation path depends on the module's training flag.
+`config.packed_pairs` puts every per-edge tensor on the bucket's N(N-1)/2
+unordered pairs and mirrors the two score planes back to (B, N, N)
+(agdiff_tpu/models/dualenc.py:104-120); `config.remat` recomputes both
+encoders in backward (torch.utils.checkpoint), the running statistics
+moving once per forward.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from agdiff_torch.config import ModelConfig
 from agdiff_torch.data.graph_batch import GraphBatch
+from agdiff_torch.nn.common import frozen_running_stats
 from agdiff_torch.nn.edge_encoders import MLPEdgeEncoder
 from agdiff_torch.nn.gin import GINEncoder
 from agdiff_torch.nn.mlp import MultiLayerPerceptron
 from agdiff_torch.nn.schnet import SchNetEncoder
 from agdiff_torch.ops.graph import working_graph
+from agdiff_torch.ops.pairs import (
+    PairList,
+    gather_endpoints,
+    mirror_plane,
+    pack_plane,
+    triu_pairs,
+)
 
 
 class ModelOutput(NamedTuple):
@@ -55,36 +77,75 @@ class DualEncoderEpsNetwork(nn.Module):
         self.grad_local_dist_mlp = MultiLayerPerceptron(
             2 * h, (h, h // 2, 1), cfg.mlp_act)
 
-    def forward(self, batch: GraphBatch, *, extend_order: bool = False,
+    def forward(self, batch: GraphBatch, *, train: bool = False,
+                extend_order: bool = False,
                 extend_radius: bool = True) -> ModelOutput:
-        """extend_order extends the bond adjacency here (it is normally
-        extended on the host); extend_radius=False takes the bond graph
-        alone (agdiff_tpu/models/dualenc.py:66-95)."""
+        """train: batch statistics, running ones moved (see the module
+        docstring); extend_order extends the bond adjacency here (it is
+        normally extended on the host); extend_radius=False takes the bond
+        graph alone (agdiff_tpu/models/dualenc.py:66-95)."""
         cfg = self.config
         node_mask = batch.node_mask
         dist, edge_mask, edge_type, local_mask = working_graph(
             batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
             extend_radius=extend_radius)
-        edge_length = dist[..., None]
-        e_global = self.edge_encoder_global(edge_length, edge_type)
+        pairs = None
+        if cfg.packed_pairs:
+            pairs = _triu(dist.shape[-1], dist.device)
+            edge_length = pack_plane(dist, pairs)[..., None]
+            em_in = pack_plane(edge_mask, pairs)
+            lm_in = pack_plane(local_mask, pairs)
+            et_in = pack_plane(edge_type, pairs)
+        else:
+            edge_length = dist[..., None]
+            em_in, lm_in, et_in = edge_mask, local_mask, edge_type
+        e_global = self.edge_encoder_global(edge_length, et_in)
         e_local = (e_global if cfg.tie_edge_encoders
-                   else self.edge_encoder_local(edge_length, edge_type))
+                   else self.edge_encoder_local(edge_length, et_in))
 
-        h = self.encoder_global(batch.atom_type, node_mask, edge_mask,
-                                edge_length, e_global)
-        inv_global = self.grad_global_dist_mlp(_pair_feature(h, e_global))
-        hl = self.encoder_local(batch.atom_type, node_mask, local_mask,
-                                e_local)
-        inv_local = self.grad_local_dist_mlp(_pair_feature(hl, e_local))
+        h = self._encode(self.encoder_global, batch.atom_type, node_mask,
+                         em_in, edge_length, e_global, train, pairs)
+        inv_global = self.grad_global_dist_mlp(
+            _pair_feature(h, e_global, pairs), train)[..., 0]
+        hl = self._encode(self.encoder_local, batch.atom_type, node_mask,
+                          lm_in, e_local, train, pairs)
+        inv_local = self.grad_local_dist_mlp(
+            _pair_feature(hl, e_local, pairs), train)[..., 0]
+        if pairs is not None:
+            # the diagonal gets pair 0's value, as in the dense path's
+            # h_i * h_i diagonal: every consumer masks it
+            inv_global = mirror_plane(inv_global, pairs)
+            inv_local = mirror_plane(inv_local, pairs)
         return ModelOutput(
-            edge_inv_global=inv_global[..., 0],
-            edge_inv_local=inv_local[..., 0],
+            edge_inv_global=inv_global,
+            edge_inv_local=inv_local,
             edge_mask=edge_mask, edge_type=edge_type, edge_length=dist,
             local_mask=local_mask,
         )
 
+    def _encode(self, encoder, *args):
+        """encoder(*args), recomputed in backward under config.remat (the
+        recomputation normalises as the forward did and leaves the running
+        statistics alone)."""
+        if not (self.config.remat and torch.is_grad_enabled()):
+            return encoder(*args)
+        return checkpoint(encoder, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_running_stats()))
 
-def _pair_feature(node_attr, edge_attr):
-    """concat(h_i * h_j, e_ij) over the dense pair block."""
-    prod = node_attr[:, :, None, :] * node_attr[:, None, :, :]
+
+@functools.lru_cache(maxsize=8)
+def _triu(n: int, device) -> PairList:
+    """The bucket's triu pair list, built on the host once per size."""
+    return triu_pairs(n, device)
+
+
+def _pair_feature(node_attr, edge_attr, pairs=None):
+    """concat(h_i * h_j, e_ij) over the dense pair block, or over the
+    pairs of a packed layout."""
+    if pairs is not None:
+        hi, hj = gather_endpoints(node_attr, pairs)
+        prod = hi * hj
+    else:
+        prod = node_attr[:, :, None, :] * node_attr[:, None, :, :]
     return torch.cat([prod, edge_attr], dim=-1)

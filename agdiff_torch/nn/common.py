@@ -1,4 +1,4 @@
-"""Shared building blocks (port of agdiff_tpu/nn/common.py, eval path).
+"""Shared building blocks (port of agdiff_tpu/nn/common.py).
 
 Layers are torch.nn.Linear (weight (out, in)); the weight bridge
 (models/weights.py) transposes flax kernels (in, out) into them.
@@ -6,11 +6,14 @@ Layers are torch.nn.Linear (weight (out, in)); the weight bridge
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from agdiff_torch.ops import masked
 
 LN2 = math.log(2.0)
 
@@ -44,19 +47,53 @@ class ShiftedSoftplus(nn.Module):
         return shifted_softplus(x, self.beta)
 
 
-class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the real nodes of a (B, N, C) block:
-    (x - mean) * (rsqrt(var + eps) * weight) + bias, zero on padded rows."""
+_FROZEN = [0]
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorm inside this context normalises with the batch
+    statistics but leaves the running statistics alone: a recomputation
+    in backward (torch.utils.checkpoint) must not update them a second
+    time, as under flax's functional nn.remat."""
+    _FROZEN[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN[0] -= 1
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over the real nodes of a (B, N, C) block, zero on padded
+    rows. `train` is passed explicitly, as in the JAX module (default
+    False: the generation paths never touch the running statistics):
+    train mode normalises with the f32 batch statistics over the whole
+    block (biased variance) and moves the running statistics with momentum
+    0.1 (unbiased variance, count / max(count - 1, 1)); eval mode uses the
+    running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x, mask):
-        inv = torch.rsqrt(self.running_var + self.eps)
-        y = (x - self.running_mean) * (inv * self.weight) + self.bias
+    def forward(self, x, mask, train: bool = False):
+        if train:
+            mean, var, count = masked.masked_batch_norm_stats(
+                x.float(), mask)
+            if not _FROZEN[0]:
+                with torch.no_grad():
+                    # (1 - m) * old + m * new, as a lerp: fewer launches
+                    unbiased = var * (count / torch.clamp(count - 1.0,
+                                                          min=1.0))
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(unbiased, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - mean) * (inv * self.weight) + self.bias
         return torch.where(mask[..., None], y, torch.zeros_like(y))

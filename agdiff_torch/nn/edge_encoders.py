@@ -10,6 +10,7 @@ it, as the JAX engines do).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from agdiff_torch.nn.common import gelu
@@ -35,7 +36,10 @@ class MLPEdgeEncoder(nn.Module):
 
     def forward(self, edge_length, edge_type):
         expanded = gelu(self.feature_expansion(edge_length))
-        bond = self.bond_emb.weight[edge_type]
+        # F.embedding: its backward sums a row's many uses by segments,
+        # where indexing's backward serialises them (training's largest
+        # cost on a card)
+        bond = F.embedding(edge_type, self.bond_emb.weight)
         x = gelu(self.edge_feature_mlp_0(torch.cat([expanded, bond], -1)))
         x = self.edge_feature_mlp_1(x)
         y = gelu(self.combination_mlp_0(torch.cat([x, bond], -1)))

@@ -1,13 +1,17 @@
-"""Local GIN encoder over the bond graph, dense masked eval form (port of
-agdiff_tpu/nn/gin.py)."""
+"""Local GIN encoder over the bond graph, dense masked form (port of
+agdiff_tpu/nn/gin.py). With `pairs` (the `packed_pairs` train layout)
+edge_attr is (B, P, H) and local_mask (B, P), and the message act(x_j +
+e_p) goes to endpoint i, act(x_i + e_p) to j (agdiff_tpu/nn/gin.py:40-54)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from agdiff_torch.nn.common import MaskedBatchNorm, activation_by_name
 from agdiff_torch.nn.mlp import MultiLayerPerceptron
+from agdiff_torch.ops.pairs import gather_endpoints, scatter_add_endpoints
 
 
 class GINEConv(nn.Module):
@@ -18,10 +22,18 @@ class GINEConv(nn.Module):
         self.act = activation_by_name(activation)
         self.nn = MultiLayerPerceptron(hidden, (hidden, hidden), activation)
 
-    def forward(self, x, local_mask, edge_attr):
-        msg = self.act(x[:, None, :, :] + edge_attr)
-        agg = torch.einsum("bij,bijh->bih", local_mask.to(msg.dtype), msg)
-        return self.nn(x + agg)
+    def forward(self, x, local_mask, edge_attr, train: bool = False,
+                pairs=None):
+        if pairs is not None:
+            xi, xj = gather_endpoints(x, pairs)
+            lm = local_mask[..., None].to(x.dtype)
+            agg = scatter_add_endpoints(self.act(xj + edge_attr) * lm,
+                                        self.act(xi + edge_attr) * lm, pairs)
+        else:
+            msg = self.act(x[:, None, :, :] + edge_attr)
+            agg = torch.einsum("bij,bijh->bih", local_mask.to(msg.dtype),
+                               msg)
+        return self.nn(x + agg, train)
 
 
 class GINEncoder(nn.Module):
@@ -38,11 +50,14 @@ class GINEncoder(nn.Module):
             self.add_module(f"convs_{i}", GINEConv(hidden, activation))
             self.add_module(f"batch_norms_{i}", MaskedBatchNorm(hidden))
 
-    def forward(self, z, node_mask, local_mask, edge_attr):
-        h = self.node_emb.weight[z]
+    def forward(self, z, node_mask, local_mask, edge_attr,
+                train: bool = False, pairs=None):
+        h = F.embedding(z, self.node_emb.weight)
         for i in range(self.num_convs):
-            hidden = getattr(self, f"convs_{i}")(h, local_mask, edge_attr)
-            hidden = getattr(self, f"batch_norms_{i}")(hidden, node_mask)
+            hidden = getattr(self, f"convs_{i}")(h, local_mask, edge_attr,
+                                                 train, pairs)
+            hidden = getattr(self, f"batch_norms_{i}")(hidden, node_mask,
+                                                       train)
             if i < self.num_convs - 1:
                 hidden = self.act(hidden)
             h = hidden + h

@@ -1,10 +1,11 @@
 """Dense MLP (port of agdiff_tpu/nn/mlp.py): activation between layers,
-never after the last."""
+never after the last; dropout after the activation in train mode only."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import torch
 from torch import nn
 
 from agdiff_torch.nn.common import activation_by_name
@@ -12,17 +13,24 @@ from agdiff_torch.nn.common import activation_by_name
 
 class MultiLayerPerceptron(nn.Module):
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         self.act = activation_by_name(activation)
+        self.dropout = dropout
         self.num_layers = len(hidden_dims)
         for i, dim in enumerate(hidden_dims):
             self.add_module(f"layers_{i}", nn.Linear(in_dim, dim))
             in_dim = dim
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         for i in range(self.num_layers):
             x = getattr(self, f"layers_{i}")(x)
             if i < self.num_layers - 1:
                 x = self.act(x)
+                if train and self.dropout > 0.0:
+                    keep = 1.0 - self.dropout
+                    u = torch.rand(x.shape, generator=generator,
+                                   device=x.device)
+                    x = torch.where(u < keep, x / keep, torch.zeros_like(x))
         return x

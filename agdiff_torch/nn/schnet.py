@@ -1,5 +1,8 @@
-"""Global SchNet-style encoder, dense masked eval form (port of
-agdiff_tpu/nn/schnet.py)."""
+"""Global SchNet-style encoder, dense masked form (port of
+agdiff_tpu/nn/schnet.py). With `pairs` (a shared triu PairList, the
+`packed_pairs` train layout) the per-edge tensors are (B, P[, C]) on the
+unordered pairs and the aggregation runs over endpoint selectors
+(agdiff_tpu/nn/schnet.py:100-108)."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import torch
 from torch import nn
 
 from agdiff_torch.nn.common import MaskedBatchNorm, ShiftedSoftplus
+from agdiff_torch.ops.pairs import gather_endpoints, scatter_add_endpoints
 
 
 def envelope(d, cutoff: float, smooth: bool):
@@ -51,16 +55,21 @@ class CFConv(nn.Module):
         self.lin2 = nn.Linear(num_filters, hidden)
         self.norm2 = MaskedBatchNorm(hidden)
 
-    def forward(self, x, node_mask, edge_mask, edge_length, edge_attr):
+    def forward(self, x, node_mask, edge_mask, edge_length, edge_attr,
+                train: bool = False, pairs=None):
         combined = (self.distance_weighting(edge_length)
                     * envelope(edge_length, self.cutoff, self.smooth))
         w = self.filter_1(self.filter_act(self.filter_0(edge_attr)))
         w = w * combined
         h = torch.nn.functional.leaky_relu(
-            self.norm1(self.lin1(x), node_mask), 0.2)
+            self.norm1(self.lin1(x), node_mask, train), 0.2)
         w = torch.where(edge_mask[..., None], w, torch.zeros_like(w))
-        out = torch.einsum("bijf,bjf->bif", w, h)
-        return self.norm2(self.lin2(out), node_mask)
+        if pairs is not None:
+            hi, hj = gather_endpoints(h, pairs)
+            out = scatter_add_endpoints(w * hj, w * hi, pairs)
+        else:
+            out = torch.einsum("bijf,bjf->bif", w, h)
+        return self.norm2(self.lin2(out), node_mask, train)
 
 
 class InteractionBlock(nn.Module):
@@ -77,9 +86,12 @@ class InteractionBlock(nn.Module):
         self.attention_0 = nn.Linear(hidden, hidden // 2)
         self.attention_1 = nn.Linear(hidden // 2, 1)
 
-    def forward(self, x, node_mask, edge_mask, edge_length, edge_attr):
-        p1 = self.conv1(x, node_mask, edge_mask, edge_length, edge_attr)
-        p2 = self.conv2(x, node_mask, edge_mask, edge_length, edge_attr)
+    def forward(self, x, node_mask, edge_mask, edge_length, edge_attr,
+                train: bool = False, pairs=None):
+        p1 = self.conv1(x, node_mask, edge_mask, edge_length, edge_attr,
+                        train, pairs)
+        p2 = self.conv2(x, node_mask, edge_mask, edge_length, edge_attr,
+                        train, pairs)
         combined = self.lin(self.act(torch.cat([p1, p2], dim=-1)))
         gate = torch.sigmoid(self.attention_1(
             torch.relu(self.attention_0(combined))))
@@ -101,7 +113,7 @@ class AdaptiveScalingModule(nn.Module):
 def embed_max_norm(table, ids, max_norm: Optional[float]):
     """Embedding lookup with torch's max_norm renormalisation applied at
     lookup (functionally; the table is not modified)."""
-    e = table[ids]
+    e = torch.nn.functional.embedding(ids, table)
     if max_norm is not None:
         norm = torch.linalg.vector_norm(e, dim=-1, keepdim=True)
         e = e * torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
@@ -122,10 +134,11 @@ class SchNetEncoder(nn.Module):
             self.add_module(f"scaling_modules_{i}",
                             AdaptiveScalingModule(hidden))
 
-    def forward(self, z, node_mask, edge_mask, edge_length, edge_attr):
+    def forward(self, z, node_mask, edge_mask, edge_length, edge_attr,
+                train: bool = False, pairs=None):
         h = embed_max_norm(self.embedding.weight, z, self.embedding_max_norm)
         for i in range(self.num_interactions):
             out = getattr(self, f"interactions_{i}")(
-                h, node_mask, edge_mask, edge_length, edge_attr)
+                h, node_mask, edge_mask, edge_length, edge_attr, train, pairs)
             h = h + getattr(self, f"scaling_modules_{i}")(out)
         return h

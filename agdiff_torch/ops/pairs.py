@@ -221,3 +221,33 @@ def mirror_features(e, pairs: PairList):
     b, _, c = e.shape
     n = pairs.num_nodes
     return e[:, pairs.slot].reshape(b, n, n, c)
+
+
+def _selectors(pairs: PairList, dtype):
+    """The (P, N) 0/1 endpoint selectors of a shared list."""
+    n = pairs.num_nodes
+    return (torch.nn.functional.one_hot(pairs.iu, n).to(dtype),
+            torch.nn.functional.one_hot(pairs.ju, n).to(dtype))
+
+
+def gather_endpoints(x, pairs: PairList):
+    """(B, N, F) node rows -> ((B, P, F) at endpoint i, (B, P, F) at j) of
+    a shared list (agdiff_tpu/ops/pairs.py:70-72), through the endpoint
+    selectors: the rows exactly, and a backward that sums each node's
+    pairs in a product. (On a card the backward of x[:, iu], PyTorch's
+    indexing_backward_kernel, put a train step's gradients 1e-4 of their
+    scale off the dense layout's; this one stays within 5e-6.)"""
+    oh_i, oh_j = _selectors(pairs, x.dtype)
+    return (torch.einsum("pn,bnf->bpf", oh_i, x),
+            torch.einsum("pn,bnf->bpf", oh_j, x))
+
+
+def scatter_add_endpoints(msg_i, msg_j, pairs: PairList):
+    """Per-pair messages summed onto their endpoints, (B, P, F) x 2 ->
+    (B, N, F): msg_i lands on endpoint i, msg_j on endpoint j. Through the
+    endpoint selectors, as the JAX package sums them (agdiff_tpu/ops/
+    pairs.py:75-81): a product, with no atomics, so the sum and its
+    gradient repeat bit for bit."""
+    oh_i, oh_j = _selectors(pairs, msg_i.dtype)
+    return (torch.einsum("bpf,pn->bnf", msg_i, oh_i)
+            + torch.einsum("bpf,pn->bnf", msg_j, oh_j))

@@ -1,0 +1,139 @@
+"""Training and evaluation steps (port of agdiff_tpu/train/train_step.py:
+29-192; reference: scripts/train.py:117-187).
+
+A step samples antithetic timesteps and the noise from the state's
+generator (or takes them from the caller, as the parity tests do),
+perturbs the positions, runs the dense module in train mode (batch
+statistics; the running ones move once), takes the loss and its
+gradients, clips them and steps the two Adams (train/optimizer.py), then
+moves the EMA shadow. Every step is eager PyTorch on the module path: the
+TPU package computes training in XLA, outside any Pallas kernel, and so
+does this one outside the hand kernels.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from agdiff_torch.config import Config
+from agdiff_torch.data.graph_batch import GraphBatch
+from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+from agdiff_torch.models.loss import (
+    diffusion_loss,
+    perturb_positions,
+    sample_timesteps,
+)
+from agdiff_torch.models.schedules import make_diffusion
+from agdiff_torch.models.weights import init_like_jax
+from agdiff_torch.train.optimizer import TwoAdams, make_optimizer
+
+
+@dataclass
+class TrainState:
+    step: int
+    module: DualEncoderEpsNetwork
+    optimizer: TwoAdams
+    generator: torch.Generator      # timesteps and noise, on the device
+    ema: Optional[Dict[str, torch.Tensor]] = None  # shadow of the params
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    loss_global: torch.Tensor
+    loss_local: torch.Tensor
+    grad_norm: torch.Tensor
+
+
+def ema_copy(module) -> Dict[str, torch.Tensor]:
+    """A copy of the parameters (never an alias: the shadow moves on its
+    own)."""
+    return {n: p.detach().clone() for n, p in module.named_parameters()}
+
+
+def create_train_state(config: Config, device, seed: Optional[int] = None
+                       ) -> TrainState:
+    """A model drawn by init_like_jax from a CPU generator seeded with
+    `seed` (config.train.seed by default), moved to `device`, its
+    optimizer, the step generator on the device (seeded likewise) and,
+    when config.train.ema_decay > 0, the EMA shadow."""
+    seed = config.train.seed if seed is None else seed
+    device = torch.device(device)
+    module = init_like_jax(DualEncoderEpsNetwork(config.model),
+                           torch.Generator().manual_seed(seed)).to(device)
+    return TrainState(
+        step=0, module=module, optimizer=make_optimizer(module, config.train),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        ema=ema_copy(module) if config.train.ema_decay > 0 else None)
+
+
+class TrainStep:
+    """(state, batch[, t, noise]) -> StepMetrics, updating the state in
+    place; `t` (B,) and `noise` (B, N, 3) replace the generator's draws."""
+
+    def __init__(self, config: Config, device):
+        diffusion = make_diffusion(config.model)
+        self.alphas = torch.as_tensor(diffusion.alphas, device=device)
+        self.num_timesteps = diffusion.num_timesteps
+        self.cutoff = config.model.cutoff
+        self.ema_decay = config.train.ema_decay
+
+    def draws(self, state: TrainState, batch: GraphBatch, t=None,
+              noise=None):
+        if t is None:
+            t = sample_timesteps(state.generator, batch.num_graphs,
+                                 self.num_timesteps, batch.pos.device)
+        return perturb_positions(batch, self.alphas, t, noise,
+                                 state.generator)
+
+    def loss(self, state: TrainState, batch: GraphBatch, t=None, noise=None,
+             train: bool = True):
+        pos_p, a = self.draws(state, batch, t, noise)
+        out = state.module(batch.replace(pos=pos_p), train=train)
+        return diffusion_loss(out, batch, pos_p, a, self.cutoff)
+
+    def __call__(self, state: TrainState, batch: GraphBatch, t=None,
+                 noise=None) -> StepMetrics:
+        lo = self.loss(state, batch, t, noise)
+        state.optimizer.zero_grad()
+        lo.loss.backward()
+        grad_norm = state.optimizer.step()
+        if state.ema is not None:
+            d = self.ema_decay
+            with torch.no_grad():
+                ema = list(state.ema.values())
+                params = [p for _, p in state.module.named_parameters()]
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, params, alpha=1.0 - d)
+        state.step += 1
+        return StepMetrics(lo.loss.detach(), lo.loss_global.detach(),
+                           lo.loss_local.detach(), grad_norm)
+
+
+def make_train_step(config: Config, device) -> TrainStep:
+    return TrainStep(config, device)
+
+
+class EvalStep:
+    """Validation (train.py:160-187): the running statistics, no update;
+    returns the node-weighted sums of the loss terms and the node count
+    (agdiff_tpu/train/train_step.py:165-192)."""
+
+    def __init__(self, config: Config, device):
+        self.step = TrainStep(config, device)
+
+    @torch.no_grad()
+    def __call__(self, state: TrainState, batch: GraphBatch, t=None,
+                 noise=None) -> Dict[str, torch.Tensor]:
+        lo = self.step.loss(state, batch, t, noise, train=False)
+        count = torch.sum((batch.node_mask
+                           & batch.graph_mask[:, None]).float())
+        return {"sum_loss": lo.loss * count,
+                "sum_global": lo.loss_global * count,
+                "sum_local": lo.loss_local * count, "count": count}
+
+
+def make_eval_step(config: Config, device) -> EvalStep:
+    return EvalStep(config, device)

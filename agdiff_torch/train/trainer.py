@@ -1,0 +1,234 @@
+"""The training loop (port of agdiff_tpu/train/trainer.py:43-264;
+reference: scripts/train.py:23-260).
+
+An infinite shuffled loader (collated on a background thread, into pinned
+memory on a card), a step an iteration (train.step_chunk groups K
+batches, run as K eager steps: the values of K single steps, where the
+JAX package scans them in one program), metrics every log_freq
+iterations, validation every val_freq iterations and at the last one
+(both plateau controllers step on it: the global Adam's on the global
+loss, the local one's on the local loss), a checkpoint at each validation
+with best-model tracking, and `resume(log_dir, it)`. A checkpoint holds
+the step generator's and the loader's state, so a resumed run continues
+the uninterrupted one's draws: j iterations after a resume from
+checkpoint k equal iterations k + 1 .. k + j of the uninterrupted run
+(bit for bit, on a card under torch.use_deterministic_algorithms).
+
+Refused, each naming the ROADMAP.md item that ports it: bf16 training
+(`model.dtype: bfloat16`) and data parallelism (cli/train.py
+--num_devices); neither falls back to f32 or to one device.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Optional
+
+import torch
+
+from agdiff_torch.config import Config
+from agdiff_torch.data.dataset import (
+    BucketedLoader,
+    ConformationDataset,
+    prefetch,
+)
+from agdiff_torch.data.graph_batch import GraphBatch
+from agdiff_torch.device import resolve_device
+from agdiff_torch.train.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from agdiff_torch.train.optimizer import plateau_init, scheduler_step
+from agdiff_torch.train.train_step import (
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from agdiff_torch.utils.logging import MetricsWriter, get_logger
+
+BF16_REFUSAL = (
+    "training at model.dtype 'bfloat16' is not ported: the port trains in "
+    "float32 (reproducing flax's per-layer compute dtype is ROADMAP.md "
+    "queue 1 item 4a, bf16 training); sample an f32-trained model at bf16 "
+    "with cli/generate.py --dtype bfloat16")
+
+
+def check_trainable(config: Config) -> None:
+    if config.model.dtype != "float32":
+        raise NotImplementedError(BF16_REFUSAL)
+
+
+def to_device(batch: GraphBatch, device) -> GraphBatch:
+    """Copy a (pinned) host batch to the device without blocking."""
+    return GraphBatch(**{k: v.to(device, non_blocking=True)
+                         for k, v in vars(batch).items()})
+
+
+class Trainer:
+    def __init__(self, config: Config, train_set: ConformationDataset,
+                 val_set: Optional[ConformationDataset], log_dir: str,
+                 logger: Optional[logging.Logger] = None, device=None,
+                 log_freq: int = 100):
+        check_trainable(config)
+        self.config = config
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self.logger = logger or get_logger("train", log_dir)
+        self.writer = MetricsWriter(os.path.join(log_dir, "metrics.jsonl"))
+        self.device = resolve_device(device)
+        self.log_freq = log_freq
+
+        buckets = config.buckets
+        needed = train_set.max_num_nodes()
+        if needed > max(buckets):
+            buckets = tuple(sorted(set(buckets) | {needed}))
+        self.train_loader = BucketedLoader(
+            train_set, config.train.batch_size, buckets,
+            edge_order=config.model.edge_order, seed=config.train.seed)
+        self.val_loader = (BucketedLoader(
+            val_set, config.train.batch_size, buckets,
+            edge_order=config.model.edge_order, seed=config.train.seed,
+            shuffle=False, drop_last=False) if val_set is not None else None)
+        self.state: TrainState = create_train_state(config, self.device)
+        self.train_step = make_train_step(config, self.device)
+        self.eval_step = make_eval_step(config, self.device)
+        lr = config.train.optimizer.lr
+        self.plateau_global = plateau_init(lr)
+        self.plateau_local = plateau_init(lr)
+        self.start_iter = 1
+        self.best_val_loss = float("inf")
+        self._losses = []  # every iteration's loss, on the device
+
+    # --- resume (reference: train.py:104-115) ---
+    def resume(self, resume_dir: str, it: Optional[int] = None) -> None:
+        path, iteration = latest_checkpoint(resume_dir, it)
+        self.logger.info("Resuming from: %s (iteration %d)", path, iteration)
+        ckpt = load_checkpoint(path, map_location=self.device)
+        st = self.state
+        st.module.load_state_dict(ckpt["module"])
+        st.optimizer.load_state_dict(ckpt["optimizer"])
+        st.step = int(ckpt["step"])
+        st.generator.set_state(ckpt["generator"].cpu())
+        if st.ema is not None:
+            for name, t in st.ema.items():
+                t.copy_(ckpt["ema"][name])
+        self.train_loader.load_state_dict(ckpt["loader"])
+        self.plateau_global = ckpt["plateau_global"]
+        self.plateau_local = ckpt["plateau_local"]
+        self.best_val_loss = ckpt["avg_val_loss"]
+        self.start_iter = iteration + 1
+        self._apply_lrs()
+
+    def _apply_lrs(self) -> None:
+        self.state.optimizer.set_learning_rates(self.plateau_global.lr,
+                                                self.plateau_local.lr)
+
+    def _payload(self, loader_state) -> dict:
+        st = self.state
+        payload = {"module": st.module.state_dict(),
+                   "optimizer": st.optimizer.state_dict(), "step": st.step,
+                   "generator": st.generator.get_state(),
+                   "loader": loader_state}
+        if st.ema is not None:
+            payload["ema"] = st.ema
+        return payload
+
+    def validate(self, it: int) -> float:
+        assert self.val_loader is not None
+        sums = {"sum_loss": 0.0, "sum_global": 0.0, "sum_local": 0.0,
+                "count": 0.0}
+        for _, batch in self.val_loader.epoch_batches():
+            out = self.eval_step(self.state, batch.to(self.device))
+            for name in sums:
+                sums[name] += float(out[name])
+        count = max(sums["count"], 1.0)
+        avg, avg_global, avg_local = (sums["sum_loss"] / count,
+                                      sums["sum_global"] / count,
+                                      sums["sum_local"] / count)
+        sched = self.config.train.scheduler
+        self.plateau_global = scheduler_step(self.plateau_global,
+                                             avg_global, sched)
+        self.plateau_local = scheduler_step(self.plateau_local, avg_local,
+                                            sched)
+        self._apply_lrs()
+        self.logger.info(
+            "[Validate] Iter %05d | Loss %.6f | Loss(Global) %.6f | "
+            "Loss(Local) %.6f", it, avg, avg_global, avg_local)
+        self.writer.write(it, {"val/loss": avg, "val/loss_global": avg_global,
+                               "val/loss_local": avg_local})
+        return avg
+
+    def _draws(self):
+        """(bucket, batch, loader state after it), forever."""
+        while True:
+            bucket, batch = self.train_loader.next_batch()
+            yield bucket, batch, self.train_loader.state_dict()
+
+    def train(self, max_iters: Optional[int] = None) -> TrainState:
+        cfg = self.config.train
+        max_iters = max_iters or cfg.max_iters
+        chunk = max(1, int(cfg.step_chunk))
+        data = prefetch(self._draws(), size=max(2, 2 * chunk),
+                        pin=self.device.type == "cuda")
+        loader_state = self.train_loader.state_dict()
+        t_start = time.time()
+        try:
+            it = self.start_iter
+            while it <= max_iters:
+                k = min(chunk, max_iters - it + 1)
+                group = [next(data) for _ in range(k)]
+                loader_state = group[-1][2]
+                batches = [to_device(b, self.device) for _, b, _ in group]
+                for batch in batches:
+                    metrics = self.train_step(self.state, batch)
+                    self._losses.append(metrics.loss)
+                prev, it = it, it + k - 1
+                if it // self.log_freq != (prev - 1) // self.log_freq \
+                        or prev == 1:
+                    self._log(it, metrics, t_start)
+                    t_start = time.time()
+                if self.val_loader is not None and (
+                        it // cfg.val_freq != (prev - 1) // cfg.val_freq
+                        or it == max_iters):
+                    avg_val_loss = self.validate(it)
+                    best = avg_val_loss < self.best_val_loss
+                    if best:
+                        self.best_val_loss = avg_val_loss
+                        self.logger.info("New best model saved with loss %f",
+                                         avg_val_loss)
+                    save_checkpoint(self.log_dir, it, self.config,
+                                    self._payload(loader_state),
+                                    self.plateau_global, self.plateau_local,
+                                    avg_val_loss, best=best)
+                it += 1
+        except KeyboardInterrupt:
+            self.logger.info("Terminating...")
+        finally:
+            data.close()
+        return self.state
+
+    @property
+    def losses(self):
+        """Every iteration's loss of this trainer's runs, as floats."""
+        return torch.stack(self._losses).tolist() if self._losses else []
+
+    def _log(self, it: int, metrics, t_start: float) -> None:
+        vals = {"train/loss": float(metrics.loss),
+                "train/loss_global": float(metrics.loss_global),
+                "train/loss_local": float(metrics.loss_local),
+                "train/grad_norm": float(metrics.grad_norm),
+                "train/lr_global": self.plateau_global.lr,
+                "train/lr_local": self.plateau_local.lr}
+        self.logger.info(
+            "[Train] Iter %05d | Loss %.2f | Loss(Global) %.2f | "
+            "Loss(Local) %.2f | Grad %.2f | LR(Global) %.6f | "
+            "LR(Local) %.6f | %.1f it/s", it, vals["train/loss"],
+            vals["train/loss_global"], vals["train/loss_local"],
+            vals["train/grad_norm"], self.plateau_global.lr,
+            self.plateau_local.lr,
+            self.log_freq / max(time.time() - t_start, 1e-9))
+        self.writer.write(it, vals)

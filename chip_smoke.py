@@ -161,7 +161,29 @@ Phases, each of which fails the run:
      samples alone bit for bit, and the whole set packed (other batch
      sizes, another K1 cluster size) within the engine's limit (5% at
      QM9 size, 15% at Drugs size) of the largest coordinate;
-  9. one JSON line lists each kernel variant and its numbers, then the
+  9. training (train/*, cli/train.py) on configs/synthetic_qm9.yml at
+     full width, f32 (TF32 off, asserted), B=64, bucket 32, molecules
+     synthetic_dataset(512, seed=2021) split 0.9 / 0.1: one train step
+     on the card against the same step on the CPU (the same init_like_jax
+     weights, batch, timesteps and noise: the three losses, every
+     gradient leaf, the running statistics, the parameters after the
+     optimizer step, each on its own scale, STEP_LIMITS), with planted
+     faults that must break the limits (BatchNorm in eval mode while
+     training, the unbiased variance normalising, the local loss weight
+     1, ~local dropped from the global mask), and packed_pairs against
+     dense on the card within the same limits; then cli/train.py main
+     (--deterministic): 300 dense iterations (EMA 0.999, checkpoints at
+     200 and 300) whose losses must be finite and whose last 50 must
+     average below the first 50, a resume from checkpoint 200 whose 100
+     iterations must equal the run's bit for bit (parameters, statistics,
+     both Adams, EMA, generator, loader), and 100 packed_pairs
+     iterations; the run's log dir through cli/generate.py main (--ema,
+     4 held-out synthetic molecules, 50 'pksf' steps, K1 launched) and
+     cli/eval_covmat.py (every molecule scored); last, 20 train steps of
+     each layout timed (CUDA events), their peak memory, and profiled
+     (device busy, idle share, the top device operations). One `train`
+     line sums it up;
+ 10. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -2146,6 +2168,499 @@ def run_test_set(qmodel, qcfg, dmodel, dconf, report, dev) -> list:
     return failures
 
 
+# ---- phase 9: training --------------------------------------------------------
+
+TRAIN_CONFIG = "synthetic_qm9.yml"   # hidden 128, 6 + 4 convs, B=64, f32
+TRAIN_MOLECULES = 512   # synthetic_dataset(512, seed=2021), split 0.9 / 0.1
+TRAIN_ITERS = 300
+TRAIN_VAL_FREQ = 200    # validations and checkpoints at 200 and 300
+RESUME_FROM = 200       # 100 resumed iterations against the same of the run
+PACKED_ITERS = 100
+TRAIN_EMA = 0.999
+LOSS_WINDOW = 50        # the last 50 losses' mean below the first 50's
+TRAIN_PROFILE_STEPS = 20
+TRAIN_GEN_MOLS = 4      # held-out: the generation CLI's synthetic seed 7
+TRAIN_GEN_STEPS = 50
+# One train step on the card against the same step on the CPU (f32, the
+# same init_like_jax weights, batch, timesteps and noise; TF32 off), each
+# quantity on its own scale: the three losses relative to themselves;
+# each gradient leaf as shares of max(its max |g|, GRAD_NOISE x the
+# model's largest |g|) (leaves whose true gradient is 0, the biases ahead
+# of a BatchNorm, hold rounding noise only), the worst leaf's max, median
+# and p99; each running statistic as a share of its max; the parameters
+# after the optimizer step: the share of elements whose update differs by
+# more than 1% of the learning rate, among those whose CPU gradient
+# exceeds UPDATE_FLOOR x the largest |g| (Adam's first step moves each
+# element by about lr times the sign of its gradient, so an element whose
+# gradient is rounding noise may move either way). The same limits hold
+# packed_pairs against dense on the card.
+GRAD_NOISE = 1e-3
+UPDATE_FLOOR = 1e-5
+STEP_LIMITS = dict(loss_rel=1e-5, grad_max_rel=1e-3, grad_median_rel=1e-5,
+                   grad_p99_rel=1e-4, stats_max_rel=1e-5,
+                   update_off_share=1e-4)
+TRAIN_FAULTS = ("bn_eval_in_train", "unbiased_normaliser",
+                "local_weight_1", "local_in_global_mask")
+
+
+@contextlib.contextmanager
+def train_fault(name):
+    """A planted fault in the train step: BatchNorm left in eval mode
+    while training; the unbiased variance normalising; the local loss
+    weight 5 made 1; ~local dropped from the global edge mask."""
+    from agdiff_torch.models import loss
+    from agdiff_torch.nn import common
+    from agdiff_torch.ops import masked
+
+    saved = []
+
+    def patch(obj, attr, value):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, value)
+
+    if name == "bn_eval_in_train":
+        real = common.MaskedBatchNorm.forward
+        patch(common.MaskedBatchNorm, "forward",
+              lambda self, x, mask, train=False: real(self, x, mask, False))
+    elif name == "unbiased_normaliser":
+        real = masked.masked_batch_norm_stats
+
+        def unbiased(x, mask):
+            mean, var, count = real(x, mask)
+            return mean, var * count / (count - 1.0), count
+        patch(masked, "masked_batch_norm_stats", unbiased)
+    elif name == "local_weight_1":
+        patch(loss, "LOCAL_WEIGHT", 1.0)
+    elif name == "local_in_global_mask":
+        patch(loss, "global_edge_mask",
+              lambda d, local, em, cutoff: ((d <= cutoff) | local) & em)
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for obj, attr, value in reversed(saved):
+            setattr(obj, attr, value)
+
+
+def train_step_on(config, module, device, batch, t, noise):
+    """One train step of `module` (moved to `device`) on the injected t and
+    noise: (metrics, {name: grad}, {name: buffer}, {name: param before},
+    {name: param after}), all on the CPU."""
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState, make_train_step
+
+    import torch
+
+    module = module.to(device)
+    state = TrainState(step=0, module=module,
+                       optimizer=make_optimizer(module, config.train),
+                       generator=torch.Generator(device=device))
+    before = {n: p.detach().cpu().clone()
+              for n, p in module.named_parameters()}
+    m = make_train_step(config, device)(state, batch.to(device),
+                                        t.to(device), noise.to(device))
+    grads = {n: p.grad.detach().cpu() for n, p in module.named_parameters()}
+    after = {n: p.detach().cpu() for n, p in module.named_parameters()}
+    bufs = {n: b.detach().cpu() for n, b in module.named_buffers()}
+    metrics = {k: float(v) for k, v in m._asdict().items()}
+    return metrics, grads, bufs, before, after
+
+
+def step_errors(got, ref, lr) -> dict:
+    """The card step `got` against the CPU step `ref` (train_step_on's
+    tuples), on the scales STEP_LIMITS names."""
+    import torch
+
+    mg, gg, bg, _, ag = got
+    mr, gr, br, pr, ar = ref
+    loss_rel = max(abs(mg[k] - mr[k]) / abs(mr[k])
+                   for k in ("loss", "loss_global", "loss_local"))
+    top = max(float(g.abs().max()) for g in gr.values())
+    worst = {"grad_max_rel": (0.0, ""), "grad_median_rel": (0.0, ""),
+             "grad_p99_rel": (0.0, "")}
+    for name, g in gr.items():
+        scale = max(float(g.abs().max()), GRAD_NOISE * top)
+        e = errors(gg[name], g, scale=scale)
+        if not e["finite"]:
+            e = dict(max_rel=float("inf"), median_rel=float("inf"),
+                     p99_rel=float("inf"))
+        for key, stat in (("grad_max_rel", "max_rel"),
+                          ("grad_median_rel", "median_rel"),
+                          ("grad_p99_rel", "p99_rel")):
+            if e[stat] >= worst[key][0]:
+                worst[key] = (e[stat], name)
+    stats = max((errors(bg[n], b, scale=max(float(b.abs().max()), 1e-30))
+                 ["max_rel"] for n, b in br.items()), default=0.0)
+    off = total = 0
+    for name, p0 in pr.items():
+        real = gr[name].abs() > UPDATE_FLOOR * top
+        d = ((ag[name] - p0) - (ar[name] - p0)).abs()[real]
+        off += int((~(d <= 0.01 * lr)).sum())
+        total += d.numel()
+    row = dict(loss_rel=loss_rel, stats_max_rel=stats,
+               update_off_share=off / max(total, 1), grad_top=top,
+               loss=mg["loss"], loss_ref=mr["loss"])
+    for key, (v, name) in worst.items():
+        row[key], row[key + "_leaf"] = v, name
+    row["broken"] = [k for k, lim in STEP_LIMITS.items()
+                     if not row[k] <= lim]
+    return row
+
+
+def train_batch(config, mols):
+    """The loader's first batch (bucket 32, B = 64) of the training split,
+    and the injected timesteps and noise."""
+    import torch
+
+    from agdiff_torch.data.dataset import BucketedLoader, ConformationDataset
+    from agdiff_torch.models.loss import sample_timesteps
+
+    loader = BucketedLoader(ConformationDataset(mols),
+                            config.train.batch_size, config.buckets,
+                            edge_order=config.model.edge_order,
+                            seed=config.train.seed)
+    _, batch = loader.next_batch()
+    gen = torch.Generator().manual_seed(SEED)
+    t = sample_timesteps(gen, batch.num_graphs,
+                         config.model.num_diffusion_timesteps)
+    noise = torch.randn(batch.pos.shape, generator=gen)
+    return batch, t, noise
+
+
+def check_train_step(config, mols, dev, report) -> list:
+    """The card step against the CPU step, the planted faults, and the
+    packed_pairs layout against the dense one on the card."""
+    import copy
+
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_like_jax
+
+    failures = []
+    batch, t, noise = train_batch(config, mols)
+    init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                         torch.Generator().manual_seed(config.train.seed))
+    lr = config.train.optimizer.lr
+    t0 = time.time()
+    ref = train_step_on(config, copy.deepcopy(init), torch.device("cpu"),
+                        batch, t, noise)
+    cpu_s = time.time() - t0
+    rows = {"card_vs_cpu": step_errors(
+        train_step_on(config, copy.deepcopy(init), dev, batch, t, noise),
+        ref, lr)}
+    for name in TRAIN_FAULTS:
+        with train_fault(name):
+            rows[f"fault {name}"] = step_errors(train_step_on(
+                config, copy.deepcopy(init), dev, batch, t, noise), ref, lr)
+    packed_cfg = dataclasses.replace(config, model=dataclasses.replace(
+        config.model, packed_pairs=True))
+    dense = train_step_on(config, copy.deepcopy(init), dev, batch, t, noise)
+    packed_init = DualEncoderEpsNetwork(packed_cfg.model)
+    packed_init.load_state_dict(init.state_dict())
+    rows["packed_vs_dense"] = step_errors(train_step_on(
+        packed_cfg, packed_init, dev, batch, t, noise), dense, lr)
+    report["train"]["step_checks"] = rows
+    nodes = int((batch.node_mask & batch.graph_mask[:, None]).sum())
+    print(f"train step: B={batch.num_graphs} N={batch.node_mask.shape[1]} "
+          f"({nodes} real nodes), loss {ref[0]['loss']:.4f} on the CPU "
+          f"({cpu_s:.1f} s), limits {STEP_LIMITS}", flush=True)
+    for label, row in rows.items():
+        print(f"  {label}: loss {row['loss_rel']:.2e}, grads max "
+              f"{row['grad_max_rel']:.2e} ({row['grad_max_rel_leaf']}), "
+              f"median {row['grad_median_rel']:.2e}, p99 "
+              f"{row['grad_p99_rel']:.2e}, stats {row['stats_max_rel']:.2e},"
+              f" updates off {row['update_off_share']:.2e}; broken "
+              f"{row['broken']}", flush=True)
+        fault = label.startswith("fault")
+        if fault and not row["broken"]:
+            failures.append(f"train step: {label} breaks no limit")
+        if not fault and row["broken"]:
+            failures.append(f"train step: {label} breaks {row['broken']}")
+    return failures
+
+
+def profile_train(label, config, mols, dev, report) -> dict:
+    """TRAIN_PROFILE_STEPS steps of a fresh model on one batch: ms per
+    step (CUDA events, after warm-up), peak device memory of a step, and
+    a profile of the steps: device busy (the union of kernel intervals),
+    idle share of the host window, and the device operations that took
+    the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from agdiff_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    batch = train_batch(config, mols)[0].to(dev)
+    state = create_train_state(config, dev)
+    step = make_train_step(config, dev)
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_PROFILE_STEPS):
+        step(state, batch)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_PROFILE_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    row = dict(steps=TRAIN_PROFILE_STEPS, batch=batch.num_graphs,
+               bucket=batch.node_mask.shape[1], ms_per_step=ms,
+               it_per_s=1000.0 / ms, peak_mib=peak / 2 ** 20,
+               peak_over_state_mib=(peak - base) / 2 ** 20, wall_us=wall_us)
+    if spans:
+        busy, last = 0.0, float("-inf")
+        by_name = {}
+        for s, e, name in spans:
+            busy += max(0.0, e - max(s, last))
+            last = max(last, e)
+            by_name[name] = by_name.get(name, 0.0) + (e - s)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        row.update(device_busy_us=busy, idle_share=1.0 - busy / wall_us,
+                   kernels=len(spans),
+                   top=[dict(name=n[:80], us=u) for n, u in top])
+    report["train"]["profiles"][label] = row
+    busy_txt = (f"device busy {row['device_busy_us'] / 1e3:.3f} ms of a "
+                f"{wall_us / 1e3:.3f} ms host window (idle share "
+                f"{row['idle_share']:.3f}), {row['kernels']} kernels"
+                if spans else "the profiler recorded no device kernels: "
+                "device busy not measured")
+    print(f"train profile {label}: {TRAIN_PROFILE_STEPS} steps of "
+          f"B={row['batch']} N={row['bucket']}: {ms:.3f} ms/step "
+          f"({row['it_per_s']:.2f} it/s), peak {row['peak_mib']:.0f} MiB "
+          f"({row['peak_over_state_mib']:.0f} over the state); {busy_txt}",
+          flush=True)
+    for item in row.get("top", []):
+        print(f"  {item['us'] / 1e3:9.3f} ms  {item['name']}", flush=True)
+    return row
+
+
+def write_train_config(path, **changes):
+    """configs/synthetic_qm9.yml with the train section's `changes` and
+    the model section's `packed_pairs` when given."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", TRAIN_CONFIG)) as f:
+        raw = yaml.safe_load(f)
+    packed = changes.pop("packed_pairs", False)
+    raw["train"].update(changes)
+    raw["model"]["packed_pairs"] = packed
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def same_checkpoint(a, b) -> list:
+    """The entries of two checkpoints' state that are not torch.equal."""
+    import torch
+
+    bad = [f"module.{k}" for k in a["module"]
+           if not torch.equal(a["module"][k].cpu(), b["module"][k].cpu())]
+    bad += [f"ema.{k}" for k in a["ema"]
+            if not torch.equal(a["ema"][k].cpu(), b["ema"][k].cpu())]
+    for part, oa in a["optimizer"]["adams"].items():
+        ob = b["optimizer"]["adams"][part]
+        if oa["count"] != ob["count"] or not all(
+                torch.equal(x.cpu(), y.cpu())
+                for x, y in zip(oa["mu"] + oa["nu"], ob["mu"] + ob["nu"])):
+            bad.append(f"optimizer.{part}")
+    if not torch.equal(a["generator"], b["generator"]):
+        bad.append("generator")
+    if a["loader"]["rng"] != b["loader"]["rng"] \
+            or a["loader"]["cursor"] != b["loader"]["cursor"]:
+        bad.append("loader")
+    return bad
+
+
+def run_training(dev, report) -> list:
+    """Phase 9: the card step against the CPU step (and its planted
+    faults, and packed against dense), the Trainer through cli/train.py
+    (dense, then packed_pairs), a resume, the trained checkpoint through
+    cli/generate.py and cli/eval_covmat.py, and a profile of train steps."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from agdiff_torch.cli import generate as gen_cli
+    from agdiff_torch.cli import train as train_cli
+    from agdiff_torch.config import load_config
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.eval.generate import load_samples
+    from agdiff_torch.train.checkpoint import load_checkpoint
+
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("train: float32 products must be full float32 "
+                         "(TF32 off) before the train gate")
+    report["train"] = {"profiles": {}}
+    failures = []
+    config = load_config(os.path.join(ROOT, "configs", TRAIN_CONFIG))
+    mols = synthetic_dataset(TRAIN_MOLECULES, seed=config.train.seed)
+    train_mols = mols[:max(1, int(len(mols) * 0.9))]
+    failures += check_train_step(config, train_mols, dev, report)
+
+    root = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    synth = ["--synthetic", str(TRAIN_MOLECULES), "--deterministic",
+             "--device", str(dev)]
+    dense_cfg = write_train_config(
+        os.path.join(root, "dense.yml"), max_iters=TRAIN_ITERS,
+        val_freq=TRAIN_VAL_FREQ, ema_decay=TRAIN_EMA)
+    try:
+        t0 = time.time()
+        full = train_cli.main([dense_cfg, "--logdir",
+                               os.path.join(root, "logs"), *synth])
+        dense_s = time.time() - t0
+        resumed_dir = os.path.join(root, "resumed")
+        shutil.copytree(full.log_dir, resumed_dir)
+        shutil.rmtree(os.path.join(resumed_dir, "checkpoints",
+                                   str(TRAIN_ITERS)))
+        t0 = time.time()
+        resumed = train_cli.main([resumed_dir, "--resume_iter",
+                                  str(RESUME_FROM), *synth])
+        resume_s = time.time() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = np.asarray(full.losses)
+    first, last = (float(losses[:LOSS_WINDOW].mean()),
+                   float(losses[-LOSS_WINDOW:].mean()))
+    if len(losses) != TRAIN_ITERS or not np.isfinite(losses).all():
+        failures.append(f"train: {len(losses)} losses, finite "
+                        f"{bool(np.isfinite(losses).all())}")
+    if not last < first:
+        failures.append(f"train: the last {LOSS_WINDOW} losses' mean "
+                        f"{last:.4f} is not below the first's {first:.4f}")
+    ckpt = lambda d: load_checkpoint(os.path.join(
+        d, "checkpoints", str(TRAIN_ITERS)))
+    bad = same_checkpoint(ckpt(full.log_dir), ckpt(resumed_dir))
+    same_losses = resumed.losses == full.losses[RESUME_FROM:]
+    if bad or not same_losses:
+        failures.append(f"train resume: iterations {RESUME_FROM + 1}-"
+                        f"{TRAIN_ITERS} differ from the uninterrupted run "
+                        f"(losses equal {same_losses}; {bad[:5]})")
+    report["train"]["dense_run"] = dict(
+        iterations=TRAIN_ITERS, wall_s=dense_s, it_per_s=TRAIN_ITERS / dense_s,
+        loss_first=first, loss_last=last, loss_min=float(losses.min()),
+        resume_wall_s=resume_s, resumed_equal=not bad and same_losses,
+        log_dir=os.path.relpath(full.log_dir, ROOT))
+    print(f"train dense: {TRAIN_ITERS} iterations through cli/train.py in "
+          f"{dense_s:.1f} s ({TRAIN_ITERS / dense_s:.2f} it/s with loader, "
+          f"{TRAIN_ITERS // TRAIN_VAL_FREQ + 1} validations and checkpoints,"
+          f" deterministic algorithms); loss mean of the first "
+          f"{LOSS_WINDOW} {first:.4f}, of the last {last:.4f}; resumed from "
+          f"{RESUME_FROM}: {TRAIN_ITERS - RESUME_FROM} iterations in "
+          f"{resume_s:.1f} s, torch.equal to the run: {not bad} (losses "
+          f"{same_losses})", flush=True)
+
+    packed_cfg = write_train_config(
+        os.path.join(root, "packed.yml"), max_iters=PACKED_ITERS,
+        val_freq=PACKED_ITERS, packed_pairs=True)
+    t0 = time.time()
+    packed = train_cli.main([packed_cfg, "--logdir",
+                             os.path.join(root, "logs_packed"), "--synthetic",
+                             str(TRAIN_MOLECULES), "--device", str(dev)])
+    packed_s = time.time() - t0
+    plosses = np.asarray(packed.losses)
+    if len(plosses) != PACKED_ITERS or not np.isfinite(plosses).all():
+        failures.append(f"train packed: {len(plosses)} losses, finite "
+                        f"{bool(np.isfinite(plosses).all())}")
+    report["train"]["packed_run"] = dict(
+        iterations=PACKED_ITERS, wall_s=packed_s,
+        it_per_s=PACKED_ITERS / packed_s, loss_first=float(plosses[0]),
+        loss_last=float(plosses[-1]))
+    print(f"train packed_pairs: {PACKED_ITERS} iterations in {packed_s:.1f} "
+          f"s ({PACKED_ITERS / packed_s:.2f} it/s with loader), losses "
+          f"finite {bool(np.isfinite(plosses).all())}", flush=True)
+
+    # the trained checkpoint (the EMA shadow) to generated, scored samples
+    out = os.path.join(root, "samples")
+    torch.cuda.synchronize()
+    for c in kernel_counters().values():
+        c.clear()
+    t0 = time.time()
+    gen_cli.main([full.log_dir, "--ema", "--synthetic", str(TRAIN_GEN_MOLS),
+                  "--end_idx", str(TRAIN_GEN_MOLS), "--n_steps",
+                  str(TRAIN_GEN_STEPS), "--fast", "--engine", "pksf",
+                  "--w_global", "0.3", "--out_dir", out, "--no_resume",
+                  "--device", str(dev)])
+    gen_s = time.time() - t0
+    k1_runs = sum(n for k, n in launch_counts().items()
+                  if k.startswith("stack_packed/"))
+    samples = os.path.join(out, "samples_all.npz")
+    done = load_samples(samples)
+    proc = subprocess.run(
+        [sys.executable, "-m", "agdiff_torch.cli.eval_covmat", samples,
+         "--num_workers", "2"], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"eval_covmat exit {proc.returncode}:\n"
+                         f"{proc.stderr[-3000:]}")
+    with np.load(os.path.splitext(samples)[0] + "_covmat.npz") as res:
+        covr, matr, thr = res["CoverageR"], res["MatchingR"], \
+            res["thresholds"]
+    k = int(np.argmin(np.abs(thr - 0.5)))
+    finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in done)
+    gen_row = dict(molecules=len(done), steps=TRAIN_GEN_STEPS, wall_s=gen_s,
+                   k1_launches=k1_runs, finite=finite,
+                   scored=int(covr.shape[0]),
+                   cov_r_at=float(thr[k]), cov_r_mean=float(covr[:, k].mean())
+                   if len(covr) else None,
+                   mat_r_mean=float(matr.mean()) if len(matr) else None)
+    report["train"]["generated"] = gen_row
+    print(f"train -> generate: the EMA weights of iteration {TRAIN_ITERS}, "
+          f"{len(done)} held-out molecules, {TRAIN_GEN_STEPS} 'pksf' steps "
+          f"in {gen_s:.1f} s (K1 launches {k1_runs}), finite {finite}; "
+          f"COV-R at {gen_row['cov_r_at']:.2f} A {gen_row['cov_r_mean']}, "
+          f"MAT-R {gen_row['mat_r_mean']} A ({gen_row['scored']} scored; "
+          f"{TRAIN_ITERS} iterations of training say little of quality)",
+          flush=True)
+    if len(done) != TRAIN_GEN_MOLS or not finite or not k1_runs \
+            or gen_row["scored"] != TRAIN_GEN_MOLS:
+        failures.append(f"train -> generate: {gen_row}")
+
+    for label, cfg in (("dense", config), ("packed", dataclasses.replace(
+            config, model=dataclasses.replace(config.model,
+                                              packed_pairs=True)))):
+        profile_train(label, cfg, train_mols, dev, report)
+    # the checkpoints (tens of MB each) are not kept; the logs are
+    for d, subdirs, _ in os.walk(root):
+        if "checkpoints" in subdirs:
+            shutil.rmtree(os.path.join(d, "checkpoints"))
+    p = report["train"]["profiles"]
+    print(f"train: dense {p['dense']['it_per_s']:.2f} it/s "
+          f"({p['dense']['ms_per_step']:.3f} ms/step, peak "
+          f"{p['dense']['peak_mib']:.0f} MiB), packed "
+          f"{p['packed']['it_per_s']:.2f} it/s "
+          f"({p['packed']['ms_per_step']:.3f} ms/step, peak "
+          f"{p['packed']['peak_mib']:.0f} MiB) at B={p['dense']['batch']} "
+          f"N={p['dense']['bucket']}; loss "
+          f"{first:.3f} -> {last:.3f} over {TRAIN_ITERS} iterations; "
+          f"resume bit for bit {report['train']['dense_run']['resumed_equal']}"
+          f"; generated MAT-R {gen_row['mat_r_mean']} A "
+          f"({report['card']})", flush=True)
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -2562,10 +3077,14 @@ def main() -> int:
     # ---- 8. the test set: generate, then score ------------------------------
     failures += run_test_set(qmodel, qcfg, dmodel, dconf, report, dev)
     phase_done("8 test set")
+
+    # ---- 9. training --------------------------------------------------------
+    failures += run_training(dev, report)
+    phase_done("9 train")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 9. result lines ---------------------------------------------------
+    # ---- 10. result lines --------------------------------------------------
     def entry(name, case, launches):
         c = cases[case]
         return dict(name=name, route="cuda",

@@ -1165,3 +1165,62 @@ def test_cuda_ladder_flags_a_diverged_graph(card, engine, n):
         flags.append(res.nan_flags.cpu().tolist())
     assert flags[0] == flags[2] == [False, True, False, False]
     assert flags[1] == flags[3] == [False, True, False, False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_cuda_train_step_matches_cpu(card, packed):
+    """One train step (train/train_step.py) on the card against the same
+    step on the CPU, at a small width (hidden 32, 2 + 2 convs, B = 8,
+    bucket 32), f32 with TF32 off: the losses to 1e-5 of themselves, each
+    gradient leaf to 2e-4 of max(its largest |g|, 1e-3 x the model's
+    largest), the running statistics to 1e-5 of their largest, and the
+    updates of every element whose gradient exceeds 1e-5 x the largest
+    |g| to 1% of the learning rate (Adam's first step moves an element by
+    about lr times the sign of its gradient)."""
+    import copy
+
+    from agdiff_torch.config import Config, TrainConfig
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.models.loss import sample_timesteps
+    from agdiff_torch.models.weights import init_like_jax
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = Config(model=ModelConfig(hidden_dim=32, num_convs=2,
+                                      num_convs_local=2, packed_pairs=packed),
+                    train=TrainConfig(batch_size=8), buckets=(32,))
+    batch = pad_molecules(synthetic_dataset(8, seed=4), 32)
+    gen = torch.Generator().manual_seed(0)
+    t = sample_timesteps(gen, 8, config.model.num_diffusion_timesteps)
+    noise = torch.randn(batch.pos.shape, generator=gen)
+    init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                         torch.Generator().manual_seed(1))
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        m = copy.deepcopy(init).to(dev)
+        state = TrainState(0, m, make_optimizer(m, config.train),
+                           torch.Generator(device=dev))
+        before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+        metrics = make_train_step(config, dev)(
+            state, batch.to(dev), t.to(dev), noise.to(dev))
+        runs.append((metrics, {n: p.grad.cpu() for n, p in
+                               m.named_parameters()},
+                     {n: b.cpu() for n, b in m.named_buffers()}, before,
+                     {n: p.detach().cpu() for n, p in m.named_parameters()}))
+    (mg, gg, bg, pg, ag), (mr, gr, br, _, ar) = runs
+    for k in ("loss", "loss_global", "loss_local"):
+        assert abs(float(getattr(mg, k)) - float(getattr(mr, k))) <= \
+            1e-5 * abs(float(getattr(mr, k))), k
+    top = max(float(g.abs().max()) for g in gr.values())
+    for name, g in gr.items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        assert float((gg[name] - g).abs().max()) <= 2e-4 * scale, name
+        real = g.abs() > 1e-5 * top
+        du = ((ag[name] - pg[name]) - (ar[name] - pg[name])).abs()[real]
+        assert bool((du <= 0.01 * config.train.optimizer.lr).all()), name
+    for name, b in br.items():
+        assert float((bg[name] - b).abs().max()) <= \
+            1e-5 * float(b.abs().max()), name
