@@ -35,7 +35,8 @@ from agdiff_torch.models.fast_forward import ENGINES as TRIU_ENGINES
 from agdiff_torch.models.tight_forward import ENGINES as TIGHT_ENGINES
 
 # 'xla' is the JAX name of the plain folded forward (engine None); the
-# runner refuses 'pallas' (eval/generate.py)
+# runner refuses 'pallas' (eval/generate.py). A superset of the JAX CLI's
+# list (agdiff_tpu/cli/generate.py:80-87).
 ENGINE_CHOICES = (["xla"] + [e for e in TRIU_ENGINES
                              if e not in (None, "pallas")]
                   + list(TIGHT_ENGINES) + ["mono"])
@@ -104,7 +105,11 @@ def main(argv=None):
                     help="fast-path engine (with --fast): xla = the plain "
                          "f32 folded forward; tight* = pair lists sized to "
                          "the molecule; pks/pksg/pksf = K1; pk = K2; mono "
-                         "= the whole forward as one K6 launch")
+                         "= the whole forward as one K6 launch; approx = "
+                         "polynomial transcendentals; slim/slim8 = bf16/fp8 "
+                         "storage of the largest per-edge buffers, stack = "
+                         "the stacked filters (no hand kernel); -e16 = the "
+                         "edge encoder at bf16")
     ap.add_argument("--fast", action="store_true",
                     help="the folded engines instead of the dense module")
     ap.add_argument("--packed", action="store_true",

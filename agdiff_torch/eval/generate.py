@@ -157,12 +157,14 @@ class GenerationRunner:
         pair list (sampling/langevin.py Sampler), so that together the
         keys hold everything a graph bakes in. A tight engine's capacity
         is the molecule's, and `run` does not come back to a molecule, so
-        a new capacity frees the samplers (and graphs) of the others."""
+        a new capacity frees the samplers (and graphs) of the others,
+        all but the graphs `warm` captured, which stay."""
         key = (engine, retry, capacity)
         if key not in self._samplers:
             if capacity is not None:
                 for k in [k for k in self._samplers if k[:2] == key[:2]]:
-                    self._samplers.pop(k).release()
+                    if not self._samplers[k].release_unpinned():
+                        del self._samplers[k]
             cfg = self.retry_config if retry else self.sampler_config
             self._samplers[key] = (
                 build_sampler(self.model, self.diffusion, cfg,
@@ -171,6 +173,16 @@ class GenerationRunner:
                 build_fast_sampler(self.forward(engine), self.diffusion, cfg,
                                    pair_capacity=capacity, graph=self.graph))
         return self._samplers[key]
+
+    def ladders(self) -> int:
+        """The ladders whose graphs the samplers hold."""
+        return sum(len(s.ladders) for s in list(self._samplers.values()))
+
+    def warmed_pool_bytes(self) -> int:
+        """Device memory of the graph pools `warm` captured."""
+        return sum(s.ladders[k].pool_bytes
+                   for s in list(self._samplers.values())
+                   for k in list(s.pinned))
 
     def num_samples_for(self, mol: Molecule, num_confs="2x") -> int:
         if isinstance(num_confs, int):
@@ -213,10 +225,13 @@ class GenerationRunner:
         clip_local retry's too, with all_sizes=True every batch size
         `_batch_size_for` can give (powers of two from 8 to chunk_size).
         A tight engine's graphs hold the molecule's own pair list, so
-        another molecule of the bucket captures at its first run, which
-        frees the earlier molecule's graphs of that batch size. Returns
+        another molecule of the bucket captures at its first run. Returns
         the (bucket, batch size, retry) ladders newly captured; none on
-        the CPU, which runs the eager loop."""
+        the CPU, which runs the eager loop. The graphs `warm` captures are
+        kept when later molecules capture theirs (Sampler.pinned): a
+        tight engine's warmed graphs serve every molecule of the warmed
+        molecule's atom count and capacity, so a server warms one molecule
+        of each such class (serve/server.py warm_classes)."""
         num_samples = num_samples or self.chunk_size
         bucket = self._bucket_for(mol)
         engine = self._engine_for(bucket)
@@ -363,9 +378,9 @@ class PackedGenerationRunner(GenerationRunner):
     the groups are also by atom count (:604-612): the molecules of a
     chunk then share one tight pair list, which the kernels need, and the
     chunk replays one set of CUDA graphs; each new list's capture frees
-    the last list's graphs (Sampler.release, as per molecule in the base
-    runner). A chunk short of the batch size is padded with its last
-    molecule.
+    the last list's graphs but those `warm` captured (Sampler.release, as
+    per molecule in the base runner). A chunk short of the batch size is
+    padded with its last molecule.
 
     Each slot's start is drawn from a generator of its own, seeded from
     (seed, dataset index, sample index), or from (item_seeds[i][0],

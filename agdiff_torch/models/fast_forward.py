@@ -30,7 +30,30 @@ in one of its modes, and the rest runs here in plain PyTorch:
   K5 at f32 and an f32 einsum at bf16, and the score heads on the packed
   pairs; with pack_pairs=False the edge encoder runs over all N^2 ordered
   pairs and both heads go through K4. It has no '-approx' form, as in the
-  JAX package (:303-304).
+  JAX package (:303-304);
+* 'approx' (f32): the plain f32 forward with ops/approx.py's softplus,
+  sigmoid and gelu (sampling/langevin.py:388-394 of the JAX package);
+* 'slim' (and its alias 'slim2') and 'slim8' (`XlaForward`, bf16): the
+  JAX package's XLA path with narrow storage (fast_forward.py:251-262,
+  :363-385, :463-486): store_dtype bf16 or float8_e4m3fn, filter_dtype
+  the compute dtype. Each filter MLP's output is stored narrow and read
+  back at bf16 before its product with the distance weight, the GIN
+  messages read the local edge features through the narrow store, and
+  the score heads run at bf16 with an f32 last sum. No hand kernel: JAX
+  runs these engines in XLA. float8 follows JAX's rounding (`to_float8`:
+  past 464 in magnitude JAX gives NaN where PyTorch saturates at 448);
+* 'stack' (`XlaForward`, f32; :386-446 of the JAX package): the XLA path
+  with the twelve filter MLPs as one wide first layer and two grouped
+  second layers, each block's two filters aggregated at once;
+* the suffix '-e16' on any engine but 'pallas' (edge_dtype bf16,
+  :349-362): the edge encoder's layers after the f32 length expansion
+  run at bf16.
+
+Where the XLA path in JAX mirrors a per-pair tensor to the dense layout
+and contracts it, the port sums the same products over the pair list's
+endpoints in f32: equal up to summation order for finite values (a
+non-finite filter on a masked cell, which JAX's dense product spreads,
+stays out of the port's sum).
 
 On a card each kernel is the hand-written CUDA kernel; CPU tensors take
 its plain version.
@@ -38,8 +61,9 @@ its plain version.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,32 +98,80 @@ from agdiff_torch.ops.pairs import (
 # dense-layout engine 'pallas'
 KERNEL_MODES = {"pks": "schnet", "pksg": "gin", "pksf": "full",
                 "pk": "blocks"}
-ENGINES = (None, "pallas") + tuple(f"{k}{s}" for k in KERNEL_MODES
-                                   for s in ("", "-approx"))
+# the engines of JAX's XLA path, name -> (mode, store dtype): 'xla' with
+# narrow storage, 'stack' with the stacked filters
+XLA_ENGINES = {"slim": ("xla", torch.bfloat16),
+               "slim2": ("xla", torch.bfloat16),
+               "slim8": ("xla", torch.float8_e4m3fn),
+               "stack": ("stack", None)}
+_BASE = ((None, "pallas") + tuple(f"{k}{s}" for k in KERNEL_MODES
+                                  for s in ("", "-approx"))
+         + ("approx",) + tuple(XLA_ENGINES))
+ENGINES = _BASE + tuple(f"{e}-e16" for e in _BASE if e not in (None,
+                                                                "pallas"))
 
 
-def engine_options(engine: Optional[str]):
-    """(tight, mode, approx) of an engine name: [tight-]pks|pksg|pksf
-    [-approx], pk[-approx], 'pallas', 'tight' or None (the plain f32
-    forward)."""
+class Engine(NamedTuple):
+    """What an engine name asks for (`engine_options`)."""
+
+    tight: bool
+    # None, a K1 mode, 'blocks', 'dense', 'xla' or 'stack'
+    mode: Optional[str]
+    approx: bool
+    store: Optional[torch.dtype] = None   # the slim engines' storage
+    edge: Optional[torch.dtype] = None    # '-e16': the encoder's dtype
+
+
+def engine_options(engine: Optional[str]) -> Engine:
+    """The options of an engine name: [tight-]pks|pksg|pksf[-approx],
+    pk[-approx], 'pallas', [tight-]slim|slim2|slim8, 'stack', 'approx',
+    'tight-approx', 'tight' or None (the plain f32 forward), each but
+    'pallas' with the suffix '-e16' (sampling/langevin.py:374-405 of the
+    JAX package)."""
     name = engine or ""
-    approx = name.endswith("-approx")
-    name = name[:-len("-approx")] if approx else name
+    edge = None
+    if name.endswith("-e16"):
+        edge, name = torch.bfloat16, name[:-len("-e16")]
+    approx = name in ("approx", "tight-approx") or name.endswith("-approx")
+    if approx:
+        name = {"approx": "", "tight-approx": "tight"}.get(
+            name, name[:-len("-approx")])
     if name == "pallas":
-        if approx:
+        if approx or edge is not None:
             # agdiff_tpu/models/fast_forward.py:303-304
             raise ValueError("approx engines use the XLA path "
                              "(use_pallas=False); 'pallas' has no "
-                             "'-approx' form")
-        return False, "dense", False
+                             "'-approx' or '-e16' form here")
+        return Engine(False, "dense", False)
     tight = name == "tight" or name.startswith("tight-")
     name = name[len("tight-"):] if name.startswith("tight-") else (
         "" if name == "tight" else name)
     if name in KERNEL_MODES:
-        return tight, KERNEL_MODES[name], approx
-    if name == "" and not approx:
-        return tight, None, False
+        return Engine(tight, KERNEL_MODES[name], approx, None, edge)
+    if name in XLA_ENGINES:
+        mode, store_dtype = XLA_ENGINES[name]
+        return Engine(tight, mode, approx, store_dtype, edge)
+    if name == "":
+        return Engine(tight, None, approx, None, edge)
     raise ValueError(f"unknown engine {engine!r}")
+
+
+def to_float8(x):
+    """x as float8_e4m3fn with JAX's rounding (ml_dtypes): round to
+    nearest even, and NaN past 464 in magnitude (the last tie, between
+    448 and the NaN code) and for inf, where PyTorch's cast saturates at
+    +-448; elsewhere the two agree bit for bit."""
+    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    bits = torch.where(x.abs() > 464.0, bits | 0x7F, bits)
+    return bits.view(torch.float8_e4m3fn)
+
+
+def store(x, dtype: torch.dtype, cd: torch.dtype):
+    """x stored at `dtype` and read back at the compute dtype cd (the JAX
+    XLA path's astype(store_dtype).astype(compute_dtype))."""
+    if dtype == torch.float8_e4m3fn:
+        return to_float8(x).to(cd)
+    return x.to(dtype).to(cd)
 
 
 def _linear(layer):
@@ -169,20 +241,30 @@ def fold_eval_params(model: DualEncoderEpsNetwork) -> Dict:
     )
 
 
-def edge_encode(ee, edge_length, edge_type, act=gelu):
+def edge_encode(ee, edge_length, edge_type, act=gelu, dtype=None):
     """MLPEdgeEncoder minus the identity softmax attention; the length
-    expansion is elementwise (its Linear has one input)."""
+    expansion is elementwise (its Linear has one input). With `dtype`
+    (engines '-e16') the layers after the expansion, their weights and
+    the bond embedding run at that dtype; the expansion stays f32
+    (fast_forward.py:142-163 of the JAX package)."""
+
+    def linear(layer):
+        k, b = _linear(layer)
+        return (k, b) if dtype is None else (k.to(dtype), b.to(dtype))
+
     k, b = _linear(ee.feature_expansion)
     expanded = act(edge_length * k[0] + b)
     bond = ee.bond_emb.weight.detach()[edge_type]
-    k, b = _linear(ee.edge_feature_mlp_0)
+    if dtype is not None:
+        expanded, bond = expanded.to(dtype), bond.to(dtype)
+    k, b = linear(ee.edge_feature_mlp_0)
     x = act(torch.cat([expanded, bond], dim=-1) @ k + b)
-    k, b = _linear(ee.edge_feature_mlp_1)
+    k, b = linear(ee.edge_feature_mlp_1)
     x = x @ k + b
     y = torch.cat([x, bond], dim=-1)
-    k, b = _linear(ee.combination_mlp_0)
+    k, b = linear(ee.combination_mlp_0)
     y = act(y @ k + b)
-    k, b = _linear(ee.combination_mlp_1)
+    k, b = linear(ee.combination_mlp_1)
     return y @ k + b
 
 
@@ -268,6 +350,30 @@ def gin_tail(layers, hl, e_local, local_mask_p, pairs: PairList, cd):
     return hl
 
 
+def mirrored_output(sg, sl, pairs: PairList, edge_mask, edge_type,
+                    local_mask, dist) -> ModelOutput:
+    """The packed score planes mirrored to dense, zero off their masks."""
+    zero = torch.zeros((), device=dist.device)
+    return ModelOutput(
+        edge_inv_global=torch.where(edge_mask, mirror_plane(sg, pairs),
+                                    zero),
+        edge_inv_local=torch.where(local_mask, mirror_plane(sl, pairs),
+                                   zero),
+        edge_mask=edge_mask, edge_type=edge_type, edge_length=dist,
+        local_mask=local_mask,
+    )
+
+
+def endpoint_sum(t, x, pairs: PairList):
+    """Per pair, t times the node rows at the other endpoint, summed onto
+    each endpoint in f32: (B, P, F), (B, N, F) -> (B, N, F). Pad slots
+    carry t = 0."""
+    out = torch.zeros(x.shape[:2] + t.shape[-1:], device=x.device)
+    scatter_nodes(out, pairs.iu, (t * gather_nodes(x, pairs.ju)).float())
+    return scatter_nodes(out, pairs.ju,
+                         (t * gather_nodes(x, pairs.iu)).float())
+
+
 class FastForward:
     """forward(batch, pairs=None) -> ModelOutput over the bucket's triu
     pair set. mode None runs K1's plain version in mode 'full' (the f32
@@ -281,11 +387,13 @@ class FastForward:
     def __init__(self, config: ModelConfig, model: DualEncoderEpsNetwork,
                  *, mode: Optional[str] = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 approx: bool = False):
+                 approx: bool = False,
+                 edge_dtype: Optional[torch.dtype] = None):
         if mode is not None and mode not in KERNEL_MODES.values():
             raise ValueError(f"mode {mode!r}")
         self.config = config
         self.mode, self.approx = mode, approx
+        self.edge_dtype = edge_dtype   # '-e16': the encoder at bf16
         cd = self.compute_dtype = compute_dtype
         self.act = activation_by_name(config.mlp_act)
         self.gelu = ax.gelu if approx else gelu
@@ -334,11 +442,11 @@ class FastForward:
             extend_radius=extend_radius)
         el_packed = pack_plane(dist, pairs)[..., None]
         type_packed = pack_plane(edge_type, pairs)
-        e_packed = edge_encode(self.ee, el_packed, type_packed,
-                               self.gelu).to(cd)
+        e_packed = edge_encode(self.ee, el_packed, type_packed, self.gelu,
+                               self.edge_dtype).to(cd)
         e_packed_local = (e_packed if self.ee_local is None else
                           edge_encode(self.ee_local, el_packed, type_packed,
-                                      self.gelu).to(cd))
+                                      self.gelu, self.edge_dtype).to(cd))
         h = embed_max_norm(self.schnet_emb, batch.atom_type,
                            cfg.embedding_max_norm)
         # a pad slot's cell can be a valid pair's mirror: AND with valid
@@ -364,7 +472,7 @@ class FastForward:
             extend_radius=extend_radius)
         pairs, cd = kw["pairs"], self.compute_dtype
         if self.mode is None:
-            sg, sl = packed_stack_forward_plain(**kw)
+            sg, sl = packed_stack_forward_plain(**kw, approx=self.approx)
         else:
             res = (self.pk_blocks(kw) if self.mode == "blocks" else
                    packed_stack_forward(**kw, mode=self.mode,
@@ -381,15 +489,8 @@ class FastForward:
                                  pairs, self.act, cd)
                 sl = pair_scores(self.stack.grad_local, hl,
                                  kw["e_packed_local"], pairs, self.act, cd)
-        zero = torch.zeros((), device=dist.device)
-        return ModelOutput(
-            edge_inv_global=torch.where(edge_mask, mirror_plane(sg, pairs),
-                                        zero),
-            edge_inv_local=torch.where(local_mask, mirror_plane(sl, pairs),
-                                       zero),
-            edge_mask=edge_mask, edge_type=edge_type, edge_length=dist,
-            local_mask=local_mask,
-        )
+        return mirrored_output(sg, sl, pairs, edge_mask, edge_type,
+                               local_mask, dist)
 
     def pk_blocks(self, kw):
         """Engine 'pk': the interaction blocks as one K2 launch each on
@@ -404,6 +505,141 @@ class FastForward:
                 kw["pairs"], approx=self.approx)
             h = schnet_block(blk, h, a1, a2, self.softplus, self.sigmoid)
         return h
+
+
+class XlaForward(FastForward):
+    """The JAX package's XLA path over a pair list, no hand kernel
+    (fast_forward.py:363-521, :650-800 of the JAX package, pack_pairs
+    with score_dots): engines 'slim', 'slim2', 'slim8' (compute bf16,
+    store_dtype bf16 or float8, filter_dtype bf16) and 'stack' (f32,
+    stack_filters). Per interaction block each filter MLP runs on the
+    pairs with f32 sums (filter_dtype operands); under store_dtype its
+    output is stored narrow, read back at bf16 and multiplied by the
+    distance weight at bf16, and the messages t * x_j are summed in f32
+    from bf16 operands; the node tail, h and hl stay f32. The GIN layers
+    read the local edge features through the narrow store (`gin_tail`),
+    and the score heads run at the compute dtype (`pair_scores`)."""
+
+    def __init__(self, config: ModelConfig, model: DualEncoderEpsNetwork,
+                 *, compute_dtype: torch.dtype = torch.float32,
+                 store_dtype: Optional[torch.dtype] = None,
+                 stack: bool = False, approx: bool = False,
+                 edge_dtype: Optional[torch.dtype] = None):
+        super().__init__(config, model, compute_dtype=compute_dtype,
+                         approx=approx, edge_dtype=edge_dtype)
+        self.mode = "stack" if stack else "xla"
+        self.store_dtype = store_dtype
+        self.stacked = stacked_filter_params(self.blocks) if stack else None
+
+    def ssp(self, x, beta):
+        return self.softplus(beta * x) - LN2
+
+    def filter(self, conv, e):
+        """A conv's filter MLP on the pairs, f32 (B, P, F): filter_dtype
+        operands (the weights' dtype), f32 sums."""
+        fdt = conv["fa"][0].dtype
+        v = self.ssp(e.to(fdt).float() @ conv["fa"][0].float()
+                     + conv["fa"][1], conv["beta"])
+        return v.to(fdt).float() @ conv["fb"][0].float() + conv["fb"][1]
+
+    def stacked_filters(self, e, we):
+        """All 2*NB filters as one wide first layer and two grouped second
+        layers, times their distance weights (fast_forward.py:407-446 of
+        the JAX package): per block (B, P, F1 + F2) f32."""
+        st, nb = self.stacked, len(self.blocks)
+        fdt, offs = st["fa_k"].dtype, st["offs"]
+        v = self.ssp(e.to(fdt).float() @ st["fa_k"].float() + st["fa_b"],
+                     st["beta"])
+        v1 = torch.stack([v[..., offs[2 * i]:offs[2 * i + 1]]
+                          for i in range(nb)], dim=2).to(fdt).float()
+        v2 = torch.stack([v[..., offs[2 * i + 1]:offs[2 * i + 2]]
+                          for i in range(nb)], dim=2).to(fdt).float()
+        w1 = torch.einsum("bpkh,khf->bpkf", v1, st["fb1_k"].float()) \
+            + st["fb1_b"]
+        w2 = torch.einsum("bpkh,khf->bpkf", v2, st["fb2_k"].float()) \
+            + st["fb2_b"]
+        we = we.permute(1, 2, 0)                       # (B, P, 2 * NB)
+        w1 = w1 * we[:, :, 0::2, None]
+        w2 = w2 * we[:, :, 1::2, None]
+        return [torch.cat([w1[:, :, i], w2[:, :, i]], -1) for i in range(nb)]
+
+    def filter_context(self, kw, dist, edge_type, edge_mask):
+        """What every block's filters share: the stacked filters, or
+        nothing."""
+        if self.stacked is None:
+            return None
+        return self.stacked_filters(kw["e_packed"], kw["we"])
+
+    def block_aggregates(self, k, blk, h, kw, ctx):
+        """Block k's two aggregates (B, N, F) f32, the node tail's inputs."""
+        c1, c2 = blk["convs"]
+        pairs = kw["pairs"]
+        if ctx is not None:
+            x = torch.cat([node_input(c1, h), node_input(c2, h)], -1)
+            a = endpoint_sum(ctx[k], x, pairs)
+            f1 = c1["fb"][0].shape[1]
+            return a[..., :f1], a[..., f1:]
+        return tuple(self.cf_pathway(conv, h, kw["e_packed"],
+                                     kw["we"][2 * k + s], pairs)
+                     for s, conv in enumerate((c1, c2)))
+
+    def cf_pathway(self, conv, h, e, we_k, pairs):
+        """One conv's aggregate (fast_forward.py:463-486 of the JAX
+        package): under store_dtype the filter stored narrow and read
+        back at the compute dtype, times the distance weight at the
+        compute dtype; the messages' products and sums in f32."""
+        x = node_input(conv, h)
+        wp = self.filter(conv, e)
+        sdt, cd = self.store_dtype, self.compute_dtype
+        if sdt is None:
+            return endpoint_sum(wp * we_k[..., None], x, pairs)
+        t = store(wp, sdt, cd) * we_k.to(cd)[..., None]
+        return endpoint_sum(t.float(), x.to(cd).float(), pairs)
+
+    @torch.no_grad()
+    def __call__(self, batch, pairs: Optional[PairList] = None, *,
+                 extend_order: bool = False, extend_radius: bool = True
+                 ) -> ModelOutput:
+        self.calls += 1
+        kw, (edge_mask, edge_type, local_mask, dist) = self.stack_inputs(
+            batch, pairs, extend_order=extend_order,
+            extend_radius=extend_radius)
+        pairs, cd = kw["pairs"], self.compute_dtype
+        ctx = self.filter_context(kw, dist, edge_type, edge_mask)
+        h = kw["h0"]
+        for k, blk in enumerate(self.blocks):
+            a1, a2 = self.block_aggregates(k, blk, h, kw, ctx)
+            h = schnet_block(blk, h, a1, a2, self.softplus, self.sigmoid)
+        e_local = kw["e_packed_local"]
+        if self.store_dtype is not None:
+            e_local = store(e_local, self.store_dtype, cd)
+        hl = gin_tail(self.gin_layers, kw["hl0"], e_local,
+                      kw["local_mask_p"], pairs, cd)
+        sg = pair_scores(self.stack.grad_global, h, kw["e_packed"], pairs,
+                         self.act, cd)
+        sl = pair_scores(self.stack.grad_local, hl, kw["e_packed_local"],
+                         pairs, self.act, cd)
+        return mirrored_output(sg, sl, pairs, edge_mask, edge_type,
+                               local_mask, dist)
+
+
+def stacked_filter_params(blocks) -> Dict:
+    """The filter weights of every conv stacked for `stacked_filters`:
+    first layers side by side (offsets `offs`), second layers of the
+    conv1s and of the conv2s each as one (NB, in, out) tensor."""
+    convs = [conv for blk in blocks for conv in blk["convs"]]
+    widths = [conv["fa"][0].shape[1] for conv in convs]
+    return dict(
+        fa_k=torch.cat([c["fa"][0] for c in convs], 1),
+        fa_b=torch.cat([c["fa"][1] for c in convs]),
+        beta=torch.cat([c["beta"].reshape(1).expand(w)
+                        for c, w in zip(convs, widths)]),
+        offs=[0] + list(np.cumsum(widths)),
+        fb1_k=torch.stack([b["convs"][0]["fb"][0] for b in blocks]),
+        fb1_b=torch.stack([b["convs"][0]["fb"][1] for b in blocks]),
+        fb2_k=torch.stack([b["convs"][1]["fb"][0] for b in blocks]),
+        fb2_b=torch.stack([b["convs"][1]["fb"][1] for b in blocks]),
+    )
 
 
 class PallasForward(FastForward):
@@ -511,20 +747,26 @@ class PallasForward(FastForward):
 def build_fast_forward(config: ModelConfig, model: DualEncoderEpsNetwork,
                        engine: Optional[str] = None,
                        pack_pairs: bool = True) -> FastForward:
-    """The forward of a triu engine (ENGINES): None runs f32, the kernel
-    engines bf16, 'pallas' the config's dtype. pack_pairs=False (engine
-    'pallas' only) runs the edge encoder and the score heads on all N^2
-    ordered pairs, the heads through K4."""
-    _, mode, approx = engine_options(engine)
+    """The forward of a triu engine (ENGINES): None and 'approx' run f32,
+    'stack' f32, the kernel and slim engines bf16, 'pallas' the config's
+    dtype. pack_pairs=False (engine 'pallas' only) runs the edge encoder
+    and the score heads on all N^2 ordered pairs, the heads through K4."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} not in {ENGINES}")
-    if mode == "dense":
+    opts = engine_options(engine)
+    if opts.mode == "dense":
         cd = (torch.bfloat16 if config.dtype == "bfloat16"
               else torch.float32)
         return PallasForward(config, model, compute_dtype=cd,
                              pack_pairs=pack_pairs)
     if not pack_pairs:
         raise ValueError("pack_pairs=False is an option of engine 'pallas'")
-    cd = torch.float32 if mode is None else torch.bfloat16
-    return FastForward(config, model, mode=mode, compute_dtype=cd,
-                       approx=approx)
+    if opts.mode in ("xla", "stack"):
+        cd = torch.float32 if opts.store is None else torch.bfloat16
+        return XlaForward(config, model, compute_dtype=cd,
+                          store_dtype=opts.store,
+                          stack=opts.mode == "stack", approx=opts.approx,
+                          edge_dtype=opts.edge)
+    cd = torch.float32 if opts.mode is None else torch.bfloat16
+    return FastForward(config, model, mode=opts.mode, compute_dtype=cd,
+                       approx=opts.approx, edge_dtype=opts.edge)

@@ -24,9 +24,20 @@ def shifted_softplus(x, beta):
     return F.softplus(beta * x) - LN2
 
 
+# jax.nn.gelu's constants as XLA holds them for a bf16 input
+GELU_C_BF16 = 0.796875          # sqrt(2 / pi) rounded to bf16
+GELU_CUBE_BF16 = 0.044677734375  # 0.044715 rounded to bf16
+
+
 def gelu(x):
-    """jax.nn.gelu's default is the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    """jax.nn.gelu's default, the tanh approximation. A bf16 input (the
+    '-e16' engines' encoder) is evaluated as XLA evaluates it, rounded to
+    bf16 after each operation, with bf16 constants; F.gelu would keep f32
+    inside and round once."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    inner = GELU_C_BF16 * (x + GELU_CUBE_BF16 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def activation_by_name(name: str):

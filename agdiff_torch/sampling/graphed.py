@@ -76,9 +76,14 @@ class LadderGraphs:
     """The captured blocks of one Ladder (its forward, config, batch shape
     and pair list). `captured[(kind, size)]` holds each graph's launches
     and forwards; `capture_s` the seconds warm-up and capture took,
-    `pool_bytes` the device memory the captures reserved."""
+    `pool_bytes` the device memory the captures reserved. `captures`
+    counts the ladders captured in this process (a server checks that
+    none is captured while it answers requests)."""
+
+    captures = 0
 
     def __init__(self, ladder, batch):
+        LadderGraphs.captures += 1
         self.ladder = ladder
         self.key = None if ladder.pairs is None else ladder.pairs.key
         self.shape = tuple(batch.pos.shape)

@@ -349,8 +349,11 @@ class Sampler:
     the eager loop; a capture error raises. A tight list is one
     molecule's, and a runner does not come back to a molecule it has
     done, so the sampler keeps the graphs of one tight list per batch
-    shape: a new list's capture frees the last one's graphs and their
-    memory. The CPU, which has no graphs, runs the eager loop."""
+    shape that `warm` did not capture: a new list's capture frees the last
+    such list's graphs and their memory. Graphs captured by `warm`
+    (`pinned`) stay until `release`: a server warms the classes it serves
+    and replays them for every request. The CPU, which has no graphs,
+    runs the eager loop."""
 
     def __init__(self, forward_fn: Callable, diffusion: Diffusion,
                  config: SamplerConfig, pair_capacity: Optional[int] = None,
@@ -360,6 +363,7 @@ class Sampler:
                                                         diffusion, config)
         self.pair_capacity, self.graph = pair_capacity, graph
         self.ladders: Dict[tuple, LadderGraphs] = {}
+        self.pinned: set = set()   # keys of the graphs `warm` captured
 
     def pairs(self, batch):
         prepare = getattr(self.forward_fn, "prepare", None)
@@ -368,21 +372,25 @@ class Sampler:
     def graphed(self, batch) -> bool:
         return self.graph and batch.pos.device.type == "cuda"
 
-    def _graphs(self, batch, pairs) -> Tuple[LadderGraphs, bool]:
+    def _graphs(self, batch, pairs, pin: bool = False
+                ) -> Tuple[LadderGraphs, bool]:
         """The graphs of this batch shape and pair list, captured if new
-        (and whether they were)."""
+        (and whether they were); pin=True keeps them (`warm`)."""
         key = (tuple(batch.pos.shape), str(batch.pos.device),
                None if pairs is None else pairs.key)
         graphs = self.ladders.get(key)
-        if graphs is not None:
-            return graphs, False
-        if pairs is not None and pairs.tight:
-            self.release([k for k, g in self.ladders.items()
-                          if k[:2] == key[:2] and g.ladder.pairs.tight])
-        ladder = Ladder(self.forward_fn, batch, self.diffusion, self.config,
-                        pairs)
-        graphs = self.ladders[key] = LadderGraphs(ladder, batch)
-        return graphs, True
+        new = graphs is None
+        if new:
+            if pairs is not None and pairs.tight:
+                self.release([k for k, g in self.ladders.items()
+                              if k[:2] == key[:2] and g.ladder.pairs.tight
+                              and k not in self.pinned])
+            ladder = Ladder(self.forward_fn, batch, self.diffusion,
+                            self.config, pairs)
+            graphs = self.ladders[key] = LadderGraphs(ladder, batch)
+        if pin:
+            self.pinned.add(key)
+        return graphs, new
 
     def release(self, keys=None) -> None:
         """Drop the graphs of `keys` (default: all) and give their memory
@@ -390,16 +398,23 @@ class Sampler:
         keys = list(self.ladders) if keys is None else keys
         for k in keys:
             del self.ladders[k]
+            self.pinned.discard(k)
         if keys:
             torch.cuda.empty_cache()
 
+    def release_unpinned(self) -> bool:
+        """Drop the graphs `warm` did not capture; True when graphs `warm`
+        captured are left."""
+        self.release([k for k in self.ladders if k not in self.pinned])
+        return bool(self.pinned)
+
     def warm(self, batch) -> bool:
         """Capture the graphs a run on this batch's shape and pair list
-        replays; False when they exist already or the sampler runs
-        eagerly."""
+        replays and keep them (`pinned`); False when they exist already
+        or the sampler runs eagerly."""
         if not self.graphed(batch):
             return False
-        return self._graphs(batch, self.pairs(batch))[1]
+        return self._graphs(batch, self.pairs(batch), pin=True)[1]
 
     @torch.no_grad()
     def __call__(self, batch, pos_init, generator=None,

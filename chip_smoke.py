@@ -159,7 +159,7 @@ Phases, each of which fails the run:
      agree to 1e-9; with strided DDIM at eta 0 (8 steps) and item seeds,
      a molecule packed with another at its own batch size gives its
      samples alone bit for bit, and the whole set packed (other batch
-     sizes, another K1 cluster size) within the engine's limit (5% at
+     sizes) within the engine's limit (5% at
      QM9 size, 15% at Drugs size) of the largest coordinate;
   9. training (train/*, cli/train.py) on configs/synthetic_qm9.yml at
      full width, f32 (TF32 off, asserted), B=64, bucket 32, molecules
@@ -183,7 +183,37 @@ Phases, each of which fails the run:
      each layout timed (CUDA events), their peak memory, and profiled
      (device busy, idle share, the top device operations). One `train`
      line sums it up;
- 10. one JSON line lists each kernel variant and its numbers, then the
+ 10. the generation server (serve/server.py, cli/serve.py) and the
+     engines of JAX's XLA path: (a) a QM9 server in this process
+     (GenerationService.serve on a thread, qm9_fast.yml, 'pksf',
+     PackedGenerationRunner, chunk 64, merging within 0.5 s, max_nodes
+     32, a 50-step strided DDIM ladder at eta 0 with clip_local 20 and
+     w_global 0.3), warmed for the QM9 fixtures' sizes at every batch
+     size with the retry's ladders; six concurrent requests of two
+     molecules x 8 conformers: every reply ok, at least two merged, K1's
+     launches equal to the forwards and no other kernel, no ladder
+     captured during requests, each merged request against its
+     "batch": false run bit for bit where the chunk's batch size is the
+     same (two one-chunk requests), and the merged replies equal to the
+     packed runner's run of the same set bit for bit; across batch sizes
+     the same set run directly at 2, 8 and 50 steps, within 5% of the
+     largest coordinate after 2 (later steps printed); a Drugs molecule
+     rejected as over capacity while the request merged with it is
+     answered; a saved request scored by "evaluate"; request latency
+     p50 and max, conformers/s, warm-up seconds, the warmed pools' MiB
+     and the peak reserved memory printed; (b) a Drugs server
+     ('tight-pksf', bucket 64) warmed for the 50- and 56-atom fixtures,
+     requests alternating between them, alone and merged, with no
+     capture; (c) `python -m agdiff_torch.cli.serve` in a subprocess on
+     phase 5b's reference .pt, answering `--submit` ping, generate and
+     shutdown and exiting 0; (d) 'slim', 'slim8', 'approx', 'pksf-e16'
+     and 'stack' (f32) on QM9 and 'tight-slim', 'tight-slim8',
+     'tight-approx', 'tight-pksf-e16' at Drugs size, each against the
+     f32 engine (5%, 15% at Drugs size, 2e-4 for 'stack'; the slim8
+     engines beside their plain CPU runs) and through GenerationRunner
+     for 20 steps: K1's launches equal to the forwards on the '-e16' K1
+     engines, no hand kernel on the others, positions finite;
+ 11. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -625,8 +655,8 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
         got = runner._engine_for(runner._bucket_for(m))
         if got != engine:
             raise SystemExit(f"{label}: engine {got!r}, expected {engine!r}")
-    tight, mode, approx = engine_options(engine)
-    name = k1.variant(mode, approx, tight)
+    opts = engine_options(engine)
+    name = k1.variant(opts.mode, opts.approx, opts.tight)
     fwd = runner.forward(engine)
     torch.cuda.synchronize()
     for c in kernel_counters().values():
@@ -2033,8 +2063,8 @@ def packed_against_alone(label, runner_of, mols, tol, report) -> list:
     """Strided DDIM at eta 0 (no noise), item seeds: molecule 0 with
     molecule 1's samples (4 + 4 slots: the batch size of molecule 0
     alone, 4 slots, both 8) gives its samples alone bit for bit; the
-    whole set packed (6 samples each: other batch sizes, hence another
-    K1 cluster size R) gives each molecule's samples alone within `tol`
+    whole set packed (6 samples each: other batch sizes) gives each
+    molecule's samples alone within `tol`
     (the engine's limit against f32: 5% at QM9 size, 15% at Drugs size)
     of their largest coordinate. Samples the guard zeroed (all 0) are
     counted; every molecule needs some that are not."""
@@ -2661,6 +2691,606 @@ def run_training(dev, report) -> list:
     return failures
 
 
+# ---- phase 10: the generation server ---------------------------------------
+
+# the servers' ladder: strided DDIM at eta 0 (noise-free, so a merged
+# request can be held against its solo run), clip_local 20 and w_global
+# 0.3 (bench.py's settings for random weights), SERVE_STEPS steps
+SERVE_STEPS = 50
+SERVE_WINDOW = 0.5      # s: requests merged within it (--batch_window)
+SERVE_CHUNK = 64        # the CLI's default chunk
+SERVE_CONFS = 8         # conformers a molecule a request
+SERVE_REQUESTS = 6      # concurrent QM9 requests of two molecules each
+# merged against alone across batch sizes, from a server's replies after
+# GROWTH_STEPS steps: a forward at another batch size differs in the last
+# bits (not through K1's R: at R = 1 for every size the reading is the
+# same) and the random-weight ladder multiplies that ~10x a step (4.4e-7,
+# 9.9e-2, 1.81 of the largest coordinate after 2, 8, 50 steps on the
+# H100, PERF.md); the limit lies between that (0.099) and a request given
+# another request's seeds (0.99)
+GROWTH_STEPS = DDIM_STEPS
+GROWTH_LIMIT = 0.3
+ENGINE_STEPS = 20       # each Part B engine through GenerationRunner
+# the engines of JAX's XLA path (no hand kernel) and the '-e16' forms:
+# (label, engine, config key, tolerance against f32)
+PHASE10_ENGINES = (
+    ("slim", "slim", "qm9", 0.05), ("slim8", "slim8", "qm9", 0.05),
+    ("approx", "approx", "qm9", 0.05), ("pksf-e16", "pksf-e16", "qm9", 0.05),
+    ("stack", "stack", "qm9_f32", F32_ENGINE_TOL),
+    ("tight-slim", "tight-slim", "drugs", DRUGS_ENGINE_TOL),
+    ("tight-slim8", "tight-slim8", "drugs", DRUGS_ENGINE_TOL),
+    ("tight-approx", "tight-approx", "drugs", DRUGS_ENGINE_TOL),
+    ("tight-pksf-e16", "tight-pksf-e16", "drugs", DRUGS_ENGINE_TOL))
+
+
+def serve_ladder(n_steps=None):
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    return SamplerConfig(n_steps=n_steps or SERVE_STEPS, ladder="strided",
+                         sampling_type="generalized", eta=0.0,
+                         clip_local=20.0, w_global=0.3)
+
+
+def start_service(runner, max_nodes):
+    """GenerationService.serve on a daemon thread, merging within
+    SERVE_WINDOW: (service, port, thread)."""
+    import threading
+
+    from agdiff_torch.serve.server import GenerationService
+
+    svc = GenerationService(runner, batch_window_s=SERVE_WINDOW,
+                            max_nodes=max_nodes)
+    box, ready = [], threading.Event()
+    thread = threading.Thread(target=svc.serve, daemon=True, kwargs=dict(
+        port=0, ready_callback=lambda p: (box.append(p), ready.set())))
+    thread.start()
+    if not ready.wait(60):
+        raise SystemExit("serve: the server did not start")
+    return svc, box[0], thread
+
+
+def stop_service(runner, port, thread):
+    """Shut the server down and give its graphs' memory back."""
+    import torch
+
+    from agdiff_torch.serve.server import submit
+
+    reply = submit({"cmd": "shutdown"}, port=port, timeout=60)
+    thread.join(timeout=120)
+    for s in runner._samplers.values():
+        s.release()
+    torch.cuda.empty_cache()
+    return reply.get("shutdown") is True and not thread.is_alive()
+
+
+def burst(port, requests):
+    """Each request from its own client thread at once: [(reply, latency
+    s)] in the requests' order, and the burst's wall seconds."""
+    import threading
+
+    from agdiff_torch.serve.server import submit
+
+    out = [None] * len(requests)
+
+    def client(i):
+        t0 = time.time()
+        out[i] = (submit(requests[i], port=port, timeout=600),
+                  time.time() - t0)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(requests))]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, time.time() - t0
+
+
+def device_counts(fwd):
+    """(launches by kernel variant, forwards run, ladders captured) since
+    the counters were last set to 0."""
+    from agdiff_torch.sampling.graphed import LadderGraphs
+
+    return launch_counts(), fwd.calls, LadderGraphs.captures
+
+
+def zero_counts():
+    for c in kernel_counters().values():
+        c.clear()
+
+
+def serve_qm9(qmodel, qcfg, qmols, dmols, dev, report) -> list:
+    """(a) A QM9 server in this process: PackedGenerationRunner on
+    qm9_fast.yml ('pksf'), warmed for the fixture molecules' sizes at
+    every batch size with the retry's ladders; SERVE_REQUESTS concurrent
+    requests of two molecules x SERVE_CONFS conformers; each merged
+    request against its "batch": false run; a molecule above max_nodes
+    rejected while the request merged with it is answered; a saved
+    request scored by "evaluate"."""
+    import numpy as np
+    import torch
+
+    from agdiff_torch.chem.mol import save_molecules
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.serve.server import submit
+
+    root = os.path.join(OUT_DIR, "serve")
+    os.makedirs(root, exist_ok=True)
+    sets = []
+    for k in range(2):
+        path = os.path.join(root, f"qm9_{k}.npz")
+        save_molecules(path, qmols[2 * k:2 * k + 2])
+        sets.append(path)
+    over_set = os.path.join(root, "drugs_one.npz")
+    save_molecules(over_set, dmols[:1])
+    runner = PackedGenerationRunner(
+        qmodel, qcfg, make_diffusion(qcfg), serve_ladder(), buckets=(32,),
+        chunk_size=SERVE_CHUNK, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    svc, port, thread = start_service(runner, max_nodes=32)
+    t0 = time.time()
+    warm = submit({"cmd": "warm", "retry": True,
+                   "nodes": sorted({m.num_nodes for m in qmols})},
+                  port=port, timeout=600)
+    warm_s = time.time() - t0
+    pools = runner.warmed_pool_bytes()
+    fwd = runner.forward("pksf")
+
+    def request(i, **kw):
+        return {"cmd": "generate", "test_set": sets[i % 2],
+                "num_confs": SERVE_CONFS, "seed": 100 + i, "save": False,
+                "return_pos": True, **kw}
+
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    calls0, captures0 = fwd.calls, device_counts(fwd)[2]
+    replies, wall = burst(port, [request(i) for i in range(SERVE_REQUESTS)])
+    counts, calls, captures = device_counts(fwd)
+    forwards = calls - calls0
+    k1 = counts.pop("stack_packed/stack_full:triu", 0)
+    latencies = sorted(lat for _, lat in replies)
+    conformers = sum(r["samples"] for r, _ in replies if r.get("ok"))
+    failures = []
+    if not all(r.get("ok") for r, _ in replies):
+        failures.append(f"serve QM9: a request failed: "
+                        f"{[r for r, _ in replies if not r.get('ok')]}")
+    merged = sum(1 for r, _ in replies if r.get("batched_with", 0) >= 1)
+    if merged < 2:
+        failures.append(f"serve QM9: {merged} requests merged, need 2")
+    if k1 != forwards or not k1 or counts:
+        failures.append(f"serve QM9: K1 launches {k1}, forwards "
+                        f"{forwards}, other kernels {counts}")
+    if captures != captures0:
+        failures.append(f"serve QM9: {captures - captures0} ladders "
+                        f"captured during requests")
+    # each merged request: against the packed runner run directly on the
+    # merged set (bit for bit: the server adds nothing), and against its
+    # solo run (bit for bit where the chunk's batch size is the same)
+    order = sorted(range(SERVE_REQUESTS), key=lambda i: 100 + i)
+    merged_mols = [m for i in order for m in qmols[2 * (i % 2):
+                                                   2 * (i % 2) + 2]]
+    with svc.device_lock:
+        direct = runner.run(merged_mols, None, num_confs=[SERVE_CONFS] * len(
+            merged_mols), item_seeds=[(100 + i, k) for i in order
+                                      for k in range(2)], save=False,
+            resume=False)
+    direct_same = all(
+        np.array_equal(np.asarray(p, np.float32),
+                       direct[2 * order.index(i) + k].meta["pos_gen"])
+        for i, (r, _) in enumerate(replies) if r.get("ok")
+        for k, p in enumerate(r["pos"]))
+    if not direct_same:
+        failures.append("serve QM9: merged replies differ from the packed "
+                        "runner's run of the same set")
+    solo_rows, solo_lat = [], []
+
+    def against_alone(i, r, alone):
+        """One merged reply against its solo reply: the batch sizes of
+        their chunks, bit for bit, max |diff| of the largest coordinate."""
+        got = [np.asarray(p, np.float32) for p in r["pos"]]
+        want = [np.asarray(p, np.float32) for p in alone["pos"]]
+        scale = max(float(np.abs(w).max()) for w in want)
+        rel = max(float(np.abs(g - w).max())
+                  for g, w in zip(got, want)) / max(scale, 1e-30)
+        n = r["samples"]
+        same = runner._batch_size_for(n) == runner._batch_size_for(min(
+            n * (r["batched_with"] + 1), SERVE_CHUNK)) or n >= SERVE_CHUNK
+        solo_rows.append(dict(request=i, batched_with=r["batched_with"],
+                              samples=n, same_batch=same,
+                              bitwise=all(np.array_equal(g, w)
+                                          for g, w in zip(got, want)),
+                              max_rel=rel, scale=scale,
+                              finite=all(np.isfinite(g).all() for g in got)))
+        return solo_rows[-1]
+
+    for i, (r, _) in enumerate(replies):
+        t1 = time.time()
+        alone = submit(request(i, batch=False), port=port, timeout=600)
+        solo_lat.append(time.time() - t1)
+        if r.get("ok") and alone.get("ok"):
+            row = against_alone(i, r, alone)
+            if not row["finite"]:
+                failures.append(f"serve QM9: request {i} not finite")
+    # requests of one chunk each (2 molecules x 32 conformers): merged,
+    # each chunk is one request's, at its solo batch size
+    whole = [request(10 + k, num_confs=SERVE_CHUNK // 2) for k in range(2)]
+    pair = [r for r, _ in burst(port, whole)[0]]
+    for k, r in enumerate(pair):
+        alone = submit({**whole[k], "batch": False}, port=port, timeout=600)
+        if not (r.get("ok") and alone.get("ok") and r["batched_with"] >= 1):
+            failures.append(f"serve QM9: one-chunk requests {r}, {alone}")
+            continue
+        row = against_alone(10 + k, r, alone)
+        if not (row["same_batch"] and row["bitwise"]):
+            failures.append(f"serve QM9: one-chunk request {k} merged "
+                            f"against alone {row}")
+    captures_after_solo = device_counts(fwd)[2]
+    # over capacity, merged with a request that must be answered
+    (over, _), (ok, _) = burst(port, [
+        {"cmd": "generate", "test_set": over_set, "num_confs": SERVE_CONFS,
+         "save": False, "seed": 1},
+        request(0)])[0]
+    if over.get("rejected") != "over_capacity" or "Traceback" in \
+            over.get("error", "") or not ok.get("ok"):
+        failures.append(f"serve QM9: over capacity {over}, merged {ok}")
+    saved = submit({**request(1, batch=False), "num_confs": "2x",
+                    "save": True, "return_pos": False,
+                    "out_dir": os.path.join(root, "saved")}, port=port,
+                   timeout=600)
+    scored = submit({"cmd": "evaluate", "samples": saved.get("out"),
+                     "num_workers": 4}, port=port, timeout=600)
+    if not (saved.get("ok") and scored.get("ok")
+            and scored.get("molecules") == 2):
+        failures.append(f"serve QM9: saved {saved}, evaluate {scored}")
+    ping = submit({"cmd": "ping"}, port=port, timeout=60)
+    if captures_after_solo != captures0 or \
+            device_counts(fwd)[2] != captures0:
+        failures.append("serve QM9: ladders captured after warm-up")
+    peak = torch.cuda.max_memory_reserved(dev)
+    if not stop_service(runner, port, thread):
+        failures.append("serve QM9: shutdown")
+    growth = serve_growth(qmodel, qcfg, qmols, sets, dev)
+    if not (growth["merged"] and growth["other_batch_size"] <= GROWTH_LIMIT
+            < growth["swapped_seeds"]):
+        failures.append(f"serve QM9: merged against alone at other batch "
+                        f"sizes after {GROWTH_STEPS} steps {growth} (limit "
+                        f"{GROWTH_LIMIT}: the sound runs within it, the "
+                        f"swapped seeds beyond it)")
+    row = dict(
+        warm_s=warm_s, warmed_ladders=len(warm.get("compiled", [])),
+        warm_reply_ok=warm.get("ok"), pools_mib=pools / 2 ** 20,
+        peak_reserved_mib=peak / 2 ** 20, requests=SERVE_REQUESTS,
+        conformers=conformers, burst_s=wall,
+        conformers_per_s=conformers / wall,
+        latency_p50_s=statistics.median(latencies),
+        latency_max_s=latencies[-1], solo_latency_s=solo_lat,
+        merged=merged, forwards=forwards, k1_launches=k1,
+        ladders_captured_during_requests=captures_after_solo - captures0,
+        merged_vs_solo=solo_rows, merged_equals_runner=direct_same,
+        growth=growth, over_capacity=over.get("error"),
+        evaluate=scored, cached_programs=ping.get("cached_programs"))
+    report["serve"]["qm9"] = row
+    same = [s for s in solo_rows if s["same_batch"]]
+    other = [s["max_rel"] for s in solo_rows if not s["same_batch"]]
+    print(f"serve QM9 ('pksf', chunk {SERVE_CHUNK}, {SERVE_STEPS} strided "
+          f"DDIM steps at eta 0): warm-up {warm_s:.2f} s, "
+          f"{row['warmed_ladders']} ladders, pools {row['pools_mib']:.1f} "
+          f"MiB; {SERVE_REQUESTS} concurrent requests ({merged} merged): "
+          f"latency p50 {row['latency_p50_s']:.3f} s, max "
+          f"{row['latency_max_s']:.3f} s, {row['conformers_per_s']:.1f} "
+          f"conformers/s; K1 {k1} launches = {forwards} forwards; "
+          f"{row['ladders_captured_during_requests']} captures during "
+          f"requests; merged replies are the packed runner's bit for "
+          f"bit: {direct_same}; merged against alone at the same batch "
+          f"size bit for bit {sum(s['bitwise'] for s in same)} of "
+          f"{len(same)}, at other sizes max {max(other, default=0):.3e} "
+          f"of the largest coordinate; after {GROWTH_STEPS} steps {growth}; "
+          f"peak reserved "
+          f"{row['peak_reserved_mib']:.0f} MiB; evaluate MAT-R "
+          f"{scored.get('MAT-R_mean')}", flush=True)
+    return failures
+
+
+def serve_growth(qmodel, qcfg, qmols, sets, dev) -> dict:
+    """Merged against alone across batch sizes, from a QM9 server's own
+    replies on a GROWTH_STEPS-step ladder of the servers' kind: the
+    burst's requests (merged chunks B=64 and 32) against each alone
+    (B=16), max |diff| over the largest coordinate (`other_batch_size`);
+    the planted fault, each alone run given another request's seed
+    (`swapped_seeds`, the least over the requests); and the same burst
+    with K1 at R=1 for every batch size (`r_pinned`): equal to
+    `other_batch_size` when K1's R is not what makes a reply depend on
+    its co-traffic."""
+    import numpy as np
+
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.kernels import stack_packed
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.serve.server import submit
+
+    def rel(a, b):
+        got = [np.asarray(p, np.float32) for p in a["pos"]]
+        want = [np.asarray(p, np.float32) for p in b["pos"]]
+        return max(float(np.abs(g - w).max()) for g, w in zip(got, want)) \
+            / max(max(float(np.abs(w).max()) for w in want), 1e-30)
+
+    def request(i, seed=None, **kw):
+        return {"cmd": "generate", "test_set": sets[i % 2],
+                "num_confs": SERVE_CONFS, "seed": 100 + (i if seed is None else seed),
+                "save": False, "return_pos": True, **kw}
+
+    def run(swap):
+        runner = PackedGenerationRunner(
+            qmodel, qcfg, make_diffusion(qcfg), serve_ladder(GROWTH_STEPS),
+            buckets=(32,), chunk_size=SERVE_CHUNK, device=dev)
+        _, port, thread = start_service(runner, max_nodes=32)
+        replies = [r for r, _ in burst(port, [
+            request(i) for i in range(SERVE_REQUESTS)])[0]]
+        sound, fault = 0.0, float("inf")
+        for i, r in enumerate(replies):
+            alone = submit(request(i, batch=False), port=port, timeout=600)
+            sound = max(sound, rel(r, alone))
+            if swap:  # the next request of the same set, its seed
+                other = submit(request(i, seed=(i + 2) % SERVE_REQUESTS,
+                                       batch=False), port=port, timeout=600)
+                fault = min(fault, rel(r, other))
+        merged = sum(r.get("batched_with", 0) >= 1 for r in replies)
+        stop_service(runner, port, thread)
+        return sound, fault, merged
+
+    sound, fault, merged = run(True)
+    ranks_for = stack_packed.ranks_for
+    stack_packed.ranks_for = lambda b, sm_count: 1
+    try:
+        pinned = run(False)[0]
+    finally:
+        stack_packed.ranks_for = ranks_for
+    return dict(other_batch_size=sound, swapped_seeds=fault,
+                r_pinned=pinned, merged=merged)
+
+
+def serve_drugs(dmodel, dconf, dmols, dev, report) -> list:
+    """(b) A Drugs server: 'tight-pksf' at bucket 64, warmed for the 50-
+    and 56-atom molecules (each a tight list of its own) at every batch
+    size; requests alternate between the two sizes, alone and merged, and
+    no ladder may be captured while they run."""
+    import numpy as np
+    import torch
+
+    from agdiff_torch.chem.mol import save_molecules
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.serve.server import submit, warm_classes
+
+    root = os.path.join(OUT_DIR, "serve")
+    sets = []
+    for m in dmols[:2]:
+        path = os.path.join(root, f"drugs_{m.num_nodes}.npz")
+        save_molecules(path, [m])
+        sets.append(path)
+    runner = PackedGenerationRunner(
+        dmodel, dconf.model, make_diffusion(dconf.model), serve_ladder(),
+        buckets=dconf.buckets, chunk_size=DRUGS_CHUNK, device=dev)
+    classes = warm_classes(runner, dmols[:2])
+    torch.cuda.reset_peak_memory_stats(dev)
+    svc, port, thread = start_service(runner, max_nodes=64)
+    t0 = time.time()
+    warm = submit({"cmd": "warm", "retry": True,
+                   "nodes": sorted(m.num_nodes for m in classes.values())},
+                  port=port, timeout=600)
+    warm_s = time.time() - t0
+    pools = runner.warmed_pool_bytes()
+    fwd = runner.forward("tight-pksf")
+
+    def request(i, **kw):
+        return {"cmd": "generate", "test_set": sets[i % 2],
+                "num_confs": SERVE_CONFS, "seed": 200 + i, "save": False,
+                "return_pos": True, **kw}
+
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    calls0, captures0 = fwd.calls, device_counts(fwd)[2]
+    t0 = time.time()
+    alone = [submit(request(i, batch=False), port=port, timeout=600)
+             for i in range(4)]
+    alone_s = time.time() - t0
+    merged, wall = burst(port, [request(i) for i in range(4)])
+    counts, calls, captures = device_counts(fwd)
+    forwards = calls - calls0
+    k1 = counts.pop("stack_packed/stack_full:tight", 0)
+    replies = alone + [r for r, _ in merged]
+    failures = []
+    if not all(r.get("ok") and np.isfinite(np.asarray(r["pos"])).all()
+               for r in replies):  # one molecule a request
+        failures.append(f"serve Drugs: a request failed or is not finite")
+    if k1 != forwards or not k1 or counts:
+        failures.append(f"serve Drugs: K1 launches {k1}, forwards "
+                        f"{forwards}, other kernels {counts}")
+    if captures != captures0:
+        failures.append(f"serve Drugs: {captures - captures0} ladders "
+                        f"captured during requests")
+    peak = torch.cuda.max_memory_reserved(dev)
+    if not stop_service(runner, port, thread):
+        failures.append("serve Drugs: shutdown")
+    latencies = sorted(lat for _, lat in merged)
+    row = dict(classes=[list(map(str, k)) for k in classes],
+               warm_s=warm_s, warmed_ladders=len(warm.get("compiled", [])),
+               pools_mib=pools / 2 ** 20, peak_reserved_mib=peak / 2 ** 20,
+               alone_s=alone_s, burst_s=wall,
+               latency_p50_s=statistics.median(latencies),
+               latency_max_s=latencies[-1],
+               merged=sum(1 for r, _ in merged
+                          if r.get("batched_with", 0) >= 1),
+               forwards=forwards, k1_launches=k1,
+               ladders_captured_during_requests=captures - captures0)
+    report["serve"]["drugs"] = row
+    print(f"serve Drugs ('tight-pksf', atoms "
+          f"{[m.num_nodes for m in dmols[:2]]}, classes {list(classes)}): "
+          f"warm-up {warm_s:.2f} s, {row['warmed_ladders']} ladders, pools "
+          f"{row['pools_mib']:.1f} MiB; 4 requests alone alternating sizes "
+          f"{alone_s:.2f} s, 4 at once {wall:.2f} s (p50 "
+          f"{row['latency_p50_s']:.3f} s, {row['merged']} merged); K1 {k1} "
+          f"launches = {forwards} forwards; "
+          f"{row['ladders_captured_during_requests']} captures during "
+          f"requests; peak reserved {row['peak_reserved_mib']:.0f} MiB",
+          flush=True)
+    return failures
+
+
+def serve_cli(report) -> list:
+    """(c) `python -m agdiff_torch.cli.serve` in a subprocess on phase 5b's
+    reference .pt: --fast --packed --batch_window 0.2 --warm_nodes 23
+    --max_nodes 32; `--submit` ping, generate and shutdown, each a client
+    process; the server exits 0."""
+    import socket
+
+    from agdiff_torch.serve.server import submit
+
+    ckpt = os.path.join(OUT_DIR, "cli", "ckpt", "model.pt")
+    test_set = os.path.join(OUT_DIR, "serve", "qm9_0.npz")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, "-m", "agdiff_torch.cli.serve", ckpt, "--fast",
+           "--packed", "--batch_window", "0.2", "--warm_nodes", "23",
+           "--max_nodes", "32", "--port", str(port), "--n_steps",
+           str(CLI_STEPS), "--chunk_size", "16", "--ladder", "strided",
+           "--sampling_type", "generalized", "--eta", "0", "--w_global",
+           "0.3", "--clip_local", "20"]
+    log = open(os.path.join(OUT_DIR, "serve", "cli_server.log"), "w")
+    t0 = time.time()
+    server = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                              stderr=subprocess.STDOUT)
+    failures, replies = [], {}
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                submit({"cmd": "ping"}, port=port, timeout=10)
+                break
+            except OSError:
+                if server.poll() is not None or time.time() > deadline:
+                    raise SystemExit(f"serve CLI: the server did not start "
+                                     f"(exit {server.poll()})")
+                time.sleep(0.5)
+        ready_s = time.time() - t0
+        for name, req in (
+                ("ping", {"cmd": "ping"}),
+                ("generate", {"cmd": "generate", "test_set": test_set,
+                              "num_confs": 4, "save": False,
+                              "return_pos": True}),
+                ("shutdown", {"cmd": "shutdown"})):
+            proc = subprocess.run(
+                [sys.executable, "-m", "agdiff_torch.cli.serve", "--submit",
+                 json.dumps(req), "--port", str(port)], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=300)
+            replies[name] = (proc.returncode,
+                             json.loads(proc.stdout.strip().splitlines()[-1]))
+        rc = server.wait(timeout=120)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+        log.close()
+    ok = {k: (rc_k == 0 and r.get("ok")) for k, (rc_k, r) in replies.items()}
+    if not all(ok.values()) or rc != 0 or len(ok) != 3:
+        failures.append(f"serve CLI: exit {rc}, replies "
+                        f"{ {k: r for k, (_, r) in replies.items()} }")
+    gen = replies.get("generate", (1, {}))[1]
+    row = dict(command=" ".join(cmd[1:]), ready_s=ready_s, exit=rc,
+               replies_ok=ok, samples=gen.get("samples"),
+               seconds=gen.get("seconds"))
+    report["serve"]["cli"] = row
+    print(f"serve CLI: ready in {ready_s:.1f} s (load, build, warm 23 "
+          f"atoms), --submit ping / generate ({row['samples']} conformers "
+          f"in {row['seconds']} s) / shutdown ok {ok}, exit {rc}",
+          flush=True)
+    return failures
+
+
+def run_engines(models, mols, dev, report) -> list:
+    """(d) Each engine of PHASE10_ENGINES against the f32 engine on one
+    forward (QM9: the fixtures in bucket 32 against engine None; Drugs:
+    the 50-atom molecule x 4 in bucket 64 against 'tight'), slim8's
+    reading beside its plain CPU run's, then GenerationRunner for
+    ENGINE_STEPS steps, the counts set to 0 just before and read just
+    after: K1's launches equal the forwards on the '-e16' K1 engines, no
+    hand kernel on the others, every position finite."""
+    import numpy as np
+    import torch
+
+    from agdiff_torch.data.bucketing import pad_molecules
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.kernels import stack_packed as k1
+    from agdiff_torch.models.fast_forward import engine_options
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    failures = []
+    for label, engine, key, tol in PHASE10_ENGINES:
+        cfg, model, cpu_model, buckets, chunk = models[key]
+        opts = engine_options(engine)
+        drugs = key == "drugs"
+        batch_mols = [mols["drugs"][0]] * 4 if drugs else mols["qm9"]
+        n = 64 if drugs else 32
+        runner = GenerationRunner(model, cfg, make_diffusion(cfg),
+                                  SamplerConfig(n_steps=ENGINE_STEPS,
+                                                w_global=0.3),
+                                  buckets=buckets, chunk_size=chunk,
+                                  device=dev, engine=engine)
+        ref = runner.forward("tight" if drugs else None)
+        batch = pad_molecules(batch_mols, n, device=dev)
+        check_engines(runner.forward(engine)(batch), ref(batch), label,
+                      tol, report)
+        if engine.endswith("slim8") and cpu_model is not None:
+            cpu = GenerationRunner(cpu_model, cfg, make_diffusion(cfg),
+                                   SamplerConfig(), buckets=buckets,
+                                   device="cpu", engine=engine)
+            cpu_batch = pad_molecules(batch_mols, n)
+            check_engines(cpu.forward(engine)(cpu_batch),
+                          cpu.forward("tight" if drugs else None)(cpu_batch),
+                          f"{label}_plain_cpu", tol, report)
+        run_mols = mols["drugs"][:1] if drugs else mols["qm9"]
+        fwd = runner.forward(engine)
+        torch.cuda.synchronize(dev)
+        zero_counts()
+        calls0 = fwd.calls
+        t0 = time.time()
+        out = runner.run(run_mols, seed=SEED, num_confs=chunk)
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        counts = launch_counts()
+        forwards = fwd.calls - calls0
+        k1_name = (None if opts.mode not in k1.MODES else "stack_packed/"
+                   + k1.variant(opts.mode, opts.approx, opts.tight))
+        launches = counts.pop(k1_name, 0) if k1_name else 0
+        finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in out)
+        if counts or (k1_name and launches != forwards) or not forwards \
+                or not finite:
+            failures.append(f"engine {label}: K1 {launches} launches, "
+                            f"forwards {forwards}, other kernels {counts}, "
+                            f"finite {finite}")
+        n_conf = sum(m.meta["pos_gen"].shape[0] for m in out)
+        report["engines"][label] = dict(
+            engine=engine, forwards=forwards, k1_launches=launches,
+            other_launches=counts, wall_s=wall,
+            ms_per_step=wall * 1e3 / forwards, conformers=n_conf,
+            finite=finite)
+        print(f"engine {label} ({'Drugs' if drugs else 'QM9'}, "
+              f"{ENGINE_STEPS} steps, chunk {chunk}): {forwards} forwards, "
+              f"K1 launches {launches}, other kernels {counts or 0}, "
+              f"{wall * 1e3 / forwards:.3f} ms/step with its captures, "
+              f"finite {finite}", flush=True)
+        for s in runner._samplers.values():
+            s.release()
+        del runner
+        torch.cuda.empty_cache()
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -2771,16 +3401,24 @@ def main() -> int:
         failures += failed
         if label in ("tight_B48_N64", "tight_B48_N96"):
             failures += check_levels(kw, label, report)
-    # the runner's default chunk (64, QM9 bucket 32) and a tail chunk (16,
-    # a Drugs molecule in bucket 64): the wrapper's R against R / 2 and 1
+    # the runner's default chunk (64, QM9 bucket 32), the QM9 server's
+    # merged and solo chunks (32 and 16; 8, its smallest warmed size, runs
+    # at 16's R) and a tail chunk (16, a Drugs molecule in bucket 64): the
+    # wrapper's R against R / 2 and 1. The server's cases draw from a
+    # generator of their own, so every other check keeps the inputs it
+    # had before they were added (PERF.md section 7 has a reading of the
+    # later checks on the shifted draws).
     from agdiff_torch.kernels.stack_packed import ranks_for
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tfwd = build_tight_forward(dcfg, dmodel, "tight-pksf")
-    for label, b, drugs in (("triu_B64_N32", 64, False),
-                            ("tight_B16_N64", 16, True)):
+    served = torch.Generator(device=dev).manual_seed(SEED)
+    for label, b, drugs, draw in (("triu_B64_N32", 64, False, gen),
+                                  ("triu_B32_N32", 32, False, served),
+                                  ("triu_B16_N32", 16, False, served),
+                                  ("tight_B16_N64", 16, True, gen)):
         forced = sorted({max(ranks_for(b, sms) // 2, 1), 1})
         if drugs:
-            batch = random_batch(dmols[:1], 64, b, gen)
+            batch = random_batch(dmols[:1], 64, b, draw)
             pairs = tfwd.prepare(batch, pair_capacity_for(
                 dmols[0].num_nodes, 256))
             kw, _ = tfwd.stack_inputs(batch, pairs)
@@ -2789,7 +3427,7 @@ def main() -> int:
                 build_tight_forward(dcfg, dcpu, "tight-pksf").stack, report,
                 forced)
         else:
-            batch = random_batch(qmols, 32, b, gen)
+            batch = random_batch(qmols, 32, b, draw)
             kw, _ = qfwd.stack_inputs(batch)
             cases[label], failed = check_k1(
                 kw, batch.node_mask, label, "full", False, QM9_LIMITS,
@@ -3081,16 +3719,31 @@ def main() -> int:
     # ---- 9. training --------------------------------------------------------
     failures += run_training(dev, report)
     phase_done("9 train")
+
+    # ---- 10. the generation server; the engines of JAX's XLA path --------
+    report["serve"], report["engines"] = {}, {}
+    failures += serve_qm9(qmodel, qcfg, qmols, dmols, dev, report)
+    failures += serve_drugs(dmodel, dconf, dmols, dev, report)
+    failures += serve_cli(report)
+    failures += run_engines(
+        {"qm9": (qcfg, qmodel, qcpu, (32,), CHUNK),
+         "qm9_f32": (fcfg, fmodel, None, (32,), CHUNK),
+         "drugs": (dcfg, dmodel, dcpu, dconf.buckets, DRUGS_CHUNK)},
+        {"qm9": qmols, "drugs": dmols}, dev, report)
+    phase_done("10 serve and engines")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 10. result lines --------------------------------------------------
-    def entry(name, case, launches):
+    # ---- 11. result lines --------------------------------------------------
+    def entry(name, case, launches, also=()):
+        """K1's row: times and bound of `case`, the largest error of it
+        and of the cases `also` (the other batch sizes the path runs)."""
         c = cases[case]
         return dict(name=name, route="cuda",
                     source="agdiff_torch/kernels/csrc/stack_packed.cu",
                     replaces="agdiff_tpu/ops/pallas/stack_packed.py:104",
-                    launches=launches, max_abs_err=c["max_abs_err"],
+                    launches=launches, max_abs_err=max(
+                        cases[k]["max_abs_err"] for k in (case, *also)),
                     ms=c["ms"], plain_ms=c["plain_ms"],
                     bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                     library_ms=None)
@@ -3109,10 +3762,16 @@ def main() -> int:
 
     fused_src = "agdiff_torch/kernels/csrc/fused.cu"
     kernels = [
-        entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]),
+        entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]
+              + report["serve"]["qm9"]["k1_launches"]
+              + report["engines"]["pksf-e16"]["k1_launches"],
+              ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32")),
         entry("stack_full:tight", "tight_B48_N64",
               slices["drugs_bucket64"]["k1_launches"]
-              + slices["drugs_above64"]["k1_launches"]),
+              + slices["drugs_above64"]["k1_launches"]
+              + report["serve"]["drugs"]["k1_launches"]
+              + report["engines"]["tight-pksf-e16"]["k1_launches"],
+              ("tight_B16_N64", "tight_B48_N96")),
         entry("stack_schnet:tight", "schnet_B48_N64",
               slices["tight-pks"]["k1_launches"]),
         entry("stack_gin:tight", "gin_B48_N64",

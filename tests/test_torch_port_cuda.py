@@ -1224,3 +1224,108 @@ def test_cuda_train_step_matches_cpu(card, packed):
     for name, b in br.items():
         assert float((bg[name] - b).abs().max()) <= \
             1e-5 * float(b.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_cuda_warmed_tight_graphs_survive_another_atom_count(card):
+    """GenerationRunner.warm on the 50-atom Drugs molecule keeps its
+    graphs: a run of the 56-atom molecule (another tight list, captured
+    at its run) leaves them, and the 50-atom molecule's next run captures
+    nothing and gives the bits of a runner that never saw the other."""
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.graphed import LadderGraphs
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+                              num_convs_local=2, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    mols = load_fixture("drugs_synthetic")[:2]
+    assert [m.num_nodes for m in mols] == [50, 56]
+
+    def runner():
+        return GenerationRunner(model, cfg, make_diffusion(cfg),
+                                SamplerConfig(n_steps=5, w_global=0.3),
+                                buckets=(64,), chunk_size=8, device=card)
+
+    warmed = runner()
+    assert warmed.warm(mols[0]) == [(64, 8, False)]
+    pool = warmed.warmed_pool_bytes()
+    assert pool > 0
+    warmed.run([mols[1]], seed=1, num_confs=8)
+    before = LadderGraphs.captures
+    got = warmed.run([mols[0]], seed=2, num_confs=8)
+    assert LadderGraphs.captures == before
+    assert warmed.warmed_pool_bytes() == pool
+    want = runner().run([mols[0]], seed=2, num_confs=8)
+    np.testing.assert_array_equal(got[0].meta["pos_gen"],
+                                  want[0].meta["pos_gen"])
+
+
+@pytest.mark.cuda
+def test_cuda_device_lock_keeps_captures_apart(card):
+    """Two threads through one service at once, a warm (which captures)
+    and an unbatched generate of another size (which captures too): the
+    device lock runs them one after the other, so no capture overlaps the
+    other thread's device work."""
+    import threading
+    import time
+
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling import graphed
+    from agdiff_torch.sampling.langevin import SamplerConfig
+    from agdiff_torch.serve.server import GenerationService
+
+    cfg = dataclasses.replace(ModelConfig(), hidden_dim=64, num_convs=2,
+                              num_convs_local=2, dtype="bfloat16")
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    runner = PackedGenerationRunner(
+        model, cfg, make_diffusion(cfg),
+        SamplerConfig(n_steps=5, w_global=0.3), buckets=(64,),
+        chunk_size=8, device=card)
+    svc = GenerationService(runner, batch_window_s=0.2)
+    spans, captures = [], []
+    capture = graphed.LadderGraphs._capture
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize(card)
+                spans.append((name, t0, time.perf_counter()))
+        return run
+
+    def recorded_capture(self, batch):
+        t0 = time.perf_counter()
+        capture(self, batch)
+        captures.append((threading.current_thread().name, t0,
+                         time.perf_counter()))
+
+    runner.warm = timed("warm", runner.warm)
+    runner.run = timed("run", runner.run)
+    replies = {}
+    requests = {
+        "warm": {"cmd": "warm", "nodes": [30]},
+        "run": {"cmd": "generate", "synthetic": 1, "synthetic_heavy": 20,
+                "num_confs": 8, "save": False, "batch": False}}
+    threads = [threading.Thread(
+        target=lambda k=k: replies.__setitem__(k, svc.handle(requests[k])),
+        name=k, daemon=True) for k in requests]
+    graphed.LadderGraphs._capture = recorded_capture
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        graphed.LadderGraphs._capture = capture
+    assert all(r["ok"] for r in replies.values()), replies
+    assert {name for name, _, _ in captures} == {"warm", "run"}
+    (a, a0, a1), (b, b0, b1) = sorted(spans, key=lambda s: s[1])
+    assert a1 <= b0, spans
+    for thread, c0, c1 in captures:
+        other = [(s0, s1) for name, s0, s1 in spans if name != thread]
+        assert all(c1 <= s0 or s1 <= c0 for s0, s1 in other)

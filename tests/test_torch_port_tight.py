@@ -241,13 +241,28 @@ def test_pks_engines_match_jax_fast_forward(setup, mode, monkeypatch):
 
 
 def test_engine_names():
+    import torch
+
     from agdiff_torch.models.fast_forward import engine_options
 
-    assert engine_options(None) == (False, None, False)
-    assert engine_options("tight") == (True, None, False)
-    assert engine_options("pksg") == (False, "gin", False)
-    assert engine_options("tight-pksf-approx") == (True, "full", True)
-    for bad in ("tight-approx", "approx", "slim", "tight-slim", "mono"):
+    bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
+    assert engine_options(None) == (False, None, False, None, None)
+    assert engine_options("tight") == (True, None, False, None, None)
+    assert engine_options("pksg") == (False, "gin", False, None, None)
+    assert engine_options("tight-pksf-approx") == (True, "full", True, None,
+                                                   None)
+    # the engines of JAX's XLA path and the suffixes
+    # (agdiff_tpu/sampling/langevin.py:374-405)
+    assert engine_options("approx") == (False, None, True, None, None)
+    assert engine_options("tight-approx") == (True, None, True, None, None)
+    assert engine_options("slim") == engine_options("slim2") == (
+        False, "xla", False, bf16, None)
+    assert engine_options("tight-slim8") == (True, "xla", False, fp8, None)
+    assert engine_options("stack") == (False, "stack", False, None, None)
+    assert engine_options("tight-pksf-e16") == (True, "full", False, None,
+                                                bf16)
+    for bad in ("mono", "pallas-approx", "pallas-e16", "slimmer",
+                "tight-bogus"):
         with pytest.raises(ValueError):
             engine_options(bad)
 
