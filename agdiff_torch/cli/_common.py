@@ -35,7 +35,10 @@ def load_inference_bundle(ckpt: str, ckpt_iter: Optional[int] = None,
     or a reference .pt -> (Config, module in eval mode on the CPU,
     checkpoint path, iteration). The model config travels in the
     checkpoint (reference: scripts/test.py:111); `dtype` overrides its
-    compute dtype (bf16 sampling of an f32-trained model). use_ema samples
+    compute dtype, that of the module itself (its layers compute at it,
+    models/dualenc.py) and of the fast engines built from the config
+    (bf16 sampling of an f32-trained model, or an f32 teacher of a bf16
+    one). use_ema samples
     with the EMA shadow's parameters and the raw running statistics, as
     the JAX CLI does. The JAX package's orbax directories raise
     (train/checkpoint.py)."""
@@ -75,8 +78,10 @@ def load_inference_bundle(ckpt: str, ckpt_iter: Optional[int] = None,
         raise FileNotFoundError(
             f"{ckpt}: neither a log dir, a checkpoint directory nor a "
             f"reference .pt")
-    if dtype:
+    if dtype and dtype != config.model.dtype:
         config = dataclasses.replace(
             config, model=dataclasses.replace(config.model, dtype=dtype))
-        model.config = config.model
+        state = model.state_dict()
+        model = DualEncoderEpsNetwork(config.model)
+        model.load_state_dict(state)
     return config, model.eval(), path, it

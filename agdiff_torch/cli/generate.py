@@ -17,7 +17,8 @@ EMA shadow's parameters and the raw running statistics. Samples go to <out_dir>/
 molecule as it is done (a rerun skips those that exist unless
 --no_resume), and samples_all.npz at the end, in the JAX package's format.
 --fast samples with the folded engines (the runner's choice, or
---engine); without it, with the dense module. The run is on the CUDA card,
+--engine); without it, with the dense module at the config's compute
+dtype (--dtype overrides it). The run is on the CUDA card,
 where each ladder replays CUDA graphs, unless --device says otherwise.
 --synthetic takes the molecules from data/synthetic.py with the JAX
 CLI's arguments (seed 7, three reference conformers). --packed runs
@@ -117,7 +118,10 @@ def main(argv=None):
                          "into each chunk (PackedGenerationRunner)")
     ap.add_argument("--dtype", default=None,
                     choices=[None, "float32", "bfloat16"],
-                    help="override the checkpoint config's compute dtype")
+                    help="override the checkpoint config's compute "
+                         "dtype: the fast engines' and, without --fast, "
+                         "the dense module's (bfloat16 samples the bf16 "
+                         "module, as the JAX CLI does)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)

@@ -10,9 +10,9 @@ A log DIRECTORY in place of the config resumes that run (its config.yml
 inside it), as in the reference (train.py:39-42). The run is on the CUDA
 card unless --device says otherwise. --deterministic asks PyTorch for its
 deterministic algorithms (the scatters of the backward then repeat bit for
-bit on a card). Refused: --num_devices (data parallelism, ROADMAP.md queue
-1 item 7), model.dtype bfloat16 (queue 1 item 4a) and a log dir of the JAX
-package (item 4c).
+bit on a card). A config of model.dtype bfloat16 (configs/qm9_fast.yml)
+trains at bf16 compute. Refused: --num_devices (data parallelism,
+ROADMAP.md queue 1 item 7) and a log dir of the JAX package (item 4c).
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def main(argv=None):
         is_jax_checkpoint,
         latest_checkpoint,
     )
-    from agdiff_torch.train.trainer import Trainer, check_trainable
+    from agdiff_torch.train.trainer import Trainer
     from agdiff_torch.utils.logging import get_logger, get_new_log_dir
     from agdiff_torch.utils.misc import seed_all
 
@@ -76,11 +76,9 @@ def main(argv=None):
         log_dir = args.config
         config_path = os.path.join(log_dir, "config.yml")
         config = load_config(config_path)
-        check_trainable(config)
     else:
         config_path = args.config
         config = load_config(config_path)
-        check_trainable(config)
         name = os.path.splitext(os.path.basename(config_path))[0]
         log_dir = get_new_log_dir(args.logdir, prefix=name, tag=args.tag)
         shutil.copyfile(config_path, os.path.join(log_dir, "config.yml"))

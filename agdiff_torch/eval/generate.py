@@ -112,7 +112,8 @@ class GenerationRunner:
         tight pair list) at buckets >= 40 and 'pksf' (K1 over the bucket's
         triu set) below; f32 configs run the f32 'tight' engine at >= 40
         and the plain f32 packed forward (None) below. Without use_fast,
-        MODULE: the dense module, whatever `engine` says."""
+        MODULE: the dense module at the config's compute dtype, whatever
+        `engine` says (agdiff_tpu/eval/generate.py:233-234, :275-280)."""
         if not self.use_fast:
             return MODULE
         if self.engine is not None:
@@ -125,7 +126,8 @@ class GenerationRunner:
     def forward(self, engine: Optional[str]):
         """The engine's forward (models/fast_forward.py,
         models/tight_forward.py, models/mono_forward.py), built once; its
-        `calls` counts the forwards run. MODULE: the dense module."""
+        `calls` counts the forwards run. MODULE: the dense module (a bf16
+        config's runs at bf16)."""
         if engine == MODULE:
             return self.model
         if engine not in self.forwards:

@@ -1,14 +1,22 @@
 """DualEncoderEpsNetwork, the dense module forward (port of
 agdiff_tpu/models/dualenc.py).
 
-This module path is the numerical anchor of the port: it runs in float32
-whatever `config.dtype` says (the dtype selects the fast engine's compute
-type, models/fast_forward.py) and is held against the JAX module's
-`apply(..., train=False)` by tests/test_torch_port_model.py, and in train
-mode against `apply(..., train=True, mutable=["batch_stats"])` and its
-gradients by tests/test_torch_port_train.py. Submodule and parameter names
-follow the flax scopes, so models/weights.py maps a JAX variables tree
-onto it one to one.
+This module path is the numerical anchor of the port. It computes at the
+config's compute dtype, as the JAX module does: the parameters stay f32;
+at `config.dtype` bfloat16 the positions are cast to bf16 before the
+distances (so the radius mask is taken on bf16 distances), every layer
+casts its input and parameters to bf16 (nn/common.py), and only the two
+score planes and the edge lengths come out as f32
+(agdiff_tpu/models/dualenc.py:54-55, 81-82, 190-195). The fast engines
+(models/fast_forward.py, tight_forward.py, mono_forward.py) read the
+module's f32 parameters and choose their own compute dtype. The module is
+held against the JAX module's `apply(..., train=False)` by
+tests/test_torch_port_model.py (f32) and tests/test_torch_port_bf16.py
+(bf16), and in train mode against `apply(..., train=True,
+mutable=["batch_stats"])` and its gradients by
+tests/test_torch_port_train.py and tests/test_torch_port_bf16.py.
+Submodule and parameter names follow the flax scopes, so
+models/weights.py maps a JAX variables tree onto it one to one.
 
 `train=True` normalises with batch statistics and moves the running ones
 (nn/common.py::MaskedBatchNorm); the default, False, leaves them as they
@@ -64,18 +72,21 @@ class DualEncoderEpsNetwork(nn.Module):
                                       "encoder (both reference configs)")
         cfg = self.config = config
         h = cfg.hidden_dim
-        self.edge_encoder_global = MLPEdgeEncoder(h, cfg.edge_attention_mode)
+        dt = self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
+                                   else torch.float32)
+        self.edge_encoder_global = MLPEdgeEncoder(
+            h, cfg.edge_attention_mode, dtype=dt)
         if not cfg.tie_edge_encoders:
             self.edge_encoder_local = MLPEdgeEncoder(
-                h, cfg.edge_attention_mode)
+                h, cfg.edge_attention_mode, dtype=dt)
         self.encoder_global = SchNetEncoder(
             h, cfg.num_convs, cfg.cutoff, cfg.smooth_conv,
-            cfg.embedding_max_norm)
-        self.encoder_local = GINEncoder(h, cfg.num_convs_local)
+            cfg.embedding_max_norm, dtype=dt)
+        self.encoder_local = GINEncoder(h, cfg.num_convs_local, dtype=dt)
         self.grad_global_dist_mlp = MultiLayerPerceptron(
-            2 * h, (h, h // 2, 1), cfg.mlp_act)
+            2 * h, (h, h // 2, 1), cfg.mlp_act, dtype=dt)
         self.grad_local_dist_mlp = MultiLayerPerceptron(
-            2 * h, (h, h // 2, 1), cfg.mlp_act)
+            2 * h, (h, h // 2, 1), cfg.mlp_act, dtype=dt)
 
     def forward(self, batch: GraphBatch, *, train: bool = False,
                 extend_order: bool = False,
@@ -88,7 +99,7 @@ class DualEncoderEpsNetwork(nn.Module):
         node_mask = batch.node_mask
         dist, edge_mask, edge_type, local_mask = working_graph(
             batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
-            extend_radius=extend_radius)
+            extend_radius=extend_radius, dtype=self.compute_dtype)
         pairs = None
         if cfg.packed_pairs:
             pairs = _triu(dist.shape[-1], dist.device)
@@ -117,10 +128,10 @@ class DualEncoderEpsNetwork(nn.Module):
             inv_global = mirror_plane(inv_global, pairs)
             inv_local = mirror_plane(inv_local, pairs)
         return ModelOutput(
-            edge_inv_global=inv_global,
-            edge_inv_local=inv_local,
-            edge_mask=edge_mask, edge_type=edge_type, edge_length=dist,
-            local_mask=local_mask,
+            edge_inv_global=inv_global.float(),
+            edge_inv_local=inv_local.float(),
+            edge_mask=edge_mask, edge_type=edge_type,
+            edge_length=dist.float(), local_mask=local_mask,
         )
 
     def _encode(self, encoder, *args):

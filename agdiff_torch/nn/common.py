@@ -1,7 +1,14 @@
 """Shared building blocks (port of agdiff_tpu/nn/common.py).
 
-Layers are torch.nn.Linear (weight (out, in)); the weight bridge
-(models/weights.py) transposes flax kernels (in, out) into them.
+Layers are `Linear`, a torch.nn.Linear (weight (out, in)); the weight
+bridge (models/weights.py) transposes flax kernels (in, out) into them.
+
+The compute dtype follows flax's `dtype` attribute: parameters stay
+float32 (flax's `param_dtype`) and each `Linear` of `dtype` bfloat16
+casts its input, weight and bias to bf16 before the product and the bias
+add (agdiff_tpu/nn/common.py:40-52). `MaskedBatchNorm` and
+`ShiftedSoftplus` take the dtype of their input, as in the JAX module. At
+float32 every layer computes exactly what torch.nn.Linear does.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from torch import nn
 from agdiff_torch.ops import masked
 
 LN2 = math.log(2.0)
+LN2_BF16 = 0.69140625   # jnp.log(2.0).astype(bfloat16)
 
 
 def shifted_softplus(x, beta):
@@ -47,15 +55,38 @@ def activation_by_name(name: str):
     return table[name]
 
 
+class Linear(nn.Linear):
+    """torch.nn.Linear at a compute dtype: at float32 the plain layer; at
+    bf16 x @ W^T rounded to bf16, then + b rounded again (the JAX layer's
+    jnp.dot then its bias add), on bf16 casts of the f32 parameters, so
+    that autograd takes the gradients back to them through the casts."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        if cd == torch.float32:
+            return super().forward(x)
+        y = torch.matmul(x.to(cd), self.weight.to(cd).t())
+        return y if self.bias is None else y + self.bias.to(cd)
+
+
 class ShiftedSoftplus(nn.Module):
-    """softplus(beta * x) - ln 2 with a learnable scalar beta."""
+    """softplus(beta * x) - ln 2 with a learnable scalar beta. On a bf16
+    input, as the JAX module: the f32 beta promotes the product to f32,
+    and ln 2 is rounded to bf16 first, so the output is f32."""
 
     def __init__(self):
         super().__init__()
         self.beta = nn.Parameter(torch.ones(()))
 
     def forward(self, x):
-        return shifted_softplus(x, self.beta)
+        if x.dtype == torch.float32:
+            return shifted_softplus(x, self.beta)
+        return F.softplus(self.beta * x.float()) - LN2_BF16
 
 
 _FROZEN = [0]
@@ -81,7 +112,9 @@ class MaskedBatchNorm(nn.Module):
     train mode normalises with the f32 batch statistics over the whole
     block (biased variance) and moves the running statistics with momentum
     0.1 (unbiased variance, count / max(count - 1, 1)); eval mode uses the
-    running statistics."""
+    running statistics. The normalisation runs at the input's dtype, with
+    the statistics and the affine cast to it (agdiff_tpu/nn/common.py:
+    120-125)."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -106,5 +139,6 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
-        y = (x - mean) * (inv * self.weight) + self.bias
+        dt = x.dtype
+        y = (x - mean.to(dt)) * (inv * self.weight).to(dt) + self.bias.to(dt)
         return torch.where(mask[..., None], y, torch.zeros_like(y))

@@ -1,7 +1,8 @@
 """Local GIN encoder over the bond graph, dense masked form (port of
 agdiff_tpu/nn/gin.py). With `pairs` (the `packed_pairs` train layout)
 edge_attr is (B, P, H) and local_mask (B, P), and the message act(x_j +
-e_p) goes to endpoint i, act(x_i + e_p) to j (agdiff_tpu/nn/gin.py:40-54)."""
+e_p) goes to endpoint i, act(x_i + e_p) to j (agdiff_tpu/nn/gin.py:40-54).
+`dtype` is the compute dtype of the MLPs and of the embedding's output."""
 
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ from agdiff_torch.ops.pairs import gather_endpoints, scatter_add_endpoints
 class GINEConv(nn.Module):
     """out_i = MLP(x_i + sum_j m_ij act(x_j + e_ij)) (eps fixed at 0)."""
 
-    def __init__(self, hidden: int, activation: str = "relu"):
+    def __init__(self, hidden: int, activation: str = "relu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = activation_by_name(activation)
-        self.nn = MultiLayerPerceptron(hidden, (hidden, hidden), activation)
+        self.nn = MultiLayerPerceptron(hidden, (hidden, hidden), activation,
+                                       dtype=dtype)
 
     def forward(self, x, local_mask, edge_attr, train: bool = False,
                 pairs=None):
@@ -41,18 +44,20 @@ class GINEncoder(nn.Module):
     activation (all but the last) and a residual."""
 
     def __init__(self, hidden: int, num_convs: int = 3,
-                 activation: str = "relu"):
+                 activation: str = "relu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_convs = num_convs
         self.act = activation_by_name(activation)
+        self.compute_dtype = dtype
         self.node_emb = nn.Embedding(100, hidden)
         for i in range(num_convs):
-            self.add_module(f"convs_{i}", GINEConv(hidden, activation))
+            self.add_module(f"convs_{i}", GINEConv(hidden, activation, dtype))
             self.add_module(f"batch_norms_{i}", MaskedBatchNorm(hidden))
 
     def forward(self, z, node_mask, local_mask, edge_attr,
                 train: bool = False, pairs=None):
-        h = F.embedding(z, self.node_emb.weight)
+        h = F.embedding(z, self.node_emb.weight).to(self.compute_dtype)
         for i in range(self.num_convs):
             hidden = getattr(self, f"convs_{i}")(h, local_mask, edge_attr,
                                                  train, pairs)

@@ -2,7 +2,10 @@
 agdiff_tpu/nn/schnet.py). With `pairs` (a shared triu PairList, the
 `packed_pairs` train layout) the per-edge tensors are (B, P[, C]) on the
 unordered pairs and the aggregation runs over endpoint selectors
-(agdiff_tpu/nn/schnet.py:100-108)."""
+(agdiff_tpu/nn/schnet.py:100-108). `dtype` is the compute dtype of every
+layer and of the embedding's output (nn/common.py); the learnable
+softplus turns a bf16 input into f32, as the JAX module's f32 beta
+does."""
 
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from agdiff_torch.nn.common import MaskedBatchNorm, ShiftedSoftplus
+from agdiff_torch.nn.common import Linear, MaskedBatchNorm, ShiftedSoftplus
 from agdiff_torch.ops.pairs import gather_endpoints, scatter_add_endpoints
 
 
@@ -30,10 +33,11 @@ def envelope(d, cutoff: float, smooth: bool):
 class DistanceWeightingNetwork(nn.Module):
     """Per-edge scalar weight sigmoid(W2 relu(W1 d))."""
 
-    def __init__(self, hidden_dim: int = 32):
+    def __init__(self, hidden_dim: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layer1 = nn.Linear(1, hidden_dim)
-        self.layer2 = nn.Linear(hidden_dim, 1)
+        self.layer1 = Linear(1, hidden_dim, dtype=dtype)
+        self.layer2 = Linear(hidden_dim, 1, dtype=dtype)
 
     def forward(self, edge_length):
         return torch.sigmoid(self.layer2(torch.relu(self.layer1(edge_length))))
@@ -43,16 +47,16 @@ class CFConv(nn.Module):
     """Continuous-filter convolution over the dense working graph."""
 
     def __init__(self, hidden: int, num_filters: int, cutoff: float,
-                 smooth: bool):
+                 smooth: bool, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cutoff, self.smooth = cutoff, smooth
-        self.distance_weighting = DistanceWeightingNetwork()
-        self.filter_0 = nn.Linear(hidden, num_filters)
+        self.distance_weighting = DistanceWeightingNetwork(dtype=dtype)
+        self.filter_0 = Linear(hidden, num_filters, dtype=dtype)
         self.filter_act = ShiftedSoftplus()
-        self.filter_1 = nn.Linear(num_filters, num_filters)
-        self.lin1 = nn.Linear(hidden, num_filters)
+        self.filter_1 = Linear(num_filters, num_filters, dtype=dtype)
+        self.lin1 = Linear(hidden, num_filters, dtype=dtype)
         self.norm1 = MaskedBatchNorm(num_filters)
-        self.lin2 = nn.Linear(num_filters, hidden)
+        self.lin2 = Linear(num_filters, hidden, dtype=dtype)
         self.norm2 = MaskedBatchNorm(hidden)
 
     def forward(self, x, node_mask, edge_mask, edge_length, edge_attr,
@@ -77,14 +81,14 @@ class InteractionBlock(nn.Module):
     -> Linear(2H -> H) -> relu/sigmoid attention gate."""
 
     def __init__(self, hidden: int, num_filters: int, cutoff: float,
-                 smooth: bool):
+                 smooth: bool, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = CFConv(hidden, num_filters, cutoff, smooth)
-        self.conv2 = CFConv(hidden, num_filters // 2, cutoff, smooth)
+        self.conv1 = CFConv(hidden, num_filters, cutoff, smooth, dtype)
+        self.conv2 = CFConv(hidden, num_filters // 2, cutoff, smooth, dtype)
         self.act = ShiftedSoftplus()
-        self.lin = nn.Linear(2 * hidden, hidden)
-        self.attention_0 = nn.Linear(hidden, hidden // 2)
-        self.attention_1 = nn.Linear(hidden // 2, 1)
+        self.lin = Linear(2 * hidden, hidden, dtype=dtype)
+        self.attention_0 = Linear(hidden, hidden // 2, dtype=dtype)
+        self.attention_1 = Linear(hidden // 2, 1, dtype=dtype)
 
     def forward(self, x, node_mask, edge_mask, edge_length, edge_attr,
                 train: bool = False, pairs=None):
@@ -101,19 +105,24 @@ class InteractionBlock(nn.Module):
 class AdaptiveScalingModule(nn.Module):
     """Per-node squeeze-and-excitation gate x * sigmoid(W2 relu(W1 x))."""
 
-    def __init__(self, channels: int, reduction: int = 16):
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc_0 = nn.Linear(channels, channels // reduction, bias=False)
-        self.fc_1 = nn.Linear(channels // reduction, channels, bias=False)
+        self.fc_0 = Linear(channels, channels // reduction, bias=False,
+                           dtype=dtype)
+        self.fc_1 = Linear(channels // reduction, channels, bias=False,
+                           dtype=dtype)
 
     def forward(self, x):
         return x * torch.sigmoid(self.fc_1(torch.relu(self.fc_0(x))))
 
 
-def embed_max_norm(table, ids, max_norm: Optional[float]):
+def embed_max_norm(table, ids, max_norm: Optional[float],
+                   dtype: torch.dtype = torch.float32):
     """Embedding lookup with torch's max_norm renormalisation applied at
-    lookup (functionally; the table is not modified)."""
-    e = torch.nn.functional.embedding(ids, table)
+    lookup (functionally; the table is not modified), on the rows cast to
+    `dtype`."""
+    e = torch.nn.functional.embedding(ids, table).to(dtype)
     if max_norm is not None:
         norm = torch.linalg.vector_norm(e, dim=-1, keepdim=True)
         e = e * torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
@@ -123,20 +132,23 @@ def embed_max_norm(table, ids, max_norm: Optional[float]):
 class SchNetEncoder(nn.Module):
     def __init__(self, hidden: int = 128, num_interactions: int = 6,
                  cutoff: float = 10.0, smooth: bool = False,
-                 embedding_max_norm: Optional[float] = 10.0):
+                 embedding_max_norm: Optional[float] = 10.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_interactions = num_interactions
         self.embedding_max_norm = embedding_max_norm
+        self.compute_dtype = dtype
         self.embedding = nn.Embedding(100, hidden)
         for i in range(num_interactions):
-            self.add_module(f"interactions_{i}",
-                            InteractionBlock(hidden, hidden, cutoff, smooth))
+            self.add_module(f"interactions_{i}", InteractionBlock(
+                hidden, hidden, cutoff, smooth, dtype))
             self.add_module(f"scaling_modules_{i}",
-                            AdaptiveScalingModule(hidden))
+                            AdaptiveScalingModule(hidden, dtype=dtype))
 
     def forward(self, z, node_mask, edge_mask, edge_length, edge_attr,
                 train: bool = False, pairs=None):
-        h = embed_max_norm(self.embedding.weight, z, self.embedding_max_norm)
+        h = embed_max_norm(self.embedding.weight, z, self.embedding_max_norm,
+                           self.compute_dtype)
         for i in range(self.num_interactions):
             out = getattr(self, f"interactions_{i}")(
                 h, node_mask, edge_mask, edge_length, edge_attr, train, pairs)

@@ -67,15 +67,17 @@ def extend_graph_order_dense(bond_adj, order: int = 3,
 
 
 def working_graph(batch, cutoff: float, edge_order: int, *,
-                  extend_order: bool = False, extend_radius: bool = True):
+                  extend_order: bool = False, extend_radius: bool = True,
+                  dtype: torch.dtype = torch.float32):
     """(dist, edge_mask, edge_type, local_mask) of a GraphBatch: the bond
     adjacency extended to `edge_order` here when extend_order (it is
     normally extended on the host), then the radius union or the bond
-    graph alone."""
+    graph alone. The distances are taken on the positions cast to
+    `dtype` (the module's compute dtype), and the radius mask on them."""
     bond_adj = batch.bond_adj
     if extend_order:
         bond_adj = extend_graph_order_dense(bond_adj, order=edge_order)
-    dist = pairwise_distance(batch.pos)
+    dist = pairwise_distance(batch.pos.to(dtype))
     if extend_radius:
         masks = radius_union_mask(dist, bond_adj, batch.node_mask, cutoff)
     else:

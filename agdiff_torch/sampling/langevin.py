@@ -143,7 +143,10 @@ def ladder_table(num_timesteps: int, n_steps: int,
 
 def assemble_drift(out, pos, sigma, cfg: SamplerConfig):
     """eps_pos from a model output: the local branch (optionally clipped)
-    plus the global branch, gated on once sigma < global_start_sigma."""
+    plus the global branch, gated on once sigma < global_start_sigma.
+    `sigma` is a scalar (the ladder's level) or (B,), one per graph (the
+    distillation loss trains every ladder level in one batch,
+    train/distill.py; agdiff_tpu/sampling/langevin.py:127-131)."""
     node_eq_local = eq_transform_dense(out.edge_inv_local, pos,
                                        out.local_mask, out.edge_length)
     if cfg.clip_local is not None:
@@ -153,8 +156,10 @@ def assemble_drift(out, pos, sigma, cfg: SamplerConfig):
         eq_transform_dense(inv_global, pos, out.edge_mask, out.edge_length),
         cfg.clip)
     # where, not multiply-by-zero: an inactive branch never injects NaN
-    node_eq_global = torch.where(sigma < cfg.global_start_sigma,
-                                 node_eq_global,
+    gate = sigma < cfg.global_start_sigma
+    if gate.dim():
+        gate = gate[:, None, None]
+    node_eq_global = torch.where(gate, node_eq_global,
                                  torch.zeros_like(node_eq_global))
     return node_eq_local + node_eq_global * cfg.w_global
 

@@ -14,9 +14,11 @@ the uninterrupted one's draws: j iterations after a resume from
 checkpoint k equal iterations k + 1 .. k + j of the uninterrupted run
 (bit for bit, on a card under torch.use_deterministic_algorithms).
 
-Refused, each naming the ROADMAP.md item that ports it: bf16 training
-(`model.dtype: bfloat16`) and data parallelism (cli/train.py
---num_devices); neither falls back to f32 or to one device.
+`model.dtype: bfloat16` trains the module at bf16 compute with f32
+parameters, f32 BatchNorm statistics and an f32 loss, as the JAX package
+does (models/dualenc.py, nn/common.py). Data parallelism (cli/train.py
+--num_devices) is refused, naming ROADMAP.md queue 1 item 7; it does not
+fall back to one device.
 """
 
 from __future__ import annotations
@@ -50,18 +52,6 @@ from agdiff_torch.train.train_step import (
 )
 from agdiff_torch.utils.logging import MetricsWriter, get_logger
 
-BF16_REFUSAL = (
-    "training at model.dtype 'bfloat16' is not ported: the port trains in "
-    "float32 (reproducing flax's per-layer compute dtype is ROADMAP.md "
-    "queue 1 item 4a, bf16 training); sample an f32-trained model at bf16 "
-    "with cli/generate.py --dtype bfloat16")
-
-
-def check_trainable(config: Config) -> None:
-    if config.model.dtype != "float32":
-        raise NotImplementedError(BF16_REFUSAL)
-
-
 def to_device(batch: GraphBatch, device) -> GraphBatch:
     """Copy a (pinned) host batch to the device without blocking."""
     return GraphBatch(**{k: v.to(device, non_blocking=True)
@@ -73,7 +63,6 @@ class Trainer:
                  val_set: Optional[ConformationDataset], log_dir: str,
                  logger: Optional[logging.Logger] = None, device=None,
                  log_freq: int = 100):
-        check_trainable(config)
         self.config = config
         self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)

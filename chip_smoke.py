@@ -213,7 +213,41 @@ Phases, each of which fails the run:
      engines beside their plain CPU runs) and through GenerationRunner
      for 20 steps: K1's launches equal to the forwards on the '-e16' K1
      engines, no hand kernel on the others, positions finite;
- 11. one JSON line lists each kernel variant and its numbers, then the
+ 11. bf16 training, distillation and the distilled student, at the
+     widths of configs/qm9_fast.yml (bf16, packed_pairs): (a) the bf16
+     module on the card against the same module on the CPU
+     (MODULE_BF16_LIMITS, each score plane on its mask) and against the
+     f32 module of the same weights (the 5% engine gate), on the QM9
+     fixtures; (b) one bf16 train step on the card against the CPU's
+     (TF32 off; the losses, every gradient leaf and the running
+     statistics, BF16_STEP_LIMITS), with planted faults that must break
+     the limits (BatchNorm statistics at bf16, the position cast left
+     out, one-output layers' biases dropped, the running statistics left
+     unmoved); (c) cli/train.py on qm9_fast.yml as it stands (bf16,
+     packed_pairs, EMA 0.999, step_chunk 16) with --synthetic 512 for
+     FAST_ITERS iterations: losses finite and falling, a resume equal to
+     the run bit for bit, it/s; (d) one distillation step on the card
+     against the CPU's at f32 (STEP_LIMITS) and at bf16
+     (BF16_STEP_LIMITS), each with planted faults (the teacher's second
+     sub-step dropped, the first graph's sigma for every graph, the 'eps'
+     weighting, clip_local left out); (e) cli/distill.py from (c)'s log
+     dir (--ema_teacher, stages 32 and 16, DISTILL_ITERS iterations
+     each): finite validation losses, a rerun that skips both stages,
+     and stage 16 left as a cut after its first checkpoint leaves it
+     resuming from that checkpoint; (f) the stage-16 student through
+     cli/generate.py --fast (strided DDIM at eta 0, 16 steps, w_global
+     0.3, clip_local 20) on 16 synthetic QM9-size molecules: K1's
+     launches equal to the forwards, no other hand kernel, positions
+     finite, 'pksf' within 5% of the f32 engine on one batch, the
+     samples scored by cli/eval_covmat.py (printed, not gated); (g) the
+     student served (GenerationService, 'pksf', warmed at start-up): a
+     stream of four requests, then eight concurrent ones, each of two
+     molecules x 4 conformers: every reply ok, no capture during
+     requests, K1's launches equal to the forwards, latency p50 and max
+     and conformers/s printed; (h) 20 eager steps each of the bf16 train
+     step and of the distill step at f32 and bf16 (B=64) timed and
+     profiled;
+ 12. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -2290,11 +2324,21 @@ def train_step_on(config, module, device, batch, t, noise):
               for n, p in module.named_parameters()}
     m = make_train_step(config, device)(state, batch.to(device),
                                         t.to(device), noise.to(device))
-    grads = {n: p.grad.detach().cpu() for n, p in module.named_parameters()}
+    return step_result(m, module, before)
+
+
+def step_result(metrics, module, before):
+    """(metrics as floats, {name: grad}, {name: buffer}, before, {name:
+    param after}) on the CPU; a parameter a planted fault leaves without
+    a gradient has a zero one."""
+    import torch
+
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().cpu() for n, p in module.named_parameters()}
     after = {n: p.detach().cpu() for n, p in module.named_parameters()}
     bufs = {n: b.detach().cpu() for n, b in module.named_buffers()}
-    metrics = {k: float(v) for k, v in m._asdict().items()}
-    return metrics, grads, bufs, before, after
+    return ({k: float(v) for k, v in metrics._asdict().items()}, grads,
+            bufs, before, after)
 
 
 def step_errors(got, ref, lr) -> dict:
@@ -2305,7 +2349,7 @@ def step_errors(got, ref, lr) -> dict:
     mg, gg, bg, _, ag = got
     mr, gr, br, pr, ar = ref
     loss_rel = max(abs(mg[k] - mr[k]) / abs(mr[k])
-                   for k in ("loss", "loss_global", "loss_local"))
+                   for k in ("loss", "loss_global", "loss_local") if k in mr)
     top = max(float(g.abs().max()) for g in gr.values())
     worst = {"grad_max_rel": (0.0, ""), "grad_median_rel": (0.0, ""),
              "grad_p99_rel": (0.0, "")}
@@ -2412,15 +2456,8 @@ def check_train_step(config, mols, dev, report) -> list:
 
 
 def profile_train(label, config, mols, dev, report) -> dict:
-    """TRAIN_PROFILE_STEPS steps of a fresh model on one batch: ms per
-    step (CUDA events, after warm-up), peak device memory of a step, and
-    a profile of the steps: device busy (the union of kernel intervals),
-    idle share of the host window, and the device operations that took
-    the most time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """TRAIN_PROFILE_STEPS steps of a fresh model on one batch
+    (profile_steps)."""
     from agdiff_torch.train.train_step import (
         create_train_state,
         make_train_step,
@@ -2429,8 +2466,24 @@ def profile_train(label, config, mols, dev, report) -> dict:
     batch = train_batch(config, mols)[0].to(dev)
     state = create_train_state(config, dev)
     step = make_train_step(config, dev)
+    return profile_steps(f"train profile {label}", report["train"]
+                         ["profiles"], label, lambda: step(state, batch),
+                         batch)
+
+
+def profile_steps(title, section, label, step_once, batch) -> dict:
+    """TRAIN_PROFILE_STEPS calls of `step_once` (an eager train or
+    distill step on `batch`) after three of warm-up: ms per step (CUDA
+    events), peak device memory of a step, and a profile of the steps:
+    device busy (the union of kernel intervals), idle share of the host
+    window, and the device operations that took the most time. The row
+    goes to section[label]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
-        step(state, batch)
+        step_once()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2438,16 +2491,17 @@ def profile_train(label, config, mols, dev, report) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(TRAIN_PROFILE_STEPS):
-        step(state, batch)
+        step_once()
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / TRAIN_PROFILE_STEPS
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's ~5000 ops a step would cost the
+    # profiler's post-processing far more than the steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(TRAIN_PROFILE_STEPS):
-            step(state, batch)
+            step_once()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -2467,13 +2521,13 @@ def profile_train(label, config, mols, dev, report) -> dict:
         row.update(device_busy_us=busy, idle_share=1.0 - busy / wall_us,
                    kernels=len(spans),
                    top=[dict(name=n[:80], us=u) for n, u in top])
-    report["train"]["profiles"][label] = row
+    section[label] = row
     busy_txt = (f"device busy {row['device_busy_us'] / 1e3:.3f} ms of a "
                 f"{wall_us / 1e3:.3f} ms host window (idle share "
                 f"{row['idle_share']:.3f}), {row['kernels']} kernels"
                 if spans else "the profiler recorded no device kernels: "
                 "device busy not measured")
-    print(f"train profile {label}: {TRAIN_PROFILE_STEPS} steps of "
+    print(f"{title}: {TRAIN_PROFILE_STEPS} steps of "
           f"B={row['batch']} N={row['bucket']}: {ms:.3f} ms/step "
           f"({row['it_per_s']:.2f} it/s), peak {row['peak_mib']:.0f} MiB "
           f"({row['peak_over_state_mib']:.0f} over the state); {busy_txt}",
@@ -3291,6 +3345,803 @@ def run_engines(models, mols, dev, report) -> list:
     return failures
 
 
+# ---- phase 11: bf16 training, distillation and the student -------------------
+
+FAST_CONFIG = "qm9_fast.yml"   # hidden 128, 6 + 4 convs, bf16, packed_pairs,
+                               # B=64, EMA 0.999, step_chunk 16
+FAST_ITERS = 192        # through cli/train.py, synthetic_dataset(512)
+FAST_VAL_FREQ = 64      # validations and checkpoints at 64, 128 and 192
+FAST_RESUME_FROM = 128  # 64 resumed iterations against the same of the run
+DISTILL_STAGES = "32,16"
+DISTILL_ITERS = 64      # a stage, through cli/distill.py (4 chunks of 16)
+DISTILL_VAL_FREQ = 32   # validations and checkpoints at 32 and 64
+DISTILL_STEP_STUDENT = 16   # the steps' ladder (d): 16 student steps
+STUDENT_STEPS = 16      # the stage-16 student's strided DDIM ladder
+STUDENT_MOLS = 16       # synthetic QM9-size molecules it generates
+STUDENT_CONFS = 4       # conformers a molecule a served request
+STUDENT_REQUESTS = 8    # concurrent requests of two molecules each
+STUDENT_STREAM = 4      # requests of the single stream, one at a time
+# The bf16 module on the card against the bf16 module on the CPU, each
+# score plane on its mask as shares of its max |CPU value| (max, median,
+# p99, share beyond 1%): every operation rounds to bf16, so a sum taken
+# in another order flips a rounding that later layers carry on, more than
+# in K1, whose sums stay f32. Read on an H100 (80GB HBM3, 700 W): global
+# 6.5e-3, 0, 4.3e-3, 0; local 2.25e-2, 1.25e-3, 1.25e-2, 1.7e-2 (|local|
+# to 50, where a bf16 unit is 0.25).
+MODULE_BF16_LIMITS = dict(max_rel=5e-2, median_rel=5e-3, p99_rel=3e-2,
+                          beyond_1pct=5e-2)
+# The bf16 train step (and the bf16 distill step) on the card against the
+# same step on the CPU (TF32 off): the losses relative to themselves; the
+# worst gradient leaf's max |diff| as a share of the model's largest |g|;
+# the median over leaves of |diff| / |g| (L2 norms); each running
+# statistic as a share of max(its max, 1). bf16 sums of many terms leave
+# single elements of some leaves (biases ahead of a BatchNorm, whose true
+# gradient is 0) far off in relative terms, so no element-wise limit on
+# the leaf's own scale (STEP_LIMITS) holds at bf16. Read on an H100
+# (80GB HBM3, 700 W), train step / distill step: loss 3.3e-4 / 9.3e-5,
+# worst leaf 6.5e-3 / 4.4e-2 (six bf16 units of the largest |g|), median
+# 2.4e-2 / 7.0e-3, statistics 1.73e-3 / 0; the train step's faults:
+# statistics 5.7e-3 (BatchNorm at bf16), loss 5.9e-3 and statistics
+# 3.2e-3 (the position cast left out), loss 4.6e-2 (biases dropped),
+# statistics 0.82 (stale running update).
+BF16_STEP_LIMITS = dict(loss_rel=1.5e-3, grad_top_rel=0.1,
+                        grad_norm_median=7e-2, stats_max_rel=2.5e-3)
+BF16_TRAIN_FAULTS = ("bn_stats_bf16", "position_cast_left_out",
+                     "bias_dropped", "stale_running_update")
+DISTILL_FAULTS = ("teacher_second_step_dropped", "first_graph_sigma",
+                  "eps_weighting", "clip_local_left_out")
+
+
+@contextlib.contextmanager
+def bf16_fault(name):
+    """A planted fault in the bf16 train step: BatchNorm's batch
+    statistics taken at bf16; the distances taken on f32 positions and
+    rounded to bf16 once (the position cast left out); the bias of every
+    one-output bf16 layer dropped; the running statistics left unmoved."""
+    import torch
+
+    from agdiff_torch.nn import common
+    from agdiff_torch.ops import graph, masked
+
+    saved = []
+
+    def patch(obj, attr, value):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, value)
+
+    if name == "bn_stats_bf16":
+        real = masked.masked_batch_norm_stats
+
+        def bf16_stats(x, mask):
+            mean, var, count = real(x.bfloat16(), mask)
+            return mean.float(), var.float(), count
+        patch(masked, "masked_batch_norm_stats", bf16_stats)
+    elif name == "position_cast_left_out":
+        real = graph.pairwise_distance
+        patch(graph, "pairwise_distance",
+              lambda pos: real(pos.float()).to(pos.dtype))
+    elif name == "bias_dropped":
+        real = common.Linear.forward
+
+        def no_bias(self, x):
+            if self.compute_dtype == torch.float32 or self.out_features != 1:
+                return real(self, x)
+            cd = self.compute_dtype
+            return torch.matmul(x.to(cd), self.weight.to(cd).t())
+        patch(common.Linear, "forward", no_bias)
+    elif name == "stale_running_update":
+        ctx = common.frozen_running_stats()
+        ctx.__enter__()
+        saved.append((None, ctx, None))
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for obj, attr, value in reversed(saved):
+            if obj is None:
+                attr.__exit__(None, None, None)
+            else:
+                setattr(obj, attr, value)
+
+
+@contextlib.contextmanager
+def distill_fault(name):
+    """A planted fault in the distillation loss: the teacher's second DDIM
+    sub-step dropped (its drift taken as 0, so the target lands at the
+    mid point); the first graph's sigmas used for every graph; the 'eps'
+    weighting in place of 'trunc-snr'; clip_local left out of the
+    drift."""
+    from agdiff_torch.train import distill
+
+    cls = distill.DistillLoss
+    saved = []
+
+    def patch(attr, value):
+        saved.append((attr, getattr(cls, attr)))
+        setattr(cls, attr, value)
+
+    if name == "teacher_second_step_dropped":
+        real, teacher_calls = cls.drift, [0]
+
+        def drift(self, module, batch, pos, sigma):
+            import torch
+
+            out = real(self, module, batch, pos, sigma)
+            if torch.is_grad_enabled():       # the student's: a new loss
+                teacher_calls[0] = 0
+                return out
+            teacher_calls[0] += 1
+            return torch.zeros_like(out) if teacher_calls[0] == 2 else out
+        patch("drift", drift)
+    elif name == "first_graph_sigma":
+        real = cls.sigma_of
+        patch("sigma_of", lambda self, idx: real(self, idx)[:1].expand(
+            idx.shape))
+    elif name in ("eps_weighting", "clip_local_left_out"):
+        real = cls.__init__
+
+        def init(self, *args, **kw):
+            real(self, *args, **kw)
+            if name == "eps_weighting":
+                self.weighting = "eps"
+            else:
+                self.sampler_config = dataclasses.replace(
+                    self.sampler_config, clip_local=None)
+        patch("__init__", init)
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for attr, value in reversed(saved):
+            setattr(cls, attr, value)
+
+
+def bf16_step_errors(got, ref) -> dict:
+    """A bf16 step on the card (`got`) against the CPU's (`ref`), both
+    step_result tuples, on BF16_STEP_LIMITS's scales."""
+    import numpy as np
+    import torch
+
+    mg, gg, bg, _, _ = got
+    mr, gr, br, _, _ = ref
+    loss_rel = max(abs(mg[k] - mr[k]) / abs(mr[k])
+                   for k in ("loss", "loss_global", "loss_local") if k in mr)
+    top = max(float(g.abs().max()) for g in gr.values())
+    worst, norms = (0.0, ""), []
+    for name, g in gr.items():
+        d = gg[name] - g
+        e = float(d.abs().max()) / top if bool(torch.isfinite(d).all()) \
+            else float("inf")
+        if e >= worst[0]:
+            worst = (e, name)
+        norms.append(float(d.norm()) / max(float(g.norm()), 1e-30))
+    stats = max((float((bg[n] - b).abs().max()) / max(float(b.abs().max()),
+                                                      1.0)
+                 for n, b in br.items()), default=0.0)
+    row = dict(loss_rel=loss_rel, grad_top_rel=worst[0],
+               grad_top_rel_leaf=worst[1],
+               grad_norm_median=float(np.median(norms)),
+               stats_max_rel=stats, grad_top=top, loss=mg["loss"],
+               loss_ref=mr["loss"])
+    row["broken"] = [k for k, lim in BF16_STEP_LIMITS.items()
+                     if not row[k] <= lim]
+    return row
+
+
+def print_step_rows(title, rows, limits, failures):
+    """Print each row; a sound row must break no limit, a planted fault's
+    at least one."""
+    print(f"{title}: limits {limits}", flush=True)
+    for label, row in rows.items():
+        shown = ", ".join(f"{k} {row[k]:.2e}" for k in limits)
+        print(f"  {label}: {shown}; broken {row['broken']}", flush=True)
+        fault = label.startswith("fault")
+        if fault and not row["broken"]:
+            failures.append(f"{title}: {label} breaks no limit")
+        if not fault and row["broken"]:
+            failures.append(f"{title}: {label} breaks {row['broken']}")
+
+
+def fast_config():
+    from agdiff_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, "configs", FAST_CONFIG))
+
+
+def check_bf16_module(dev, report) -> list:
+    """(a) The bf16 module (configs/qm9_fast.yml widths, seeded random
+    weights, the QM9 fixtures) on the card against the same module on
+    the CPU, and against the f32 module of the same weights on the card
+    within the engine gate."""
+    import torch
+
+    from agdiff_torch.data.bucketing import pad_molecules
+    from agdiff_torch.data.fixture import load_fixture
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_random
+
+    cfg = fast_config().model
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = init_random(DualEncoderEpsNetwork(cfg), SEED).eval()
+    card = DualEncoderEpsNetwork(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev).eval()
+    full = DualEncoderEpsNetwork(f32)
+    full.load_state_dict(cpu.state_dict())
+    full = full.to(dev).eval()
+    mols = load_fixture()
+    batch = pad_molecules(mols, 32)
+    with torch.no_grad():
+        ref = cpu(batch)
+        got = card(batch.to(dev))
+        wide = full(batch.to(dev))
+    rows, failures = {}, []
+    for key, mask in (("global", "edge_mask"), ("local", "local_mask")):
+        m = getattr(ref, mask)
+        if not torch.equal(getattr(got, mask).cpu(), m):
+            failures.append(f"bf16 module: the card's {mask} differs")
+        rows[key] = errors(getattr(got, f"edge_inv_{key}").cpu(),
+                           getattr(ref, f"edge_inv_{key}"), m)
+    broken = broken_limits(rows, {"global": MODULE_BF16_LIMITS,
+                                  "local": MODULE_BF16_LIMITS})
+    if broken:
+        failures.append(f"bf16 module, card against CPU: {broken}")
+    report["distill"]["module"] = rows
+    print(f"bf16 module (qm9_fast.yml, {len(mols)} QM9 fixtures, B="
+          f"{batch.num_graphs}) on the card against the CPU: " + "; ".join(
+              f"{k} max {r['max_rel']:.2e} median {r['median_rel']:.2e} "
+              f"p99 {r['p99_rel']:.2e}" for k, r in rows.items())
+          + f" (limits {MODULE_BF16_LIMITS}); broken {broken}", flush=True)
+    check_engines(got, wide, "bf16_module", ENGINE_TOL, report)
+    return failures
+
+
+def check_bf16_train_step(dev, train_mols, report) -> list:
+    """(b) One bf16 train step (qm9_fast.yml: packed_pairs) on the card
+    against the CPU's, and its planted faults on the card."""
+    import copy
+
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_like_jax
+
+    config = fast_config()
+    batch, t, noise = train_batch(config, train_mols)
+    init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                         torch.Generator().manual_seed(config.train.seed))
+    t0 = time.time()
+    ref = train_step_on(config, copy.deepcopy(init), torch.device("cpu"),
+                        batch, t, noise)
+    cpu_s = time.time() - t0
+    rows = {"card_vs_cpu": bf16_step_errors(train_step_on(
+        config, copy.deepcopy(init), dev, batch, t, noise), ref)}
+    for name in BF16_TRAIN_FAULTS:
+        with bf16_fault(name):
+            rows[f"fault {name}"] = bf16_step_errors(train_step_on(
+                config, copy.deepcopy(init), dev, batch, t, noise), ref)
+    report["distill"]["bf16_step"] = rows
+    failures = []
+    print_step_rows(f"bf16 train step (qm9_fast.yml, B={batch.num_graphs}, "
+                    f"loss {ref[0]['loss']:.4f} on the CPU in {cpu_s:.1f} "
+                    f"s)", rows, BF16_STEP_LIMITS, failures)
+    return failures
+
+
+def run_fast_training(dev, report):
+    """(c) cli/train.py on configs/qm9_fast.yml as it stands (bf16,
+    packed_pairs, EMA 0.999, step_chunk 16) with --synthetic 512: the
+    losses finite and falling, a resume from FAST_RESUME_FROM equal to
+    the run bit for bit, it/s. Returns (failures, the run's log dir)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from agdiff_torch.cli import train as train_cli
+    from agdiff_torch.train.checkpoint import load_checkpoint
+
+    root = os.path.join(OUT_DIR, "distill")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open(os.path.join(ROOT, "configs", FAST_CONFIG)) as f:
+        raw = yaml.safe_load(f)
+    raw["train"].update(max_iters=FAST_ITERS, val_freq=FAST_VAL_FREQ)
+    cfg_path = os.path.join(root, "qm9_fast.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    synth = ["--synthetic", str(TRAIN_MOLECULES), "--deterministic",
+             "--device", str(dev)]
+    try:
+        t0 = time.time()
+        full = train_cli.main([cfg_path, "--logdir",
+                               os.path.join(root, "train"), *synth])
+        wall = time.time() - t0
+        resumed_dir = os.path.join(root, "resumed")
+        shutil.copytree(full.log_dir, resumed_dir)
+        shutil.rmtree(os.path.join(resumed_dir, "checkpoints",
+                                   str(FAST_ITERS)))
+        t0 = time.time()
+        resumed = train_cli.main([resumed_dir, "--resume_iter",
+                                  str(FAST_RESUME_FROM), *synth])
+        resume_s = time.time() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    failures = []
+    losses = np.asarray(full.losses)
+    first, last = (float(losses[:LOSS_WINDOW].mean()),
+                   float(losses[-LOSS_WINDOW:].mean()))
+    if len(losses) != FAST_ITERS or not np.isfinite(losses).all():
+        failures.append(f"bf16 train: {len(losses)} losses, finite "
+                        f"{bool(np.isfinite(losses).all())}")
+    if not last < first:
+        failures.append(f"bf16 train: the last {LOSS_WINDOW} losses' mean "
+                        f"{last:.4f} is not below the first's {first:.4f}")
+    ckpt = lambda d: load_checkpoint(os.path.join(
+        d, "checkpoints", str(FAST_ITERS)))
+    bad = same_checkpoint(ckpt(full.log_dir), ckpt(resumed_dir))
+    same_losses = resumed.losses == full.losses[FAST_RESUME_FROM:]
+    if bad or not same_losses:
+        failures.append(f"bf16 train resume: iterations "
+                        f"{FAST_RESUME_FROM + 1}-{FAST_ITERS} differ from "
+                        f"the uninterrupted run (losses equal "
+                        f"{same_losses}; {bad[:5]})")
+    shutil.rmtree(resumed_dir)
+    row = dict(iterations=FAST_ITERS, wall_s=wall,
+               it_per_s=FAST_ITERS / wall, loss_first=first, loss_last=last,
+               resume_wall_s=resume_s, resumed_equal=not bad and same_losses,
+               dtype=full.config.model.dtype,
+               packed_pairs=full.config.model.packed_pairs,
+               step_chunk=full.config.train.step_chunk,
+               ema_decay=full.config.train.ema_decay)
+    report["distill"]["train_run"] = row
+    print(f"bf16 train (cli/train.py {FAST_CONFIG}: {row['dtype']}, "
+          f"packed_pairs {row['packed_pairs']}, step_chunk "
+          f"{row['step_chunk']}, EMA {row['ema_decay']}): {FAST_ITERS} "
+          f"iterations in {wall:.1f} s ({row['it_per_s']:.2f} it/s with "
+          f"loader, validations and checkpoints, deterministic "
+          f"algorithms); loss mean of the first {LOSS_WINDOW} {first:.4f}, "
+          f"of the last {last:.4f}; resumed from {FAST_RESUME_FROM}: "
+          f"torch.equal to the run {not bad} (losses {same_losses})",
+          flush=True)
+    return failures, full.log_dir
+
+
+def distill_sampler():
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    return SamplerConfig(sampling_type="generalized", eta=0.0,
+                         ladder="strided", w_global=0.3,
+                         global_start_sigma=0.5, clip=1000.0,
+                         clip_local=20.0)
+
+
+def distill_step_on(config, teacher, device, batch, k, noise):
+    """One distill step (a student copied from `teacher`, both on
+    `device`) on the injected k and noise: step_result's tuple."""
+    from agdiff_torch.train import distill
+
+    teacher = teacher.to(device).eval().requires_grad_(False)
+    state = distill.create_distill_state(config, teacher, device, SEED)
+    before = {n: p.detach().cpu().clone()
+              for n, p in state.module.named_parameters()}
+    m = distill.make_distill_step(config, distill_sampler(),
+                                  DISTILL_STEP_STUDENT, device)(
+        state, teacher, batch.to(device), k.to(device), noise.to(device))
+    return step_result(m, state.module, before)
+
+
+def check_distill_step(dev, train_mols, report) -> list:
+    """(d) One distill step on the card against the CPU's, at f32 (phase
+    9's STEP_LIMITS) and at bf16 (BF16_STEP_LIMITS), each with the
+    planted faults on the card."""
+    import copy
+
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_like_jax
+
+    base = fast_config()
+    batch, _, noise = train_batch(base, train_mols)
+    k = torch.randint(0, DISTILL_STEP_STUDENT, (batch.num_graphs,),
+                      generator=torch.Generator().manual_seed(SEED))
+    failures, rows_all = [], {}
+    for dtype in ("float32", "bfloat16"):
+        config = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, dtype=dtype), train=dataclasses.replace(
+            base.train, ema_decay=0.0))
+        init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                             torch.Generator().manual_seed(SEED)).eval()
+        t0 = time.time()
+        ref = distill_step_on(config, copy.deepcopy(init),
+                              torch.device("cpu"), batch, k, noise)
+        cpu_s = time.time() - t0
+        errs = (functools.partial(step_errors, lr=config.train.optimizer.lr)
+                if dtype == "float32" else bf16_step_errors)
+        limits = STEP_LIMITS if dtype == "float32" else BF16_STEP_LIMITS
+        rows = {"card_vs_cpu": errs(distill_step_on(
+            config, copy.deepcopy(init), dev, batch, k, noise), ref)}
+        for name in DISTILL_FAULTS:
+            with distill_fault(name):
+                rows[f"fault {name}"] = errs(distill_step_on(
+                    config, copy.deepcopy(init), dev, batch, k, noise), ref)
+        rows_all[dtype] = rows
+        print_step_rows(f"distill step {dtype} (qm9_fast.yml widths, B="
+                        f"{batch.num_graphs}, {DISTILL_STEP_STUDENT} student "
+                        f"steps, loss {ref[0]['loss']:.4f} on the CPU in "
+                        f"{cpu_s:.1f} s)", rows, limits, failures)
+    report["distill"]["distill_step"] = rows_all
+    return failures
+
+
+def run_distill_cli(dev, teacher_dir, report):
+    """(e) cli/distill.py from (c)'s log dir (--ema_teacher, stages 32 and
+    16): both stages finish with finite validation losses; a second run
+    skips them; stage 16 as a cut after its first checkpoint leaves it
+    (DONE.json and the later checkpoint gone, the best pointer at the
+    first) resumes from that checkpoint. Returns (failures, stage-16
+    dir)."""
+    import json
+    import shutil
+
+    import numpy as np
+
+    from agdiff_torch.cli import distill as distill_cli
+
+    logdir = os.path.join(OUT_DIR, "distill", "students")
+    args = [teacher_dir, "--ema_teacher", "--stages", DISTILL_STAGES,
+            "--iters", str(DISTILL_ITERS), "--val_freq",
+            str(DISTILL_VAL_FREQ), "--synthetic", str(TRAIN_MOLECULES),
+            "--logdir", logdir, "--device", str(dev)]
+    failures = []
+    t0 = time.time()
+    summary = distill_cli.main(args)
+    wall = time.time() - t0
+    finite = all(np.isfinite(s["best_val"]) for s in summary)
+    stages = [int(s) for s in DISTILL_STAGES.split(",")]
+    if [s["stage"] for s in summary] != stages or not finite:
+        failures.append(f"distill: stages {summary}")
+    t0 = time.time()
+    again = distill_cli.main(args)
+    skip_s = time.time() - t0
+    if not all(s.get("resumed") for s in again):
+        failures.append(f"distill: the rerun did not skip {again}")
+    last = os.path.join(logdir, f"stage{stages[-1]}")
+    ckpts = os.path.join(os.path.abspath(last), "checkpoints")
+    first, *later = sorted(int(n) for n in os.listdir(ckpts))
+    os.remove(os.path.join(last, "DONE.json"))
+    for it in later:
+        shutil.rmtree(os.path.join(ckpts, str(it)))
+    with open(os.path.join(last, "best_model", "POINTER"), "w") as f:
+        f.write(os.path.join(ckpts, str(first)))
+    t0 = time.time()
+    distill_cli.main(args)
+    resume_s = time.time() - t0
+    with open(os.path.join(logdir, "log.txt")) as f:
+        resumed = (f"[stage {stages[-1]}] resuming from iter "
+                   f"{first}") in f.read()
+    if not later:
+        failures.append("distill: one checkpoint in the last stage")
+    with open(os.path.join(logdir, "STAGES.json")) as f:
+        keys = sorted(json.load(f))
+    done = os.path.exists(os.path.join(last, "DONE.json"))
+    if not (resumed and done) or keys != ["sampler", "stages",
+                                          "weighting"]:
+        failures.append(f"distill: resumed {resumed}, done {done}, "
+                        f"STAGES.json keys {keys}")
+    iters = DISTILL_ITERS * len(stages)
+    row = dict(stages=summary, wall_s=wall, it_per_s=iters / wall,
+               skip_s=skip_s, resume_s=resume_s, resumed=resumed,
+               resumed_from=first)
+    report["distill"]["cli"] = row
+    print(f"distill (cli/distill.py --ema_teacher --stages {DISTILL_STAGES} "
+          f"--iters {DISTILL_ITERS}): {iters} iterations in {wall:.1f} s "
+          f"({row['it_per_s']:.2f} it/s with loader, validations and "
+          f"checkpoints); best validation losses " + ", ".join(
+              f"stage {s['stage']} {s['best_val']:.5f}" for s in summary)
+          + f"; the rerun skipped both in {skip_s:.1f} s; stage "
+          f"{stages[-1]} cut after its first checkpoint ({first}) resumed from "
+          f"it: {resumed} ({resume_s:.1f} s)", flush=True)
+    return failures, last
+
+
+def student_generate(dev, stage_dir, report):
+    """(f) The stage-16 student through cli/generate.py (--fast, strided
+    DDIM at eta 0, 16 steps, w_global 0.3, clip_local 20) on
+    STUDENT_MOLS synthetic QM9-size molecules: K1's launches equal the
+    forwards and no other hand kernel runs, positions finite; the
+    student's 'pksf' scores within the engine gate of the f32 engine on
+    one batch; the samples scored by cli/eval_covmat.py (printed, not
+    gated). Returns (failures, K1 launches)."""
+    import numpy as np
+    import torch
+
+    from agdiff_torch.cli import generate as gen_cli
+    from agdiff_torch.cli._common import load_inference_bundle
+    from agdiff_torch.data.bucketing import pad_molecules
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.eval import generate as gen_mod
+    from agdiff_torch.models.fast_forward import build_fast_forward
+
+    out = os.path.join(OUT_DIR, "distill", "samples")
+    runners = []
+    real_init = gen_mod.GenerationRunner.__init__
+
+    def spy(self, *a, **kw):
+        real_init(self, *a, **kw)
+        runners.append(self)
+
+    gen_mod.GenerationRunner.__init__ = spy
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    try:
+        gen_cli.main([stage_dir, "--fast", "--sampling_type", "generalized",
+                      "--eta", "0", "--ladder", "strided", "--n_steps",
+                      str(STUDENT_STEPS), "--w_global", "0.3",
+                      "--clip_local", "20", "--synthetic",
+                      str(STUDENT_MOLS), "--out_dir", out, "--no_resume",
+                      "--device", str(dev)])
+    finally:
+        gen_mod.GenerationRunner.__init__ = real_init
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    (runner,) = runners
+    fwd = runner.forwards.get("pksf")
+    forwards = 0 if fwd is None else fwd.calls
+    k1 = counts.pop("stack_packed/stack_full:triu", 0)
+    samples = os.path.join(out, "samples_all.npz")
+    done = gen_mod.load_samples(samples)
+    finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in done)
+    conformers = sum(m.meta["pos_gen"].shape[0] for m in done)
+    failures = []
+    if k1 != forwards or not k1 or counts or not finite \
+            or len(done) != STUDENT_MOLS:
+        failures.append(f"student generate: K1 {k1}, forwards {forwards}, "
+                        f"other kernels {counts}, finite {finite}, "
+                        f"molecules {len(done)}")
+    config, model, _, _ = load_inference_bundle(stage_dir)
+    model = model.to(dev)
+    mols = synthetic_dataset(STUDENT_MOLS, seed=7, num_conformers=3)
+    batch = pad_molecules(mols, 32, device=dev)
+    with torch.no_grad():
+        f32 = dataclasses.replace(config.model, dtype="float32")
+        check_engines(build_fast_forward(config.model, model, "pksf")(batch),
+                      build_fast_forward(f32, model, None)(batch),
+                      "student_pksf", ENGINE_TOL, report)
+    proc = subprocess.run(
+        [sys.executable, "-m", "agdiff_torch.cli.eval_covmat", samples,
+         "--num_workers", "4"], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"eval_covmat exit {proc.returncode}:\n"
+                         f"{proc.stderr[-3000:]}")
+    with np.load(os.path.splitext(samples)[0] + "_covmat.npz") as res:
+        covr, matr, thr = res["CoverageR"], res["MatchingR"], \
+            res["thresholds"]
+    i = int(np.argmin(np.abs(thr - 0.5)))
+    row = dict(molecules=len(done), conformers=conformers,
+               steps=STUDENT_STEPS, wall_s=wall, forwards=forwards,
+               k1_launches=k1, finite=finite, scored=int(covr.shape[0]),
+               cov_r_at=float(thr[i]),
+               cov_r_mean=float(covr[:, i].mean()) if len(covr) else None,
+               mat_r_mean=float(matr.mean()) if len(matr) else None)
+    report["distill"]["generate"] = row
+    print(f"student generate (cli/generate.py {os.path.basename(stage_dir)}"
+          f" --fast, strided DDIM eta 0, {STUDENT_STEPS} steps): "
+          f"{len(done)} molecules, {conformers} conformers in {wall:.1f} s, "
+          f"K1 {k1} launches = {forwards} forwards, other kernels "
+          f"{counts}, finite {finite}; COV-R at {row['cov_r_at']:.2f} A "
+          f"{row['cov_r_mean']}, MAT-R {row['mat_r_mean']} A "
+          f"({row['scored']} scored; not gated: the teacher trained "
+          f"{FAST_ITERS} iterations)", flush=True)
+    return failures, k1
+
+
+def student_serve(dev, stage_dir, report):
+    """(g) The stage-16 student served (GenerationService,
+    PackedGenerationRunner 'pksf', merging within SERVE_WINDOW), warmed at
+    start-up for the requests' sizes at every batch size: a single stream
+    of STUDENT_STREAM requests, then STUDENT_REQUESTS concurrent requests,
+    each of two molecules x STUDENT_CONFS conformers. Every reply ok, no
+    capture during requests, K1's launches equal the forwards. Returns
+    (failures, K1 launches)."""
+    import torch
+
+    from agdiff_torch.chem.mol import save_molecules
+    from agdiff_torch.cli._common import load_inference_bundle
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import SamplerConfig
+    from agdiff_torch.serve.server import submit
+
+    root = os.path.join(OUT_DIR, "distill", "serve")
+    os.makedirs(root, exist_ok=True)
+    mols = synthetic_dataset(2 * STUDENT_REQUESTS, seed=11,
+                             num_conformers=3)
+    sets = []
+    for i in range(STUDENT_REQUESTS):
+        path = os.path.join(root, f"request_{i}.npz")
+        save_molecules(path, mols[2 * i:2 * i + 2])
+        sets.append(path)
+    config, model, _, _ = load_inference_bundle(stage_dir)
+    ladder = SamplerConfig(n_steps=STUDENT_STEPS, ladder="strided",
+                           sampling_type="generalized", eta=0.0,
+                           w_global=0.3, clip_local=20.0)
+    runner = PackedGenerationRunner(
+        model, config.model, make_diffusion(config.model), ladder,
+        buckets=(32,), chunk_size=SERVE_CHUNK, device=dev)
+    svc, port, thread = start_service(runner, max_nodes=32)
+    t0 = time.time()
+    warm = submit({"cmd": "warm", "retry": True,
+                   "nodes": sorted({m.num_nodes for m in mols})},
+                  port=port, timeout=600)
+    warm_s = time.time() - t0
+    fwd = runner.forward("pksf")
+
+    def request(i):
+        return {"cmd": "generate", "test_set": sets[i],
+                "num_confs": STUDENT_CONFS, "seed": 200 + i, "save": False}
+
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    calls0, captures0 = fwd.calls, device_counts(fwd)[2]
+    stream = []
+    t0 = time.time()
+    for i in range(STUDENT_STREAM):
+        t1 = time.time()
+        stream.append((submit(request(i), port=port, timeout=600),
+                       time.time() - t1))
+    stream_s = time.time() - t0
+    replies, wall = burst(port, [request(i)
+                                 for i in range(STUDENT_REQUESTS)])
+    counts, calls, captures = device_counts(fwd)
+    forwards = calls - calls0
+    k1 = counts.pop("stack_packed/stack_full:triu", 0)
+    failures = []
+    every = stream + replies
+    if not all(r.get("ok") for r, _ in every):
+        failures.append(f"student serve: a request failed: "
+                        f"{[r for r, _ in every if not r.get('ok')]}")
+    if k1 != forwards or not k1 or counts:
+        failures.append(f"student serve: K1 launches {k1}, forwards "
+                        f"{forwards}, other kernels {counts}")
+    if captures != captures0:
+        failures.append(f"student serve: {captures - captures0} ladders "
+                        f"captured during requests")
+    if not stop_service(runner, port, thread):
+        failures.append("student serve: shutdown")
+    lat = sorted(t for _, t in replies)
+    slat = sorted(t for _, t in stream)
+    confs = sum(r.get("samples", 0) for r, _ in replies)
+    sconfs = sum(r.get("samples", 0) for r, _ in stream)
+    row = dict(warm_s=warm_s, warmed_ladders=len(warm.get("compiled", [])),
+               requests=STUDENT_REQUESTS, conformers=confs, burst_s=wall,
+               conformers_per_s=confs / wall,
+               latency_p50_s=statistics.median(lat), latency_max_s=lat[-1],
+               stream_requests=STUDENT_STREAM,
+               stream_latency_p50_s=statistics.median(slat),
+               stream_latency_max_s=slat[-1],
+               stream_conformers_per_s=sconfs / stream_s,
+               merged=sum(1 for r, _ in replies
+                          if r.get("batched_with", 0) >= 1),
+               forwards=forwards, k1_launches=k1,
+               ladders_captured_during_requests=captures - captures0)
+    report["distill"]["serve"] = row
+    print(f"student serve ('pksf', {STUDENT_STEPS} strided DDIM steps at "
+          f"eta 0, chunk {SERVE_CHUNK}): warm-up {warm_s:.2f} s, "
+          f"{row['warmed_ladders']} ladders; a stream of {STUDENT_STREAM} "
+          f"requests of 2 molecules x {STUDENT_CONFS} conformers: latency "
+          f"p50 {row['stream_latency_p50_s']:.3f} s, max "
+          f"{row['stream_latency_max_s']:.3f} s, "
+          f"{row['stream_conformers_per_s']:.1f} conformers/s; "
+          f"{STUDENT_REQUESTS} concurrent ({row['merged']} merged): latency "
+          f"p50 {row['latency_p50_s']:.3f} s, max {row['latency_max_s']:.3f}"
+          f" s, {row['conformers_per_s']:.1f} conformers/s; K1 {k1} "
+          f"launches = {forwards} forwards; "
+          f"{row['ladders_captured_during_requests']} captures during "
+          f"requests ({report['card']})", flush=True)
+    return failures, k1
+
+
+def profile_distill(dev, train_mols, report):
+    """(h) TRAIN_PROFILE_STEPS eager steps each of the bf16 train step
+    and of the distill step at f32 and at bf16, B=64 (qm9_fast.yml)."""
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_like_jax
+    from agdiff_torch.train import distill
+    from agdiff_torch.train.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    base = fast_config()
+    batch = train_batch(base, train_mols)[0].to(dev)
+    section = report["distill"]["profiles"] = {}
+    state = create_train_state(base, dev)
+    step = make_train_step(base, dev)
+    profile_steps("profile bf16 train step", section, "train_bf16",
+                  lambda: step(state, batch), batch)
+    del state
+    for dtype in ("float32", "bfloat16"):
+        config = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, dtype=dtype), train=dataclasses.replace(
+            base.train, ema_decay=0.0))
+        teacher = init_like_jax(DualEncoderEpsNetwork(config.model),
+                                torch.Generator().manual_seed(SEED)).to(dev)
+        teacher.eval().requires_grad_(False)
+        dstate = distill.create_distill_state(config, teacher, dev, SEED)
+        dstep = distill.make_distill_step(config, distill_sampler(),
+                                          DISTILL_STEP_STUDENT, dev)
+        profile_steps(f"profile distill step {dtype}", section,
+                      f"distill_{dtype}",
+                      lambda: dstep(dstate, teacher, batch), batch)
+        del dstate, teacher
+        torch.cuda.empty_cache()
+
+
+def run_distillation(dev, report):
+    """Phase 11: (a)-(h) of the module docstring. Returns (failures, K1
+    launches of the student's generate and serve runs)."""
+    import shutil
+
+    import torch
+
+    from agdiff_torch.data.synthetic import synthetic_dataset
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("phase 11: TF32 must be off before the gates")
+    report["distill"] = {"part_s": {}}
+    mark = [time.time()]
+
+    def part(name):
+        now = time.time()
+        report["distill"]["part_s"][name] = now - mark[0]
+        mark[0] = now
+
+    # the training split of the CLIs' --synthetic 512 (the steps' batches)
+    mols = synthetic_dataset(TRAIN_MOLECULES,
+                             seed=fast_config().train.seed)
+    train_mols = mols[:int(len(mols) * 0.9)]
+    failures = check_bf16_module(dev, report)
+    part("a module")
+    failures += check_bf16_train_step(dev, train_mols, report)
+    part("b train step")
+    failed, train_dir = run_fast_training(dev, report)
+    failures += failed
+    part("c cli/train.py")
+    failures += check_distill_step(dev, train_mols, report)
+    part("d distill step")
+    failed, stage_dir = run_distill_cli(dev, train_dir, report)
+    failures += failed
+    part("e cli/distill.py")
+    failed, k1_gen = student_generate(dev, stage_dir, report)
+    failures += failed
+    part("f student generate")
+    failed, k1_serve = student_serve(dev, stage_dir, report)
+    failures += failed
+    part("g student serve")
+    profile_distill(dev, train_mols, report)
+    part("h profiles")
+    print("phase 11 parts (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["distill"]["part_s"].items()),
+        flush=True)
+    # the checkpoints (tens of MB each) are not kept; the logs are
+    for d, subdirs, _ in os.walk(os.path.join(OUT_DIR, "distill")):
+        if "checkpoints" in subdirs:
+            shutil.rmtree(os.path.join(d, "checkpoints"))
+    report["distill"]["k1_launches"] = k1_gen + k1_serve
+    return failures, k1_gen + k1_serve
+
+
 def main() -> int:
     import torch
 
@@ -3358,9 +4209,9 @@ def main() -> int:
                                        "spill")):
                 print(f"  {name}: {line.strip()}", flush=True)
     phase_done("2 build")
+    dev = torch.device("cuda")
 
     # ---- 3. K1 against its plain version ------------------------------------
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     qcfg = load_config(os.path.join(ROOT, "configs", "qm9_fast.yml")).model
     qmodel = init_random(DualEncoderEpsNetwork(qcfg), SEED).to(dev).eval()
@@ -3731,10 +4582,15 @@ def main() -> int:
          "drugs": (dcfg, dmodel, dcpu, dconf.buckets, DRUGS_CHUNK)},
         {"qm9": qmols, "drugs": dmols}, dev, report)
     phase_done("10 serve and engines")
+
+    # ---- 11. bf16 training, distillation and the distilled student --------
+    failed, k1_student = run_distillation(dev, report)
+    failures += failed
+    phase_done("11 bf16 train, distill, student")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 11. result lines --------------------------------------------------
+    # ---- 12. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -3764,7 +4620,8 @@ def main() -> int:
     kernels = [
         entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]
               + report["serve"]["qm9"]["k1_launches"]
-              + report["engines"]["pksf-e16"]["k1_launches"],
+              + report["engines"]["pksf-e16"]["k1_launches"]
+              + k1_student,
               ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32")),
         entry("stack_full:tight", "tight_B48_N64",
               slices["drugs_bucket64"]["k1_launches"]

@@ -1329,3 +1329,126 @@ def test_cuda_device_lock_keeps_captures_apart(card):
     for thread, c0, c1 in captures:
         other = [(s0, s1) for name, s0, s1 in spans if name != thread]
         assert all(c1 <= s0 or s1 <= c0 for s0, s1 in other)
+
+
+# bf16 training and distillation on the card against the CPU: bf16 sums
+# taken in another order flip roundings that the backward carries, so the
+# limits are those tests/test_torch_port_bf16.py holds the CPU against JAX
+# to (loss 1e-3 of itself, statistics 1e-3 of max(|stat|, 1), each leaf's
+# max |diff| 6% of the model's largest |g|, the median over leaves of
+# |diff| / |g| 7%); f32 keeps the train step's (loss 1e-5, each leaf 2e-4
+# of max(its largest |g|, 1e-3 x the model's largest)).
+BF16_TRAIN = dict(loss=1e-3, stats=1e-3, top=6e-2, median=7e-2)
+
+
+def _grads_close(got, ref, bf16):
+    top = max(float(g.abs().max()) for g in ref.values())
+    rel = []
+    for name, g in ref.items():
+        err = float((got[name] - g).abs().max())
+        if bf16:
+            assert err <= BF16_TRAIN["top"] * top, (name, err, top)
+            rel.append(float((got[name] - g).norm())
+                       / max(float(g.norm()), 1e-30))
+        else:
+            scale = max(float(g.abs().max()), 1e-3 * top)
+            assert err <= 2e-4 * scale, (name, err, scale)
+    if bf16:
+        assert float(np.median(rel)) <= BF16_TRAIN["median"], rel
+
+
+def _small_train_config(dtype, packed=False):
+    from agdiff_torch.config import Config, TrainConfig
+
+    return Config(model=ModelConfig(hidden_dim=32, num_convs=2,
+                                    num_convs_local=2, packed_pairs=packed,
+                                    dtype=dtype),
+                  train=TrainConfig(batch_size=8), buckets=(32,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_cuda_bf16_train_step_matches_cpu(card, packed):
+    """One bf16 train step on the card against the CPU (TF32 off): the
+    losses, every gradient leaf and the running statistics at
+    BF16_TRAIN's limits."""
+    import copy
+
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.models.loss import sample_timesteps
+    from agdiff_torch.models.weights import init_like_jax
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = _small_train_config("bfloat16", packed)
+    batch = pad_molecules(synthetic_dataset(8, seed=4), 32)
+    gen = torch.Generator().manual_seed(0)
+    t = sample_timesteps(gen, 8, config.model.num_diffusion_timesteps)
+    noise = torch.randn(batch.pos.shape, generator=gen)
+    init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                         torch.Generator().manual_seed(1))
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        m = copy.deepcopy(init).to(dev)
+        state = TrainState(0, m, make_optimizer(m, config.train),
+                           torch.Generator(device=dev))
+        metrics = make_train_step(config, dev)(
+            state, batch.to(dev), t.to(dev), noise.to(dev))
+        runs.append((metrics, {n: p.grad.cpu() for n, p in
+                               m.named_parameters()},
+                     {n: b.cpu() for n, b in m.named_buffers()}))
+    (mg, gg, bg), (mr, gr, br) = runs
+    for k in ("loss", "loss_global", "loss_local"):
+        assert abs(float(getattr(mg, k)) - float(getattr(mr, k))) <= \
+            BF16_TRAIN["loss"] * abs(float(getattr(mr, k))), k
+    _grads_close(gg, gr, bf16=True)
+    for name, b in br.items():
+        assert float((bg[name] - b).abs().max()) <= BF16_TRAIN["stats"] * \
+            max(float(b.abs().max()), 1.0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_distill_step_matches_cpu(card, dtype):
+    """One distillation step (train/distill.py: two teacher DDIM steps, the
+    student's drift, backward, the clip and the two Adams) on the card
+    against the CPU, the same k and noise: the loss, the gradient norm and
+    every gradient leaf, f32 at the train step's limits and bf16 at
+    BF16_TRAIN's; the teacher and the student's statistics unchanged."""
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.models.weights import init_like_jax
+    from agdiff_torch.sampling.langevin import SamplerConfig
+    from agdiff_torch.train import distill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = _small_train_config(dtype)
+    sampler = SamplerConfig(sampling_type="generalized", eta=0.0,
+                            ladder="strided", w_global=0.3, clip_local=20.0)
+    batch = pad_molecules(synthetic_dataset(8, seed=4), 32)
+    gen = torch.Generator().manual_seed(0)
+    k = torch.randint(0, 16, (8,), generator=gen)
+    noise = torch.randn(batch.pos.shape, generator=gen)
+    teacher = init_like_jax(DualEncoderEpsNetwork(config.model),
+                            torch.Generator().manual_seed(1)).eval()
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        t_dev = distill.student_from(teacher).to(dev).requires_grad_(False)
+        before = {n: v.clone() for n, v in t_dev.state_dict().items()}
+        state = distill.create_distill_state(config, t_dev, dev, 0)
+        stats = {n: b.clone() for n, b in state.module.named_buffers()}
+        metrics = distill.make_distill_step(config, sampler, 16, dev)(
+            state, t_dev, batch.to(dev), k.to(dev), noise.to(dev))
+        for n, v in t_dev.state_dict().items():
+            assert torch.equal(v, before[n]), n
+        for n, b in state.module.named_buffers():
+            assert torch.equal(b, stats[n]), n
+        runs.append((metrics, {n: p.grad.cpu() for n, p in
+                               state.module.named_parameters()}))
+    (mg, gg), (mr, gr) = runs
+    bf16 = dtype == "bfloat16"
+    rtol = BF16_TRAIN["loss"] if bf16 else 1e-5
+    assert abs(float(mg.loss) - float(mr.loss)) <= rtol * float(mr.loss)
+    assert abs(float(mg.grad_norm) - float(mr.grad_norm)) <= \
+        (BF16_TRAIN["median"] if bf16 else 1e-4) * float(mr.grad_norm)
+    _grads_close(gg, gr, bf16)

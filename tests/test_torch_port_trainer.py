@@ -6,7 +6,7 @@ torch.use_deterministic_algorithms), `cli.generate.main` on the run's log
 dir with --ckpt_iter and --ema, the weights both ways across the flax
 naming, a port-trained module read by the JAX package's reference
 importer (its forward to the module path's 2e-4), and the refusals at the
-slice's edge (bf16 training, --num_devices, a JAX orbax log dir)."""
+slice's edge (--num_devices, a JAX orbax log dir; a bf16 config trains)."""
 
 import dataclasses
 import glob
@@ -276,12 +276,16 @@ def test_port_trained_module_runs_in_jax(runs, tmp_path):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
+    """--num_devices (item 7) and a JAX orbax log dir (item 4c) raise; a
+    bf16 config (item 4a, refused before bf16 training was ported) trains
+    at bf16 compute."""
     bf16 = _write_config(tmp_path / "bf16.yml")
     raw = yaml.safe_load(open(bf16))
     raw["model"]["dtype"] = "bfloat16"
     yaml.safe_dump(raw, open(bf16, "w"))
-    with pytest.raises(NotImplementedError, match="item 4a"):
-        train_cli.main([bf16, "--logdir", str(tmp_path / "l"), *SYNTH])
+    trainer = train_cli.main([bf16, "--logdir", str(tmp_path / "l"), *SYNTH])
+    assert trainer.state.module.compute_dtype == torch.bfloat16
+    assert len(trainer.losses) == 6 and np.isfinite(trainer.losses).all()
     with pytest.raises(NotImplementedError, match="item 7"):
         train_cli.main([bf16, "--num_devices", "2", *SYNTH])
     # a JAX log dir: checkpoints/<it>/state is an orbax directory
