@@ -24,7 +24,11 @@ where each ladder replays CUDA graphs, unless --device says otherwise.
 CLI's arguments (seed 7, three reference conformers). --packed runs
 eval/generate.py's PackedGenerationRunner: each chunk holds samples of
 several molecules of a bucket (of one atom count at a tight engine's
-bucket) instead of one molecule repeated.
+bucket) instead of one molecule repeated. --num_devices N runs the
+runner data-parallel over N ranks (parallel/mesh.py launch: one card a
+rank over NCCL, or gloo ranks with --device cpu; more ranks than cards
+raise): each chunk's graphs split over the ranks, the samples those of
+one process (eval/generate.py), rank 0 writing the files.
 """
 
 from __future__ import annotations
@@ -124,10 +128,22 @@ def main(argv=None):
                          "module, as the JAX CLI does)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--num_devices", type=int, default=0,
+                    help="data-parallel over this many ranks (0 = one "
+                         "process, no group)")
     args = ap.parse_args(argv)
     if not args.synthetic and not args.test_set:
         ap.error("--test_set is required without --synthetic")
+    if not args.num_devices:
+        return generate(None, args)
+    from agdiff_torch.parallel import launch
 
+    return launch(generate, args.num_devices, args, device=args.device)
+
+
+def generate(group, args) -> str:
+    """The run of main's arguments in this process, alone (group None) or
+    as one rank of a data-parallel group; returns the output directory."""
     from agdiff_torch.cli._common import (
         get_logger,
         load_inference_bundle,
@@ -145,8 +161,10 @@ def main(argv=None):
     out_dir = args.out_dir or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(ckpt_path))) or ".",
         f"samples_{it}")
-    logger = get_logger("generate", out_dir)
-    logger.info("checkpoint: %s -> out: %s", ckpt_path, out_dir)
+    logger = (get_logger("generate", out_dir)
+              if group is None or group.is_writer else None)
+    if logger:
+        logger.info("checkpoint: %s -> out: %s", ckpt_path, out_dir)
     config, model, _, _ = load_inference_bundle(
         args.ckpt, args.ckpt_iter, args.dtype, logger, use_ema=args.ema)
     if args.synthetic:
@@ -174,11 +192,13 @@ def main(argv=None):
         buckets=config.buckets, chunk_size=args.chunk_size,
         device=args.device,
         engine=None if args.engine in (None, "xla") else args.engine,
-        use_fast=args.fast, logger=logger)
+        use_fast=args.fast, logger=logger, group=group)
     runner.run(dataset, out_dir, seed=args.seed, num_confs=args.num_confs,
                start_idx=args.start_idx, end_idx=args.end_idx,
                resume=not args.no_resume)
-    logger.info("done: %s/samples_all.npz", out_dir)
+    if logger:
+        logger.info("done: %s/samples_all.npz", out_dir)
+    return out_dir
 
 
 if __name__ == "__main__":

@@ -21,6 +21,10 @@ cli/train.py (cli/_common.py load_inference_bundle). --warm_set warms one
 molecule of each class of a test set (serve/server.py warm_classes: on a
 tight engine a class is a (bucket, capacity, atom count)); warmed graphs
 stay for the server's life, and their pools' size is logged.
+--num_devices N serves data-parallel over N ranks (parallel/mesh.py
+launch: one card a rank over NCCL, or gloo ranks with --device cpu;
+more ranks than cards raise): rank 0 listens, merges and replies, and
+every chunk's graphs are split over the ranks (serve/server.py).
 """
 
 from __future__ import annotations
@@ -80,7 +84,8 @@ def main(argv=None):
                     help="extra noise-free steps at the last noise level")
     ap.add_argument("--chunk_size", type=int, default=64)
     ap.add_argument("--num_devices", type=int, default=0,
-                    help="one card only: more than 1 raises")
+                    help="data-parallel over this many ranks (0 = one "
+                         "process, no group)")
     ap.add_argument("--engine", default=None, choices=ENGINE_CHOICES)
     ap.add_argument("--fast", action="store_true")
     ap.add_argument("--packed", action="store_true")
@@ -113,14 +118,19 @@ def main(argv=None):
 
     if not args.ckpt:
         ap.error("ckpt is required in server mode")
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "--num_devices > 1: the port serves on one card; data "
-            "parallelism over several is ROADMAP.md queue 1 item 7")
     if args.batch_window > 0 and not args.packed:
         ap.error("--batch_window requires --packed (cross-request packing "
                  "uses the PackedGenerationRunner)")
+    if not args.num_devices:
+        return serve(None, args)
+    from agdiff_torch.parallel import launch
 
+    return launch(serve, args.num_devices, args, device=args.device)
+
+
+def serve(group, args) -> int:
+    """The server of main's arguments, alone (group None) or as one rank
+    of a data-parallel group: rank 0 serves, the others follow it."""
     from agdiff_torch.cli._common import get_logger, load_inference_bundle
     from agdiff_torch.eval.generate import (
         GenerationRunner,
@@ -128,11 +138,7 @@ def main(argv=None):
     )
     from agdiff_torch.models.schedules import make_diffusion
     from agdiff_torch.sampling.langevin import SamplerConfig
-    from agdiff_torch.serve.server import (
-        GenerationService,
-        probe_molecule,
-        warm_classes,
-    )
+    from agdiff_torch.serve.server import GenerationService, follow
 
     logger = get_logger("serve")
     config, model, ckpt_path, _ = load_inference_bundle(
@@ -150,10 +156,23 @@ def main(argv=None):
         buckets=config.buckets, chunk_size=args.chunk_size,
         device=args.device,
         engine=None if args.engine in (None, "xla") else args.engine,
-        use_fast=args.fast, logger=logger)
+        use_fast=args.fast, logger=logger, group=group)
+    if group is not None and not group.is_writer:
+        follow(runner, logger)
+        return 0
     service = GenerationService(runner, logger=logger,
                                 batch_window_s=args.batch_window,
                                 max_nodes=args.max_nodes or None)
+    try:
+        _warm_and_serve(args, runner, service, logger)
+    finally:
+        service.release_followers()
+    return 0
+
+
+def _warm_and_serve(args, runner, service, logger) -> None:
+    from agdiff_torch.serve.server import probe_molecule, warm_classes
+
     if args.warm_nodes or args.warm_set:
         t0 = time.time()
         # a merged burst lands on any power-of-two batch size: warm all
@@ -168,15 +187,16 @@ def main(argv=None):
                      sorted(warm_classes(runner, mols).items(),
                             key=lambda kv: str(kv[0]))]
         for label, mol in todo:
-            captured = runner.warm(mol, num_samples=args.warm_samples,
-                                   retry=args.warm_retry,
-                                   all_sizes=all_sizes)
+            with service.device_lock:
+                captured = service.call("warm", mol,
+                                        num_samples=args.warm_samples,
+                                        retry=args.warm_retry,
+                                        all_sizes=all_sizes)
             logger.info("warmed %s: %s", label, captured)
         logger.info("warm-up done in %.1fs: %d ladders, graph pools "
                     "%.1f MiB", time.time() - t0, runner.ladders(),
                     runner.warmed_pool_bytes() / 2 ** 20)
     service.serve(host=args.host, port=args.port)
-    return 0
 
 
 if __name__ == "__main__":

@@ -6,13 +6,18 @@ Usage:
   python -m agdiff_torch.cli.train <previous_log_dir> [--resume_iter N]
   python -m agdiff_torch.cli.train configs/synthetic_qm9.yml --synthetic 2048
 
+  python -m agdiff_torch.cli.train configs/qm9_fast.yml --num_devices 2
+
 A log DIRECTORY in place of the config resumes that run (its config.yml
 inside it), as in the reference (train.py:39-42). The run is on the CUDA
 card unless --device says otherwise. --deterministic asks PyTorch for its
 deterministic algorithms (the scatters of the backward then repeat bit for
 bit on a card). A config of model.dtype bfloat16 (configs/qm9_fast.yml)
-trains at bf16 compute. Refused: --num_devices (data parallelism,
-ROADMAP.md queue 1 item 7) and a log dir of the JAX package (item 4c).
+trains at bf16 compute. --num_devices N trains data-parallel over N ranks
+(parallel/mesh.py launch: one card a rank over NCCL, or N ranks over gloo
+with --device cpu; more ranks than cards raise), each batch's graphs
+split over them, the step the global batch's (train/trainer.py). Refused:
+a log dir of the JAX package (ROADMAP.md queue 1 item 4c).
 """
 
 from __future__ import annotations
@@ -20,10 +25,14 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+from typing import List, NamedTuple
 
-DP_REFUSAL = ("--num_devices: data-parallel training is not ported "
-              "(ROADMAP.md queue 1 item 7, torch.distributed DDP); the port "
-              "trains on one device")
+
+class TrainRun(NamedTuple):
+    """What a data-parallel run returns from rank 0."""
+
+    log_dir: str
+    losses: List[float]
 
 
 def main(argv=None):
@@ -46,27 +55,24 @@ def main(argv=None):
     ap.add_argument("--synthetic_chem", default="tree",
                     choices=["tree", "rich"])
     ap.add_argument("--num_devices", type=int, default=0,
-                    help="data-parallel devices (not ported: > 0 raises)")
+                    help="data-parallel over this many ranks (0 = one "
+                         "process, no group)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--deterministic", action="store_true",
                     help="torch.use_deterministic_algorithms(True)")
     args = ap.parse_args(argv)
     if args.num_devices:
-        raise NotImplementedError(DP_REFUSAL)
+        from agdiff_torch.parallel.mesh import placement
 
-    import torch
+        placement(args.num_devices, args.device)   # raises without the cards
 
-    from agdiff_torch.config import load_config
-    from agdiff_torch.data.dataset import ConformationDataset
     from agdiff_torch.train.checkpoint import (
         ORBAX_REFUSAL,
         is_jax_checkpoint,
         latest_checkpoint,
     )
-    from agdiff_torch.train.trainer import Trainer
-    from agdiff_torch.utils.logging import get_logger, get_new_log_dir
-    from agdiff_torch.utils.misc import seed_all
+    from agdiff_torch.utils.logging import get_new_log_dir
 
     resume = os.path.isdir(args.config)
     if resume:
@@ -75,18 +81,46 @@ def main(argv=None):
             raise NotImplementedError(ORBAX_REFUSAL.format(path=path))
         log_dir = args.config
         config_path = os.path.join(log_dir, "config.yml")
-        config = load_config(config_path)
     else:
         config_path = args.config
-        config = load_config(config_path)
         name = os.path.splitext(os.path.basename(config_path))[0]
         log_dir = get_new_log_dir(args.logdir, prefix=name, tag=args.tag)
         shutil.copyfile(config_path, os.path.join(log_dir, "config.yml"))
+    if not args.num_devices:
+        return train(None, args, log_dir, config_path, resume)
+    from agdiff_torch.parallel import launch
+
+    return launch(_train_rank, args.num_devices, args, log_dir, config_path,
+                  resume, device=args.device)
+
+
+def _train_rank(group, args, log_dir, config_path, resume) -> TrainRun:
+    trainer = train(group, args, log_dir, config_path, resume)
+    return TrainRun(trainer.log_dir, trainer.losses)
+
+
+def train(group, args, log_dir: str, config_path: str, resume: bool):
+    """The run of main's arguments in this process: alone (group None)
+    or as one rank of a data-parallel group; returns the Trainer."""
+    import torch
+
+    from agdiff_torch.config import load_config
+    from agdiff_torch.data.dataset import ConformationDataset
+    from agdiff_torch.train.trainer import Trainer
+    from agdiff_torch.utils.logging import get_logger
+    from agdiff_torch.utils.misc import seed_all
+
+    config = load_config(config_path)
     if args.deterministic:
         torch.use_deterministic_algorithms(True, warn_only=True)
     seed_all(config.train.seed)
-    logger = get_logger("train", log_dir)
-    logger.info("config: %s | log_dir: %s", config_path, log_dir)
+    writer = group is None or group.is_writer
+    logger = get_logger("train", log_dir) if writer else None
+    if logger:
+        logger.info("config: %s | log_dir: %s", config_path, log_dir)
+        if group is not None:
+            logger.info("data-parallel over %d ranks (%s, %s)",
+                        group.world_size, group.backend, group.device)
 
     if args.synthetic:
         from agdiff_torch.data.synthetic import (
@@ -117,11 +151,12 @@ def main(argv=None):
         train_set = ConformationDataset(config.dataset.train)
         val_set = (ConformationDataset(config.dataset.val)
                    if config.dataset.val else None)
-    logger.info("train: %d molecules | val: %d", len(train_set),
-                len(val_set) if val_set else 0)
+    if logger:
+        logger.info("train: %d molecules | val: %d", len(train_set),
+                    len(val_set) if val_set else 0)
 
     trainer = Trainer(config, train_set, val_set, log_dir, logger,
-                      device=args.device)
+                      device=args.device, group=group)
     if resume:
         trainer.resume(log_dir, args.resume_iter)
     trainer.train(max_iters=args.max_iters)

@@ -199,7 +199,8 @@ def prefetch(iterator, size: int = 2, pin: bool = False):
             failed.append(e)
         put(end)
 
-    threading.Thread(target=producer, daemon=True).start()
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -209,4 +210,7 @@ def prefetch(iterator, size: int = 2, pin: bool = False):
                 return
             yield item
     finally:
+        # the producer leaves within its current item: a process may end
+        # right after this, and must not end inside the producer's work
         stop.set()
+        thread.join()

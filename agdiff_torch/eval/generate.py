@@ -38,6 +38,17 @@ when resuming. Molecule i's generator is seeded from its dataset index
 (seed + i, where JAX folds i into its key), so a resumed run or a
 partial range gives the conformers of a whole run.
 
+With a data-parallel `group` (parallel/mesh.py; JAX's `mesh`,
+agdiff_tpu/eval/generate.py:255-285, :375-425) every rank runs the same
+loop over the same chunks: each chunk's graph axis is split over the
+ranks, each rank runs its rows' ladder with the engine's kernels, and
+the samples come back gathered to every rank (sampling/langevin.py
+Sampler). Starts and ladder noise are drawn at the whole chunk's shape
+and sliced, so a rank's rows are those of a single-process run. A
+chunk's batch size stays a multiple of the ranks (:296-308). Rank 0
+alone writes the sample files; which molecules a resumed run skips is
+rank 0's decision, sent to every rank.
+
 `PackedGenerationRunner` (agdiff_tpu/eval/generate.py:543-717) fills each
 chunk with samples of different molecules of one bucket instead of one
 molecule repeated; at a tight engine's bucket, of one atom count, so
@@ -81,7 +92,8 @@ class GenerationRunner:
                  diffusion: Diffusion, sampler_config: SamplerConfig,
                  buckets: Sequence[int] = (32, 64), chunk_size: int = 64,
                  device=None, engine: Optional[str] = None,
-                 use_fast: bool = True, logger=None, graph: bool = True):
+                 use_fast: bool = True, logger=None, graph: bool = True,
+                 group=None):
         if engine is not None and engine.startswith("pallas"):
             raise ValueError(
                 "GenerationRunner does not take engine 'pallas': the JAX "
@@ -90,7 +102,8 @@ class GenerationRunner:
                 "forward without the kernels, which the port does not "
                 "have; run build_fast_sampler(build_fast_forward(cfg, "
                 "model, 'pallas'), ...) for the kernels")
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = group.device if group else resolve_device(device)
         self.model = model.to(self.device).eval()
         self.model_config = model_config
         self.diffusion = diffusion
@@ -170,10 +183,11 @@ class GenerationRunner:
             cfg = self.retry_config if retry else self.sampler_config
             self._samplers[key] = (
                 build_sampler(self.model, self.diffusion, cfg,
-                              graph=self.graph)
+                              graph=self.graph, group=self.group)
                 if engine == MODULE else
                 build_fast_sampler(self.forward(engine), self.diffusion, cfg,
-                                   pair_capacity=capacity, graph=self.graph))
+                                   pair_capacity=capacity, graph=self.graph,
+                                   group=self.group))
         return self._samplers[key]
 
     def ladders(self) -> int:
@@ -195,13 +209,31 @@ class GenerationRunner:
 
     def _batch_size_for(self, count: int) -> int:
         """A final partial chunk runs at the next power of two (>= 8), so
-        at most log2(chunk_size) batch shapes exist per bucket."""
+        at most log2(chunk_size) batch shapes exist per bucket; under a
+        group, at a multiple of its ranks."""
         if count >= self.chunk_size:
             return self.chunk_size
         b = 8
         while b < count:
             b *= 2
+        if self.group is not None:
+            ranks = self.group.world_size
+            b = -(-max(b, ranks) // ranks) * ranks
         return min(b, self.chunk_size)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the sample files (rank 0)."""
+        return self.group is None or self.group.is_writer
+
+    def _done(self, out_dir, indices, resume: bool) -> set:
+        """The indices whose samples_<i>.npz exists, which a resumed run
+        loads instead of generating: rank 0's reading, on every rank."""
+        done = {i for i in indices if resume and os.path.exists(
+            os.path.join(out_dir, f"samples_{i}.npz"))}
+        if self.group is not None:
+            done = self.group.broadcast_object(done)
+        return done
 
     def _bucket_for(self, mol: Molecule) -> int:
         try:
@@ -299,28 +331,30 @@ class GenerationRunner:
         instead of generating it (agdiff_tpu/eval/generate.py:454-503).
         out_dir None writes nothing."""
         save = save and out_dir is not None
-        if save:
+        if save and self.writer:
             os.makedirs(out_dir, exist_ok=True)
         end_idx = len(dataset) if end_idx is None else min(end_idx,
                                                            len(dataset))
+        done = self._done(out_dir, range(start_idx, end_idx),
+                          resume) if save else set()
         results = []
         for i in range(start_idx, end_idx):
             mol = dataset[i]
             path = os.path.join(out_dir, f"samples_{i}.npz") if save else None
-            if save and resume and os.path.exists(path):
+            if i in done:
                 results.append(load_samples(path)[0])
                 continue
             ns = self.num_samples_for(mol, num_confs)
             gen = torch.Generator(device=self.device).manual_seed(seed + i)
             pos_gen = self.generate_molecule(mol, ns, gen)
-            if save:
+            if save and self.writer:
                 _save_with_gen(path, mol, pos_gen)
             if self.logger:
                 self.logger.info("molecule %d: %d samples generated (%d "
                                  "atoms)", i, ns, mol.num_nodes)
             results.append(dataclasses.replace(
                 mol, meta={**mol.meta, "pos_gen": pos_gen}))
-        if save:
+        if save and self.writer:
             _save_all(os.path.join(out_dir, "samples_all.npz"), results)
         return results
 
@@ -414,18 +448,20 @@ class PackedGenerationRunner(GenerationRunner):
         item_seeds, a per-item (seed, index) list, seeds item i's starts
         in place of (seed, i)."""
         save = save and out_dir is not None
-        if save:
+        if save and self.writer:
             os.makedirs(out_dir, exist_ok=True)
         end_idx = len(dataset) if end_idx is None else min(end_idx,
                                                            len(dataset))
         if item_seeds is not None and len(item_seeds) != len(dataset):
             raise ValueError(f"{len(item_seeds)} item seeds for "
                              f"{len(dataset)} molecules")
+        done = self._done(out_dir, range(start_idx, end_idx),
+                          resume) if save else set()
         todo, results = [], {}
         for i in range(start_idx, end_idx):
             mol = dataset[i]
             path = os.path.join(out_dir, f"samples_{i}.npz") if save else None
-            if save and resume and os.path.exists(path):
+            if i in done:
                 results[i] = load_samples(path)[0]
                 continue
             ns = (int(num_confs[i]) if isinstance(num_confs, (list, tuple))
@@ -479,7 +515,7 @@ class PackedGenerationRunner(GenerationRunner):
 
         for i, mol, ns in todo:
             pos_gen = np.stack(collected[i], axis=0)
-            if save:
+            if save and self.writer:
                 _save_with_gen(os.path.join(out_dir, f"samples_{i}.npz"),
                                mol, pos_gen)
             if self.logger:
@@ -488,6 +524,6 @@ class PackedGenerationRunner(GenerationRunner):
             results[i] = dataclasses.replace(
                 mol, meta={**mol.meta, "pos_gen": pos_gen})
         ordered = [results[i] for i in sorted(results)]
-        if save:
+        if save and self.writer:
             _save_all(os.path.join(out_dir, "samples_all.npz"), ordered)
         return ordered

@@ -16,7 +16,7 @@ streams differ, so the parity tests inject t and the noise.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -44,16 +44,11 @@ def sample_timesteps(generator: torch.Generator, num_graphs: int,
 
 
 def perturb_positions(batch: GraphBatch, alphas: torch.Tensor,
-                      t: torch.Tensor, noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      t: torch.Tensor, noise: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(pos_perturbed, a): `noise` (B, N, 3), drawn standard normal from
-    `generator` when not given, masked to real nodes and scaled by
-    sqrt(1 - a) / sqrt(a)."""
+    """(pos_perturbed, a): standard normal `noise` (B, N, 3), masked to
+    real nodes and scaled by sqrt(1 - a) / sqrt(a)."""
     a = alphas[t]
-    if noise is None:
-        noise = torch.randn(batch.pos.shape, generator=generator,
-                            device=batch.pos.device, dtype=batch.pos.dtype)
     noise = noise * batch.node_mask[..., None]
     scale = torch.sqrt(1.0 - a) / torch.sqrt(a)
     return batch.pos + noise * scale[:, None, None], a
@@ -66,9 +61,13 @@ def global_edge_mask(d_perturbed, local, edge_mask, cutoff: float):
 
 
 def diffusion_loss(output, batch: GraphBatch, pos_perturbed: torch.Tensor,
-                   a: torch.Tensor, cutoff: float) -> LossOutput:
+                   a: torch.Tensor, cutoff: float, group=None) -> LossOutput:
     """The dual global/local position-score loss of a model output taken
-    at pos_perturbed."""
+    at pos_perturbed. With a data-parallel `group` (parallel/mesh.py) the
+    batch is this rank's shard and the sums are divided by the real-node
+    count of every rank's shard together
+    (agdiff_tpu/models/loss.py:98-105 over the global batch): the ranks'
+    losses sum to the global one, and so do their gradients."""
     d_gt = pairwise_distance(batch.pos)
     d_perturbed = output.edge_length
     a_edge = a[:, None, None]
@@ -91,7 +90,10 @@ def diffusion_loss(output, batch: GraphBatch, pos_perturbed: torch.Tensor,
                                           dim=-1)
 
     w = (batch.node_mask & batch.graph_mask[:, None]).float()
-    count = torch.clamp(torch.sum(w), min=1.0)
+    count = torch.sum(w)
+    if group is not None:
+        count = group.all_reduce(count)
+    count = torch.clamp(count, min=1.0)
     per_node = (loss_global + loss_local) * w
     return LossOutput(loss=torch.sum(per_node) / count,
                       loss_global=torch.sum(loss_global * w) / count,

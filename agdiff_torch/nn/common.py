@@ -92,6 +92,26 @@ class ShiftedSoftplus(nn.Module):
 _FROZEN = [0]
 
 
+# the data-parallel group whose ranks share train-mode statistics
+_SYNCED = [None]
+
+
+@contextlib.contextmanager
+def synced_batch_stats(group):
+    """Train-mode BatchNorm inside this context takes its statistics over
+    every rank of the data-parallel `group` (parallel/mesh.py), the
+    global batch's, and moves the running statistics alike on every
+    rank; None leaves each process with its own block's. A step runs its
+    forward and its backward inside it (a recomputation in backward
+    needs the same statistics)."""
+    saved = _SYNCED[0]
+    _SYNCED[0] = group
+    try:
+        yield
+    finally:
+        _SYNCED[0] = saved
+
+
 @contextlib.contextmanager
 def frozen_running_stats():
     """Train-mode BatchNorm inside this context normalises with the batch
@@ -114,7 +134,8 @@ class MaskedBatchNorm(nn.Module):
     0.1 (unbiased variance, count / max(count - 1, 1)); eval mode uses the
     running statistics. The normalisation runs at the input's dtype, with
     the statistics and the affine cast to it (agdiff_tpu/nn/common.py:
-    120-125)."""
+    120-125). Under `synced_batch_stats(group)` the batch statistics are
+    the data-parallel group's."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -128,7 +149,7 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask, train: bool = False):
         if train:
             mean, var, count = masked.masked_batch_norm_stats(
-                x.float(), mask)
+                x.float(), mask, group=_SYNCED[0])
             if not _FROZEN[0]:
                 with torch.no_grad():
                     # (1 - m) * old + m * new, as a lerp: fewer launches

@@ -42,6 +42,15 @@ forward call, with the config's `extend_order` and `extend_radius`.
 `build_sampler` runs the ladder on the dense module (models/dualenc.py),
 `build_fast_sampler` on a folded forward; on a CUDA device both replay
 CUDA graphs unless asked for graph=False.
+
+With a data-parallel `group` (parallel/mesh.py; JAX's
+`build_fast_sampler(mesh=...)` and `make_parallel_sampler`) a sampler
+takes the global batch and its starts, runs the ladder on this rank's
+rows with the engine's kernels, and returns every rank's samples and
+flags. Each block's noise is the global draw of (S, B, N, 3), of which
+the rank's ladder reads its rows, so that the samples are those of one
+process running the whole batch. The per-graph engines need no other
+collective.
 """
 
 from __future__ import annotations
@@ -176,7 +185,8 @@ class Ladder:
     """
 
     def __init__(self, forward_fn: Callable, batch, diffusion: Diffusion,
-                 config: SamplerConfig, pairs=None):
+                 config: SamplerConfig, pairs=None,
+                 shard: Optional[Tuple[slice, int]] = None):
         validate(config)
         cfg = self.config = config
         self.forward_fn, self.pairs = forward_fn, pairs
@@ -207,8 +217,14 @@ class Ladder:
             self.fwd_kwargs["pairs"] = pairs
         self.plan = self._plan()
         size = max([s for kind, s, _, _ in self.plan if kind == "ladder"])
-        self.noise = torch.zeros((size,) + tuple(batch.pos.shape),
-                                 device=dev)
+        # shard: (this rank's rows, the global batch's graphs) under a
+        # data-parallel group; the draw is the global batch's
+        shape = tuple(batch.pos.shape)
+        if shard is not None:
+            shape = (shard[1],) + shape[1:]
+        self.noise_buffer = torch.zeros((size,) + shape, device=dev)
+        self.noise = (self.noise_buffer if shard is None
+                      else self.noise_buffer[:, shard[0]])
 
     def _plan(self) -> List[Tuple[str, int, int, bool]]:
         cfg = self.config
@@ -300,8 +316,9 @@ class Ladder:
     def draw(self, size: int, start: int, generator=None,
              noise: Optional[torch.Tensor] = None) -> None:
         """The next ladder block's noise into the buffer: steps [start,
-        start + size) of `noise`, else one draw from `generator`."""
-        buf = self.noise[:size]
+        start + size) of `noise`, else one draw from `generator` (the
+        global batch's, under a data-parallel group)."""
+        buf = self.noise_buffer[:size]
         if noise is not None:
             buf.copy_(noise[start:start + size])
         else:
@@ -334,12 +351,14 @@ def langevin_dynamics_sample(forward_fn: Callable, batch, pos_init,
                              diffusion: Diffusion, config: SamplerConfig,
                              generator: Optional[torch.Generator] = None,
                              noise: Optional[torch.Tensor] = None,
-                             pairs=None) -> SampleResult:
+                             pairs=None, shard=None) -> SampleResult:
     """Run the ladder eagerly. pos_init is standard normal noise (scaled
     here by the largest sigma). The noise comes from `generator`, one draw
     per block, or from `noise` of shape (n_steps, B, N, 3). `pairs`, when
-    given, goes to every forward call."""
-    ladder = Ladder(forward_fn, batch, diffusion, config, pairs)
+    given, goes to every forward call. `shard` (a data-parallel rank's
+    rows, the global batch's graphs): `batch` and pos_init are the rank's
+    rows, the noise the global batch's."""
+    ladder = Ladder(forward_fn, batch, diffusion, config, pairs, shard)
     ladder.load(batch, pos_init)
     return ladder.run(generator, noise)
 
@@ -358,15 +377,18 @@ class Sampler:
     such list's graphs and their memory. Graphs captured by `warm`
     (`pinned`) stay until `release`: a server warms the classes it serves
     and replays them for every request. The CPU, which has no graphs,
-    runs the eager loop."""
+    runs the eager loop. With a data-parallel `group` a run takes the
+    global batch and returns every rank's samples (module docstring);
+    the graphs are this rank's, of its rows' shape."""
 
     def __init__(self, forward_fn: Callable, diffusion: Diffusion,
                  config: SamplerConfig, pair_capacity: Optional[int] = None,
-                 graph: bool = True):
+                 graph: bool = True, group=None):
         validate(config)
         self.forward_fn, self.diffusion, self.config = (forward_fn,
                                                         diffusion, config)
         self.pair_capacity, self.graph = pair_capacity, graph
+        self.group = group
         self.ladders: Dict[tuple, LadderGraphs] = {}
         self.pinned: set = set()   # keys of the graphs `warm` captured
 
@@ -377,7 +399,7 @@ class Sampler:
     def graphed(self, batch) -> bool:
         return self.graph and batch.pos.device.type == "cuda"
 
-    def _graphs(self, batch, pairs, pin: bool = False
+    def _graphs(self, batch, pairs, pin: bool = False, shard=None
                 ) -> Tuple[LadderGraphs, bool]:
         """The graphs of this batch shape and pair list, captured if new
         (and whether they were); pin=True keeps them (`warm`)."""
@@ -391,7 +413,7 @@ class Sampler:
                               if k[:2] == key[:2] and g.ladder.pairs.tight
                               and k not in self.pinned])
             ladder = Ladder(self.forward_fn, batch, self.diffusion,
-                            self.config, pairs)
+                            self.config, pairs, shard)
             graphs = self.ladders[key] = LadderGraphs(ladder, batch)
         if pin:
             self.pinned.add(key)
@@ -413,37 +435,63 @@ class Sampler:
         self.release([k for k in self.ladders if k not in self.pinned])
         return bool(self.pinned)
 
+    def _shard(self, batch, pos_init=None):
+        """(this rank's rows of the global batch and of pos_init, (rows,
+        graphs)), or the inputs as they are without a group."""
+        if self.group is None:
+            return batch, pos_init, None
+        b = batch.num_graphs
+        rows = self.group.rows(b)
+        return (self.group.shard(batch),
+                None if pos_init is None else pos_init[rows], (rows, b))
+
     def warm(self, batch) -> bool:
         """Capture the graphs a run on this batch's shape and pair list
         replays and keep them (`pinned`); False when they exist already
         or the sampler runs eagerly."""
+        batch, _, shard = self._shard(batch)
         if not self.graphed(batch):
             return False
-        return self._graphs(batch, self.pairs(batch), pin=True)[1]
+        return self._graphs(batch, self.pairs(batch), pin=True,
+                            shard=shard)[1]
 
     @torch.no_grad()
     def __call__(self, batch, pos_init, generator=None,
                  noise: Optional[torch.Tensor] = None) -> SampleResult:
+        batch, pos_init, shard = self._shard(batch, pos_init)
         pairs = self.pairs(batch)
         if not self.graphed(batch):
-            return langevin_dynamics_sample(
+            out = langevin_dynamics_sample(
                 self.forward_fn, batch, pos_init, self.diffusion,
-                self.config, generator=generator, noise=noise, pairs=pairs)
-        return self._graphs(batch, pairs)[0].run(batch, pairs, pos_init,
-                                                 generator, noise)
+                self.config, generator=generator, noise=noise, pairs=pairs,
+                shard=shard)
+        else:
+            out = self._graphs(batch, pairs, shard=shard)[0].run(
+                batch, pairs, pos_init, generator, noise)
+        if self.group is None:
+            return out
+        g = self.group
+        return SampleResult(
+            g.gather_rows(out.pos),
+            g.gather_rows(out.nan_flags.to(torch.int32)).bool(),
+            None if out.traj is None else g.gather_rows(out.traj, axis=1))
 
 
 def build_sampler(model, diffusion: Diffusion, config: SamplerConfig,
-                  graph: bool = True) -> Sampler:
+                  graph: bool = True, group=None) -> Sampler:
     """A sampler on the dense module path (agdiff_tpu/sampling/langevin.py
-    build_sampler): the module in eval mode without gradients."""
-    return Sampler(model.eval(), diffusion, config, graph=graph)
+    build_sampler): the module in eval mode without gradients; with a
+    data-parallel `group`, over its ranks."""
+    return Sampler(model.eval(), diffusion, config, graph=graph,
+                   group=group)
 
 
 def build_fast_sampler(forward_fn: Callable, diffusion: Diffusion,
                        config: SamplerConfig,
                        pair_capacity: Optional[int] = None,
-                       graph: bool = True) -> Sampler:
+                       graph: bool = True, group=None) -> Sampler:
     """A sampler over a folded forward (models/fast_forward.py,
-    models/tight_forward.py, models/mono_forward.py)."""
-    return Sampler(forward_fn, diffusion, config, pair_capacity, graph)
+    models/tight_forward.py, models/mono_forward.py); with a
+    data-parallel `group`, over its ranks (JAX's mesh argument)."""
+    return Sampler(forward_fn, diffusion, config, pair_capacity, graph,
+                   group)

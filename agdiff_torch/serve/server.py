@@ -63,6 +63,7 @@ import traceback
 from typing import Optional
 
 import numpy as np
+import torch
 
 from agdiff_torch.chem.constants import BondType
 from agdiff_torch.chem.mol import Molecule
@@ -127,6 +128,10 @@ class GenerationService:
     def __init__(self, runner, logger=None, batch_window_s: float = 0.0,
                  max_nodes: Optional[int] = None):
         self.runner = runner
+        self.group = getattr(runner, "group", None)
+        # the followers wait for the next call here (`follow`)
+        self.control = None if self.group is None else self.group.control()
+        self._released = False
         self.logger = logger
         self.started = time.time()
         self.requests = 0
@@ -182,7 +187,8 @@ class GenerationService:
         captured = []
         with self.device_lock:
             for n in request.get("nodes", []):
-                captured += self.runner.warm(
+                captured += self.call(
+                    "warm",
                     probe_molecule(int(n)),
                     num_samples=request.get("num_samples"),
                     retry=bool(request.get("retry", False)),
@@ -248,7 +254,8 @@ class GenerationService:
         dataset = self._load_dataset(request)
         t0 = time.time()
         with self.device_lock:
-            results = self.runner.run(
+            results = self.call(
+                "run",
                 dataset,
                 out_dir,
                 seed=int(request.get("seed", 2021)),
@@ -309,6 +316,21 @@ class GenerationService:
             "seconds": round(time.time() - t0, 3),
             **{k: round(v, 4) for k, v in stats.items()},
         }
+
+    def call(self, name: str, *args, **kwargs):
+        """runner.<name>(*args, **kwargs), made on every other rank of the
+        runner's group too (`follow`). The caller holds device_lock."""
+        if self.group is None:
+            return getattr(self.runner, name)(*args, **kwargs)
+        self.control.broadcast_object((name, args, kwargs))
+        return call_on_every_rank(self.runner, name, args, kwargs)
+
+    def release_followers(self) -> None:
+        """End `follow` on the other ranks (once)."""
+        if self.group is not None and not self._released:
+            self._released = True
+            with self.device_lock:
+                self.control.broadcast_object(None)
 
     # ---- dynamic batching ----
 
@@ -373,8 +395,8 @@ class GenerationService:
         t0 = time.time()
         try:
             with self.device_lock:
-                results = self.runner.run(
-                    mols, None, num_confs=confs, item_seeds=item_seeds,
+                results = self.call(
+                    "run", mols, None, num_confs=confs, item_seeds=item_seeds,
                     save=False, resume=False)
         except Exception:
             err = {"ok": False, "error": traceback.format_exc()}
@@ -460,6 +482,7 @@ class GenerationService:
                 self._queue.put((None, None))
                 self._worker.join(timeout=600)
             srv.close()
+            self.release_followers()
 
     def _read_request(self, conn):
         """Returns (request, None) or (None, error_reply)."""
@@ -485,6 +508,57 @@ class GenerationService:
             # the client hung up while we generated; keep serving
             if self.logger:
                 self.logger.warning("client disconnected before reply")
+
+
+class RanksDisagree(RuntimeError):
+    """A runner call failed on some ranks of a data-parallel server and
+    not on others: their collectives no longer pair up, so the world
+    ends."""
+
+
+def call_on_every_rank(runner, name: str, args, kwargs):
+    """runner.<name>(*args, **kwargs) on this rank, then the ranks'
+    outcomes compared: a call that failed on every rank (the same inputs
+    fail alike) raises its error, and the server goes on; one that failed
+    on some ranks only raises RanksDisagree."""
+    group = runner.group
+    error = None
+    try:
+        result = getattr(runner, name)(*args, **kwargs)
+    except Exception as e:
+        error = e
+    failed = int(group.all_reduce(torch.tensor(
+        [float(error is not None)], device=group.device)).item())
+    if 0 < failed < group.world_size:
+        raise RanksDisagree(
+            f"{name} failed on {failed} of {group.world_size} ranks "
+            f"(on rank {group.rank}: {error!r})") from error
+    if error is not None:
+        raise error
+    return result
+
+
+def follow(runner, logger=None) -> None:
+    """A rank other than 0 of a data-parallel server: make each runner
+    call rank 0's service makes (GenerationService.call), until it ends
+    the service. It waits for each call in the control group, which
+    outlasts any pause between requests. A call that failed on every rank
+    is logged here and answered by rank 0; RanksDisagree leaves this rank,
+    and `launch` then ends the world."""
+    control = runner.group.control()
+    while True:
+        message = control.broadcast_object()
+        if message is None:
+            return
+        name, args, kwargs = message
+        try:
+            call_on_every_rank(runner, name, args, kwargs)
+        except RanksDisagree:
+            raise
+        except Exception:
+            if logger:
+                logger.warning("rank %d: %s failed:\n%s", control.rank,
+                               name, traceback.format_exc())
 
 
 def submit(request: dict, host: str = "127.0.0.1", port: int = 7521,

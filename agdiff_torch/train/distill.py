@@ -30,6 +30,12 @@ Per step of the loss:
     max(their count, 1). The module runs with train=False, so the
     student's running statistics stay as the teacher's were.
 
+With a data-parallel `group` (parallel/data_parallel.py
+make_parallel_distill_step) the step follows the train step's rules:
+k and the noise drawn at the global batch's shape and sliced, the loss
+over the global real-node count, the gradients summed over the ranks.
+The teacher's rollout is per-graph and needs no collective.
+
 Positions are not re-centred inside the rollout, as in the JAX package.
 The ladder grid is numpy's round(linspace(T - 1, 0, n)), JAX's
 `strided_ladder`; the sampler's strided grid is XLA's float32 linspace
@@ -50,7 +56,12 @@ from agdiff_torch.data.graph_batch import GraphBatch
 from agdiff_torch.models.schedules import make_diffusion
 from agdiff_torch.sampling.langevin import SamplerConfig, assemble_drift
 from agdiff_torch.train.optimizer import make_optimizer
-from agdiff_torch.train.train_step import TrainState, ema_copy
+from agdiff_torch.train.train_step import (
+    TrainState,
+    ema_copy,
+    global_draw_rows,
+    update_ema,
+)
 
 WEIGHTINGS = ("trunc-snr", "eps", "step")
 
@@ -109,10 +120,12 @@ class DistillLoss:
     sigma_i)^2."""
 
     def __init__(self, config: Config, sampler_config: SamplerConfig,
-                 n_student: int, device, weighting: str = "trunc-snr"):
+                 n_student: int, device, weighting: str = "trunc-snr",
+                 group=None):
         if weighting not in WEIGHTINGS:
             raise ValueError(f"unknown weighting {weighting!r}")
         self.weighting = weighting
+        self.group = group
         self.sampler_config = sampler_config
         self.n_student = n_student
         diffusion = make_diffusion(config.model)
@@ -125,15 +138,18 @@ class DistillLoss:
     def draws(self, generator: torch.Generator, batch: GraphBatch, k=None,
               noise=None):
         """(k (B,), noise (B, N, 3)): each drawn from `generator` unless
-        given (tests inject JAX's)."""
+        given (tests inject JAX's); with a group, the global batch's,
+        sliced to this rank's rows."""
+        b, rows = global_draw_rows(batch, self.group)
         dev = batch.pos.device
         if k is None:
-            k = torch.randint(0, self.n_student, (batch.num_graphs,),
-                              generator=generator, device=dev)
+            k = torch.randint(0, self.n_student, (b,), generator=generator,
+                              device=dev)
         if noise is None:
-            noise = torch.randn(batch.pos.shape, generator=generator,
-                                device=dev, dtype=batch.pos.dtype)
-        return k, noise
+            noise = torch.randn((b,) + tuple(batch.pos.shape[1:]),
+                                generator=generator, device=dev,
+                                dtype=batch.pos.dtype)
+        return k[rows].to(dev), noise[rows].to(dev)
 
     def sigma_of(self, idx):
         """sigma at each timestep index, 0 at -1."""
@@ -170,8 +186,10 @@ class DistillLoss:
             w = torch.square(s_j - s_i)[:, None]
         else:
             w = torch.ones_like(s_i)[:, None]
-        count = torch.clamp(torch.sum(w_node), min=1.0)
-        return torch.sum(sq * w * w_node) / count
+        count = torch.sum(w_node)
+        if self.group is not None:
+            count = self.group.all_reduce(count)
+        return torch.sum(sq * w * w_node) / torch.clamp(count, min=1.0)
 
 
 class DistillStep:
@@ -182,10 +200,12 @@ class DistillStep:
     160-201)."""
 
     def __init__(self, config: Config, sampler_config: SamplerConfig,
-                 n_student: int, device, weighting: str = "trunc-snr"):
+                 n_student: int, device, weighting: str = "trunc-snr",
+                 group=None):
         self.loss = DistillLoss(config, sampler_config, n_student, device,
-                                weighting)
+                                weighting, group)
         self.ema_decay = config.train.ema_decay
+        self.group = group
 
     def __call__(self, state: TrainState, teacher, batch: GraphBatch,
                  k=None, noise=None) -> DistillMetrics:
@@ -193,16 +213,14 @@ class DistillStep:
         loss = self.loss(state.module, teacher, batch, k, noise)
         state.optimizer.zero_grad()
         loss.backward()
+        loss = loss.detach()
+        if self.group is not None:
+            self.group.sum_gradients(state.optimizer.params)
+            loss = self.group.all_reduce(loss)
         grad_norm = state.optimizer.step()
-        if state.ema is not None:
-            d = self.ema_decay
-            with torch.no_grad():
-                ema = list(state.ema.values())
-                params = [p for _, p in state.module.named_parameters()]
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, params, alpha=1.0 - d)
+        update_ema(state, self.ema_decay)
         state.step += 1
-        return DistillMetrics(loss.detach(), grad_norm)
+        return DistillMetrics(loss, grad_norm)
 
 
 def make_distill_step(config: Config, sampler_config: SamplerConfig,

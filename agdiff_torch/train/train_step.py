@@ -9,6 +9,15 @@ gradients, clips them and steps the two Adams (train/optimizer.py), then
 moves the EMA shadow. Every step is eager PyTorch on the module path: the
 TPU package computes training in XLA, outside any Pallas kernel, and so
 does this one outside the hand kernels.
+
+With a data-parallel `group` (parallel/data_parallel.py
+make_parallel_train_step) the step is JAX's SPMD step over the global
+batch, one rank's shard at a time: the timesteps and the noise are drawn
+at the global batch's shape and sliced, BatchNorm takes the global
+statistics, the loss divides by the global real-node count, and the
+gradients are summed over the ranks (not averaged, as DDP would) in one
+flat all-reduce before the clip and the Adams, which then take the same
+decisions on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from agdiff_torch.models.loss import (
 )
 from agdiff_torch.models.schedules import make_diffusion
 from agdiff_torch.models.weights import init_like_jax
+from agdiff_torch.nn.common import synced_batch_stats
 from agdiff_torch.train.optimizer import TwoAdams, make_optimizer
 
 
@@ -69,47 +79,88 @@ def create_train_state(config: Config, device, seed: Optional[int] = None
         ema=ema_copy(module) if config.train.ema_decay > 0 else None)
 
 
+def update_ema(state: TrainState, decay: float) -> None:
+    """shadow <- decay * shadow + (1 - decay) * params, when there is a
+    shadow."""
+    if state.ema is None:
+        return
+    with torch.no_grad():
+        ema = list(state.ema.values())
+        params = [p for _, p in state.module.named_parameters()]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, params, alpha=1.0 - decay)
+
+
+def global_draw_rows(batch: GraphBatch, group):
+    """(graphs of the global batch, this rank's rows of it): a batch
+    without a group is the global one."""
+    if group is None:
+        return batch.num_graphs, slice(None)
+    b = batch.num_graphs * group.world_size
+    return b, group.rows(b)
+
+
 class TrainStep:
     """(state, batch[, t, noise]) -> StepMetrics, updating the state in
-    place; `t` (B,) and `noise` (B, N, 3) replace the generator's draws."""
+    place; `t` (B,) and `noise` (B, N, 3) replace the generator's draws.
+    With a `group`, `batch` is this rank's shard and `t` and `noise` are
+    the global batch's (module docstring)."""
 
-    def __init__(self, config: Config, device):
+    def __init__(self, config: Config, device, group=None):
         diffusion = make_diffusion(config.model)
         self.alphas = torch.as_tensor(diffusion.alphas, device=device)
         self.num_timesteps = diffusion.num_timesteps
         self.cutoff = config.model.cutoff
         self.ema_decay = config.train.ema_decay
+        self.group = group
 
     def draws(self, state: TrainState, batch: GraphBatch, t=None,
               noise=None):
+        b, rows = global_draw_rows(batch, self.group)
+        dev = batch.pos.device
         if t is None:
-            t = sample_timesteps(state.generator, batch.num_graphs,
-                                 self.num_timesteps, batch.pos.device)
-        return perturb_positions(batch, self.alphas, t, noise,
-                                 state.generator)
+            t = sample_timesteps(state.generator, b, self.num_timesteps, dev)
+        if noise is None:
+            noise = torch.randn((b,) + tuple(batch.pos.shape[1:]),
+                                generator=state.generator, device=dev,
+                                dtype=batch.pos.dtype)
+        return perturb_positions(batch, self.alphas, t[rows].to(dev),
+                                 noise[rows].to(dev))
 
     def loss(self, state: TrainState, batch: GraphBatch, t=None, noise=None,
              train: bool = True):
         pos_p, a = self.draws(state, batch, t, noise)
         out = state.module(batch.replace(pos=pos_p), train=train)
-        return diffusion_loss(out, batch, pos_p, a, self.cutoff)
+        return diffusion_loss(out, batch, pos_p, a, self.cutoff, self.group)
+
+    def gradients(self, state: TrainState, batch: GraphBatch, t=None,
+                  noise=None):
+        """The loss terms, with the gradients (summed over the group's
+        ranks) in each parameter's .grad."""
+        with synced_batch_stats(self.group):
+            lo = self.loss(state, batch, t, noise)
+            state.optimizer.zero_grad()
+            lo.loss.backward()
+        if self.group is not None:
+            self.group.sum_gradients(state.optimizer.params)
+        return lo
+
+    def logged(self, *terms: torch.Tensor):
+        """The loss terms as logged: the global loss's (summed over the
+        ranks)."""
+        terms = [x.detach() for x in terms]
+        if self.group is None:
+            return terms
+        return list(self.group.all_reduce(torch.stack(terms)).unbind())
 
     def __call__(self, state: TrainState, batch: GraphBatch, t=None,
                  noise=None) -> StepMetrics:
-        lo = self.loss(state, batch, t, noise)
-        state.optimizer.zero_grad()
-        lo.loss.backward()
+        lo = self.gradients(state, batch, t, noise)
         grad_norm = state.optimizer.step()
-        if state.ema is not None:
-            d = self.ema_decay
-            with torch.no_grad():
-                ema = list(state.ema.values())
-                params = [p for _, p in state.module.named_parameters()]
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, params, alpha=1.0 - d)
+        update_ema(state, self.ema_decay)
         state.step += 1
-        return StepMetrics(lo.loss.detach(), lo.loss_global.detach(),
-                           lo.loss_local.detach(), grad_norm)
+        return StepMetrics(*self.logged(lo.loss, lo.loss_global,
+                                        lo.loss_local), grad_norm)
 
 
 def make_train_step(config: Config, device) -> TrainStep:

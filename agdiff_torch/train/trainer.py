@@ -16,9 +16,19 @@ checkpoint k equal iterations k + 1 .. k + j of the uninterrupted run
 
 `model.dtype: bfloat16` trains the module at bf16 compute with f32
 parameters, f32 BatchNorm statistics and an f32 loss, as the JAX package
-does (models/dualenc.py, nn/common.py). Data parallelism (cli/train.py
---num_devices) is refused, naming ROADMAP.md queue 1 item 7; it does not
-fall back to one device.
+does (models/dualenc.py, nn/common.py).
+
+With a data-parallel `group` (cli/train.py --num_devices; JAX's `mesh`,
+agdiff_tpu/train/trainer.py:89-92, :166-200) every rank runs the same
+seeded loader and takes its shard of each batch
+(parallel/data_parallel.py), so the loader state in a checkpoint is the
+single run's; the step is the global batch's (train/train_step.py).
+Every rank validates (its draws keep the step generators equal), and
+rank 0's three validation losses go to every rank, whose plateau
+controllers then take the same decision; rank 0 alone writes
+checkpoints, metrics and the log. Every rank resumes from the same
+checkpoint, and before the first step every rank's parameters are
+checked equal to rank 0's.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from agdiff_torch.data.dataset import (
 )
 from agdiff_torch.data.graph_batch import GraphBatch
 from agdiff_torch.device import resolve_device
+from agdiff_torch.parallel.data_parallel import check_replicas
 from agdiff_torch.train.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -46,11 +57,12 @@ from agdiff_torch.train.checkpoint import (
 from agdiff_torch.train.optimizer import plateau_init, scheduler_step
 from agdiff_torch.train.train_step import (
     TrainState,
+    TrainStep,
     create_train_state,
     make_eval_step,
-    make_train_step,
 )
 from agdiff_torch.utils.logging import MetricsWriter, get_logger
+
 
 def to_device(batch: GraphBatch, device) -> GraphBatch:
     """Copy a (pinned) host batch to the device without blocking."""
@@ -62,14 +74,23 @@ class Trainer:
     def __init__(self, config: Config, train_set: ConformationDataset,
                  val_set: Optional[ConformationDataset], log_dir: str,
                  logger: Optional[logging.Logger] = None, device=None,
-                 log_freq: int = 100):
+                 log_freq: int = 100, group=None):
         self.config = config
         self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
-        self.logger = logger or get_logger("train", log_dir)
-        self.writer = MetricsWriter(os.path.join(log_dir, "metrics.jsonl"))
-        self.device = resolve_device(device)
+        self.group = group
+        self.is_writer = group is None or group.is_writer
+        if self.is_writer:
+            os.makedirs(log_dir, exist_ok=True)
+            self.logger = logger or get_logger("train", log_dir)
+        else:
+            self.logger = logging.getLogger("train.rank")
+            self.logger.disabled = True
+        self.writer = MetricsWriter(os.path.join(log_dir, "metrics.jsonl")
+                                    if self.is_writer else None)
+        self.device = group.device if group else resolve_device(device)
         self.log_freq = log_freq
+        if group is not None:
+            group.rows(config.train.batch_size)   # raises unless it splits
 
         buckets = config.buckets
         needed = train_set.max_num_nodes()
@@ -83,7 +104,7 @@ class Trainer:
             edge_order=config.model.edge_order, seed=config.train.seed,
             shuffle=False, drop_last=False) if val_set is not None else None)
         self.state: TrainState = create_train_state(config, self.device)
-        self.train_step = make_train_step(config, self.device)
+        self.train_step = TrainStep(config, self.device, group)
         self.eval_step = make_eval_step(config, self.device)
         lr = config.train.optimizer.lr
         self.plateau_global = plateau_init(lr)
@@ -126,8 +147,8 @@ class Trainer:
             payload["ema"] = st.ema
         return payload
 
-    def validate(self, it: int) -> float:
-        assert self.val_loader is not None
+    def _val_losses(self):
+        """(loss, global, local) over the validation set."""
         sums = {"sum_loss": 0.0, "sum_global": 0.0, "sum_local": 0.0,
                 "count": 0.0}
         for _, batch in self.val_loader.epoch_batches():
@@ -135,9 +156,18 @@ class Trainer:
             for name in sums:
                 sums[name] += float(out[name])
         count = max(sums["count"], 1.0)
-        avg, avg_global, avg_local = (sums["sum_loss"] / count,
-                                      sums["sum_global"] / count,
-                                      sums["sum_local"] / count)
+        return (sums["sum_loss"] / count, sums["sum_global"] / count,
+                sums["sum_local"] / count)
+
+    def validate(self, it: int) -> float:
+        assert self.val_loader is not None
+        # every rank validates (the draws keep the step generators equal),
+        # and rank 0's reading goes bit for bit (float64) to every rank
+        avg, avg_global, avg_local = self._val_losses()
+        if self.group is not None:
+            vals = torch.tensor((avg, avg_global, avg_local),
+                                dtype=torch.float64, device=self.device)
+            avg, avg_global, avg_local = self.group.broadcast(vals).tolist()
         sched = self.config.train.scheduler
         self.plateau_global = scheduler_step(self.plateau_global,
                                              avg_global, sched)
@@ -150,6 +180,12 @@ class Trainer:
         self.writer.write(it, {"val/loss": avg, "val/loss_global": avg_global,
                                "val/loss_local": avg_local})
         return avg
+
+    def _place(self, batch: GraphBatch) -> GraphBatch:
+        """A host batch on the device: this rank's shard under a group."""
+        if self.group is None:
+            return to_device(batch, self.device)
+        return self.group.shard(batch)
 
     def _draws(self):
         """(bucket, batch, loader state after it), forever."""
@@ -164,14 +200,16 @@ class Trainer:
         data = prefetch(self._draws(), size=max(2, 2 * chunk),
                         pin=self.device.type == "cuda")
         loader_state = self.train_loader.state_dict()
+        if self.group is not None:
+            check_replicas(self.state.module, self.group)
         t_start = time.time()
         try:
             it = self.start_iter
             while it <= max_iters:
                 k = min(chunk, max_iters - it + 1)
-                group = [next(data) for _ in range(k)]
-                loader_state = group[-1][2]
-                batches = [to_device(b, self.device) for _, b, _ in group]
+                drawn = [next(data) for _ in range(k)]
+                loader_state = drawn[-1][2]
+                batches = [self._place(b) for _, b, _ in drawn]
                 for batch in batches:
                     metrics = self.train_step(self.state, batch)
                     self._losses.append(metrics.loss)
@@ -189,10 +227,12 @@ class Trainer:
                         self.best_val_loss = avg_val_loss
                         self.logger.info("New best model saved with loss %f",
                                          avg_val_loss)
-                    save_checkpoint(self.log_dir, it, self.config,
-                                    self._payload(loader_state),
-                                    self.plateau_global, self.plateau_local,
-                                    avg_val_loss, best=best)
+                    if self.is_writer:
+                        save_checkpoint(
+                            self.log_dir, it, self.config,
+                            self._payload(loader_state),
+                            self.plateau_global, self.plateau_local,
+                            avg_val_loss, best=best)
                 it += 1
         except KeyboardInterrupt:
             self.logger.info("Terminating...")

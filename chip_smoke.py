@@ -247,7 +247,31 @@ Phases, each of which fails the run:
      and conformers/s printed; (h) 20 eager steps each of the bf16 train
      step and of the distill step at f32 and bf16 (B=64) timed and
      profiled;
- 12. one JSON line lists each kernel variant and its numbers, then the
+ 12. data parallelism (parallel/mesh.py, parallel/data_parallel.py):
+     (a) cli/train.py --num_devices 1 (one spawned rank, NCCL) on
+     synthetic_qm9.yml, DP_ITERS iterations under deterministic
+     algorithms: losses and checkpoint torch.equal to the run without the
+     flag; cli/generate.py --num_devices 1 --engine pksf: samples equal to
+     the run without it; (b) two gloo ranks on card 0 (NCCL refuses two
+     ranks on one device; launch's explicit backend): the data-parallel
+     train step at f32 (STEP_LIMITS) and bf16 (BF16_STEP_LIMITS) against
+     the single-process card step, with planted faults (per-rank
+     BatchNorm statistics, statistics through an all-reduce without
+     gradient, DDP's mean of per-rank means, each rank drawing its own
+     noise) that must break them, ms/step per rank and the gradient
+     all-reduce's ms; the runner's 'pksf' ladder (QM9, B=128 as 2 x 64)
+     and 'tight-pksf' ladder (the 50-atom Drugs molecule, B=48 as 2 x
+     24): each rank's K1 launches equal to its forwards and no other
+     kernel, the gathered samples bit for bit those of single-process
+     runs at each rank's batch size on the same noise slice, and within
+     5% (QM9) and 15% (Drugs) of the whole batch's run after 8 steps;
+     phase 10's six-request QM9 burst through a service over the two
+     ranks: replies ok and merged, no capture after warm-up on either
+     rank, K1 launches equal to forwards on each; (c) on a machine with
+     two cards or more, cli/generate.py --num_devices 2 over NCCL, else
+     a line saying the machine has one card; two ranks sharing a card
+     give no scaling figure;
+ 13. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -255,6 +279,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -2289,8 +2314,8 @@ def train_fault(name):
     elif name == "unbiased_normaliser":
         real = masked.masked_batch_norm_stats
 
-        def unbiased(x, mask):
-            mean, var, count = real(x, mask)
+        def unbiased(x, mask, group=None):
+            mean, var, count = real(x, mask, group=group)
             return mean, var * count / (count - 1.0), count
         patch(masked, "masked_batch_norm_stats", unbiased)
     elif name == "local_weight_1":
@@ -3412,8 +3437,8 @@ def bf16_fault(name):
     if name == "bn_stats_bf16":
         real = masked.masked_batch_norm_stats
 
-        def bf16_stats(x, mask):
-            mean, var, count = real(x.bfloat16(), mask)
+        def bf16_stats(x, mask, group=None):
+            mean, var, count = real(x.bfloat16(), mask, group=group)
             return mean.float(), var.float(), count
         patch(masked, "masked_batch_norm_stats", bf16_stats)
     elif name == "position_cast_left_out":
@@ -4142,6 +4167,604 @@ def run_distillation(dev, report):
     return failures, k1_gen + k1_serve
 
 
+# ---- phase 12: data parallelism --------------------------------------------
+
+# (a) the CLIs' own path at world size 1 (one spawned rank, NCCL) against
+# the same run without --num_devices, torch.equal
+DP_MOLECULES = 128      # synthetic_dataset(128, seed=2021): 115 to train
+DP_ITERS = 6            # cli/train.py iterations; a checkpoint at the last
+DP_GEN_MOLS = 2         # cli/generate.py --engine pksf, held-out molecules
+DP_GEN_STEPS = 20
+# (b) two gloo ranks on card 0 (NCCL refuses two ranks on one device)
+DP_LADDER_STEPS = 8     # the runner's ladders at B=128 (QM9) and B=48 (Drugs)
+DP_SERVE_STEPS = 20     # the two-rank service's ladder
+DP_TIMED_STEPS = 5      # data-parallel train steps timed on each rank
+# the faults a data-parallel step must not have (tests/torch_port_dp_
+# ranks.py plants the same on the CPU): per-rank BatchNorm statistics;
+# statistics summed by an all-reduce without gradient (the cross-rank
+# terms of their gradient lost); DDP's mean of per-rank mean losses; each
+# rank drawing only its own share of the noise
+DP_FAULTS = ("local_stats", "stats_without_grad", "ddp_mean", "own_noise")
+DP_ENGINE_LIMITS = {"pksf": ENGINE_TOL, "tight-pksf": DRUGS_ENGINE_TOL}
+
+
+@contextlib.contextmanager
+def dp_fault(name):
+    from agdiff_torch.ops import masked
+    from agdiff_torch.parallel.mesh import Mesh
+    from agdiff_torch.train import train_step as ts
+
+    saved = []
+
+    def patch(obj, attr, value):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, value)
+
+    if name == "local_stats":
+        real = masked.masked_batch_norm_stats
+        patch(masked, "masked_batch_norm_stats",
+              lambda x, mask, group=None: real(x, mask))
+    elif name == "stats_without_grad":
+        patch(Mesh, "sum_with_grad", lambda self, x: x + (
+            self.all_reduce(x.detach().clone()) - x.detach()))
+    elif name == "ddp_mean":
+        real_loss, real_sum = ts.diffusion_loss, Mesh.sum_gradients
+
+        def mean(self, params):
+            real_sum(self, params)
+            for p in params:
+                p.grad /= self.world_size
+        patch(ts, "diffusion_loss", lambda *a: real_loss(*a[:5]))
+        patch(Mesh, "sum_gradients", mean)
+    elif name == "own_noise":
+        patch(ts, "global_draw_rows", lambda batch, group: (
+            batch.num_graphs, slice(0, batch.num_graphs)))
+    elif name is not None:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for obj, attr, value in reversed(saved):
+            setattr(obj, attr, value)
+
+
+def dp_every_rank(group, obj):
+    """[each rank's obj], on every rank (broadcasts only)."""
+    return [group.broadcast_object(obj if group.rank == r else None, src=r)
+            for r in range(group.world_size)]
+
+
+def dp_train_rank(group, case) -> dict:
+    """One data-parallel train step of the case's initial weights on this
+    rank's shard, with the global t and noise, a planted fault when the
+    case names one: step_result's tuple; a sound step also checks every
+    rank's parameters and statistics equal and times DP_TIMED_STEPS
+    steps and the gradient all-reduce alone."""
+    import copy
+
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.parallel.data_parallel import check_replicas
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState, TrainStep
+
+    config, dev = case["config"], group.device
+    module = DualEncoderEpsNetwork(config.model)
+    module.load_state_dict(case["init"])
+    module = module.to(dev)
+    state = TrainState(step=0, module=module,
+                       optimizer=make_optimizer(module, config.train),
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    before = {n: p.detach().cpu().clone()
+              for n, p in module.named_parameters()}
+    step = TrainStep(config, dev, group)
+    shard = group.shard(case["batch"])
+    with dp_fault(case.get("fault")):
+        metrics = step(state, shard, case["t"].to(dev),
+                       case["noise"].to(dev))
+    # copies: on the CPU (a rehearsal) .cpu() would alias the parameters
+    # the timed steps below move
+    out = {"step": copy.deepcopy(step_result(metrics, module, before))}
+    if case.get("fault") is None:
+        check_replicas(module, group)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, shard)
+        torch.cuda.synchronize(dev)
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
+            / DP_TIMED_STEPS
+        params = state.optimizer.params
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            group.sum_gradients(params)
+        torch.cuda.synchronize(dev)
+        out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 \
+            / DP_TIMED_STEPS
+        out["grad_bytes"] = 4 * sum(p.numel() for p in params)
+        out["collectives"] = dp_collective_split(group, step, state, shard)
+    return out
+
+
+def dp_collective_split(group, step, state, shard) -> dict:
+    """One more step with the card synchronised around each of its
+    all-reduces: (the step's ms so run, the all-reduces' ms in all and
+    their number, and the gradient all-reduce's share of both). The
+    synchronisations keep the card's own work out of a collective's wall
+    time and lengthen the step; the split, not the sum, is the reading."""
+    import torch
+
+    from agdiff_torch.parallel.mesh import Mesh
+
+    dev = group.device
+    spans = []
+    real = Mesh.all_reduce
+
+    def timed(self, x):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        real(self, x)
+        torch.cuda.synchronize(dev)
+        spans.append(((time.perf_counter() - t0) * 1e3, x.numel()))
+        return x
+
+    Mesh.all_reduce = timed
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        step(state, shard)
+        torch.cuda.synchronize(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        Mesh.all_reduce = real
+    grad = max(spans, key=lambda sp: sp[1])
+    return dict(step_ms=step_ms, all_reduce_ms=sum(ms for ms, _ in spans),
+                all_reduces=len(spans), grad_all_reduce_ms=grad[0],
+                other_all_reduce_ms=sum(ms for ms, _ in spans) - grad[0])
+
+
+def dp_ladder():
+    """The DP ladders: the slices' 'ld' ladder (w_global 0.3) with
+    bench.py's clip_local 20, DP_LADDER_STEPS steps."""
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    return SamplerConfig(n_steps=DP_LADDER_STEPS, w_global=0.3,
+                         clip_local=20.0)
+
+
+def dp_model(cfg):
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_random
+
+    return init_random(DualEncoderEpsNetwork(cfg), SEED)
+
+
+def dp_ladder_rank(group, case) -> dict:
+    """The runner's sampler over the group (its first run captures the
+    graphs, the second is read): the gathered positions, this rank's
+    launches by kernel, its forwards and ms/step."""
+    import torch
+
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+
+    cfg, engine, dev = case["model_config"], case["engine"], group.device
+    runner = GenerationRunner(
+        dp_model(cfg), cfg, make_diffusion(cfg), dp_ladder(),
+        buckets=case["buckets"], chunk_size=case["batch"].num_graphs,
+        engine=engine, group=group)
+    sampler = runner._sampler(engine, False,
+                              runner._capacity_for(case["mol"], engine))
+    fwd = runner.forward(engine)
+    args = (case["batch"].to(dev), case["pos_init"].to(dev))
+    noise = case["noise"].to(dev)
+    sampler(*args, noise=noise)
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    calls0 = fwd.calls
+    t0 = time.perf_counter()
+    out = sampler(*args, noise=noise)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / DP_LADDER_STEPS
+    return dict(pos=out.pos.cpu(), flags=out.nan_flags.cpu(),
+                launches=launch_counts(), forwards=fwd.calls - calls0,
+                ms_per_step=ms, graphs=sampler.graphed(args[0]))
+
+
+def dp_serve_rank(group, case) -> dict:
+    """Phase 10's QM9 burst through a service over the group: rank 0
+    serves (warm-up by a request, then SERVE_REQUESTS concurrent requests,
+    its counts read around the burst), rank 1 follows; each rank's
+    captures against the ladders its warm-up pinned."""
+    import torch
+
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.graphed import LadderGraphs
+    from agdiff_torch.serve.server import follow, submit
+
+    cfg = case["model_config"]
+    runner = PackedGenerationRunner(
+        dp_model(cfg), cfg, make_diffusion(cfg), serve_ladder(DP_SERVE_STEPS),
+        buckets=(32,), chunk_size=SERVE_CHUNK, group=group)
+    fwd = runner.forward("pksf")
+    zero_counts()
+    start = LadderGraphs.captures   # the ladder cases' captures before
+    out = {}
+    if group.rank == 0:
+        svc, port, thread = start_service(runner, max_nodes=32)
+        warm = submit({"cmd": "warm", "retry": True, "nodes": case["nodes"]},
+                      port=port, timeout=600)
+        torch.cuda.synchronize(group.device)
+        pinned = sum(len(s.pinned) for s in runner._samplers.values())
+        before, calls0 = launch_counts(), fwd.calls
+        zero_counts()
+        captures0 = LadderGraphs.captures
+        replies, wall = burst(port, [
+            {"cmd": "generate", "test_set": case["sets"][i % 2],
+             "num_confs": SERVE_CONFS, "seed": 100 + i, "save": False}
+            for i in range(SERVE_REQUESTS)])
+        out = dict(warm_ok=bool(warm.get("ok")), wall_s=wall,
+                   ok=[bool(r.get("ok")) for r, _ in replies],
+                   merged=sum(1 for r, _ in replies
+                              if r.get("batched_with", 0) >= 1),
+                   latencies=[lat for _, lat in replies],
+                   burst_launches=launch_counts(),
+                   burst_forwards=fwd.calls - calls0,
+                   burst_captures=LadderGraphs.captures - captures0)
+        launches = dict(collections.Counter(before)
+                        + collections.Counter(launch_counts()))
+        out["stopped"] = stop_service(runner, port, thread)
+    else:
+        follow(runner)
+        pinned = sum(len(s.pinned) for s in runner._samplers.values())
+        launches = launch_counts()
+    out.update(captures=LadderGraphs.captures - start, pinned=pinned,
+               launches=launches, forwards=fwd.calls)
+    return out
+
+
+def dp_card_world(group, cases) -> list:
+    """Phase 12 (b) in each of two gloo ranks on card 0."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_counts()
+    out = {"train": {k: dp_train_rank(group, c)
+                     for k, c in cases["train"].items()},
+           "ladders": {k: dp_ladder_rank(group, c)
+                       for k, c in cases["ladders"].items()},
+           "serve": dp_serve_rank(group, cases["serve"])}
+    return dp_every_rank(group, out)
+
+
+def dp_cli_world_one(dev, report) -> list:
+    """(a) cli/train.py and cli/generate.py with --num_devices 1 (one
+    spawned rank on the card, NCCL) against the same runs in this
+    process."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from agdiff_torch.cli import generate as gen_cli
+    from agdiff_torch.cli import train as train_cli
+    from agdiff_torch.eval.generate import load_samples
+    from agdiff_torch.train.checkpoint import load_checkpoint
+
+    root = os.path.join(OUT_DIR, "dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = write_train_config(os.path.join(root, "dp.yml"), max_iters=DP_ITERS,
+                             val_freq=DP_ITERS, ema_decay=TRAIN_EMA)
+    synth = ["--synthetic", str(DP_MOLECULES), "--deterministic"]
+    runs, wall = {}, {}
+    try:
+        for label, extra in (("one", ["--device", str(dev)]),
+                             ("world1", ["--num_devices", "1"])):
+            t0 = time.time()
+            runs[label] = train_cli.main([cfg, "--logdir", os.path.join(
+                root, label), *synth, *extra])
+            wall[label] = time.time() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ckpt = lambda r: load_checkpoint(os.path.join(  # noqa: E731
+        r.log_dir, "checkpoints", str(DP_ITERS)))
+    bad = same_checkpoint(ckpt(runs["one"]), ckpt(runs["world1"]))
+    same_losses = runs["world1"].losses == runs["one"].losses
+    failures = []
+    if bad or not same_losses or len(runs["one"].losses) != DP_ITERS:
+        failures.append(f"dp train --num_devices 1: differs from the run "
+                        f"without it (losses equal {same_losses}; "
+                        f"{bad[:5]})")
+    samples = {}
+    for label, extra in (("one", ["--device", str(dev)]),
+                         ("world1", ["--num_devices", "1"])):
+        out = os.path.join(root, f"samples_{label}")
+        t0 = time.time()
+        gen_cli.main([runs["one"].log_dir, "--synthetic", str(DP_GEN_MOLS),
+                      "--end_idx", str(DP_GEN_MOLS), "--n_steps",
+                      str(DP_GEN_STEPS), "--fast", "--engine", "pksf",
+                      "--w_global", "0.3", "--out_dir", out, "--no_resume",
+                      *extra])
+        wall[f"generate_{label}"] = time.time() - t0
+        samples[label] = [m.meta["pos_gen"] for m in load_samples(
+            os.path.join(out, "samples_all.npz"))]
+    same_samples = len(samples["one"]) == DP_GEN_MOLS and all(
+        np.array_equal(a, b) for a, b in zip(samples["one"],
+                                             samples["world1"]))
+    if not same_samples:
+        failures.append("dp generate --num_devices 1: samples differ from "
+                        "the run without it")
+    report["dp"]["world1"] = dict(train_equal=not bad and same_losses,
+                                  generate_equal=same_samples, wall_s=wall)
+    report["dp"]["log_dir"] = runs["one"].log_dir
+    print(f"dp (a) world 1 over NCCL: cli/train.py {DP_ITERS} iterations "
+          f"torch.equal to the run without --num_devices: losses "
+          f"{same_losses}, checkpoint {not bad}; cli/generate.py 'pksf' "
+          f"{DP_GEN_MOLS} molecules x {DP_GEN_STEPS} steps: samples equal "
+          f"{same_samples}; wall s {json.dumps(wall)}", flush=True)
+    return failures
+
+
+def dp_train_cases(dev):
+    """(b)'s train cases and the single-process card step of each config:
+    {name: case}, {config label: reference step_result}."""
+    import copy
+
+    import torch
+
+    from agdiff_torch.config import load_config
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import init_like_jax
+
+    cases, refs = {}, {}
+    for label, config in (
+            ("f32", load_config(os.path.join(ROOT, "configs",
+                                             TRAIN_CONFIG))),
+            ("bf16", fast_config())):
+        mols = synthetic_dataset(DP_MOLECULES, seed=config.train.seed)
+        batch, t, noise = train_batch(config, mols[:int(len(mols) * 0.9)])
+        init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                             torch.Generator().manual_seed(
+                                 config.train.seed))
+        refs[label] = train_step_on(config, copy.deepcopy(init), dev, batch,
+                                    t, noise)
+        base = dict(config=config, init=init.state_dict(), batch=batch, t=t,
+                    noise=noise)
+        cases[label] = base
+        for fault in DP_FAULTS:
+            cases[f"{label} fault {fault}"] = dict(base, fault=fault)
+    return cases, refs
+
+
+def dp_ladder_cases(qcfg, qmols, dcfg, dconf, dmols):
+    """(b)'s ladders: one molecule repeated (the runner's chunk), QM9 at
+    B=128 in bucket 32 ('pksf'), Drugs' 50-atom molecule at B=48 in
+    bucket 64 ('tight-pksf'), starts and noise drawn here."""
+    import torch
+
+    from agdiff_torch.data.bucketing import pad_molecules
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = {}
+    for engine, cfg, mol, bucket, b, buckets in (
+            ("pksf", qcfg, qmols[0], 32, CHUNK, (32,)),
+            ("tight-pksf", dcfg, dmols[0], 64, DRUGS_CHUNK, dconf.buckets)):
+        batch = pad_molecules([mol] * b, bucket, batch_size=b)
+        cases[engine] = dict(
+            engine=engine, model_config=cfg, mol=mol, buckets=buckets,
+            batch=batch, pos_init=torch.randn(batch.pos.shape, generator=gen),
+            noise=torch.randn((DP_LADDER_STEPS,) + tuple(batch.pos.shape),
+                              generator=gen))
+    return cases
+
+
+def dp_check_ladders(case, ranks_out, model, dev, report) -> list:
+    """The gathered samples bit for bit against single-process runs at each
+    rank's batch size on its noise slice, and within the engine's limit
+    of the whole batch's run; each rank's K1 launches equal to its
+    forwards, no other kernel. The references run the eager loop (the
+    bits of the graphs the ranks replay, phase 7)."""
+    import torch
+
+    from agdiff_torch.eval.generate import GenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+
+    engine, cfg = case["engine"], case["model_config"]
+    runner = GenerationRunner(
+        model, cfg, make_diffusion(cfg), dp_ladder(),
+        buckets=case["buckets"], chunk_size=case["batch"].num_graphs,
+        device=dev, engine=engine, graph=False)
+    sampler = runner._sampler(engine, False,
+                              runner._capacity_for(case["mol"], engine))
+    batch, pos_init, noise = (case["batch"].to(dev), case["pos_init"].to(dev),
+                              case["noise"].to(dev))
+    got = ranks_out[0]["ladders"][engine]
+    b = batch.num_graphs // len(ranks_out)
+    bitwise = []
+    t0 = time.perf_counter()
+    for r in range(len(ranks_out)):
+        rows = slice(r * b, (r + 1) * b)
+        alone = sampler(batch.replace(**{
+            k: v[rows] for k, v in vars(batch).items()}), pos_init[rows],
+            noise=noise[:, rows])
+        bitwise.append(torch.equal(got["pos"][rows], alone.pos.cpu())
+                       and torch.equal(got["flags"][rows],
+                                       alone.nan_flags.cpu()))
+    torch.cuda.synchronize(dev)
+    half_ms = (time.perf_counter() - t0) * 1e3 / (
+        DP_LADDER_STEPS * len(ranks_out))
+    whole = sampler(batch, pos_init, noise=noise).pos.cpu()
+    rel = float((got["pos"] - whole).abs().max()) / float(whole.abs().max())
+    failures = []
+    rows = []
+    for r, out in enumerate(ranks_out):
+        lad = out["ladders"][engine]
+        launches = dict(lad["launches"])
+        k1 = launches.pop("stack_packed/stack_full:" + (
+            "tight" if engine.startswith("tight") else "triu"), 0)
+        rows.append(dict(rank=r, k1_launches=k1, forwards=lad["forwards"],
+                         other=launches, ms_per_step=lad["ms_per_step"],
+                         graphs=lad["graphs"]))
+        if k1 != lad["forwards"] or not k1 or launches:
+            failures.append(f"dp {engine} rank {r}: K1 launches {k1}, "
+                            f"forwards {lad['forwards']}, other {launches}")
+        if not (torch.equal(lad["pos"], got["pos"])
+                and torch.equal(lad["flags"], got["flags"])):
+            failures.append(f"dp {engine} rank {r}: its gathered samples "
+                            f"differ from rank 0's")
+    if not all(bitwise):
+        failures.append(f"dp {engine}: the gathered rows differ from the "
+                        f"single-process runs at B={b} ({bitwise})")
+    limit = DP_ENGINE_LIMITS[engine]
+    if not rel <= limit:
+        failures.append(f"dp {engine}: {rel:.3e} of the whole batch's run, "
+                        f"limit {limit}")
+    report["dp"]["ladders"][engine] = dict(
+        ranks=rows, bitwise_at_rank_batch=bitwise, rel_to_whole=rel,
+        limit=limit, single_ms_per_step_at_rank_batch=half_ms,
+        flagged=int(got["flags"].sum()))
+    print(f"dp (b) {engine}: B={batch.num_graphs} as {len(ranks_out)} x {b} "
+          f"on card 0, {DP_LADDER_STEPS} steps: bit for bit with the "
+          f"single-process runs at B={b} on the same noise {bitwise} "
+          f"({int(got['flags'].sum())} flagged); "
+          f"{rel:.3e} of the B={batch.num_graphs} run (limit {limit}); per "
+          f"rank K1 launches / forwards "
+          f"{[(x['k1_launches'], x['forwards']) for x in rows]}, ms/step "
+          f"{[round(x['ms_per_step'], 3) for x in rows]} (one process at "
+          f"B={b}: {half_ms:.3f}; two ranks share one card: not a scaling "
+          f"figure)", flush=True)
+    return failures
+
+
+def run_data_parallel(qcfg, qmols, dcfg, dconf, dmols, dev, report):
+    """Phase 12: (a) the CLIs at world size 1 over NCCL, (b) two gloo ranks
+    on card 0: the train step (f32 and bf16, planted faults), the runner's
+    ladders ('pksf', 'tight-pksf') and a served burst, (c) generation over
+    NCCL on two cards where the machine has them. Returns (failures, K1
+    launches of the triu and tight variants over the ranks)."""
+    import shutil
+
+    import torch
+
+    from agdiff_torch.chem.mol import save_molecules
+    from agdiff_torch.parallel import launch
+
+    report["dp"] = {"ladders": {}}
+    failures = dp_cli_world_one(dev, report)
+
+    train_cases, refs = dp_train_cases(dev)
+    ladder_cases = dp_ladder_cases(qcfg, qmols, dcfg, dconf, dmols)
+    sets = []
+    for k in range(2):
+        path = os.path.join(OUT_DIR, "dp", f"qm9_{k}.npz")
+        save_molecules(path, qmols[2 * k:2 * k + 2])
+        sets.append(path)
+    serve_case = dict(model_config=qcfg, sets=sets,
+                      nodes=sorted({m.num_nodes for m in qmols}))
+    t0 = time.time()
+    ranks_out = launch(dp_card_world, 2, dict(
+        train=train_cases, ladders=ladder_cases, serve=serve_case),
+        device="cuda:0", backend="gloo")
+    world_s = time.time() - t0
+
+    lr = {"f32": train_cases["f32"]["config"].train.optimizer.lr}
+    rows = {}
+    for name, case in train_cases.items():
+        label = name.split()[0]
+        got = ranks_out[0]["train"][name]["step"]
+        rows[name] = (step_errors(got, refs[label], lr["f32"])
+                      if label == "f32" else bf16_step_errors(got,
+                                                              refs[label]))
+    report["dp"]["train"] = rows
+    for label, limits in (("f32", STEP_LIMITS), ("bf16", BF16_STEP_LIMITS)):
+        print_step_rows(
+            f"dp (b) {label} train step over two gloo ranks on card 0 "
+            f"against the single-process card step",
+            {(k.split(" ", 1)[1] if " " in k else "dp_vs_single"): v
+             for k, v in rows.items() if k.split()[0] == label},
+            limits, failures)
+    timing = {label: [dict(ms_per_step=r["train"][label]["ms_per_step"],
+                           all_reduce_ms=r["train"][label]["all_reduce_ms"],
+                           synced=r["train"][label]["collectives"])
+                      for r in ranks_out] for label in ("f32", "bf16")}
+    report["dp"]["train_timing"] = timing
+    grad_mib = ranks_out[0]["train"]["f32"]["grad_bytes"] / 2 ** 20
+    print(f"dp (b) train step ms per rank (B=64 as 2 x 32, two ranks "
+          f"sharing card 0 over gloo, not a scaling figure): "
+          f"{json.dumps(timing)}; the gradient all-reduce moves "
+          f"{grad_mib:.2f} MiB ({report['card']})", flush=True)
+
+    k1 = {"triu": 0, "tight": 0}
+    models = {"pksf": dp_model(qcfg).to(dev).eval(),
+              "tight-pksf": dp_model(dcfg).to(dev).eval()}
+    for engine, case in ladder_cases.items():
+        failures += dp_check_ladders(case, ranks_out, models[engine], dev,
+                                     report)
+        key = "tight" if engine.startswith("tight") else "triu"
+        k1[key] += sum(r["k1_launches"] for r in
+                       report["dp"]["ladders"][engine]["ranks"])
+
+    serve = [r["serve"] for r in ranks_out]
+    s0 = serve[0]
+    burst_k1 = s0["burst_launches"].get("stack_packed/stack_full:triu", 0)
+    other = {k: v for k, v in s0["burst_launches"].items()
+             if k != "stack_packed/stack_full:triu"}
+    if not (s0["warm_ok"] and all(s0["ok"]) and s0["merged"] >= 2
+            and s0["stopped"]):
+        failures.append(f"dp serve: warm {s0['warm_ok']}, ok {s0['ok']}, "
+                        f"merged {s0['merged']}, stopped {s0['stopped']}")
+    if burst_k1 != s0["burst_forwards"] or not burst_k1 or other \
+            or s0["burst_captures"]:
+        failures.append(f"dp serve rank 0: K1 {burst_k1}, forwards "
+                        f"{s0['burst_forwards']}, other {other}, captures "
+                        f"{s0['burst_captures']}")
+    for r, out in enumerate(serve):
+        k1_all = out["launches"].get("stack_packed/stack_full:triu", 0)
+        k1["triu"] += k1_all
+        if out["captures"] != out["pinned"] or k1_all != out["forwards"]:
+            failures.append(f"dp serve rank {r}: {out['captures']} "
+                            f"captures, {out['pinned']} warmed; K1 {k1_all}, "
+                            f"forwards {out['forwards']}")
+    report["dp"]["serve"] = serve
+    lat = sorted(s0["latencies"])
+    per_rank = [(o["launches"].get("stack_packed/stack_full:triu", 0),
+                 o["forwards"]) for o in serve]
+    print(f"dp (b) served burst over two ranks: {SERVE_REQUESTS} requests "
+          f"ok {all(s0['ok'])}, merged {s0['merged']}, captures during the "
+          f"burst {s0['burst_captures']}, captures / warmed ladders per "
+          f"rank {[(o['captures'], o['pinned']) for o in serve]}, K1 "
+          f"launches / forwards per rank {per_rank}, "
+          f"latency p50 {lat[len(lat) // 2]:.3f} s max {lat[-1]:.3f} s, "
+          f"burst {s0['wall_s']:.3f} s; the world {world_s:.1f} s",
+          flush=True)
+
+    if torch.cuda.device_count() >= 2:
+        from agdiff_torch.cli import generate as gen_cli
+
+        out = os.path.join(OUT_DIR, "dp", "samples_two_cards")
+        t0 = time.time()
+        gen_cli.main([report["dp"]["log_dir"], "--synthetic",
+                      str(DP_GEN_MOLS), "--end_idx", str(DP_GEN_MOLS),
+                      "--n_steps", str(DP_GEN_STEPS), "--fast", "--engine",
+                      "pksf", "--w_global", "0.3", "--out_dir", out,
+                      "--no_resume", "--num_devices", "2"])
+        print(f"dp (c) cli/generate.py --num_devices 2 over NCCL: "
+              f"{time.time() - t0:.1f} s", flush=True)
+    else:
+        print(f"dp (c) this machine has {torch.cuda.device_count()} card: "
+              f"NCCL across two cards not run", flush=True)
+    # the checkpoints (tens of MB each) are not kept; the logs are
+    for d, subdirs, _ in os.walk(os.path.join(OUT_DIR, "dp")):
+        if "checkpoints" in subdirs:
+            shutil.rmtree(os.path.join(d, "checkpoints"))
+    return failures, k1["triu"], k1["tight"]
+
+
 def main() -> int:
     import torch
 
@@ -4587,10 +5210,16 @@ def main() -> int:
     failed, k1_student = run_distillation(dev, report)
     failures += failed
     phase_done("11 bf16 train, distill, student")
+
+    # ---- 12. data parallelism -----------------------------------------------
+    failed, k1_dp_triu, k1_dp_tight = run_data_parallel(
+        qcfg, qmols, dcfg, dconf, dmols, dev, report)
+    failures += failed
+    phase_done("12 data parallelism")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 12. result lines --------------------------------------------------
+    # ---- 13. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -4621,13 +5250,14 @@ def main() -> int:
         entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]
               + report["serve"]["qm9"]["k1_launches"]
               + report["engines"]["pksf-e16"]["k1_launches"]
-              + k1_student,
+              + k1_student + k1_dp_triu,
               ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32")),
         entry("stack_full:tight", "tight_B48_N64",
               slices["drugs_bucket64"]["k1_launches"]
               + slices["drugs_above64"]["k1_launches"]
               + report["serve"]["drugs"]["k1_launches"]
-              + report["engines"]["tight-pksf-e16"]["k1_launches"],
+              + report["engines"]["tight-pksf-e16"]["k1_launches"]
+              + k1_dp_tight,
               ("tight_B16_N64", "tight_B48_N96")),
         entry("stack_schnet:tight", "schnet_B48_N64",
               slices["tight-pks"]["k1_launches"]),

@@ -14,8 +14,10 @@ both heads' inputs, at N = 20, 40, 64, 128 and B = 1, with an asymmetric
 mask and e, every real pair and an empty graph, every layout level and
 CTAs-per-graph R giving the same bits. K6 at small and full width,
 with em all ones, em = lm, a graph with no working pair and N = 20, 40,
-every layout level giving the same bits. Imports no JAX,
-so that it runs on a machine without it:
+every layout level giving the same bits. Data parallelism: two gloo
+ranks on card 0, the train step against the single-process step and a
+'pksf' ladder against single-process runs at each rank's batch size.
+Imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
@@ -1452,3 +1454,101 @@ def test_cuda_distill_step_matches_cpu(card, dtype):
     assert abs(float(mg.grad_norm) - float(mr.grad_norm)) <= \
         (BF16_TRAIN["median"] if bf16 else 1e-4) * float(mr.grad_norm)
     _grads_close(gg, gr, bf16)
+
+
+# ---- data parallelism: two gloo ranks on card 0 ------------------------------
+
+
+def _dp_cases():
+    """A small f32 train step (B = 8, ranks of uneven real-node counts)
+    and a 'pksf' ladder at full width (B = 16, one QM9 molecule
+    repeated), their weights in the flax layout the rank helpers load."""
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.models.weights import export_jax_variables, init_like_jax
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    config = _small_train_config("float32")
+    batch = pad_molecules(synthetic_dataset(8, seed=4), 32)
+    gen = torch.Generator().manual_seed(0)
+    init = init_like_jax(DualEncoderEpsNetwork(config.model),
+                         torch.Generator().manual_seed(1))
+    train = dict(kind="train", config=config,
+                 variables=export_jax_variables(init), batch=batch,
+                 t=torch.randint(0, config.model.num_diffusion_timesteps, (8,),
+                                 generator=gen),
+                 noise=torch.randn(batch.pos.shape, generator=gen))
+    cfg = dataclasses.replace(ModelConfig(), num_convs=3, num_convs_local=2,
+                              dtype="bfloat16")
+    ladder = pad_molecules([load_fixture()[0]] * 16, 32, batch_size=16)
+    sample = dict(kind="sample", model_config=cfg, engine="pksf",
+                  variables=export_jax_variables(init_random(
+                      DualEncoderEpsNetwork(cfg), 0)),
+                  sampler=SamplerConfig(n_steps=4, w_global=0.3),
+                  batch=ladder,
+                  pos_init=torch.randn(ladder.pos.shape, generator=gen),
+                  noise=torch.randn((4,) + tuple(ladder.pos.shape),
+                                    generator=gen))
+    return {"train": train, "sample": sample}
+
+
+@pytest.fixture(scope="module")
+def dp_world():
+    """The cases and each rank's results of one world of two gloo ranks on
+    card 0 (launch's explicit backend: NCCL refuses two ranks on one
+    device)."""
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs a CUDA card of compute capability >= 9.0")
+    from agdiff_torch.parallel import launch
+
+    import torch_port_dp_ranks as ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = _dp_cases()
+    return cases, launch(ranks.run_cases, 2, cases, device="cuda:0",
+                         backend="gloo")
+
+
+@pytest.mark.cuda
+def test_cuda_dp_train_step_matches_the_single_process_step(card, dp_world):
+    """The two ranks' step against one process's on the card: losses to
+    1e-5 of themselves, gradients and running statistics at
+    test_cuda_train_step_matches_cpu's limits, every rank the same."""
+    import torch_port_dp_ranks as ranks
+
+    cases, out = dp_world
+    single = ranks.train_case(None, dict(cases["train"], device="cuda"))
+    for got in (out[0]["train"], out[1]["train"]):
+        for g, w in zip(got["metrics"][:3], single["metrics"][:3]):
+            assert abs(g - w) <= 1e-5 * abs(w)
+        _grads_close(got["grads"], single["grads"], bf16=False)
+        for name, b in single["buffers"].items():
+            assert float((got["buffers"][name] - b).abs().max()) <= \
+                1e-5 * float(b.abs().max()), name
+    for n, p in out[0]["train"]["params"].items():
+        assert torch.equal(p, out[1]["train"]["params"][n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_dp_pksf_ladder_is_the_single_process_run_per_rank(card,
+                                                                dp_world):
+    """The gathered samples of the two ranks' 'pksf' ladder (K1 on each
+    rank, the same forwards on each) equal, bit for bit, single-process
+    runs at each rank's batch size on the same starts and noise."""
+    import torch_port_dp_ranks as ranks
+
+    cases, out = dp_world
+    case = cases["sample"]
+    got = out[0]["sample"]["pos"]
+    assert torch.equal(got, out[1]["sample"]["pos"])
+    calls = [r["sample"]["calls"] for r in out]
+    assert calls[0] == calls[1] >= 4, calls
+    for r in range(2):
+        rows = slice(8 * r, 8 * r + 8)
+        alone = ranks.sample_case(None, dict(
+            case, device="cuda", batch=case["batch"].replace(**{
+                k: v[rows] for k, v in vars(case["batch"]).items()}),
+            pos_init=case["pos_init"][rows], noise=case["noise"][:, rows]))
+        assert torch.equal(got[rows], alone["pos"]), r
+        assert not alone["flags"].any()
+

@@ -277,13 +277,18 @@ def test_batch_window_needs_a_packed_runner(model):
 
 
 def test_cli_refuses_what_it_cannot_serve():
-    """`--num_devices` above 1 raises, naming the parallelism item, before
-    any checkpoint is read; `--batch_window` needs `--packed`, as in the
-    JAX CLI."""
+    """`--num_devices` beyond the machine's cards raises before any
+    checkpoint is read (data-parallel serving itself runs in
+    tests/test_torch_port_parallel_cli.py); `--batch_window` needs
+    `--packed`, as in the JAX CLI."""
+    import torch
+
     from agdiff_torch.cli import serve
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        serve.main(["missing.pt", "--num_devices", "2"])
+    too_many = (torch.cuda.device_count() if torch.cuda.is_available()
+                else 0) + 1
+    with pytest.raises(ValueError, match=f"requested {too_many} devices"):
+        serve.main(["missing.pt", "--num_devices", str(too_many)])
     with pytest.raises(SystemExit):
         serve.main(["missing.pt", "--batch_window", "0.2"])
     with pytest.raises(SystemExit):

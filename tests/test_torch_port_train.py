@@ -15,6 +15,8 @@ Tolerances (f32, small model: hidden 32, 2 + 2 convs, bucket 16):
     a BatchNorm, where both packages return rounding noise).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from agdiff_tpu.models.schedules import make_diffusion as jax_diffusion
 from agdiff_tpu.nn.common import MaskedBatchNorm as JaxBN
 from agdiff_tpu.ops.masked import masked_mean as jax_masked_mean
 
+from agdiff_torch.config import Config
 from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
 from agdiff_torch.models.loss import (
     diffusion_loss,
@@ -37,6 +40,7 @@ from agdiff_torch.models.schedules import make_diffusion
 from agdiff_torch.models.weights import flax_leaf, load_jax_variables
 from agdiff_torch.nn.common import MaskedBatchNorm
 from agdiff_torch.ops.masked import masked_mean
+from agdiff_torch.train.train_step import TrainStep
 
 from test_torch_port_common import (
     batches,
@@ -300,11 +304,13 @@ def test_sample_timesteps_is_antithetic(num_graphs):
 
 
 def test_perturb_positions_keeps_padding_still():
+    """The step's own draw: noise from the state's generator, through
+    perturb_positions."""
     _, cfg, _, tb, t, _ = _inputs()
     alphas = torch.as_tensor(make_diffusion(cfg).alphas)
-    gen = torch.Generator().manual_seed(1)
-    pos_p, a = perturb_positions(tb, alphas, torch.as_tensor(t),
-                                 generator=gen)
+    state = SimpleNamespace(generator=torch.Generator().manual_seed(1))
+    pos_p, a = TrainStep(Config(model=cfg), "cpu").draws(
+        state, tb, torch.as_tensor(t))
     assert torch.equal(a, alphas[torch.as_tensor(t)])
     pad = ~tb.node_mask
     assert torch.equal(pos_p[pad], tb.pos[pad])

@@ -6,7 +6,8 @@ torch.use_deterministic_algorithms), `cli.generate.main` on the run's log
 dir with --ckpt_iter and --ema, the weights both ways across the flax
 naming, a port-trained module read by the JAX package's reference
 importer (its forward to the module path's 2e-4), and the refusals at the
-slice's edge (--num_devices, a JAX orbax log dir; a bf16 config trains)."""
+slice's edge (--num_devices beyond the machine's cards, a JAX orbax log
+dir; a bf16 config trains)."""
 
 import dataclasses
 import glob
@@ -276,9 +277,11 @@ def test_port_trained_module_runs_in_jax(runs, tmp_path):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """--num_devices (item 7) and a JAX orbax log dir (item 4c) raise; a
-    bf16 config (item 4a, refused before bf16 training was ported) trains
-    at bf16 compute."""
+    """--num_devices beyond the machine's cards (item 7 trains
+    data-parallel since it was ported; tests/test_torch_port_parallel_
+    cli.py runs it) and a JAX orbax log dir (item 4c) raise; a bf16 config
+    (item 4a, refused before bf16 training was ported) trains at bf16
+    compute."""
     bf16 = _write_config(tmp_path / "bf16.yml")
     raw = yaml.safe_load(open(bf16))
     raw["model"]["dtype"] = "bfloat16"
@@ -286,8 +289,11 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     trainer = train_cli.main([bf16, "--logdir", str(tmp_path / "l"), *SYNTH])
     assert trainer.state.module.compute_dtype == torch.bfloat16
     assert len(trainer.losses) == 6 and np.isfinite(trainer.losses).all()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_cli.main([bf16, "--num_devices", "2", *SYNTH])
+    too_many = (torch.cuda.device_count() if torch.cuda.is_available()
+                else 0) + 1
+    with pytest.raises(ValueError, match=f"requested {too_many} devices"):
+        train_cli.main([bf16, "--num_devices", str(too_many),
+                        *SYNTH[:-2]])
     # a JAX log dir: checkpoints/<it>/state is an orbax directory
     jax_dir = tmp_path / "jax_run"
     os.makedirs(jax_dir / "checkpoints" / "5" / "state")
