@@ -60,8 +60,9 @@ def main(argv=None):
                          "trained with train.ema_decay > 0)")
     ap.add_argument("--out_dir", default=None)
     ap.add_argument("--test_set", default=None,
-                    help=".npz test set (chem/mol.save_molecules format); "
-                         "required without --synthetic")
+                    help=".npz test set (chem/mol.save_molecules format) "
+                         "or the reference's .pkl (data/geom.py); required "
+                         "without --synthetic")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="generate for this many synthetic molecules "
                          "(data/synthetic.py, seed 7, 3 reference "

@@ -4,8 +4,9 @@ ConformationDataset holds one entry per conformer; PackedConformationDataset
 one per molecule, its reference conformers stacked in pos_ref (packed by
 SMILES, or by meta['idx'], in first-seen order, as the reference packs,
 datasets.py:1043-1061). Both read the .npz molecule format of
-chem/mol.save_molecules. The reference's .pkl files need RDKit and the
-port of agdiff_tpu/data/geom.py (ROADMAP, queue 1), and raise here.
+chem/mol.save_molecules and the reference's .pkl datasets (lists of PyG
+Data, data/geom.py; a pickle holding RDKit objects needs RDKit and
+raises).
 
 BucketedLoader draws training batches on the host with numpy's
 default_rng(seed), as the JAX loader does, so one seed gives the same
@@ -33,11 +34,9 @@ def _load_any(path: str) -> List[Molecule]:
     if path.endswith(".npz"):
         return load_molecules(path)
     if path.endswith(".pkl"):
-        raise NotImplementedError(
-            "reading the reference's .pkl datasets needs RDKit and the port "
-            "of agdiff_tpu/data/geom.py (ROADMAP.md, queue 1: the GEOM "
-            "pickle loader); convert the set to .npz with the JAX package's "
-            "save_molecules")
+        from agdiff_torch.data.geom import load_reference_pickle
+
+        return load_reference_pickle(path)
     raise ValueError(f"Unknown dataset format: {path}")
 
 

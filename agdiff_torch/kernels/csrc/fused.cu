@@ -7,7 +7,7 @@
 //      out[b, i, f] = sum_j t(e_ij)[f] w_ij h_j[f];
 //   K4 pair_score_kernel  <- _pair_score_kernel (:82): the pair-score MLP
 //      on every ordered pair, MLP3(concat(h_i h_j, e_ij)), zero off the
-//      mask;
+//      mask, with relu or (GELU) gelu activations;
 //   K5 gine_kernel        <- _gine_kernel (:142): the GINE aggregation
 //      sum_j mask_ij relu(x_j + e_ij), in f32.
 // The functions and where their operands round are documented beside the
@@ -25,8 +25,8 @@
 // | e_ij] (the product from the graph's h, staged once; e gathered a
 // 256-byte row at a time in 16-byte loads) runs both layers on the tensor
 // cores (filter_mlp.cuh tc_unit, mma.sync.m16n8k16) with w1 and w2 packed
-// and staged once per block (level 0; level 1 reads them from L2), relu
-// epilogues on the accumulators, and the head (times w3, a quad's
+// and staged once per block (level 0; level 1 reads them from L2), relu or
+// gelu epilogues on the accumulators, and the head (times w3, a quad's
 // shuffles, then the strips of a row in strip order) in f32. At f32 the
 // tile is k-major in shared memory and each layer runs 4 x 2 register
 // units of f32 fused multiply-adds on CUDA cores, k in increasing order,
@@ -77,6 +77,16 @@
 #include <type_traits>
 
 #include "filter_mlp.cuh"
+
+// K4's activation on an f32 accumulator: relu, or gelu in jax.nn.gelu's
+// tanh form with tanhf (the TPU kernel's _act("gelu"), fused.py:62-64);
+// NaN goes through both
+template <bool GELU>
+__device__ __forceinline__ float head_act(float x) {
+  if (!GELU) return relu(x);
+  return 0.5f * x * (1.f + tanhf(0.7978845608028654f
+                                 * (x + 0.044715f * x * x * x)));
+}
 
 // ---- K3 --------------------------------------------------------------------
 
@@ -808,13 +818,13 @@ __host__ __device__ inline size_t pair_score_h_bytes(bool bf, int N,
 }
 
 // bf16 on the tensor cores. Per tile of TC_ROWS list entries:
-//   layer 1, X = bf16(relu([h_i h_j | e] @ w1 + b1)), mma over K = 2Cp;
-//   layer 2, y = relu(X @ w2 + b2) in f32 on the accumulators, times w3,
+//   layer 1, X = bf16(act([h_i h_j | e] @ w1 + b1)), mma over K = 2Cp;
+//   layer 2, y = act(X @ w2 + b2) in f32 on the accumulators, times w3,
 //     summed over a lane's columns, its quad (shuffles) and, through
 //     shared memory, the strips of its rows in strip order; + b3.
 // W_SMEM stages the packed w1, w2 once per block (level 0); else they are
 // read from L2 with the same loads and products.
-template <bool W_SMEM>
+template <bool W_SMEM, bool GELU>
 __device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
   const int N = a.N, NN = N * N, C = a.C, H1 = a.H1, H2 = a.H2;
   const int Cp = pad16(C), H1p = pad16(H1), H2p = pad16(H2);
@@ -880,8 +890,8 @@ __device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
             *reinterpret_cast<__nv_bfloat162*>(
                 X + (r0 + 16 * m + g + 8 * h) * ldx + c) =
                 real ? __floats2bfloat162_rn(
-                           relu(acc[m][n][2 * h] + b0),
-                           relu(acc[m][n][2 * h + 1] + b1))
+                           head_act<GELU>(acc[m][n][2 * h] + b0),
+                           head_act<GELU>(acc[m][n][2 * h + 1] + b1))
                      : __floats2bfloat162_rn(0.f, 0.f);
       }
     }
@@ -903,8 +913,8 @@ __device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
           for (int m = 0; m < 2; ++m)
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              s[m][h] += relu(acc[m][n][2 * h] + b0) * v0
-                         + relu(acc[m][n][2 * h + 1] + b1) * v1;
+              s[m][h] += head_act<GELU>(acc[m][n][2 * h] + b0) * v0
+                         + head_act<GELU>(acc[m][n][2 * h + 1] + b1) * v1;
         }
       }
 #pragma unroll
@@ -926,14 +936,14 @@ __device__ void pair_score_tc(const PairScoreArgs<bf16>& a, char* smem) {
   }
 }
 
-// One f32 layer of K4 on a tile of FT_ROWS rows: out = relu(A @ W + bias)
+// One f32 layer of K4 on a tile of FT_ROWS rows: out = act(A @ W + bias)
 // for rows [0, rows), A k-major (stride FT_LD), W (K x H) row-major in
 // shared memory or (GLOBAL) read through L1; out k-major (KMAJOR, stride
 // ldo, the next layer's operand) or row-major. Units of RU rows x CU
 // columns, k in increasing order from 0 (unit_fma); a warp's FT_ROWS / RU
 // row groups by 32 RU / FT_ROWS column groups, warps round-robin over
 // the column strips.
-template <int RU, int CU, bool GLOBAL, bool KMAJOR>
+template <int RU, int CU, bool GLOBAL, bool KMAJOR, bool GELU>
 __device__ __forceinline__ void pair_score_layer(const float* A,
                                                  const float* W,
                                                  const float* bias, int K,
@@ -951,7 +961,7 @@ __device__ __forceinline__ void pair_score_layer(const float* A,
       const float bj = bias[c0 + j];
 #pragma unroll
       for (int i = 0; i < RU; ++i) {
-        const float v = relu(acc[i][j] + bj);
+        const float v = head_act<GELU>(acc[i][j] + bj);
         if (KMAJOR)
           out[(c0 + j) * ldo + r0 + i] = v;
         else
@@ -964,15 +974,15 @@ __device__ __forceinline__ void pair_score_layer(const float* A,
 // f32 on CUDA cores, true f32 (no TF32), in the one-block-per-row form's
 // order for every sum of a pair (so its bits): per tile of FT_ROWS list
 // entries (A k-major, rows across lanes),
-//   layer 1, X = relu(A @ w1 + b1), k = 0 .. 2C - 1 (units of 4 rows x 4
+//   layer 1, X = act(A @ w1 + b1), k = 0 .. 2C - 1 (units of 4 rows x 4
 //     columns, f32 fused multiply-adds, pair_score_layer);
-//   layer 2, Y = relu(X @ w2 + b2), k = 0 .. H1 - 1, Y in A's region;
+//   layer 2, Y = act(X @ w2 + b2), k = 0 .. H1 - 1, Y in A's region;
 //   the head, one warp a row: a lane-strided sum of Y w3 and a butterfly,
 //     + b3;
 // the next tile's operands load into registers under the layers.
 // LEVEL 0 stages w1 and w2 once per block, 1 w1, 2 neither (read through
 // L1).
-template <int LEVEL>
+template <int LEVEL, bool GELU>
 __device__ void pair_score_f32(const PairScoreArgs<float>& a, char* smem) {
   // 4 x 4 units: 8 warps a layer at H1 = 128 (4 at H2 = 64); 4 x 2 and
   // 8 x 4 units read no faster on the card (PERF.md, K4 findings)
@@ -1061,12 +1071,12 @@ __device__ void pair_score_f32(const PairScoreArgs<float>& a, char* smem) {
     __syncthreads();
     if (tile + a.R < tiles) fetch(tile + a.R);
     // K4: layer 1
-    pair_score_layer<RU, CU, LEVEL == 2, true>(A, W1, a.b1, K1, H1, X, LDA,
-                                               rows);
+    pair_score_layer<RU, CU, LEVEL == 2, true, GELU>(A, W1, a.b1, K1, H1, X,
+                                                     LDA, rows);
     __syncthreads();
     // K4: layer 2 and the head
-    pair_score_layer<RU, CU, LEVEL != 0, false>(X, W2, a.b2, H1, H2, Y, ldy,
-                                                rows);
+    pair_score_layer<RU, CU, LEVEL != 0, false, GELU>(X, W2, a.b2, H1, H2, Y,
+                                                      ldy, rows);
     __syncthreads();
     for (int rr = warp; rr < rows; rr += nw) {
       float s = 0.f;
@@ -1080,33 +1090,33 @@ __device__ void pair_score_f32(const PairScoreArgs<float>& a, char* smem) {
 
 // LEVEL (kernels/fused.py pair_score_level): at bf16 0 stages the packed
 // weights, 1 reads them from L2; at f32 0 stages w1 and w2, 1 w1, 2
-// neither
-template <typename T, int LEVEL>
+// neither; GELU: gelu activations, else relu
+template <typename T, int LEVEL, bool GELU>
 __global__ void __launch_bounds__(TC_THREADS)
     pair_score_kernel(PairScoreArgs<T> a) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (std::is_same<T, bf16>::value)
-    pair_score_tc<LEVEL == 0>(a, reinterpret_cast<char*>(smem));
+    pair_score_tc<LEVEL == 0, GELU>(a, reinterpret_cast<char*>(smem));
   else
-    pair_score_f32<LEVEL>(a, reinterpret_cast<char*>(smem));
+    pair_score_f32<LEVEL, GELU>(a, reinterpret_cast<char*>(smem));
 }
 
 // The launch at a level: its CTAs per graph R are `ranks` when > 0, else
 // as many as fill the card's resident blocks (SMs x blocks an SM at this
 // shared memory) over the B graphs, at most one a tile of the full N x N
 // list; *ranks_out gets R. launch = 0 only plans.
-template <typename T, int LEVEL>
+template <typename T, int LEVEL, bool GELU>
 static int pair_score_run(PairScoreArgs<T> a, int ranks, int launch,
                           int* ranks_out, cudaStream_t stream) {
   const size_t smem = a.lists_at + (a.lists_smem ? pair_lists_bytes(a.N) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      pair_score_kernel<T, LEVEL>,
+      pair_score_kernel<T, LEVEL, GELU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (ranks <= 0) {
     int resident = 0;
     const int rc = resident_blocks(
-        reinterpret_cast<const void*>(pair_score_kernel<T, LEVEL>),
+        reinterpret_cast<const void*>(pair_score_kernel<T, LEVEL, GELU>),
         TC_THREADS, smem, &resident);
     if (rc) return rc;
     const int tile = std::is_same<T, bf16>::value ? TC_ROWS : FT_ROWS;
@@ -1115,13 +1125,31 @@ static int pair_score_run(PairScoreArgs<T> a, int ranks, int launch,
   *ranks_out = ranks;
   if (!launch) return 0;
   a.R = ranks;
-  pair_score_kernel<T, LEVEL><<<a.B * a.R, TC_THREADS, smem, stream>>>(a);
+  pair_score_kernel<T, LEVEL, GELU>
+      <<<a.B * a.R, TC_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool GELU>
+static int pair_score_at_level(const PairScoreArgs<T>& a, int level,
+                               int ranks, int launch, int* ranks_out,
+                               cudaStream_t s) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return level == 0
+               ? pair_score_run<T, 0, GELU>(a, ranks, launch, ranks_out, s)
+               : pair_score_run<T, 1, GELU>(a, ranks, launch, ranks_out, s);
+  else
+    return level == 0
+               ? pair_score_run<T, 0, GELU>(a, ranks, launch, ranks_out, s)
+           : level == 1
+               ? pair_score_run<T, 1, GELU>(a, ranks, launch, ranks_out, s)
+               : pair_score_run<T, 2, GELU>(a, ranks, launch, ranks_out, s);
+}
+
 template <typename T>
-static int pair_score_go(const void* h, const void* e, const void* mask,
-                         const void* const* wts, const void* packed,
+static int pair_score_go(int gelu, const void* h, const void* e,
+                         const void* mask, const void* const* wts,
+                         const void* packed,
                          void* out, void* scratch, int B, int N, int C,
                          int H1, int H2, int level, int lists_smem,
                          int ranks, int launch, int* ranks_out,
@@ -1145,25 +1173,24 @@ static int pair_score_go(const void* h, const void* e, const void* mask,
                + pair_score_h_bytes(bf, N, C);
   a.lists_smem = lists_smem;
   a.vec8 = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(e) % 16 == 0);
-  if constexpr (std::is_same<T, bf16>::value)
-    return level == 0 ? pair_score_run<T, 0>(a, ranks, launch, ranks_out, s)
-                      : pair_score_run<T, 1>(a, ranks, launch, ranks_out, s);
-  else
-    return level == 0   ? pair_score_run<T, 0>(a, ranks, launch, ranks_out, s)
-           : level == 1 ? pair_score_run<T, 1>(a, ranks, launch, ranks_out, s)
-                        : pair_score_run<T, 2>(a, ranks, launch, ranks_out, s);
+  if (gelu) return pair_score_at_level<T, true>(a, level, ranks, launch,
+                                                ranks_out, s);
+  return pair_score_at_level<T, false>(a, level, ranks, launch, ranks_out,
+                                        s);
 }
 
 // bf16_: 0 for f32 operands (CUDA cores; level 0 to 2), 1 for bf16
-// (tensor cores; level 0 or 1). wts: w1, b1, w2, b2, w3, b3 (weights of
-// the operand type, biases f32); packed: w1 and w2 as
+// (tensor cores; level 0 or 1). gelu: 1 for gelu activations, 0 for
+// relu. wts: w1, b1, w2, b2, w3, b3 (weights of the operand type, biases
+// f32); packed: w1 and w2 as
 // pack_pair_score_weights lays them out (bf16 only). lists_smem: 1 keeps
 // each CTA's pair lists in shared memory, 0 in `scratch`
 // (pair_lists_bytes(N) a CTA, B x R CTAs). ranks: CTAs per graph, 0 to
 // let the card's occupancy choose; *ranks_out: those launched. launch = 0
 // only plans (sets *ranks_out).
-extern "C" int pair_score_launch(int bf16_, const void* h, const void* e,
-                                 const void* mask, const void* const* wts,
+extern "C" int pair_score_launch(int bf16_, int gelu, const void* h,
+                                 const void* e, const void* mask,
+                                 const void* const* wts,
                                  const void* packed, void* out,
                                  void* scratch, int B, int N, int C, int H1,
                                  int H2, int level, int lists_smem,
@@ -1176,12 +1203,13 @@ extern "C" int pair_score_launch(int bf16_, const void* h, const void* e,
                     || reinterpret_cast<uintptr_t>(packed) % 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_ ? pair_score_go<bf16>(h, e, mask, wts, packed, out, scratch,
-                                     B, N, C, H1, H2, level, lists_smem,
-                                     ranks, launch, ranks_out, s)
-               : pair_score_go<float>(h, e, mask, wts, packed, out, scratch,
-                                      B, N, C, H1, H2, level, lists_smem,
-                                      ranks, launch, ranks_out, s);
+  return bf16_ ? pair_score_go<bf16>(gelu, h, e, mask, wts, packed, out,
+                                     scratch, B, N, C, H1, H2, level,
+                                     lists_smem, ranks, launch, ranks_out, s)
+               : pair_score_go<float>(gelu, h, e, mask, wts, packed, out,
+                                      scratch, B, N, C, H1, H2, level,
+                                      lists_smem, ranks, launch, ranks_out,
+                                      s);
 }
 
 // ---- K5 --------------------------------------------------------------------

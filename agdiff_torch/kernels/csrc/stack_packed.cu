@@ -1,5 +1,7 @@
 // K1 on Hopper: the whole-stack packed-pair forward, modes 'schnet', 'gin'
-// and 'full', each exact or with the polynomial transcendentals ('-approx').
+// and 'full', each exact or with the polynomial transcendentals ('-approx');
+// in mode 'full' the score heads' activation is relu or gelu (GELU, the
+// config's mlp_act).
 //
 // Replaces the TPU kernel _stack_kernel (agdiff_tpu/ops/pallas/
 // stack_packed.py:104). A cluster of R CTAs per graph runs, after the edge
@@ -230,6 +232,16 @@ template <bool APPROX>
 __device__ __forceinline__ float ssp(float x, float beta) {
   return softplus_<APPROX>(beta * x) - 0.6931471805599453f;
 }
+// The score heads' activation on an f32 accumulator: relu, or gelu in
+// jax.nn.gelu's tanh form, 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715
+// x^3))), with tanhf, or under APPROX with the rational tanh (ops/
+// approx.py gelu). NaN goes through both forms.
+template <bool GELU, bool APPROX>
+__device__ __forceinline__ float head_act(float x) {
+  if (!GELU) return relu(x);
+  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return 0.5f * x * (1.f + (APPROX ? tanh_approx(inner) : tanhf(inner)));
+}
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
@@ -447,7 +459,7 @@ struct Regions {
   }
 };
 
-template <int MODE, bool APPROX>
+template <int MODE, bool APPROX, bool GELU>
 __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   // this CTA is rank `rank` of the `NR` CTAs (one cluster) of graph b
@@ -835,8 +847,10 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
         const int r = e / (H / 4), c = 4 * (e % (H / 4));
         const float4 v = ld4(VF + r * LDV + c), bias = ldg4(f_b1 + c);
         stb4(VB + r * LDB + c,
-             make_float4(relu(v.x + bias.x), relu(v.y + bias.y),
-                         relu(v.z + bias.z), relu(v.w + bias.w)));
+             make_float4(head_act<GELU, APPROX>(v.x + bias.x),
+                         head_act<GELU, APPROX>(v.y + bias.y),
+                         head_act<GELU, APPROX>(v.z + bias.z),
+                         head_act<GELU, APPROX>(v.w + bias.w)));
       }
       __syncthreads();
       mma_tiles(VF, LDV, TP, H / 2, VB, LDB, b_w2, ld_w2, H);
@@ -846,7 +860,8 @@ __global__ void __launch_bounds__(NTHREADS) stack_kernel(Args a) {
         for (int r = warp; r < rows; r += NWARPS) {
           float s = 0.f;
           for (int k = lane; k < H / 2; k += 32)
-            s += relu(VF[r * LDV + k] + f_b2[k]) * f_w3[k];
+            s += head_act<GELU, APPROX>(VF[r * LDV + k] + f_b2[k])
+                 * f_w3[k];
           for (int o = 16; o > 0; o >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, o);
           if (lane == 0) out[p0 + r] = s + b3;
@@ -873,12 +888,15 @@ static size_t weight_region_bytes(int H) {
 
 typedef void (*KernelFn)(Args);
 
-template <int MODE>
+template <int MODE, bool GELU = false>
 static KernelFn pick(int approx) {
-  return approx ? stack_kernel<MODE, true> : stack_kernel<MODE, false>;
+  return approx ? stack_kernel<MODE, true, GELU>
+                : stack_kernel<MODE, false, GELU>;
 }
 
-// mode: 0 schnet, 1 gin, 2 full; approx: 0 or 1. out0/out1 as in Args;
+// mode: 0 schnet, 1 gin, 2 full; approx: 0 or 1; gelu: 1 for gelu score
+// heads (mode 'full' only: the other modes stop before the heads, and
+// their instantiations take gelu = 0). out0/out1 as in Args;
 // scratch holds scratch_stride bytes per CTA (B x ranks of them) for the
 // regions `level` moves to global memory (kernels/stack_packed.py layout
 // chooses both). V valid pairs come first in the list; inc holds their 2V
@@ -887,9 +905,9 @@ static KernelFn pick(int approx) {
 // no cluster attribute. A cluster size the card cannot launch returns an
 // error.
 extern "C" int stack_launch(
-    int mode, int approx, const void* ep, const void* epl, const void* we,
-    const void* h0, const void* hl0, const void* lm, const void* pi,
-    const void* pj, const void* inc_ptr, const void* inc,
+    int mode, int approx, int gelu, const void* ep, const void* epl,
+    const void* we, const void* h0, const void* hl0, const void* lm,
+    const void* pi, const void* pj, const void* inc_ptr, const void* inc,
     const void* wbf, const void* wf, const void* offs,
     void* out0, void* out1, void* scratch, long long scratch_stride, int B,
     int N, int P, int V, int inc_shift, int H, int NB, int NL, int level,
@@ -919,6 +937,7 @@ extern "C" int stack_launch(
   a.ranks = ranks;
   const Regions rg(a.NP, H);
   if (mode < 0 || mode > 2 || level < 0 || level > 2 || H % 32 != 0
+      || (gelu && mode != MODE_FULL)
       || ranks < 1
       || V > P || inc_shift < 1 || inc_shift > 31
       || (size_t)scratch_stride < rg.global(level)
@@ -938,6 +957,7 @@ extern "C" int stack_launch(
   }
   const KernelFn fn = mode == MODE_SCHNET ? pick<MODE_SCHNET>(approx)
                       : mode == MODE_GIN  ? pick<MODE_GIN>(approx)
+                      : gelu              ? pick<MODE_FULL, true>(approx)
                                           : pick<MODE_FULL>(approx);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

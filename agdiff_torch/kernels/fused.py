@@ -17,8 +17,10 @@ Hopper (port of agdiff_tpu/ops/pallas/fused.py).
   MLP3(concat(h_i h_j, e_ij)), zero off the mask. h_i h_j is taken at h's
   dtype (rounded when bf16); x = act([h_i h_j | e] @ w1 + b1) with an f32
   accumulator, rounded to the weights' dtype; y = act(x @ w2 + b2) in f32;
-  s = sum_c y[c] w3[c] + b3 in f32. The weights are taken at h's dtype, as
-  the JAX engine casts them; the biases stay f32.
+  s = sum_c y[c] w3[c] + b3 in f32. act is relu or gelu (jax.nn.gelu's
+  tanh form, as the TPU kernel's `_act`; K4 has no '-approx' form). The
+  weights are taken at h's dtype, as the JAX engine casts them; the
+  biases stay f32.
 * `gine_aggregate` (K5) replaces `_gine_kernel` (fused.py:142, entered
   through `gine_aggregate` :153): out[b, i] = sum_j mask_ij relu(x_j +
   e_ij), in f32. The JAX engine calls it at f32 only
@@ -27,7 +29,8 @@ Hopper (port of agdiff_tpu/ops/pallas/fused.py).
 Each function has a `*_plain` twin in PyTorch. The wrapper runs the twin
 for CPU tensors and launches the CUDA kernel (csrc/fused.cu, built at first
 use) for CUDA tensors, or raises for what the kernel does not take: a
-dtype, a shape, a device mismatch, an activation other than relu. K3 at
+dtype, a shape, a device mismatch, an activation other than relu and
+gelu. K3 at
 bf16 runs on the tensor cores over a persistent grid
 (`block_agg_schedule`), with the filter weights packed once per weight
 set (`prepared_filter`, `pack_filter_weights`) and staged in shared
@@ -82,7 +85,8 @@ last_launch: Dict[str, dict] = {}
 
 
 def variant(kernel: str, dtype: torch.dtype) -> str:
-    """Name of a launch variant, e.g. 'block_agg:bf16'."""
+    """Name of a launch variant, e.g. 'block_agg:bf16' (K4's gelu form:
+    'pair_score_gelu:<dtype>')."""
     return f"{kernel}:{'bf16' if dtype == torch.bfloat16 else 'f32'}"
 
 
@@ -399,7 +403,8 @@ def prepared_filter(conv1, conv2, c, cd, device) -> tuple:
 def prepared_head(ws, c, cd, device) -> tuple:
     """(K4's six weights as the kernel reads them, w1 and w2 packed for the
     tensor cores at bf16 or None at f32), made once per weight set and
-    dtype."""
+    dtype. They do not depend on the activation, which the launch passes
+    on its own, so the relu and gelu launches share them."""
     w1, b1, w2, b2, w3, b3 = ws
     h1, h2 = w1.shape[1], w2.shape[1]
 
@@ -537,19 +542,22 @@ def pair_score_mlp(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3,
     if h.device.type == "cpu":
         return pair_score_mlp_plain(h, edge_attr, edge_mask, w1, b1, w2, b2,
                                     w3, b3, activation)
-    if activation != "relu":
-        raise NotImplementedError("the CUDA kernel implements relu heads")
-    return pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3)
+    return pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3,
+                             activation=activation)
 
 
 def pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3, *,
+                      activation: str = "relu",
                       level: Optional[int] = None,
                       ranks: Optional[int] = None):
-    """K4's CUDA kernel on CUDA tensors (pair_score_mlp's arguments, relu
-    heads). `level` forces a layout level (0 or 1 at bf16, 0 to 2 at f32;
-    pair_score_level picks it otherwise) and `ranks` the CTAs per graph
-    (the card's occupancy picks it otherwise): tests and chip_smoke.py;
-    every level and R give the same bits."""
+    """K4's CUDA kernel on CUDA tensors (pair_score_mlp's arguments; relu
+    or gelu activations). `level` forces a layout level (0 or 1 at bf16,
+    0 to 2 at f32; pair_score_level picks it otherwise) and `ranks` the
+    CTAs per graph (the card's occupancy picks it otherwise): tests and
+    chip_smoke.py; every level and R give the same bits."""
+    if activation not in ("relu", "gelu"):
+        raise ValueError(f"K4 takes relu or gelu, not {activation!r}")
+    gelu = activation == "gelu"
     dev, cd = _device_and_dtype(h, "h")
     b, n, c = h.shape
     h1, h2 = w1.shape[1], w2.shape[1]
@@ -572,7 +580,8 @@ def pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3, *,
     out = torch.empty((b, n, n), dtype=torch.float32, device=dev)
     lib = _lib()
     got = ctypes.c_int(0)
-    args = [int(bf), *_ptrs(h, edge_attr, edge_mask), _ptr_array(wts),
+    args = [int(bf), int(gelu), *_ptrs(h, edge_attr, edge_mask),
+            _ptr_array(wts),
             None if packed is None else packed.data_ptr(), out.data_ptr()]
     scratch = None
     if not in_smem:
@@ -588,7 +597,7 @@ def pair_score_launch(h, edge_attr, edge_mask, w1, b1, w2, b2, w3, b3, *,
         *args, None if scratch is None else scratch.data_ptr(), b, n, c, h1,
         h2, lv, int(in_smem), ranks or 0, 1, ctypes.byref(got), _stream(dev))
     _raise_on(lib, err, "pair_score")
-    name = variant("pair_score", cd)
+    name = variant("pair_score_gelu" if gelu else "pair_score", cd)
     launches[name] += 1
     last_launch[name] = dict(level=lv, ranks=got.value, grid=b * got.value,
                              lists="smem" if in_smem else "scratch")
@@ -709,7 +718,7 @@ def _lib():
             ctypes.c_void_p)
         lib.block_agg_launch.argtypes = [i] + [p] * 5 + [pp, p, p, p] \
             + [i] * 6 + [ctypes.POINTER(i), p]
-        lib.pair_score_launch.argtypes = [i, p, p, p, pp, p, p, p] \
+        lib.pair_score_launch.argtypes = [i, i, p, p, p, pp, p, p, p] \
             + [i] * 9 + [ctypes.POINTER(i), p]
         lib.gine_launch.argtypes = [p] * 4 + [i] * 3 + [p]
         for fn in (lib.block_agg_launch, lib.pair_score_launch,

@@ -86,13 +86,15 @@ TILE_P = 32          # pairs per tile (csrc/mono.cu TP)
 MAX_SMEM = 232448    # bytes of shared memory a block may use on Hopper
 DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches per variant ('mono:bf16' / 'mono:f32'); plain calls do
-# not count
+# kernel launches per variant ('mono[_gelu]:bf16' / 'mono[_gelu]:f32');
+# plain calls do not count
 launches: Counter = Counter()
 
 
-def variant(dtype: torch.dtype) -> str:
-    return f"mono:{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+def variant(dtype: torch.dtype, act: str = "relu") -> str:
+    """Name of a launch variant; gelu heads add '_gelu'."""
+    return (f"mono{'_gelu' if act == 'gelu' else ''}:"
+            f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
 
 
 # matmul operands (cd); every other entry is f32 (monolithic.py:188-192)
@@ -590,6 +592,6 @@ def _launch(dp, em, lm, tp, h0, hl0, params: MonoParams, pairs: PairList,
     if err != 0:
         raise RuntimeError("mono kernel launch failed: "
                            + lib.mono_error_string(err).decode())
-    launches[variant(cd)] += 1
+    launches[variant(cd, params.act)] += 1
     return out0, out1
 

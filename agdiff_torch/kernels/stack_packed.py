@@ -9,8 +9,10 @@ DualEncoderEpsNetwork on a pair list (ops/pairs.py): the NB SchNet
 interaction blocks (two filter MLPs per pair, endpoint aggregation, node
 tail), then in modes 'gin' and 'full' the NL GIN layers, then in mode
 'full' both pair-score heads. 'schnet' returns h (B, N, H) f32, 'gin'
-(h, hl), 'full' the two (B, P) packed score planes. `approx` swaps the
-softplus and sigmoid for ops/approx.py's polynomial and rational forms.
+(h, hl), 'full' the two (B, P) packed score planes. The heads' activation
+is the config's mlp_act, relu or gelu (`head_activation`). `approx` swaps
+the softplus and sigmoid, and the gelu of gelu heads, for ops/approx.py's
+polynomial and rational forms.
 A tight list's pad slots have zero distance weights and local mask and
 no incidence entry, so they add nothing to any node; their scores are
 finite and never mirrored.
@@ -99,10 +101,23 @@ launches: Counter = Counter()
 last_launch: Dict[str, int] = {}
 
 
-def variant(mode: str, approx: bool, tight: bool) -> str:
-    """Name of a launch variant: 'stack_<mode>[_approx]:<triu|tight>'."""
-    return (f"stack_{mode}{'_approx' if approx else ''}:"
-            f"{'tight' if tight else 'triu'}")
+def variant(mode: str, approx: bool, tight: bool, gelu: bool = False) -> str:
+    """Name of a launch variant:
+    'stack_<mode>[_gelu][_approx]:<triu|tight>' (gelu heads in mode 'full'
+    only: the other modes stop before the heads)."""
+    return (f"stack_{mode}{'_gelu' if gelu else ''}"
+            f"{'_approx' if approx else ''}:{'tight' if tight else 'triu'}")
+
+
+def head_activation(name: str, approx: bool = False):
+    """The score heads' activation, as the JAX engines choose it
+    (agdiff_tpu/models/fast_forward.py:325-345, tight_forward.py:218-238):
+    relu, or gelu in jax.nn.gelu's tanh form, or under '-approx' the gelu
+    of ops/approx.py (its rational tanh). The kernel's GELU and APPROX
+    template parameters make the same choice."""
+    if name == "gelu" and approx:
+        return ax.gelu
+    return activation_by_name(name)
 
 
 @dataclass
@@ -161,7 +176,7 @@ def packed_stack_forward_plain(e_packed, we, h0, params: StackParams,
     def dot(x, w):
         return rnd(x) @ rnd(w)
 
-    act = activation_by_name(params.act)
+    act = head_activation(params.act, approx)
     iu, ju = pairs.iu, pairs.ju
     b, n = h0.shape[:2]
 
@@ -431,7 +446,7 @@ def _lib():
     lib = build.load("stack_packed")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stack_launch.argtypes = ([i, i] + [p] * 16 + [ctypes.c_longlong]
+        lib.stack_launch.argtypes = ([i, i, i] + [p] * 16 + [ctypes.c_longlong]
                                      + [i] * 10 + [p])
         lib.stack_launch.restype = i
         lib.stack_error_string.argtypes = [i]
@@ -446,8 +461,9 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
     dev = e_packed.device
     if dev.type != "cuda":
         raise ValueError(f"packed_stack_forward: unsupported device {dev}")
-    if params.act != "relu":
-        raise NotImplementedError("the CUDA kernel implements relu heads")
+    if params.act not in ("relu", "gelu"):
+        raise ValueError(f"head activation {params.act!r}")
+    gelu = mode == "full" and params.act == "gelu"
     b, p, c = e_packed.shape
     n, h = h0.shape[1], h0.shape[2]
     nb, nl = len(params.blocks), len(params.gin_layers)
@@ -500,7 +516,7 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
             pairs.inc_ptr, pairs.inc, wbf, wf, offs, out0, out1, scratch]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.stack_launch(MODES.index(mode), int(approx),
+        err = lib.stack_launch(MODES.index(mode), int(approx), int(gelu),
                                *[t.data_ptr() for t in ptrs],
                                scratch_per_cta, b, n, p, nv,
                                pairs.inc_shift, h, nb, nl, level, ranks,
@@ -508,7 +524,7 @@ def _launch(e_packed, we, h0, params, e_packed_local, local_mask_p, hl0,
     if err != 0:
         raise RuntimeError(f"stack kernel launch failed at ranks={ranks}: "
                            + lib.stack_error_string(err).decode())
-    launches[variant(mode, approx, pairs.tight)] += 1
+    launches[variant(mode, approx, pairs.tight, gelu)] += 1
     last_launch["ranks"] = ranks
     if mode == "full":
         return out0, out1

@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from agdiff_torch.config import ModelConfig
 from agdiff_torch.data.graph_batch import GraphBatch
 from agdiff_torch.nn.common import frozen_running_stats
-from agdiff_torch.nn.edge_encoders import MLPEdgeEncoder
+from agdiff_torch.nn.edge_encoders import get_edge_encoder
 from agdiff_torch.nn.gin import GINEncoder
 from agdiff_torch.nn.mlp import MultiLayerPerceptron
 from agdiff_torch.nn.schnet import SchNetEncoder
@@ -67,18 +67,13 @@ class ModelOutput(NamedTuple):
 class DualEncoderEpsNetwork(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.edge_encoder != "mlp":
-            raise NotImplementedError("the port supports the 'mlp' edge "
-                                      "encoder (both reference configs)")
         cfg = self.config = config
         h = cfg.hidden_dim
         dt = self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                                    else torch.float32)
-        self.edge_encoder_global = MLPEdgeEncoder(
-            h, cfg.edge_attention_mode, dtype=dt)
+        self.edge_encoder_global = get_edge_encoder(cfg, dt)
         if not cfg.tie_edge_encoders:
-            self.edge_encoder_local = MLPEdgeEncoder(
-                h, cfg.edge_attention_mode, dtype=dt)
+            self.edge_encoder_local = get_edge_encoder(cfg, dt)
         self.encoder_global = SchNetEncoder(
             h, cfg.num_convs, cfg.cutoff, cfg.smooth_conv,
             cfg.embedding_max_norm, dtype=dt)

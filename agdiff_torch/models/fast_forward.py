@@ -22,7 +22,8 @@ in one of its modes, and the rest runs here in plain PyTorch:
   packed pairs) and the block's node tail (`schnet_block`) here;
 * the suffix '-approx' on a kernel engine swaps softplus, sigmoid and
   gelu for ops/approx.py's forms, in the edge encoder, the distance
-  weights and inside the kernels (sampling/langevin.py:388-394 of the JAX
+  weights, the gelu of gelu score heads and inside the kernels
+  (sampling/langevin.py:388-394, fast_forward.py:325-345 of the JAX
   package);
 * 'pallas' (`PallasForward`, the config's dtype; fast_forward.py:574-580,
   :753-758 of the JAX package): the dense (B, N, N, C) layout, one K3
@@ -32,7 +33,8 @@ in one of its modes, and the rest runs here in plain PyTorch:
   pairs and both heads go through K4. It has no '-approx' form, as in the
   JAX package (:303-304);
 * 'approx' (f32): the plain f32 forward with ops/approx.py's softplus,
-  sigmoid and gelu (sampling/langevin.py:388-394 of the JAX package);
+  sigmoid and gelu, the heads' gelu included (sampling/langevin.py:
+  388-394 of the JAX package);
 * 'slim' (and its alias 'slim2') and 'slim8' (`XlaForward`, bf16): the
   JAX package's XLA path with narrow storage (fast_forward.py:251-262,
   :363-385, :463-486): store_dtype bf16 or float8_e4m3fn, filter_dtype
@@ -56,7 +58,8 @@ non-finite filter on a masked cell, which JAX's dense product spreads,
 stays out of the port's sum).
 
 On a card each kernel is the hand-written CUDA kernel; CPU tensors take
-its plain version.
+its plain version. Every engine here takes the 'mlp' edge encoder only, as
+in the JAX package; a 'gaussian' model runs on the module path.
 """
 
 from __future__ import annotations
@@ -76,11 +79,12 @@ from agdiff_torch.kernels.fused import (
 )
 from agdiff_torch.kernels.stack_packed import (
     StackParams,
+    head_activation,
     packed_stack_forward,
     packed_stack_forward_plain,
 )
 from agdiff_torch.models.dualenc import DualEncoderEpsNetwork, ModelOutput
-from agdiff_torch.nn.common import LN2, activation_by_name, gelu
+from agdiff_torch.nn.common import LN2, gelu
 from agdiff_torch.nn.schnet import embed_max_norm, envelope
 from agdiff_torch.ops import approx as ax
 from agdiff_torch.ops.graph import working_graph
@@ -383,19 +387,28 @@ class FastForward:
     slim engines do."""
 
     cast_heads = True   # slim storage: score heads in bf16 before K1
+    name = "fast_forward"   # the JAX module this class ports (messages)
 
     def __init__(self, config: ModelConfig, model: DualEncoderEpsNetwork,
                  *, mode: Optional[str] = None,
                  compute_dtype: torch.dtype = torch.float32,
                  approx: bool = False,
                  edge_dtype: Optional[torch.dtype] = None):
+        if config.edge_encoder != "mlp":
+            # agdiff_tpu/models/fast_forward.py:292-295,
+            # tight_forward.py:212-215
+            raise NotImplementedError(
+                f"{self.name} supports the 'mlp' edge encoder (both "
+                "reference configs); use the module path for 'gaussian'.")
         if mode is not None and mode not in KERNEL_MODES.values():
             raise ValueError(f"mode {mode!r}")
         self.config = config
         self.mode, self.approx = mode, approx
         self.edge_dtype = edge_dtype   # '-e16': the encoder at bf16
         cd = self.compute_dtype = compute_dtype
-        self.act = activation_by_name(config.mlp_act)
+        # the score heads' act: under approx a gelu head takes ops/
+        # approx.py's gelu, as in JAX (fast_forward.py:331, :345)
+        self.act = head_activation(config.mlp_act, approx)
         self.gelu = ax.gelu if approx else gelu
         self.sigmoid = ax.sigmoid if approx else torch.sigmoid
         self.softplus = ax.softplus if approx else F.softplus

@@ -75,6 +75,7 @@ class TightForward(FastForward):
     which is right for one molecule repeated (the generation pattern)."""
 
     cast_heads = False
+    name = "tight_forward"
 
     def __init__(self, config: ModelConfig, model: DualEncoderEpsNetwork,
                  *, capacity: Optional[int] = None, shared: bool = True,

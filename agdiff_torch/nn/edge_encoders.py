@@ -1,12 +1,19 @@
-"""MLPEdgeEncoder (port of agdiff_tpu/nn/edge_encoders.py).
+"""The edge encoders (port of agdiff_tpu/nn/edge_encoders.py), chosen by
+`get_edge_encoder` on config.edge_encoder.
 
-GELU(Linear(1 -> H)) expansion of the edge length, a bond-type embedding
-(100, H), concat -> 2-layer MLP, concat with the bond embedding again ->
-2-layer MLP, then the reference's "attention": a softmax over a singleton
-axis, which is exactly 1 (computed here for parity; the fast forward skips
-it, as the JAX engines do). At `dtype` bf16 the length expansion, the
+MLPEdgeEncoder ('mlp', both reference configs): GELU(Linear(1 -> H))
+expansion of the edge length, a bond-type embedding (100, H), concat ->
+2-layer MLP, concat with the bond embedding again -> 2-layer MLP, then the
+reference's "attention": a softmax over a singleton axis, which is exactly
+1 (computed here for parity; the fast forward skips it, as the JAX engines
+do). At `dtype` bf16 the length expansion, the
 bond embedding and every layer after them run at bf16
 (agdiff_tpu/nn/edge_encoders.py:48-80).
+
+GaussianSmearingEdgeEncoder ('gaussian', agdiff_tpu/nn/edge_encoders.py:
+132-176): a fixed Gaussian RBF expansion of the edge length (H // 2
+Gaussians over [0, 2 cutoff]) beside a bond-type embedding (100, H // 2),
+no learned layer but the embedding.
 """
 
 from __future__ import annotations
@@ -52,3 +59,58 @@ class MLPEdgeEncoder(nn.Module):
             return edge_attr
         logits = self.attention_1(torch.tanh(self.attention_0(edge_attr)))
         return edge_attr * torch.softmax(logits, dim=-1)
+
+
+class GaussianSmearing(nn.Module):
+    """Fixed Gaussian RBF expansion exp(coeff (d - offset_g)^2), the
+    offsets evenly over [start, stop] and coeff = -0.5 / spacing^2 in f32
+    (agdiff_tpu/nn/edge_encoders.py:81-94). No parameters or buffers: the
+    offsets are made where the distances are."""
+
+    def __init__(self, start: float = 0.0, stop: float = 5.0,
+                 num_gaussians: int = 50):
+        super().__init__()
+        self.start, self.stop = start, stop
+        self.num_gaussians = num_gaussians
+
+    def forward(self, dist):
+        offset = torch.linspace(self.start, self.stop, self.num_gaussians,
+                                device=dist.device)
+        coeff = -0.5 / (offset[1] - offset[0]) ** 2
+        diff = dist - offset      # (..., 1) - (G,) -> (..., G)
+        return torch.exp(coeff * diff * diff)
+
+
+class GaussianSmearingEdgeEncoder(nn.Module):
+    """RBF smearing of the edge length beside a bond-type embedding,
+    concat -> (..., 2 num_gaussians). As in the JAX module, the length is
+    rounded to `dtype` first and the offsets are f32, so the RBF comes out
+    f32 (JAX's type promotion); the f32 bond embedding is rounded to
+    `dtype`; their concatenation takes the wider type (f32 at bf16, as
+    jnp.concatenate promotes)."""
+
+    def __init__(self, num_gaussians: int = 64, cutoff: float = 10.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.rbf = GaussianSmearing(0.0, 2 * cutoff, num_gaussians)
+        self.bond_emb = nn.Embedding(100, num_gaussians)
+
+    def forward(self, edge_length, edge_type):
+        rbf = self.rbf(edge_length.to(self.compute_dtype).float())
+        bond = F.embedding(edge_type, self.bond_emb.weight).to(
+            self.compute_dtype)
+        return torch.cat([rbf, bond], dim=-1)
+
+
+def get_edge_encoder(config, dtype: torch.dtype = torch.float32
+                     ) -> nn.Module:
+    """The edge encoder config.edge_encoder names
+    (agdiff_tpu/nn/edge_encoders.py:179-194)."""
+    if config.edge_encoder == "mlp":
+        return MLPEdgeEncoder(config.hidden_dim, config.edge_attention_mode,
+                              dtype=dtype)
+    if config.edge_encoder == "gaussian":
+        return GaussianSmearingEdgeEncoder(config.hidden_dim // 2,
+                                           config.cutoff, dtype=dtype)
+    raise ValueError(f"Unknown edge encoder: {config.edge_encoder}")

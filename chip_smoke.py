@@ -172,14 +172,14 @@ Phases, each of which fails the run:
      training, the unbiased variance normalising, the local loss weight
      1, ~local dropped from the global mask), and packed_pairs against
      dense on the card within the same limits; then cli/train.py main
-     (--deterministic): 300 dense iterations (EMA 0.999, checkpoints at
-     200 and 300) whose losses must be finite and whose last 50 must
-     average below the first 50, a resume from checkpoint 200 whose 100
+     (--deterministic): 150 dense iterations (EMA 0.999, checkpoints at
+     100 and 150) whose losses must be finite and whose last 50 must
+     average below the first 50, a resume from checkpoint 100 whose 50
      iterations must equal the run's bit for bit (parameters, statistics,
-     both Adams, EMA, generator, loader), and 100 packed_pairs
+     both Adams, EMA, generator, loader), and 50 packed_pairs
      iterations; the run's log dir through cli/generate.py main (--ema,
      4 held-out synthetic molecules, 50 'pksf' steps, K1 launched) and
-     cli/eval_covmat.py (every molecule scored); last, 20 train steps of
+     cli/eval_covmat.py (every molecule scored); last, 10 train steps of
      each layout timed (CUDA events), their peak memory, and profiled
      (device busy, idle share, the top device operations). One `train`
      line sums it up;
@@ -211,7 +211,7 @@ Phases, each of which fails the run:
      'tight-approx', 'tight-pksf-e16' at Drugs size, each against the
      f32 engine (5%, 15% at Drugs size, 2e-4 for 'stack'; the slim8
      engines beside their plain CPU runs) and through GenerationRunner
-     for 20 steps: K1's launches equal to the forwards on the '-e16' K1
+     for 10 steps: K1's launches equal to the forwards on the '-e16' K1
      engines, no hand kernel on the others, positions finite;
  11. bf16 training, distillation and the distilled student, at the
      widths of configs/qm9_fast.yml (bf16, packed_pairs): (a) the bf16
@@ -244,7 +244,7 @@ Phases, each of which fails the run:
      stream of four requests, then eight concurrent ones, each of two
      molecules x 4 conformers: every reply ok, no capture during
      requests, K1's launches equal to the forwards, latency p50 and max
-     and conformers/s printed; (h) 20 eager steps each of the bf16 train
+     and conformers/s printed; (h) 10 eager steps each of the bf16 train
      step and of the distill step at f32 and bf16 (B=64) timed and
      profiled;
  12. data parallelism (parallel/mesh.py, parallel/data_parallel.py):
@@ -271,7 +271,29 @@ Phases, each of which fails the run:
      two cards or more, cli/generate.py --num_devices 2 over NCCL, else
      a line saying the machine has one card; two ranks sharing a card
      give no scaling figure;
- 13. one JSON line lists each kernel variant and its numbers, then the
+ 13. configuration variants (the configs above changed in code): gelu
+     score heads (mlp_act 'gelu') through K1, triu on qm9_fast.yml at
+     B=128/N=32 and tight on drugs_fast.yml at B=48/N=64, exact and
+     '-approx', at the wrapper's R and R = 1 and 2 and every layout level,
+     with the phase-3 faults plus relu heads in place of gelu and, under
+     '-approx', the exact gelu in place of the polynomial; through K4
+     (f32 on qm9_default.yml, bf16 on qm9_fast.yml, the global and local
+     heads' inputs of 'pallas' with pack_pairs=False, with the phase-3b
+     faults plus relu in place of gelu, 0 off the mask); through K6 (bf16
+     QM9 and Drugs, f32 QM9, MONO_LIMITS, plus relu heads as a fault);
+     the gelu engines against the f32 engines (5%, 15% at Drugs size,
+     2e-4 for f32 'pallas'), the runner on 'pksf' and 'tight-pksf'
+     (VARIANT_LADDER graphed steps) and their '-approx' forms, paths C
+     and C-bf16 with gelu heads (K4 2 a forward) and E and E-f32 with
+     gelu heads (K6 1 a forward); the 'gaussian' edge encoder on
+     synthetic_qm9.yml: the train step on the card against the CPU's
+     under STEP_LIMITS with phase 9's faults, cli/train.py for
+     GAUSS_ITERS iterations, cli/generate.py on the module path (no hand
+     kernel) and cli/eval_covmat.py; phase 8's synthetic QM9 test set as
+     a reference-layout .pkl (PyG 1.x Data, one per conformer) through
+     cli/generate.py --fast --engine pksf on a reference .pt of the
+     seeded qm9_fast model, then scored;
+ 14. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -344,6 +366,8 @@ SOURCES = ("stack_packed", "fused", "block_packed", "mono")
 REPLACES = {
     "block_agg": "agdiff_tpu/ops/pallas/fused.py:181",
     "pair_score": "agdiff_tpu/ops/pallas/fused.py:82",
+    "pair_score_gelu": "agdiff_tpu/ops/pallas/fused.py:82",
+    "mono_gelu": "agdiff_tpu/ops/pallas/monolithic.py:240",
     "gine": "agdiff_tpu/ops/pallas/fused.py:142",
     "packed_block": "agdiff_tpu/ops/pallas/block_packed.py:53",
     "packed_block_approx": "agdiff_tpu/ops/pallas/block_packed.py:53",
@@ -483,9 +507,11 @@ def broken_limits(rows, limits) -> list:
             if not (row["finite"] and row[k] <= lim)]
 
 
-def planted_faults(kw, ref, mode, approx):
+def planted_faults(kw, ref, mode, approx, band=False):
     """Wrong versions of K1's function, each the plain version with one
-    planted fault, to show the gate fails them: (name, outputs)."""
+    planted fault, to show the gate fails them: (name, outputs). `band`:
+    the inputs are head_band's, where the exact gelu in place of
+    ops/approx.py's shows."""
     import dataclasses
 
     import torch
@@ -515,10 +541,53 @@ def planted_faults(kw, ref, mode, approx):
                 prm, gin_layers=no_bias(prm.gin_layers, "l1"), _packed={}))
     if mode == "full":
         yield "global plane zeroed", (torch.zeros_like(ref[0]), ref[1])
+    if mode == "full" and prm.act == "gelu":
+        yield "relu heads in place of gelu", plain(
+            params=dataclasses.replace(prm, act="relu", _packed={}))
+        if approx and band:
+            saved = k1.head_activation
+            k1.head_activation = lambda act, approx=False: saved(act)
+            try:
+                exact = plain()
+            finally:
+                k1.head_activation = saved
+            yield "exact gelu in place of the polynomial", exact
+
+
+HEAD_BAND = 2.5   # median |pre-activation| of head_band's score heads
+
+
+def head_band(kw, approx, target=HEAD_BAND):
+    """K1's inputs `kw` with each score head's first layer (w1, b1) scaled
+    so that the median |pre-activation| of its first gelu on these inputs
+    is `target`. There ops/approx.py's gelu and the exact one differ (up
+    to ~1e-3 for |x| ~ 2-4); near 0 and past |x| ~ 5 they agree to f32's
+    last bits, and the main path's inputs sit there (median |x| ~ 0.3 on
+    the global head, ~ 8-15 on the local one), so that a kernel taking
+    the wrong form passes K1's limits on them."""
+    import dataclasses
+
+    from agdiff_torch.kernels import stack_packed as k1
+    from agdiff_torch.ops.pairs import gather_nodes
+
+    prm, pairs = kw["params"], kw["pairs"]
+    h, hl = k1.packed_stack_forward_plain(**kw, mode="gin", approx=approx)
+    heads = []
+    for hx, e, p6 in ((h, kw["e_packed"], prm.grad_global),
+                      (hl, kw["e_packed_local"], prm.grad_local)):
+        c = hx.shape[-1]
+        hb = hx.to(e.dtype).float()
+        x = ((gather_nodes(hb, pairs.iu) * gather_nodes(hb, pairs.ju))
+             @ p6[0][:c].float() + e.float() @ p6[0][c:].float()
+             + p6[1].float())
+        scale = target / float(x.abs().median())
+        heads.append((p6[0] * scale, p6[1] * scale, *p6[2:]))
+    return dict(kw, params=dataclasses.replace(
+        prm, grad_global=heads[0], grad_local=heads[1], _packed={}))
 
 
 def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
-             report, forced=(1,)) -> tuple:
+             report, forced=(1,), band=False) -> tuple:
     """K1 against its plain version on a main path's inputs, output by
     output, at the wrapper's cluster size R and at each forced R in
     `forced` (1: one CTA per graph), each within the limits and each timed
@@ -527,8 +596,8 @@ def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
     version on the CPU (`cpu_params`: the same weights there) against the
     plain version on the card: how far last-bit differences of the same
     function (each device's exp and log, its summation order) carry at
-    this size. Returns the case's row (at the wrapper's R) and its
-    failures."""
+    this size (None: no CPU run). Returns the case's row (at the
+    wrapper's R) and its failures."""
     import torch
 
     from agdiff_torch.kernels import stack_packed as k1
@@ -552,28 +621,32 @@ def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
     flat = (lambda x: (x,)) if mode == "schnet" else tuple
     repro = all(torch.equal(g, a) for g, a in zip(flat(got), flat(again)))
     faults = {name: output_errors(out, ref, mode, node_mask)
-              for name, out in planted_faults(kw, ref, mode, approx)}
+              for name, out in planted_faults(kw, ref, mode, approx, band)}
     ms, ms_spun = cuda_time(kernel), cuda_time(kernel, spin=True)
     at_ranks = {r: dict(ms=cuda_time(lambda: kernel(r)),
                         ms_spun=cuda_time(lambda: kernel(r), spin=True),
                         outputs=outs_at[r]) for r in others}
     plain_ms = cuda_time(plain)
-    # after the timings, which a busy host would disturb
-    on_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
-              for k, v in kw.items()}
-    on_cpu.update(params=cpu_params, pairs=kw["pairs"].to("cpu"))
-    plain_cpu = k1.packed_stack_forward_plain(**on_cpu, mode=mode,
-                                              approx=approx)
-    cross = output_errors(
-        plain_cpu.cuda() if mode == "schnet"
-        else tuple(t.cuda() for t in plain_cpu), ref, mode, node_mask)
+    cross = None
+    if cpu_params is not None:
+        # after the timings, which a busy host would disturb
+        on_cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items()}
+        on_cpu.update(params=cpu_params, pairs=kw["pairs"].to("cpu"))
+        plain_cpu = k1.packed_stack_forward_plain(**on_cpu, mode=mode,
+                                                  approx=approx)
+        cross = output_errors(
+            plain_cpu.cuda() if mode == "schnet"
+            else tuple(t.cuda() for t in plain_cpu), ref, mode, node_mask)
     flops, nbytes = k1_work(kw, mode)
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     b, p = kw["we"].shape[1:]
     n = kw["h0"].shape[1]
     pairs = kw["pairs"]
+    gelu = mode == "full" and kw["params"].act == "gelu"
     row = dict(case=label, mode=mode, approx=approx,
-               variant=k1.variant(mode, approx, pairs.tight), B=b, N=n, P=p,
+               variant=k1.variant(mode, approx, pairs.tight, gelu), B=b,
+               N=n, P=p,
                valid_pairs=pairs.num_valid,
                layout_level=k1.layout(n, kw["h0"].shape[2])[0],
                ranks=ranks, outputs=outs, at_ranks=at_ranks,
@@ -605,8 +678,9 @@ def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
           f"{nbytes / 1e6:.1f} MB)", flush=True)
     for r, a in at_ranks.items():
         print(f"  at R={r}: {line(a['outputs'])}", flush=True)
-    print(f"  plain version on the CPU vs on the card: {line(cross)}",
-          flush=True)
+    if cross is not None:
+        print(f"  plain version on the CPU vs on the card: {line(cross)}",
+              flush=True)
     failures = [f"K1 {label}: kernel breaks {name} {k} at R={r}"
                 for r, rows in [(ranks, outs)] + [
                     (r, a["outputs"]) for r, a in at_ranks.items()]
@@ -623,25 +697,26 @@ def check_k1(kw, node_mask, label, mode, approx, limits, cpu_params,
     return row, failures
 
 
-def check_levels(kw, label, report) -> list:
-    """K1 at every layout level that fits these inputs (node regions in
-    shared memory, node temporaries in global scratch, all node regions
-    in global scratch): each must give the bits of the wrapper's choice;
-    each is timed."""
+def check_levels(kw, label, report, approx=False) -> list:
+    """K1 (mode 'full') at every layout level that fits these inputs (node
+    regions in shared memory, node temporaries in global scratch, all
+    node regions in global scratch): each must give the bits of the
+    wrapper's choice; each is timed."""
     import torch
 
     from agdiff_torch.kernels import stack_packed as k1
 
     n, h = kw["h0"].shape[1:]
     chosen = k1.layout(n, h)[0]
-    ref = k1.packed_stack_forward(**kw)
+    ref = k1.packed_stack_forward(**kw, approx=approx)
     rows, failures = [], []
     for level in (0, 1, 2):
         if k1.smem_bytes(n, h, level) > k1.MAX_SMEM:
             continue
-        out = k1.packed_stack_forward(**kw, level=level)
+        out = k1.packed_stack_forward(**kw, approx=approx, level=level)
         same = all(torch.equal(a, b) for a, b in zip(out, ref))
-        ms = cuda_time(lambda: k1.packed_stack_forward(**kw, level=level))
+        ms = cuda_time(lambda: k1.packed_stack_forward(**kw, approx=approx,
+                                                       level=level))
         staged = (-(-k1.smem_bytes(n, h, level) // 128) * 128
                   + k1.weight_region_bytes(h) <= k1.MAX_SMEM)
         rows.append(dict(level=level, chosen=level == chosen,
@@ -715,7 +790,9 @@ def run_slice(runner, engine, mols, num_confs, label, report) -> dict:
         if got != engine:
             raise SystemExit(f"{label}: engine {got!r}, expected {engine!r}")
     opts = engine_options(engine)
-    name = k1.variant(opts.mode, opts.approx, opts.tight)
+    name = k1.variant(opts.mode, opts.approx, opts.tight,
+                      opts.mode == "full"
+                      and runner.model_config.mlp_act == "gelu")
     fwd = runner.forward(engine)
     torch.cuda.synchronize()
     for c in kernel_counters().values():
@@ -1091,7 +1168,9 @@ def last_pair_dropped(plain, mask):
     return run
 
 
-def check_k4(label, fwd, batch, limits_for, report, failures) -> dict:
+def check_k4(label, fwd, batch, limits_for, report, failures,
+             cases=("global", "local", "all_real", "global_spread")
+             ) -> dict:
     """K4 on path `label`'s inputs at four masks: the global head's
     (the first call), the local head's (the second), every real-atom pair
     (i != j) on the global head's h and e, the worst case, and the global
@@ -1100,8 +1179,9 @@ def check_k4(label, fwd, batch, limits_for, report, failures) -> dict:
     positions every real pair is within the cutoff). Each mask's
     density and the bound over its pairs beside the dense count's bound;
     planted faults: the first-layer bias dropped, the mask ignored, each
-    graph's last masked pair dropped. Returns the rows by name (the global
-    head's under the variant's own name)."""
+    graph's last masked pair dropped, and with gelu heads relu in their
+    place (the global head's inputs). `cases` picks masks. Returns the
+    rows by name (the global head's under the variant's own name)."""
     import torch
 
     from agdiff_torch.kernels import fused
@@ -1117,7 +1197,10 @@ def check_k4(label, fwd, batch, limits_for, report, failures) -> dict:
             ("local", capture(fwd, batch, "pair_score_mlp", 1)),
             ("all_real", ((*glob[0][:2], real, *glob[0][3:]), glob[1])),
             ("global_spread", capture(fwd, spread, "pair_score_mlp"))):
+        if case not in cases:
+            continue
         h, e, mask, w1, b1, w2, b2, w3, b3 = args
+        gelu = kw.get("activation") == "gelu"
 
         def kern(*a, kw=kw):
             return fused.pair_score_mlp(*a, **kw)
@@ -1133,7 +1216,14 @@ def check_k4(label, fwd, batch, limits_for, report, failures) -> dict:
                 h, e, torch.ones_like(mask), w1, b1, w2, b2, w3, b3)),
             ("each graph's last masked pair dropped", last_pair_dropped(
                 lambda: plain(*args), mask))]
-        name = fused.variant("pair_score", h.dtype)
+        if gelu and case == "global":
+            # on the global head's inputs the pre-activations sit near 0,
+            # where gelu and relu differ; on the local head's most lie
+            # past |x| ~ 5, where they agree to f32's last bits
+            faults.append(("relu in place of gelu", lambda: plain(
+                *args, kw={})))
+        name = fused.variant("pair_score_gelu" if gelu else "pair_score",
+                             h.dtype)
         peak = PEAK_F32 if h.dtype == torch.float32 else PEAK_BF16
         pairs, cells = int(mask.sum()), mask.numel()
         dense_flops, dense_io = pair_score_work(args, dense=True)
@@ -1439,7 +1529,11 @@ def mono_faults(kw) -> list:
     for g, keep in enumerate(k6.working_pairs(kw["em"], kw["lm"])):
         if len(keep):
             em[g, keep[-1]] = lm[g, keep[-1]] = 0.0
-    return [
+    gelu = [("relu heads in place of gelu", plain(**dict(
+        kw, params=dataclasses.replace(prm, act="relu", _packed={},
+                                       _scratch={}))))
+            ] if prm.act == "gelu" else []
+    return gelu + [
         ("type tables replaced by row 0", plain(**dict(
             kw, params=dataclasses.replace(prm, w={**prm.w, **row0},
                                            _packed={})))),
@@ -1526,7 +1620,8 @@ def check_k6(kw, label, limits, report, cpu_params=None) -> tuple:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     b, p = kw["dp"].shape
     n, h = kw["h0"].shape[1:]
-    row = dict(case=label, variant=k6.variant(cd), B=b, N=n, P=p,
+    row = dict(case=label, variant=k6.variant(cd, kw["params"].act), B=b,
+               N=n, P=p,
                em_pairs=float(kw["em"].sum()), lm_pairs=float(
                    kw["lm"].sum()),
                layout_level=k6.layout(n, h, 2 if cd == torch.bfloat16
@@ -2261,13 +2356,18 @@ def run_test_set(qmodel, qcfg, dmodel, dconf, report, dev) -> list:
 
 TRAIN_CONFIG = "synthetic_qm9.yml"   # hidden 128, 6 + 4 convs, B=64, f32
 TRAIN_MOLECULES = 512   # synthetic_dataset(512, seed=2021), split 0.9 / 0.1
-TRAIN_ITERS = 300
-TRAIN_VAL_FREQ = 200    # validations and checkpoints at 200 and 300
-RESUME_FROM = 200       # 100 resumed iterations against the same of the run
-PACKED_ITERS = 100
+# phases 9 and 11 run half their earlier iterations since phase 13 joined
+# the run (300, 200, 100, 192, 64 to PR 15): the gates are the same, and
+# the whole script stays inside its time limit on a slower host
+TRAIN_ITERS = 150
+TRAIN_VAL_FREQ = 100    # validations and checkpoints at 100 and 150
+RESUME_FROM = 100       # 50 resumed iterations against the same of the run
+PACKED_ITERS = 50
 TRAIN_EMA = 0.999
 LOSS_WINDOW = 50        # the last 50 losses' mean below the first 50's
-TRAIN_PROFILE_STEPS = 20
+# eager train and distill steps timed, then profiled (20 to PR 15; 10 keep
+# the run inside its time limit as phase 13 joins it)
+TRAIN_PROFILE_STEPS = 10
 TRAIN_GEN_MOLS = 4      # held-out: the generation CLI's synthetic seed 7
 TRAIN_GEN_STEPS = 50
 # One train step on the card against the same step on the CPU (f32, the
@@ -2427,9 +2527,11 @@ def train_batch(config, mols):
     return batch, t, noise
 
 
-def check_train_step(config, mols, dev, report) -> list:
+def check_train_step(config, mols, dev, report, title="train step",
+                     key="step_checks") -> list:
     """The card step against the CPU step, the planted faults, and the
-    packed_pairs layout against the dense one on the card."""
+    packed_pairs layout against the dense one on the card; the rows go to
+    report["train"][key]."""
     import copy
 
     import torch
@@ -2460,9 +2562,9 @@ def check_train_step(config, mols, dev, report) -> list:
     packed_init.load_state_dict(init.state_dict())
     rows["packed_vs_dense"] = step_errors(train_step_on(
         packed_cfg, packed_init, dev, batch, t, noise), dense, lr)
-    report["train"]["step_checks"] = rows
+    report["train"][key] = rows
     nodes = int((batch.node_mask & batch.graph_mask[:, None]).sum())
-    print(f"train step: B={batch.num_graphs} N={batch.node_mask.shape[1]} "
+    print(f"{title}: B={batch.num_graphs} N={batch.node_mask.shape[1]} "
           f"({nodes} real nodes), loss {ref[0]['loss']:.4f} on the CPU "
           f"({cpu_s:.1f} s), limits {STEP_LIMITS}", flush=True)
     for label, row in rows.items():
@@ -2474,9 +2576,9 @@ def check_train_step(config, mols, dev, report) -> list:
               f"{row['broken']}", flush=True)
         fault = label.startswith("fault")
         if fault and not row["broken"]:
-            failures.append(f"train step: {label} breaks no limit")
+            failures.append(f"{title}: {label} breaks no limit")
         if not fault and row["broken"]:
-            failures.append(f"train step: {label} breaks {row['broken']}")
+            failures.append(f"{title}: {label} breaks {row['broken']}")
     return failures
 
 
@@ -2562,9 +2664,10 @@ def profile_steps(title, section, label, step_once, batch) -> dict:
     return row
 
 
-def write_train_config(path, **changes):
-    """configs/synthetic_qm9.yml with the train section's `changes` and
-    the model section's `packed_pairs` when given."""
+def write_train_config(path, model=None, **changes):
+    """configs/synthetic_qm9.yml with the train section's `changes`, the
+    model section's `packed_pairs` when given and the model fields of
+    `model`."""
     import yaml
 
     with open(os.path.join(ROOT, "configs", TRAIN_CONFIG)) as f:
@@ -2572,6 +2675,7 @@ def write_train_config(path, **changes):
     packed = changes.pop("packed_pairs", False)
     raw["train"].update(changes)
     raw["model"]["packed_pairs"] = packed
+    raw["model"].update(model or {})
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
     return path
@@ -2789,7 +2893,8 @@ SERVE_REQUESTS = 6      # concurrent QM9 requests of two molecules each
 # another request's seeds (0.99)
 GROWTH_STEPS = DDIM_STEPS
 GROWTH_LIMIT = 0.3
-ENGINE_STEPS = 20       # each Part B engine through GenerationRunner
+ENGINE_STEPS = 10       # each Part B engine through GenerationRunner (20
+# to PR 15)
 # the engines of JAX's XLA path (no hand kernel) and the '-e16' forms:
 # (label, engine, config key, tolerance against f32)
 PHASE10_ENGINES = (
@@ -3374,12 +3479,12 @@ def run_engines(models, mols, dev, report) -> list:
 
 FAST_CONFIG = "qm9_fast.yml"   # hidden 128, 6 + 4 convs, bf16, packed_pairs,
                                # B=64, EMA 0.999, step_chunk 16
-FAST_ITERS = 192        # through cli/train.py, synthetic_dataset(512)
-FAST_VAL_FREQ = 64      # validations and checkpoints at 64, 128 and 192
-FAST_RESUME_FROM = 128  # 64 resumed iterations against the same of the run
+FAST_ITERS = 128        # through cli/train.py, synthetic_dataset(512)
+FAST_VAL_FREQ = 64      # validations and checkpoints at 64 and 128
+FAST_RESUME_FROM = 64   # 64 resumed iterations against the same of the run
 DISTILL_STAGES = "32,16"
-DISTILL_ITERS = 64      # a stage, through cli/distill.py (4 chunks of 16)
-DISTILL_VAL_FREQ = 32   # validations and checkpoints at 32 and 64
+DISTILL_ITERS = 32      # a stage, through cli/distill.py (2 chunks of 16)
+DISTILL_VAL_FREQ = 16   # validations and checkpoints at 16 and 32
 DISTILL_STEP_STUDENT = 16   # the steps' ladder (d): 16 student steps
 STUDENT_STEPS = 16      # the stage-16 student's strided DDIM ladder
 STUDENT_MOLS = 16       # synthetic QM9-size molecules it generates
@@ -4765,6 +4870,325 @@ def run_data_parallel(qcfg, qmols, dcfg, dconf, dmols, dev, report):
     return failures, k1["triu"], k1["tight"]
 
 
+# ---- phase 13: configuration variants ---------------------------------------
+
+# gelu score heads (ModelConfig.mlp_act 'gelu'), the 'gaussian' edge
+# encoder and the reference's .pkl test sets, each on the configs the
+# earlier phases run, changed in code (dataclasses.replace)
+VARIANT_LADDER = 50      # the gelu configs' 'pksf' / 'tight-pksf' runs
+GAUSS_ITERS = 32         # cli/train.py iterations of the gaussian config
+GAUSS_GEN_MOLS = 4       # held-out molecules it generates (module path)
+PKL_STEPS = 50           # cli/generate.py --engine pksf on the .pkl set
+
+
+def reference_pickle(path, mols):
+    """`mols` as the reference's dataset pickle: a list of PyG 1.x Data,
+    one per reference conformer, written with a stub
+    torch_geometric.data.data.Data class (this machine has no
+    torch_geometric; pickle needs the class importable to write it)."""
+    import pickle
+    import types
+
+    import numpy as np
+    import torch
+
+    name = "torch_geometric.data.data"
+    parts = name.split(".")
+    for k in range(1, len(parts) + 1):
+        sys.modules.setdefault(".".join(parts[:k]),
+                               types.ModuleType(".".join(parts[:k])))
+    data_cls = getattr(sys.modules[name], "Data", None)
+    if data_cls is None:
+        data_cls = type("Data", (), {"__module__": name,
+                                     "__qualname__": "Data"})
+        sys.modules[name].Data = data_cls
+    out = []
+    for i, m in enumerate(mols):
+        for conf in m.pos_ref.reshape(-1, m.num_nodes, 3):
+            d = data_cls()
+            d.atom_type = torch.from_numpy(m.atom_type.astype(np.int64))
+            d.pos = torch.from_numpy(np.ascontiguousarray(conf))
+            d.edge_index = torch.from_numpy(m.bond_index.astype(np.int64))
+            d.edge_type = torch.from_numpy(m.bond_type.astype(np.int64))
+            d.smiles, d.idx = m.smiles, torch.tensor([i])
+            out.append(d)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    return len(out)
+
+
+def run_variants(qcfg, dconf, fcfg, qmols, dmols, dev, gen, report, dump):
+    """Phase 13: the gelu score heads through K1 (triu and tight, exact and
+    '-approx'), K4 (f32, bf16) and K6 (bf16 QM9 and Drugs, f32 QM9)
+    against their plain versions with planted faults, the gelu engines
+    against the f32 engines and through the runner and the paths (K1, K4
+    and K6 launches equal to forwards); the 'gaussian' encoder's train
+    step against the CPU's, cli/train.py, cli/generate.py on the module
+    path and cli/eval_covmat.py; a reference-layout .pkl test set through
+    cli/generate.py --engine pksf and scored. Returns (failures, K1 rows
+    by case, K4 rows by variant, K6 rows by case, launches by kernel
+    line name). `dump` writes the report."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from agdiff_torch.cli import generate as gen_cli
+    from agdiff_torch.cli import train as train_cli
+    from agdiff_torch.config import load_config
+    from agdiff_torch.data.bucketing import pad_molecules
+    from agdiff_torch.data.synthetic import synthetic_dataset
+    from agdiff_torch.eval.generate import GenerationRunner, load_samples
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.models.mono_forward import build_monolithic_forward
+    from agdiff_torch.models.reference_checkpoint import (
+        export_reference_state_dict,
+    )
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.models.tight_forward import build_tight_forward
+    from agdiff_torch.models.weights import init_random
+    from agdiff_torch.ops.pairs import pair_capacity_for
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    failures, k1_rows, mono_rows, launches = [], {}, {}, {}
+    dcfg = dconf.model
+    gelu = {k: dataclasses.replace(c, mlp_act="gelu")
+            for k, c in (("qm9", qcfg), ("drugs", dcfg), ("f32", fcfg))}
+    models = {k: init_random(DualEncoderEpsNetwork(c), SEED).to(dev).eval()
+              for k, c in gelu.items()}
+
+    # (a) K1 with gelu heads: triu at QM9 B=128 N=32 and tight at Drugs
+    # B=48 N=64, exact and '-approx', at the wrapper's R and R = 1 (and 2),
+    # every layout level
+    for label, key, engine, mols, n, b in (
+            ("gelu_triu_B128_N32", "qm9", "pksf", qmols, 32, CHUNK),
+            ("gelu_approx_triu_B128_N32", "qm9", "pksf-approx", qmols, 32,
+             CHUNK),
+            ("gelu_tight_B48_N64", "drugs", "tight-pksf", dmols[:1], 64,
+             DRUGS_CHUNK),
+            ("gelu_approx_tight_B48_N64", "drugs", "tight-pksf-approx",
+             dmols[:1], 64, DRUGS_CHUNK)):
+        tight = engine.startswith("tight")
+        build = build_tight_forward if tight else build_fast_forward
+        fwd = build(gelu[key], models[key], engine)
+        batch = random_batch(mols, n, b, gen)
+        pairs = (fwd.prepare(batch, pair_capacity_for(mols[0].num_nodes,
+                                                      256))
+                 if tight else None)
+        kw, _ = fwd.stack_inputs(batch, pairs)
+        limits = DRUGS_LIMITS if tight else QM9_LIMITS
+        # no CPU run of the plain version: phase 3 reads that scale for
+        # relu, and the heads change nothing upstream of them
+        k1_rows[label], failed = check_k1(
+            kw, batch.node_mask, label, "full", fwd.approx, limits, None,
+            report, (1, 2))
+        failures += failed
+        failures += check_levels(kw, label, report, fwd.approx)
+        if fwd.approx:
+            # the heads' inputs moved into the band where the two gelu
+            # forms differ, so that the exact-gelu fault shows
+            failures += check_k1(
+                head_band(kw, True), batch.node_mask, f"{label}_head_band",
+                "full", True, limits, None, report, band=True)[1]
+    dump()
+
+    # (b) K4 with gelu on the global and local heads' inputs of engine
+    # 'pallas' with pack_pairs=False, f32 (qm9_default) and bf16 (qm9_fast)
+    dense = {"C-gelu": build_fast_forward(gelu["f32"], models["f32"],
+                                          "pallas", pack_pairs=False),
+             "C-bf16-gelu": build_fast_forward(gelu["qm9"], models["qm9"],
+                                               "pallas", pack_pairs=False)}
+    qbatch = random_batch(qmols, 32, CHUNK, gen)
+
+    def limits_for(names, dtype):
+        lim = (F32_KERNEL_LIMITS if dtype == torch.float32
+               else BF16_KERNEL_LIMITS)
+        return {nm: (OFF_MASK_LIMITS if nm == "off_mask" else lim)
+                for nm in names}
+
+    k4_rows = {}
+    for label, fwd in dense.items():
+        k4_rows.update(check_k4(label, fwd, qbatch, limits_for, report,
+                                failures, cases=("global", "local")))
+
+    # (c) K6 with gelu heads: bf16 QM9 and Drugs, f32 QM9 (MONO_LIMITS)
+    for label, key, mols, n, b, limits in (
+            ("gelu_bf16_B128_N32", "qm9", qmols, 32, CHUNK, "bf16"),
+            ("gelu_bf16_B48_N64", "drugs", dmols[:1], 64, DRUGS_CHUNK,
+             "bf16_drugs"),
+            ("gelu_f32_B128_N32", "f32", qmols, 32, CHUNK, "f32")):
+        batch = random_batch(mols, n, b, gen)
+        batch = batch.replace(pos=batch.pos * MONO_POS_SCALE)
+        kw, _ = build_monolithic_forward(gelu[key],
+                                         models[key]).kernel_inputs(batch)
+        mono_rows[label], failed = check_k6(kw, label, MONO_LIMITS[limits],
+                                            report)
+        failures += failed
+    dump()
+
+    # (d) the gelu engines against the f32 engines, then through the
+    # runner (graphed) with K1 launches equal to forwards
+    small = pad_molecules(qmols, 32, device=dev)
+    one = pad_molecules([dmols[0]] * 4, 64, device=dev)
+    f32_q = build_fast_forward(gelu["qm9"], models["qm9"], None)(small)
+    for engine in ("pksf", "pksf-approx"):
+        check_engines(build_fast_forward(gelu["qm9"], models["qm9"],
+                                         engine)(small), f32_q,
+                      f"gelu {engine}", ENGINE_TOL, report)
+    f32_d = build_tight_forward(gelu["drugs"], models["drugs"], "tight")(one)
+    for engine in ("tight-pksf", "tight-pksf-approx"):
+        check_engines(build_tight_forward(gelu["drugs"], models["drugs"],
+                                          engine)(one), f32_d,
+                      f"gelu {engine}", DRUGS_ENGINE_TOL, report)
+    f32_f = build_fast_forward(gelu["f32"], models["f32"], None)(small)
+    check_engines(dense["C-gelu"](small), f32_f, "gelu pallas_f32_dense",
+                  F32_ENGINE_TOL, report)
+    check_engines(dense["C-bf16-gelu"](small), f32_q,
+                  "gelu pallas_bf16_dense", ENGINE_TOL, report)
+    for label, key, engine, mols, steps, chunk, buckets, name in (
+            ("gelu_qm9", "qm9", "pksf", qmols, VARIANT_LADDER, CHUNK, (32,),
+             "stack_full_gelu:triu"),
+            ("gelu_qm9_approx", "qm9", "pksf-approx", qmols, VARIANT_STEPS,
+             CHUNK, (32,), "stack_full_gelu_approx:triu"),
+            ("gelu_drugs", "drugs", "tight-pksf", dmols[:1], VARIANT_LADDER,
+             DRUGS_CHUNK, dconf.buckets, "stack_full_gelu:tight"),
+            ("gelu_drugs_approx", "drugs", "tight-pksf-approx", dmols[:1],
+             VARIANT_STEPS, DRUGS_CHUNK, dconf.buckets,
+             "stack_full_gelu_approx:tight")):
+        runner = GenerationRunner(
+            models[key], gelu[key], make_diffusion(gelu[key]),
+            SamplerConfig(n_steps=steps, w_global=0.3), buckets=buckets,
+            chunk_size=chunk, device=dev, engine=engine)
+        row = run_slice(runner, engine, mols, chunk, label, report)
+        launches[name] = row["k1_launches"]
+
+    # (e) paths C and C-bf16 with gelu heads (K4 2 a forward) and E with
+    # gelu heads (K6 1 a forward)
+    fdiff = make_diffusion(gelu["f32"])
+    for label, dt, k3 in (("C-gelu", "f32", {("fused", "block_agg:f32"): 6,
+                                             ("fused", "gine:f32"): 4}),
+                          ("C-bf16-gelu", "bf16",
+                           {("fused", "block_agg:bf16"): 6})):
+        row = run_path(label, dense[label], fdiff, qmols, SHORT_STEPS,
+                       {**k3, ("fused", f"pair_score_gelu:{dt}"): 2},
+                       report, num_confs=CHUNK)
+        launches[f"pair_score_gelu:{dt}"] = row["launches"][
+            f"fused/pair_score_gelu:{dt}"]
+    for label, key, dt in (("E-gelu", "qm9", "bf16"),
+                           ("E-f32-gelu", "f32", "f32")):
+        runner = GenerationRunner(
+            models[key], gelu[key], make_diffusion(gelu[key]),
+            SamplerConfig(n_steps=SHORT_STEPS, w_global=0.3),
+            buckets=(32,), chunk_size=CHUNK, device=dev, engine="mono")
+        row = run_path(label, runner.forward("mono"), runner.diffusion,
+                       qmols, SHORT_STEPS, {("monolithic",
+                                             f"mono_gelu:{dt}"): 1},
+                       report, runner=runner, num_confs=CHUNK)
+        launches[f"mono_gelu:{dt}"] = row["launches"][
+            f"monolithic/mono_gelu:{dt}"]
+    dump()
+
+    # (f) the 'gaussian' encoder on configs/synthetic_qm9.yml: the train
+    # step against the CPU's (STEP_LIMITS, with the phase 9 faults), then
+    # cli/train.py, cli/generate.py on the module path (no --fast: the
+    # fast engines refuse the encoder) and cli/eval_covmat.py
+    root = os.path.join(OUT_DIR, "variants")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tconf = load_config(os.path.join(ROOT, "configs", TRAIN_CONFIG))
+    gconf = dataclasses.replace(tconf, model=dataclasses.replace(
+        tconf.model, edge_encoder="gaussian"))
+    mols = synthetic_dataset(TRAIN_MOLECULES, seed=tconf.train.seed)
+    failures += check_train_step(gconf, mols[:int(len(mols) * 0.9)], dev,
+                                 report, "gaussian train step",
+                                 "gaussian_step_checks")
+    cfg_path = write_train_config(os.path.join(root, "gaussian.yml"),
+                                  model={"edge_encoder": "gaussian"},
+                                  max_iters=GAUSS_ITERS,
+                                  val_freq=GAUSS_ITERS)
+    t0 = time.time()
+    run = train_cli.main([cfg_path, "--logdir", os.path.join(root, "logs"),
+                          "--synthetic", str(TRAIN_MOLECULES), "--device",
+                          str(dev)])
+    train_s = time.time() - t0
+    losses = np.asarray(run.losses)
+    out = os.path.join(root, "gaussian_samples")
+    for c in kernel_counters().values():
+        c.clear()
+    t0 = time.time()
+    gen_cli.main([run.log_dir, "--synthetic", str(GAUSS_GEN_MOLS),
+                  "--end_idx", str(GAUSS_GEN_MOLS), "--n_steps",
+                  str(TRAIN_GEN_STEPS), "--w_global", "0.3", "--out_dir",
+                  out, "--no_resume", "--device", str(dev)])
+    gen_s = time.time() - t0
+    kernels_run = launch_counts()
+    gsamples = os.path.join(out, "samples_all.npz")
+    done = load_samples(gsamples)
+    finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in done)
+    # scored in a subprocess beside (g), finished after it
+    gscoring = start_scoring(gsamples)
+    row = dict(iterations=len(losses), train_s=train_s,
+               losses_finite=bool(np.isfinite(losses).all()),
+               loss_first=float(losses[0]), loss_last=float(losses[-1]),
+               generated=len(done), gen_s=gen_s, finite=finite,
+               kernel_launches=kernels_run)
+    report["variants"] = {"gaussian": row}
+    print(f"gaussian: cli/train.py {len(losses)} iterations in "
+          f"{train_s:.1f} s (losses finite {row['losses_finite']}, "
+          f"{row['loss_first']:.3f} -> {row['loss_last']:.3f}); "
+          f"cli/generate.py on the module path: {len(done)} molecules, "
+          f"{TRAIN_GEN_STEPS} steps in {gen_s:.1f} s, finite {finite}, hand "
+          f"kernel launches {kernels_run}", flush=True)
+    if len(losses) != GAUSS_ITERS or not row["losses_finite"] \
+            or len(done) != GAUSS_GEN_MOLS or not finite or kernels_run:
+        failures.append(f"gaussian: {row}")
+    shutil.rmtree(os.path.join(run.log_dir, "checkpoints"),
+                  ignore_errors=True)
+
+    # (g) the synthetic QM9 test set as a reference-layout .pkl through
+    # cli/generate.py --fast --engine pksf (a reference .pt of the seeded
+    # qm9_fast model), then scored
+    qset = test_sets()[0]
+    pkl = os.path.join(root, "qm9_test.pkl")
+    entries = reference_pickle(pkl, qset)
+    ckpt = os.path.join(root, "model.pt")
+    qmodel = init_random(DualEncoderEpsNetwork(qcfg), SEED)
+    torch.save({"model": export_reference_state_dict(qmodel),
+                "config": {"model": dataclasses.asdict(qcfg)}}, ckpt)
+    out = os.path.join(root, "pkl_samples")
+    for c in kernel_counters().values():
+        c.clear()
+    t0 = time.time()
+    gen_cli.main([ckpt, "--test_set", pkl, "--fast", "--engine", "pksf",
+                  "--n_steps", str(PKL_STEPS), "--w_global", "0.3",
+                  "--clip_local", "20", "--out_dir", out, "--no_resume",
+                  "--device", str(dev)])
+    gen_s = time.time() - t0
+    k1_runs = sum(n for k, n in launch_counts().items()
+                  if k.startswith("stack_packed/"))
+    samples = os.path.join(out, "samples_all.npz")
+    done = load_samples(samples)
+    finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in done)
+    shapes = all(g.meta["pos_gen"].shape == (2 * 3, m.num_nodes, 3)
+                 and np.array_equal(g.atom_type, m.atom_type)
+                 for g, m in zip(done, qset))
+    failures += finish_scoring("qm9_gaussian", gscoring, gsamples,
+                               GAUSS_GEN_MOLS, report)
+    failures += finish_scoring("qm9_pkl", start_scoring(samples), samples,
+                               len(qset), report)
+    report["variants"]["pkl"] = dict(
+        molecules=len(done), entries=entries, steps=PKL_STEPS, wall_s=gen_s,
+        k1_launches=k1_runs, finite=finite, shapes=shapes)
+    print(f"pkl: {len(qset)} molecules as {entries} PyG Data entries, "
+          f"cli/generate.py --engine pksf {PKL_STEPS} steps: {len(done)} "
+          f"molecules in {gen_s:.1f} s (K1 launches {k1_runs}), finite "
+          f"{finite}, shapes and atoms {shapes}", flush=True)
+    if len(done) != len(qset) or not finite or not shapes or not k1_runs:
+        failures.append(f"pkl: {report['variants']['pkl']}")
+    return failures, k1_rows, k4_rows, mono_rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -5216,10 +5640,19 @@ def main() -> int:
         qcfg, qmols, dcfg, dconf, dmols, dev, report)
     failures += failed
     phase_done("12 data parallelism")
+
+    # ---- 13. configuration variants: gelu heads, gaussian, .pkl ------------
+    failed, gelu_k1, gelu_k4, gelu_k6, gelu_launches = run_variants(
+        qcfg, dconf, fcfg, qmols, dmols, dev, gen, report, dump)
+    failures += failed
+    cases.update(gelu_k1)
+    new_rows.update(gelu_k4)
+    mono_rows.update(gelu_k6)
+    phase_done("13 configuration variants")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 13. result lines --------------------------------------------------
+    # ---- 14. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -5282,15 +5715,28 @@ def main() -> int:
             "block_packed/packed_block_approx:bf16", ("D'",)),
             "agdiff_torch/kernels/csrc/block_packed.cu"),
     ]
-    for name, case, labels in (("mono:bf16", "bf16_B128_N32",
-                                 ("E", "E-drugs")),
-                                ("mono:f32", "f32_B128_N32", ("E-f32",))):
+    kernels += [entry(name, case, gelu_launches[name]) for name, case in (
+        ("stack_full_gelu:triu", "gelu_triu_B128_N32"),
+        ("stack_full_gelu_approx:triu", "gelu_approx_triu_B128_N32"),
+        ("stack_full_gelu:tight", "gelu_tight_B48_N64"),
+        ("stack_full_gelu_approx:tight", "gelu_approx_tight_B48_N64"))]
+    kernels += [new_entry(name, gelu_launches[name], fused_src)
+                for name in ("pair_score_gelu:f32", "pair_score_gelu:bf16")]
+    for name, case, launched in (
+            ("mono:bf16", "bf16_B128_N32", path_launches(
+                "monolithic/mono:bf16", ("E", "E-drugs"))),
+            ("mono:f32", "f32_B128_N32", path_launches(
+                "monolithic/mono:f32", ("E-f32",))),
+            ("mono_gelu:bf16", "gelu_bf16_B128_N32",
+             gelu_launches["mono_gelu:bf16"]),
+            ("mono_gelu:f32", "gelu_f32_B128_N32",
+             gelu_launches["mono_gelu:f32"])):
         c = mono_rows[case]
         kernels.append(dict(
             name=name, route="cuda",
             source="agdiff_torch/kernels/csrc/mono.cu",
             replaces=REPLACES["mono"],
-            launches=path_launches(f"monolithic/{name}", labels),
+            launches=launched,
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None))

@@ -5,6 +5,7 @@ on the CPU, whose files JAX's `load_samples` reads, with resume, partial
 ranges and the module path."""
 
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -84,9 +85,10 @@ def test_molecule_files_read_across_packages(setup, tmp_path):
     assert load_molecules(jax_path)[0].meta == {"idx": 3, "smiles_ok": True}
 
 
-def test_packing_gives_jax_pos_ref_and_order():
+def test_packing_gives_jax_pos_ref_and_order(tmp_path):
     """Per-conformer molecules (two SMILES, interleaved) pack into one
-    molecule each, in first-seen order, conformers stacked in pos_ref."""
+    molecule each, in first-seen order, conformers stacked in pos_ref;
+    the same conformers as the reference's .pkl pack alike."""
     base = molecules(2, seed=4)
     rng = np.random.default_rng(0)
     confs = []
@@ -103,8 +105,15 @@ def test_packing_gives_jax_pos_ref_and_order():
         np.testing.assert_array_equal(x.pos_ref, y.pos_ref)
         np.testing.assert_array_equal(x.pos, y.pos)
     assert got.num_refs(0) == 3 and got.num_refs(1) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PackedConformationDataset("test.pkl")
+    from test_torch_port_geom import legacy_of
+
+    path = str(tmp_path / "confs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump([legacy_of(m) for m in confs], f)
+    from_pkl = PackedConformationDataset(path)
+    assert [m.smiles for m in from_pkl.molecules] == [m.smiles for m in want]
+    for x, y in zip(from_pkl.molecules, want):
+        np.testing.assert_array_equal(x.pos_ref, y.pos_ref)
 
 
 def test_reference_checkpoint_loads_bitwise(setup, tmp_path):

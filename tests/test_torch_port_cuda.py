@@ -14,7 +14,11 @@ both heads' inputs, at N = 20, 40, 64, 128 and B = 1, with an asymmetric
 mask and e, every real pair and an empty graph, every layout level and
 CTAs-per-graph R giving the same bits. K6 at small and full width,
 with em all ones, em = lm, a graph with no working pair and N = 20, 40,
-every layout level giving the same bits. Data parallelism: two gloo
+every layout level giving the same bits. Gelu score heads: K1 (triu
+and tight, exact and '-approx'), K4 (f32 and bf16, both heads) and K6
+(QM9 bf16 and f32, Drugs bf16) against their plain versions under the
+relu forms' limits, with relu heads (and the exact gelu under
+'-approx') as faults that must miss them. Data parallelism: two gloo
 ranks on card 0, the train step against the single-process step and a
 'pksf' ladder against single-process runs at each rank's batch size.
 Imports no JAX, so that it runs on a machine without it:
@@ -155,26 +159,38 @@ K1_CASES = {   # label: (engine, N, B); triu cases run engine 'pksf'
     "full_approx_N64": ("tight-pksf-approx", 64, 48)}
 
 
+# gelu score heads (config mlp_act 'gelu'), exact and '-approx'
+GELU_K1_CASES = {
+    "gelu_triu_B128_N32": ("pksf", 32, 128),
+    "gelu_approx_triu_B128_N32": ("pksf-approx", 32, 128),
+    "gelu_tight_N64": ("tight-pksf", 64, 48),
+    "gelu_approx_tight_N64": ("tight-pksf-approx", 64, 48)}
+
+
 def _k1_case(card, label):
     """(kw, mode, approx, real-node mask, limits by output) of a K1 case
     at H = 128 (3 SchNet blocks, 2 GIN layers): the QM9 molecules over
     the triu set, or a Drugs molecule's tight list (N = 128: two of them
-    in one graph, as chip_smoke.py's union)."""
+    in one graph, as chip_smoke.py's union); the GELU_K1_CASES with gelu
+    score heads."""
     import numpy as np
 
     from agdiff_torch.chem.mol import Molecule
 
-    engine, n, b = K1_CASES[label]
-    tight = engine != "pksf"
+    gelu = label in GELU_K1_CASES
+    engine, n, b = (GELU_K1_CASES if gelu else K1_CASES)[label]
+    tight = engine.startswith("tight")
     cfg = dataclasses.replace(ModelConfig(), num_convs=3, num_convs_local=2,
-                              dtype="bfloat16", smooth_conv=tight)
+                              dtype="bfloat16", smooth_conv=tight,
+                              mlp_act="gelu" if gelu else "relu")
     model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
     if not tight:
         mols = load_fixture()
         batch = pad_molecules([mols[i % len(mols)] for i in range(b)], n,
                               device=card)
-        kw, _ = build_fast_forward(cfg, model, engine).stack_inputs(batch)
-        return kw, "full", False, batch.node_mask, None
+        fwd = build_fast_forward(cfg, model, engine)
+        kw, _ = fwd.stack_inputs(batch)
+        return kw, "full", fwd.approx, batch.node_mask, None
     drugs = load_fixture("drugs_synthetic")
     mol = drugs[0] if n == 64 else drugs[3]
     if n == 128:
@@ -248,6 +264,59 @@ def test_cuda_k1_layout_levels_at_two_ranks(card, label):
         assert all(torch.equal(a, b) for a, b in zip(out, ref)), level
     _k1_within_limits(ref, k1.packed_stack_forward_plain(**kw), mode, real,
                       limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(GELU_K1_CASES))
+def test_cuda_k1_gelu_heads_match_plain(card, label):
+    """K1 with gelu score heads (exact, and under '-approx' the rational
+    tanh) at the wrapper's R and at R = 1 against the plain version
+    under the relu cases' limits, counted under the gelu variant; two
+    launches give the same bits, and at N = 64 every layout level too;
+    the plain version with relu heads misses the limits, and under
+    '-approx' so does the one with the exact gelu, on inputs whose heads
+    sit where the two forms differ (chip_smoke.py head_band)."""
+    kw, mode, approx, real, limits = _k1_case(card, label)
+    name = k1.variant(mode, approx, kw["pairs"].tight, gelu=True)
+    assert kw["params"].act == "gelu" and "gelu" in name
+    before = k1.launches[name]
+    got = k1.packed_stack_forward(**kw, approx=approx)
+    assert k1.launches[name] == before + 1
+    again = k1.packed_stack_forward(**kw, approx=approx)
+    one = k1.packed_stack_forward(**kw, approx=approx, ranks=1)
+    ref = k1.packed_stack_forward_plain(**kw, approx=approx)
+    n, h = kw["h0"].shape[1:]
+    levels = [k1.packed_stack_forward(**kw, approx=approx, level=lv)
+              for lv in (0, 1, 2) if n == 64
+              and k1.smem_bytes(n, h, lv) <= k1.MAX_SMEM]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(torch.equal(g, a) for lv in levels for g, a in zip(got, lv))
+    for out in (got, one):
+        _k1_within_limits(out, ref, mode, real, limits)
+    relu = dataclasses.replace(kw["params"], act="relu", _packed={})
+    with pytest.raises(AssertionError):
+        _k1_within_limits(got, k1.packed_stack_forward_plain(
+            **dict(kw, params=relu), approx=approx), mode, real, limits)
+    if not approx:
+        return
+    # the exact gelu in place of the polynomial shows where the heads'
+    # pre-activations sit in the band the two forms differ in
+    from chip_smoke import head_band
+
+    band = head_band(kw, True)
+    got = k1.packed_stack_forward(**band, approx=True)
+    ref = k1.packed_stack_forward_plain(**band, approx=True)
+    saved = k1.head_activation
+    k1.head_activation = lambda act, approx=False: saved(act)
+    try:
+        exact = k1.packed_stack_forward_plain(**band, approx=True)
+    finally:
+        k1.head_activation = saved
+    torch.cuda.synchronize()
+    _k1_within_limits(got, ref, mode, real, limits)
+    with pytest.raises(AssertionError):
+        _k1_within_limits(got, exact, mode, real, limits)
 
 
 @pytest.mark.cuda
@@ -621,9 +690,44 @@ def test_cuda_k4_at_widths_off_the_main_path(card, dtype, c, h1, h2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head", [("float32", 0), ("bfloat16", 0),
+                                        ("float32", 1), ("bfloat16", 1)])
+def test_cuda_k4_gelu_matches_plain(card, dtype, head):
+    """K4 with gelu activations on each head's inputs at N = 32, B = 8:
+    within NEW_LIMITS of the plain twin with gelu on the mask, exactly 0
+    off it, counted under 'pair_score_gelu', every layout level and R
+    the same bits; relu's result misses the limits."""
+    from agdiff_torch.kernels import fused
+
+    args = _k4_inputs(card, dtype, head, 32, 8, "")
+    h, mask = args[0], args[2]
+    name = fused.variant("pair_score_gelu", h.dtype)
+    before = fused.launches[name]
+    got = fused.pair_score_mlp(*args, activation="gelu")
+    assert fused.launches[name] == before + 1
+    ref = fused.pair_score_mlp_plain(*args, activation="gelu")
+    relu = fused.pair_score_mlp_plain(*args)
+    c, h1, h2 = h.shape[-1], args[3].shape[1], args[5].shape[1]
+    levels = [lv for lv in ((0, 1) if dtype == "bfloat16" else (0, 1, 2))
+              if fused.pair_score_smem(c, h1, h2, h.dtype, lv)
+              + fused.pair_score_h_bytes(32, c, h.dtype) <= fused.MAX_SMEM]
+    others = [fused.pair_score_launch(*args, activation="gelu", level=lv)
+              for lv in levels]
+    others += [fused.pair_score_launch(*args, activation="gelu", ranks=r)
+               for r in (1, 2, 3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, o) for o in others)
+    _within_limits(got[mask], ref[mask], NEW_LIMITS[h.dtype])
+    assert not bool(got[~mask].any())
+    with pytest.raises(AssertionError):
+        _within_limits(got[mask], relu[mask], NEW_LIMITS[h.dtype])
+
+
+@pytest.mark.cuda
 def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(card):
     """K5 takes f32 only; K2 the triu set only, not a tight list; K4 relu
-    heads; every input on the card."""
+    or gelu heads (a gelu call gives the plain twin's gelu result, tanh
+    raises); every input on the card."""
     from agdiff_torch.kernels import block_packed as k2
     from agdiff_torch.kernels import fused
     from agdiff_torch.ops.pairs import prepare_pairs_shared
@@ -645,8 +749,14 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(card):
     dense, batch = _small_forward(card, "float32", "pallas",
                                   pack_pairs=False)
     args, _ = _first_call(dense, batch, "pair_score_mlp")
-    with pytest.raises(NotImplementedError):
-        fused.pair_score_mlp(*args, activation="gelu")
+    got = fused.pair_score_mlp(*args, activation="gelu")
+    ref = fused.pair_score_mlp_plain(*args, activation="gelu")
+    torch.cuda.synchronize()
+    mask = args[2]
+    _within_limits(got[mask], ref[mask], NEW_LIMITS[torch.float32])
+    assert not bool(got[~mask].any())
+    with pytest.raises(ValueError, match="relu or gelu"):
+        fused.pair_score_mlp(*args, activation="tanh")
 
 
 # K6 against its plain version, each plane on its mask (em / lm) as a
@@ -681,13 +791,28 @@ def test_cuda_mono_matches_plain(card, dtype, h, n, b, variant):
     bits; with em all ones (the working list is the triangle), em = lm,
     one graph's masks zeroed (an empty list: both planes 0) and N = 20,
     40."""
+    _mono_case(card, dtype, h, n, b, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,b", [("bfloat16", 32, 16),
+                                       ("float32", 32, 16),
+                                       ("bfloat16", 64, 4)])
+def test_cuda_mono_gelu_matches_plain(card, dtype, n, b):
+    """K6 with gelu score heads at full width (QM9 bf16 and f32, Drugs
+    bf16), as test_cuda_mono_matches_plain, counted under 'mono_gelu'."""
+    _mono_case(card, dtype, 128, n, b, "", act="gelu")
+
+
+def _mono_case(card, dtype, h, n, b, variant, act="relu"):
     from agdiff_torch.kernels import monolithic as k6
     from agdiff_torch.models.mono_forward import build_monolithic_forward
 
     cfg = dataclasses.replace(ModelConfig(), hidden_dim=h, dtype=dtype,
                               smooth_conv=n == 64,
                               num_convs=2 if h == 64 else 6,
-                              num_convs_local=2 if h == 64 else 4)
+                              num_convs_local=2 if h == 64 else 4,
+                              mlp_act=act)
     model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
     fwd = build_monolithic_forward(cfg, model)
     mols = [m for m in (load_fixture() if n <= 40 else
@@ -708,7 +833,7 @@ def test_cuda_mono_matches_plain(card, dtype, h, n, b, variant):
         kw["em"], kw["lm"] = kw["em"].clone(), kw["lm"].clone()
         kw["em"][1] = 0.0
         kw["lm"][1] = 0.0
-    name = k6.variant(fwd.compute_dtype)
+    name = k6.variant(fwd.compute_dtype, act)
     before = k6.launches[name]
     got = k6.mono_forward(**kw)
     assert k6.launches[name] == before + 1

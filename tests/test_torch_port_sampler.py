@@ -151,8 +151,8 @@ def test_entry_points_need_a_device_or_cpu():
 def test_port_imports_no_jax():
     """Importing every module of agdiff_torch, the CLIs under cli/ and
     the COV/MAT, training, serving and data-parallel (parallel/) modules
-    among them, loads neither jax nor agdiff_tpu, and no source names
-    them in an import."""
+    and the .pkl reader (data/geom.py) among them, loads neither jax nor
+    agdiff_tpu, and no source names them in an import."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
         "for m in pkgutil.walk_packages(agdiff_torch.__path__, "
@@ -170,7 +170,8 @@ def test_port_imports_no_jax():
         "'agdiff_torch.ops.masked', 'agdiff_torch.utils.logging', "
         "'agdiff_torch.utils.misc', 'agdiff_torch.serve.server', "
         "'agdiff_torch.cli.serve', 'agdiff_torch.parallel', "
-        "'agdiff_torch.parallel.mesh', 'agdiff_torch.parallel.data_parallel') "
+        "'agdiff_torch.parallel.mesh', 'agdiff_torch.parallel.data_parallel', "
+        "'agdiff_torch.data.geom', 'agdiff_torch.nn.edge_encoders') "
         "if m not in sys.modules]\n"
         "print(len(list(pkgutil.walk_packages(agdiff_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
