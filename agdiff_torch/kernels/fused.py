@@ -483,6 +483,14 @@ def block_agg_launch(edge_attr, w_edge1, w_edge2, h1, h2, conv1, conv2, *,
     `block_agg_level` picks it otherwise): 0 or 1 at bf16, 0 to 3 at
     f32 (0-2 only where `f32_one_pass`), each giving the same bits."""
     dev, cd = _device_and_dtype(edge_attr, "edge_attr")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (edge_attr, w_edge1, w_edge2, h1, h2) + tuple(
+                t for conv in (conv1, conv2)
+                for t in (*conv["fa"], *conv["fb"], conv["beta"]))):
+        raise RuntimeError("K3 has no backward: a gradient through "
+                           "interaction_block_aggregate takes "
+                           "interaction_block_aggregate_plain")
     b, n, n2, c = edge_attr.shape
     f1, f2 = conv1["fb"][0].shape[1], conv2["fb"][0].shape[1]
     if n2 != n:

@@ -67,11 +67,64 @@ class Linear(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
+        plan = _TENSOR_PARALLEL[0]
+        if plan is not None and self in plan:
+            return parallel_linear(self, x, *plan[self])
         cd = self.compute_dtype
         if cd == torch.float32:
             return super().forward(x)
         y = torch.matmul(x.to(cd), self.weight.to(cd).t())
         return y if self.bias is None else y + self.bias.to(cd)
+
+
+# the tensor-parallel plan inside tensor_parallel(): {Linear: (the dim of
+# its weight that the layer's shard is cut from, the 'tp' Mesh)}
+_TENSOR_PARALLEL = [None]
+
+
+@contextlib.contextmanager
+def tensor_parallel(plan):
+    """Each Linear of `plan` (parallel/sharded.py, mode 'tp') holds one
+    rank's shard of its weight and computes its share of the layer inside
+    this context (parallel_linear); the others compute whole."""
+    saved = _TENSOR_PARALLEL[0]
+    _TENSOR_PARALLEL[0] = plan
+    try:
+        yield
+    finally:
+        _TENSOR_PARALLEL[0] = saved
+
+
+def parallel_linear(layer: Linear, x, dim: int, mesh):
+    """The layer on `x` (the same on every rank of `mesh`) from this rank's
+    shard of its weight, at its compute dtype. dim 0, the output features
+    (column-parallel): this rank's features, with its slice of the bias,
+    then every rank's concatenated. dim 1, the input features
+    (row-parallel): this rank's slice of x times the shard, the partial
+    products summed over the ranks (in f32 at bf16, rounded once), then
+    the bias. The
+    collectives carry the gradients of a loss every rank computes alike
+    (parallel/mesh.py: replicate, split, gather_replicated,
+    sum_replicated)."""
+    cd, w, b = layer.compute_dtype, layer.weight, layer.bias
+    if dim == 0:
+        b = None if b is None else mesh.split(b, 0)
+        x = mesh.replicate(x)
+        if cd == torch.float32:
+            y = F.linear(x, w, b)
+        else:
+            y = torch.matmul(x.to(cd), w.to(cd).t())
+            y = y if b is None else y + b.to(cd)
+        return mesh.gather_replicated(y, -1)
+    x = mesh.split(x, -1)
+    if cd == torch.float32:
+        y = mesh.sum_replicated(F.linear(x, w))
+    else:
+        # the bf16 operands' products summed in f32 and rounded once, as
+        # the whole layer's bf16 product rounds its f32 sum once
+        y = mesh.sum_replicated(torch.matmul(
+            x.to(cd).float(), w.to(cd).float().t())).to(cd)
+    return y if b is None else y + b.to(cd)
 
 
 class ShiftedSoftplus(nn.Module):

@@ -23,6 +23,12 @@ nn/common.py::synced_batch_stats, ops/masked.py):
 
 Sampling needs no collective but the gather of the samples: every graph
 is its own (sampling/langevin.py Sampler with a group).
+
+A group is a 1-D mesh (the world) or the multi-slice ('dcn', 'dp') mesh
+of make_mesh(n, dcn_slices=k) (agdiff_tpu/parallel/data_parallel.py:19):
+the graph axis is sharded over both axes in rank order, and the gradient
+sum runs within each slice, then across the slices
+(Mesh.sum_gradients).
 """
 
 from __future__ import annotations

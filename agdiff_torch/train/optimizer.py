@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +133,46 @@ class TwoAdams:
         self.max_grad_norm = float(train_cfg.max_grad_norm)
         self.skip_nonfinite = bool(train_cfg.skip_nonfinite_updates)
         self.notfinite_count = 0
+        # a sharded state's (use_shards): which parameters are one rank's
+        # slice, and the model axis the slices span
+        self.sharded: Optional[List[bool]] = None
+        self.shard_group = None
+
+    def use_shards(self, shards: Dict[int, tuple], group) -> None:
+        """Take shards in place of parameters (parallel/sharded.py):
+        `shards` maps id(parameter) to (its shard, cut), cut(t) this
+        rank's slice of a tensor of the parameter's shape, which also
+        cuts the parameter's Adam moments. The clip's global norm and the
+        finite check then span `group`'s ranks, each shard counted on its
+        rank and a whole parameter once."""
+        for adam in self.adams.values():
+            for j, p in enumerate(adam.params):
+                if id(p) in shards:
+                    shard, cut = shards[id(p)]
+                    adam.params[j] = shard
+                    adam.mu[j] = cut(adam.mu[j]).clone()
+                    adam.nu[j] = cut(adam.nu[j]).clone()
+        self.sharded = [id(p) in shards for p in self.params]
+        self.params = [shards[id(p)][0] if id(p) in shards else p
+                       for p in self.params]
+        self.shard_group = group
+
+    def norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients: of every rank's shards and
+        the whole parameters once, on a sharded state."""
+        if self.shard_group is None:
+            return global_norm(grads)
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        mask = torch.tensor(self.sharded, device=sq.device)
+        shards = self.shard_group.all_reduce(sq[mask].sum().reshape(1))
+        return torch.sqrt(shards[0] + sq[~mask].sum())
+
+    def finite(self, grads: List[torch.Tensor]) -> bool:
+        """Every gradient finite, on every rank of a sharded state."""
+        bad = (~torch.stack([torch.isfinite(g).all() for g in grads])).sum()
+        if self.shard_group is not None:
+            bad = self.shard_group.all_reduce(bad.float().reshape(1))
+        return not bool(bad.sum())
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -142,10 +182,9 @@ class TwoAdams:
     def step(self) -> torch.Tensor:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         if self.skip_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            finite = self.finite(grads)
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
                 return norm

@@ -18,12 +18,19 @@ statistics, the loss divides by the global real-node count, and the
 gradients are summed over the ranks (not averaged, as DDP would) in one
 flat all-reduce before the clip and the Adams, which then take the same
 decisions on every rank.
+
+A sharded state (parallel/sharded.py, modes 'fsdp' and 'tp') takes the
+same step with its module made whole for the forward and the backward
+(`ShardLayout.materialized`): the gradients land on each rank's shards,
+and the clip's norm and the finite check span the model axis
+(train/optimizer.py `TwoAdams.use_shards`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -48,6 +55,10 @@ class TrainState:
     optimizer: TwoAdams
     generator: torch.Generator      # timesteps and noise, on the device
     ema: Optional[Dict[str, torch.Tensor]] = None  # shadow of the params
+    # a sharded state's layout (parallel/sharded.py shard_train_state): the
+    # module, both Adams' moments and the shadow hold this rank's slice of
+    # every sharded leaf
+    layout: Any = None
 
 
 class StepMetrics(NamedTuple):
@@ -104,15 +115,19 @@ class TrainStep:
     """(state, batch[, t, noise]) -> StepMetrics, updating the state in
     place; `t` (B,) and `noise` (B, N, 3) replace the generator's draws.
     With a `group`, `batch` is this rank's shard and `t` and `noise` are
-    the global batch's (module docstring)."""
+    the global batch's (module docstring). `mode` 'fsdp' or 'tp' steps a
+    sharded state (parallel/sharded.py make_sharded_train_step; `group`
+    is then the mesh the batch is sharded over)."""
 
-    def __init__(self, config: Config, device, group=None):
+    def __init__(self, config: Config, device, group=None,
+                 mode: Optional[str] = None):
         diffusion = make_diffusion(config.model)
         self.alphas = torch.as_tensor(diffusion.alphas, device=device)
         self.num_timesteps = diffusion.num_timesteps
         self.cutoff = config.model.cutoff
         self.ema_decay = config.train.ema_decay
         self.group = group
+        self.mode = mode
 
     def draws(self, state: TrainState, batch: GraphBatch, t=None,
               noise=None):
@@ -136,12 +151,21 @@ class TrainStep:
     def gradients(self, state: TrainState, batch: GraphBatch, t=None,
                   noise=None):
         """The loss terms, with the gradients (summed over the group's
-        ranks) in each parameter's .grad."""
-        with synced_batch_stats(self.group):
+        ranks) in each parameter's .grad; on a sharded state, in each
+        shard's, the module whole inside its layout's `materialized`."""
+        layout = state.layout
+        if (layout is None) != (self.mode is None):
+            raise ValueError(f"a step of mode {self.mode} on a state "
+                             f"{'not ' if layout is None else ''}sharded")
+        whole = (contextlib.nullcontext() if layout is None
+                 else layout.materialized(state.module, self.mode))
+        with synced_batch_stats(self.group), whole:
             lo = self.loss(state, batch, t, noise)
             state.optimizer.zero_grad()
             lo.loss.backward()
-        if self.group is not None:
+        if layout is not None:
+            layout.sum_gradients(state.optimizer, self.mode)
+        elif self.group is not None:
             self.group.sum_gradients(state.optimizer.params)
         return lo
 

@@ -293,7 +293,32 @@ Phases, each of which fails the run:
      a reference-layout .pkl (PyG 1.x Data, one per conformer) through
      cli/generate.py --fast --engine pksf on a reference .pt of the
      seeded qm9_fast model, then scored;
- 14. one JSON line lists each kernel variant and its numbers, then the
+ 14. sharded and pipelined training (parallel/sharded.py, pipeline.py):
+     (a) the port's specs of synthetic_qm9.yml's and qm9_fast.yml's
+     states against JAX's (tests/torch_port_jax_specs.json, written and
+     checked by the CPU tests; specs taken on the port's (out, in) shapes
+     must differ); two gloo ranks on card 0, a (1, 2) mesh: fsdp and tp
+     train steps of both configs (B=64) against the single-process card
+     step under STEP_LIMITS plus the gradient norm (f32, SHARD_LIMITS)
+     and BF16_STEP_LIMITS (bf16), with planted faults (an fsdp gradient
+     shard left unsummed, a row-parallel partial left unreduced, the
+     clip's norm from the rank's own shards) that must break them; each
+     rank's bytes of the state at most SHARD_STATE_SHARE of the whole;
+     ms/step per rank and the all-gather and reduce-scatter of the
+     sharded parameters; (b) four gloo ranks on card 0: the ('dcn', 'dp')
+     = (2, 2) DP step of synthetic_qm9.yml against the single step and
+     the flat 4-rank DP step under STEP_LIMITS, the cross-slice level
+     skipped as a fault; (c) schnet_pipeline on qm9_fast.yml's 'pallas'
+     forward (6 blocks, 2 stages of 3) over two ranks, QM9 B=128 N=32 as
+     4 microbatches of 32: h torch.equal to the stage bodies run in
+     sequence on one rank, K3 (bf16) within its limits of its plain
+     version at every block, K3's launches S x (M + S - 1) x blocks / S
+     = 30 and no other kernel, a rotation two stages on as a fault, ms
+     per pipelined forward beside the sequential stack's; (d) the
+     gradient of a projection of h through pipeline_apply (plain stage
+     body, synthetic_qm9.yml, 4 x 8 graphs) against the sequential stack
+     under STEP_LIMITS' gradient limits;
+ 15. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -4295,6 +4320,8 @@ DP_ENGINE_LIMITS = {"pksf": ENGINE_TOL, "tight-pksf": DRUGS_ENGINE_TOL}
 
 @contextlib.contextmanager
 def dp_fault(name):
+    import torch
+
     from agdiff_torch.ops import masked
     from agdiff_torch.parallel.mesh import Mesh
     from agdiff_torch.train import train_step as ts
@@ -4324,6 +4351,16 @@ def dp_fault(name):
     elif name == "own_noise":
         patch(ts, "global_draw_rows", lambda batch, group: (
             batch.num_graphs, slice(0, batch.num_graphs)))
+    elif name == "cross_slice_skipped":
+        # phase 14 (b): the ('dcn', 'dp') sum within each slice only
+        def within(self, params):
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            flat = self.axis(self.axis_names[-1]).all_reduce(
+                torch.cat([g.reshape(-1) for g in grads]))
+            for p, g in zip(params, flat.split([g.numel() for g in grads])):
+                p.grad = g.view_as(p)
+        patch(Mesh, "sum_gradients", within)
     elif name is not None:
         raise ValueError(name)
     try:
@@ -5189,6 +5226,597 @@ def run_variants(qcfg, dconf, fcfg, qmols, dmols, dev, gen, report, dump):
     return failures, k1_rows, k4_rows, mono_rows, launches
 
 
+# ---- phase 14: sharded and pipelined on the card ---------------------------
+
+# (a) the sharded steps over two gloo ranks on card 0, each held against
+# the single-process card step under phase 9's limits (f32) with the
+# gradient norm to JAX's sharded test's rtol 1e-4
+# (tests/test_sharded_parallel.py:92), or phase 11's (bf16)
+SHARD_LIMITS = dict(STEP_LIMITS, grad_norm_rel=1e-4)
+SHARD_MODES = ("fsdp", "tp")
+SHARD_FAULTS = (("shard_unsummed", "fsdp"), ("partial_unreduced", "tp"),
+                ("own_shard_norm", "fsdp"))
+SHARD_STATE_SHARE = 0.55  # a rank's bytes of the state at most, of the whole
+SHARD_TIMED_STEPS = 3
+SPEC_FIXTURE = os.path.join(ROOT, "tests", "torch_port_jax_specs.json")
+SPEC_CONFIGS = (TRAIN_CONFIG, FAST_CONFIG)
+# (c) schnet_pipeline on qm9_fast.yml: six blocks in two stages of three,
+# a QM9 batch of B=128 at N=32 as M=4 microbatches of 32 graphs
+PIPE_STAGES, PIPE_MICRO, PIPE_B = 2, 4, 128
+PIPE_TIMED = 3
+# (d) the gradient through the pipeline: M=4 microbatches of 8 graphs
+GRAD_PIPE_B = 32
+
+
+@contextlib.contextmanager
+def shard_fault(name):
+    """A planted fault of a sharded step: an fsdp gradient shard left
+    unsummed (the gather's backward keeps the rank's own row), a
+    row-parallel partial product left unreduced, the clip's norm taken
+    from the rank's own shards; of the pipeline: the outputs rotated two
+    stages on instead of one."""
+    from agdiff_torch.parallel.mesh import Mesh, with_adjoint
+    from agdiff_torch.train.optimizer import TwoAdams, global_norm
+
+    saved = []
+
+    def patch(obj, attr, value):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, value)
+
+    if name == "shard_unsummed":
+        patch(Mesh, "all_gather_with_grad", lambda self, x: with_adjoint(
+            x, self.all_gather, lambda g: g[self.rank].clone()))
+    elif name == "partial_unreduced":
+        patch(Mesh, "sum_replicated", lambda self, x: x.clone())
+    elif name == "own_shard_norm":
+        patch(TwoAdams, "norm", lambda self, grads: global_norm(grads))
+    elif name == "wrong_neighbour":
+        real = Mesh.ppermute_with_grad
+        patch(Mesh, "ppermute_with_grad", lambda self, x, perm: real(
+            self, x, [(s, (s + 2) % self.world_size) for s, _ in perm]))
+    elif name is not None:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for obj, attr, value in reversed(saved):
+            setattr(obj, attr, value)
+
+
+def port_specs(config, axis, fault=False) -> dict:
+    """The port's specs of a whole state of `config` over a ('dp', axis)
+    mesh of model size 2, by collection/flax path; with `fault`, taken on
+    the port's (out, in) shapes."""
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.weights import flax_leaf
+    from agdiff_torch.parallel import sharded
+    from agdiff_torch.parallel.mesh import Mesh
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState
+
+    module = DualEncoderEpsNetwork(config.model)
+    state = TrainState(step=0, module=module,
+                       optimizer=make_optimizer(module, config.train),
+                       generator=torch.Generator())
+    mesh = Mesh(2, 0, torch.device("cpu"), "gloo", axis_names=("dp", axis),
+                dims=(1, 2))
+    real = sharded.leaf_shape
+    if fault:
+        sharded.leaf_shape = lambda m, n, t: tuple(t.shape)
+    try:
+        specs = sharded.state_specs(state, mesh, axis)
+    finally:
+        sharded.leaf_shape = real
+    out = {}
+    for name, spec in specs.items():
+        coll, path = flax_leaf(module, name)
+        out["/".join((coll,) + path)] = list(spec)
+    return out
+
+
+def check_specs(report) -> list:
+    """(a) the port's specs of both configs' states against JAX's, from
+    the fixture the CPU tests write and check
+    (tests/test_torch_port_sharded.py); the specs taken on the port's
+    shapes must differ."""
+    from agdiff_torch.config import load_config
+
+    with open(SPEC_FIXTURE) as f:
+        fixture = json.load(f)
+    failures, rows = [], {}
+    for name in SPEC_CONFIGS:
+        config = load_config(os.path.join(ROOT, "configs", name))
+        for axis in SHARD_MODES:
+            got = port_specs(config, axis)
+            want = fixture[name][axis]
+            off = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))
+            rows[f"{name} {axis}"] = dict(
+                leaves=len(want), sharded=sum(bool(s) for s in want.values()),
+                differ=len(off))
+            if off or not want:
+                failures.append(f"specs {name} {axis}: {len(off)} leaves "
+                                f"differ from JAX's, e.g. {off[:3]}")
+        wrong = port_specs(config, "fsdp", fault=True)
+        differ = sum(wrong.get(k) != v
+                     for k, v in fixture[name]["fsdp"].items())
+        rows[f"{name} fault port_shape"] = dict(differ=differ)
+        if not differ:
+            failures.append(f"specs {name}: specs on the port's shapes "
+                            f"equal JAX's")
+    report["sharded"]["specs"] = rows
+    print(f"sharded (a) specs against JAX's (tests/torch_port_jax_specs."
+          f"json): {json.dumps(rows)}", flush=True)
+    return failures
+
+
+def shard_rank(group, case) -> dict:
+    """(a) one sharded step of the case's initial weights on a (1, 2)
+    mesh of the world ('dp', mode), this rank's rows of the batch, the
+    global t and noise, a planted fault when the case names one:
+    step_result's tuple over the whole state (gather_state), this rank's
+    bytes of the state; a sound step also times SHARD_TIMED_STEPS steps
+    and the all-gather and reduce-scatter of its sharded parameters."""
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.parallel import sharded
+    from agdiff_torch.parallel.mesh import make_hybrid_mesh
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState, ema_copy
+
+    config, mode, dev = case["config"], case["mode"], group.device
+    mesh = make_hybrid_mesh(2, 2, model_axis=mode)
+    module = DualEncoderEpsNetwork(config.model)
+    module.load_state_dict(case["init"])
+    module = module.to(dev)
+    state = TrainState(
+        step=0, module=module, optimizer=make_optimizer(module, config.train),
+        generator=torch.Generator(device=dev).manual_seed(0),
+        ema=ema_copy(module) if config.train.ema_decay > 0 else None)
+    before = {n: p.detach().cpu().clone()
+              for n, p in module.named_parameters()}
+    sharded.shard_train_state(state, mesh, mode)
+    step = sharded.make_sharded_train_step(config, mesh, state, mode)
+    axes = mesh.axis_names if mode == "fsdp" else ("dp",)
+    shard = sharded.shard_graph_batch_over(case["batch"], mesh, axes)
+    with shard_fault(case.get("fault")):
+        metrics = step(state, shard, case["t"].to(dev),
+                       case["noise"].to(dev))
+    whole = sharded.gather_state(state)
+    out = {"step": ({k: float(v) for k, v in metrics._asdict().items()},
+                    {n: g.cpu() for n, g in whole["grads"].items()},
+                    {n: b.cpu() for n, b in whole["buffers"].items()},
+                    before,
+                    {n: p.cpu() for n, p in whole["params"].items()}),
+           "bytes": state.layout.rank_bytes(state), "rows": shard.num_graphs}
+    if case.get("fault") is None:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(SHARD_TIMED_STEPS):
+            step(state, shard)
+        torch.cuda.synchronize(dev)
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
+            / SHARD_TIMED_STEPS
+        line, opt = state.layout.line, state.optimizer
+        flat = torch.cat([p.detach().reshape(-1) for p, s in
+                          zip(opt.params, opt.sharded) if s])
+        rows = line.all_gather(flat)
+        for key, fn in (("all_gather_ms", lambda: line.all_gather(flat)),
+                        ("reduce_scatter_ms",
+                         lambda: line.reduce_scatter(rows))):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(SHARD_TIMED_STEPS):
+                fn()
+            torch.cuda.synchronize(dev)
+            out[key] = (time.perf_counter() - t0) * 1e3 / SHARD_TIMED_STEPS
+        out["gathered_mib"] = rows.numel() * 4 / 2 ** 20
+    return out
+
+
+def pipe_payload(fwd, batch):
+    """(h, e, el, env) of a batch as PallasForward.__call__ makes them
+    ahead of its SchNet blocks: the embedding, the dense edge features at
+    the compute dtype, the distances and the envelope on the edge mask."""
+    from agdiff_torch.nn.schnet import embed_max_norm, envelope
+    from agdiff_torch.ops.graph import working_graph
+
+    cfg = fwd.config
+    dist, edge_mask, edge_type, _ = working_graph(
+        batch, cfg.cutoff, cfg.edge_order)
+    pairs = fwd.prepare(batch)
+    _, _, e, _ = fwd.encode_edges(dist, edge_type, pairs)
+    env = envelope(dist, cfg.cutoff, cfg.smooth_conv) * edge_mask
+    h = embed_max_norm(fwd.schnet_emb, batch.atom_type,
+                       cfg.embedding_max_norm).float()
+    return h, e, dist[..., None], env.float()
+
+
+def microbatches(payload, m):
+    """Each tensor of the payload split along the batch into m
+    microbatches, stacked on a new leading axis."""
+    return tuple(a.reshape((m, a.shape[0] // m) + tuple(a.shape[1:]))
+                 for a in payload)
+
+
+def stage_sequence(stage, stacked, payload, stages):
+    """The stage bodies one after another on each microbatch of `payload`
+    ((M, ...) tensors): the stacked h."""
+    import torch
+
+    from agdiff_torch.parallel.pipeline import stage_slice
+
+    out = []
+    for m in range(payload[0].shape[0]):
+        p = tuple(a[m] for a in payload)
+        for s in range(stages):
+            p = stage(stage_slice(stacked, s), p)
+        out.append(p[0])
+    return torch.stack(out)
+
+
+def pipe_rank(group, case) -> dict:
+    """(c) schnet_pipeline on the forward over the world's 'pp' axis: the
+    pipelined h of the payload (the second of two runs, its launches by
+    kernel counted from 0 just before it), ms per forward, and the
+    rotation fault's h. (d) the gradient of sum(h * proj) through
+    pipeline_apply on the plain stage body, in the stacked block
+    parameters (each rank its stage's, summed over the ranks) and in the
+    input h."""
+    import torch
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.parallel import pipeline
+
+    dev = group.device
+    mesh = pipeline.make_pp_mesh(2)
+    out = {}
+    fwd = build_fast_forward(case["config"], dp_model(case["config"]).to(
+        dev).eval(), "pallas")
+    run, stacked = pipeline.schnet_pipeline(fwd, mesh)
+    payload = tuple(a.to(dev) for a in case["payload"])
+    with torch.no_grad():
+        run(stacked, payload)
+        torch.cuda.synchronize(dev)
+        zero_counts()
+        h = run(stacked, payload)
+        torch.cuda.synchronize(dev)
+        out["launches"] = launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(PIPE_TIMED):
+            run(stacked, payload)
+        torch.cuda.synchronize(dev)
+        out["ms_per_forward"] = (time.perf_counter() - t0) * 1e3 / PIPE_TIMED
+        with shard_fault("wrong_neighbour"):
+            out["wrong"] = run(stacked, payload).cpu()
+    out["h"] = h.cpu()
+    # (d)
+    gfwd = build_fast_forward(case["grad_config"], dp_model(
+        case["grad_config"]).to(dev).eval(), "pallas")
+    grun, gstacked = pipeline.schnet_pipeline(gfwd, mesh)
+    gstacked = tree_map(lambda a: a.clone().requires_grad_(True), gstacked)
+    gpay = tuple(a.to(dev) for a in case["grad_payload"])
+    h0 = gpay[0].clone().requires_grad_(True)
+    hp = grun(gstacked, (h0,) + gpay[1:])
+    (hp * case["proj"].to(dev)).sum().backward()
+    out["grads"] = [group.all_reduce(a.grad.clone()).cpu()
+                    for a in tree_leaves(gstacked)] + [h0.grad.cpu()]
+    return out
+
+
+def shard_card_world(group, cases) -> list:
+    """Phase 14 (a) and (c)-(d) in each of two gloo ranks on card 0."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"shard": {k: shard_rank(group, c)
+                     for k, c in cases["shard"].items()},
+           "pipe": pipe_rank(group, cases["pipe"])}
+    return dp_every_rank(group, out)
+
+
+def dcn_card_world(group, cases) -> list:
+    """Phase 14 (b) in each of four gloo ranks on card 0: the DP step
+    over the ('dcn', 'dp') = (2, 2) mesh, the flat 4-rank DP step, and
+    the cross-slice fault."""
+    import torch
+
+    from agdiff_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dcn = make_mesh(4, dcn_slices=2)
+    out = {name: dp_train_rank(group if name == "flat" else dcn, case)
+           for name, case in cases.items()}
+    return dp_every_rank(group, out)
+
+
+def shard_rows(cases, ranks_out, refs, lr) -> dict:
+    """{case: the f32 or bf16 step row of rank 0's whole state against
+    the single-process card step}, the f32 rows with the gradient
+    norm."""
+    rows = {}
+    for name, case in cases.items():
+        got = ranks_out[0]["shard"][name]["step"]
+        label = case["label"]
+        if label == "f32":
+            row = step_errors(got, refs[label], lr)
+            want = refs[label][0]["grad_norm"]
+            row["grad_norm_rel"] = abs(got[0]["grad_norm"] - want) / want
+            row["broken"] = [k for k, lim in SHARD_LIMITS.items()
+                             if not row[k] <= lim]
+        else:
+            row = bf16_step_errors(got, refs[label])
+        rows[name] = row
+    return rows
+
+
+def run_sharded(qcfg, qmols, dev, gen, report):
+    """Phase 14: (a) fsdp and tp train steps on two gloo ranks on card 0
+    against the single-process step, with planted faults, each rank's
+    bytes of the state, and the specs against JAX's; (b) the ('dcn',
+    'dp') DP step on four ranks against the single and the flat 4-rank
+    steps; (c) schnet_pipeline through K3 on two ranks against the
+    sequential K3 stack and K3's plain version; (d) a gradient through
+    the pipeline. Returns (failures, K3 bf16 launches of the pipelined
+    forward over the ranks)."""
+    import torch
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from agdiff_torch.config import load_config
+    from agdiff_torch.kernels import fused
+    from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.parallel import launch, pipeline
+
+    report["sharded"] = {}
+    card = report["card"]
+    failures = check_specs(report)
+
+    # (a) and (c)-(d): one world of two ranks
+    train_cases, refs = dp_train_cases(dev)
+    shard_cases = {}
+    for label in ("f32", "bf16"):
+        base = {k: train_cases[label][k]
+                for k in ("config", "init", "batch", "t", "noise")}
+        for mode in SHARD_MODES:
+            shard_cases[f"{label} {mode}"] = dict(base, label=label,
+                                                  mode=mode)
+    for fault, mode in SHARD_FAULTS:
+        shard_cases[f"f32 fault {fault} ({mode})"] = dict(
+            shard_cases[f"f32 {mode}"], fault=fault)
+    fwd = build_fast_forward(qcfg, dp_model(qcfg).to(dev).eval(), "pallas")
+    with torch.no_grad():
+        payload = microbatches(pipe_payload(fwd, random_batch(
+            qmols, 32, PIPE_B, gen)), PIPE_MICRO)
+    gcfg = load_config(os.path.join(ROOT, "configs", TRAIN_CONFIG)).model
+    gfwd = build_fast_forward(gcfg, dp_model(gcfg).to(dev).eval(), "pallas")
+    with torch.no_grad():
+        gpay = microbatches(pipe_payload(gfwd, random_batch(
+            qmols, 32, GRAD_PIPE_B, gen)), PIPE_MICRO)
+    proj = torch.randn(gpay[0].shape, generator=gen, device=dev)
+    pipe_case = dict(config=qcfg, payload=tuple(a.cpu() for a in payload),
+                     grad_config=gcfg,
+                     grad_payload=tuple(a.cpu() for a in gpay),
+                     proj=proj.cpu())
+    t0 = time.time()
+    ranks_out = launch(shard_card_world, 2, dict(
+        shard=shard_cases, pipe=pipe_case), device="cuda:0", backend="gloo")
+    world_s = time.time() - t0
+
+    lr = train_cases["f32"]["config"].train.optimizer.lr
+    rows = shard_rows(shard_cases, ranks_out, refs, lr)
+    report["sharded"]["steps"] = rows
+    for label, limits in (("f32", SHARD_LIMITS), ("bf16", BF16_STEP_LIMITS)):
+        print_step_rows(
+            f"sharded (a) {label} train step over two gloo ranks on card 0 "
+            f"against the single-process card step",
+            {k.split(" ", 1)[1]: v for k, v in rows.items()
+             if k.split()[0] == label}, limits, failures)
+    shares, timing = {}, {}
+    for name in shard_cases:
+        if "fault" in name:
+            continue
+        per = [r["shard"][name] for r in ranks_out]
+        shares[name] = [p["bytes"][0] / p["bytes"][1] for p in per]
+        timing[name] = [dict(ms_per_step=p["ms_per_step"],
+                             all_gather_ms=p["all_gather_ms"],
+                             reduce_scatter_ms=p["reduce_scatter_ms"],
+                             gathered_mib=p["gathered_mib"],
+                             rows=p["rows"]) for p in per]
+        if not all(s <= SHARD_STATE_SHARE for s in shares[name]):
+            failures.append(f"sharded {name}: a rank holds "
+                            f"{shares[name]} of the state's bytes")
+        for r, p in enumerate(per):
+            b = p["bytes"]
+            print(f"sharded (a) {name} rank {r}: {b[0] / 2 ** 20:.2f} MiB "
+                  f"of the state's {b[1] / 2 ** 20:.2f} MiB "
+                  f"({b[0] / b[1]:.4f}, at most {SHARD_STATE_SHARE})",
+                  flush=True)
+    report["sharded"]["state_share"] = shares
+    report["sharded"]["timing"] = timing
+    print(f"sharded (a) ms per rank (two ranks sharing card 0 over gloo, "
+          f"not a scaling figure): {json.dumps(timing)} ({card})",
+          flush=True)
+
+    # (c) the pipeline through K3
+    stage = pipeline.schnet_stage(fwd)
+    _, stacked = pipeline.schnet_pipeline(fwd, _pp_view())
+    with torch.no_grad():
+        seq = stage_sequence(stage, stacked, payload, PIPE_STAGES)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(PIPE_TIMED):
+            stage_sequence(stage, stacked, payload, PIPE_STAGES)
+        torch.cuda.synchronize(dev)
+        seq_ms = (time.perf_counter() - t0) * 1e3 / PIPE_TIMED
+        k3_rows, plain_seq = pipe_plain_checks(fwd, stage, stacked, payload)
+    per = [r["pipe"] for r in ranks_out]
+    k3 = fused.variant("block_agg", fwd.compute_dtype)
+    want = PIPE_STAGES * (PIPE_MICRO + PIPE_STAGES - 1) * (
+        len(fwd.blocks) // PIPE_STAGES)
+    launched = sum(p["launches"].get(f"fused/{k3}", 0) for p in per)
+    other = [{k: v for k, v in p["launches"].items() if k != f"fused/{k3}"}
+             for p in per]
+    got = per[0]["h"].to(dev)
+    same = [torch.equal(p["h"].to(dev), seq) for p in per]
+    end_to_end = errors(got, plain_seq)
+    wrong_same = torch.equal(per[0]["wrong"].to(dev), seq)
+    report["sharded"]["pipeline"] = dict(
+        torch_equal=same, k3_launches=launched, k3_expected=want,
+        other_launches=other, per_block=k3_rows, h_against_plain=end_to_end,
+        ms_per_forward=[p["ms_per_forward"] for p in per],
+        sequential_ms=seq_ms, fault_wrong_neighbour_equal=wrong_same)
+    if not all(same):
+        failures.append(f"pipeline (c): h not torch.equal to the sequential "
+                        f"K3 stack on ranks {same}")
+    if launched != want or any(other):
+        failures.append(f"pipeline (c): K3 {launched} launches (want "
+                        f"{want}), others {other}")
+    k3_limits = (BF16_KERNEL_LIMITS if fwd.compute_dtype == torch.bfloat16
+                 else F32_KERNEL_LIMITS)
+    for blk, row in k3_rows.items():
+        broken = [k for k, lim in k3_limits.items() if not row[k] <= lim]
+        if broken:
+            failures.append(f"pipeline (c) K3 against its plain version at "
+                            f"{blk}: {broken}")
+    if wrong_same:
+        failures.append("pipeline (c): the wrong-neighbour rotation gives "
+                        "the sequential stack's h")
+    print(f"pipeline (c) schnet_pipeline on qm9_fast.yml (6 blocks, 2 stages, "
+          f"B={PIPE_B} as {PIPE_MICRO} x {PIPE_B // PIPE_MICRO}): torch.equal "
+          f"to the sequential K3 stack {same}; K3 launches {launched} "
+          f"(S x (M + S - 1) x blocks / S = {want}), others {other}; K3 "
+          f"against its plain version per block (max_rel, median_rel, "
+          f"p99_rel) {[(round(r['max_rel'], 7), r['median_rel'], r['p99_rel']) for r in k3_rows.values()]}; "
+          f"h after six blocks against the plain stack: max_rel "
+          f"{end_to_end['max_rel']:.2e} median_rel "
+          f"{end_to_end['median_rel']:.2e}; fault wrong_neighbour equal "
+          f"{wrong_same}; ms per pipelined forward per rank "
+          f"{[round(p['ms_per_forward'], 3) for p in per]} against the "
+          f"sequential stack on one rank {seq_ms:.3f} ({card})", flush=True)
+
+    # (d) the gradient through the pipeline against the sequential stack
+    gstage = pipeline.schnet_stage(gfwd)
+    _, gstacked = pipeline.schnet_pipeline(gfwd, _pp_view())
+    gstacked = tree_map(lambda a: a.clone().requires_grad_(True), gstacked)
+    h0 = gpay[0].clone().requires_grad_(True)
+    hs = stage_sequence(gstage, gstacked, (h0,) + gpay[1:], PIPE_STAGES)
+    (hs * proj).sum().backward()
+    ref = [a.grad for a in tree_leaves(gstacked)] + [h0.grad]
+    gots = per[0]["grads"]
+    top = max(float(g.abs().max()) for g in ref)
+    worst = {"grad_max_rel": 0.0, "grad_median_rel": 0.0, "grad_p99_rel": 0.0}
+    for g, w in zip(gots, ref):
+        e = errors(g.to(dev), w, scale=max(float(w.abs().max()),
+                                           GRAD_NOISE * top))
+        for key in worst:
+            worst[key] = max(worst[key], e[key[5:]] if e["finite"]
+                             else float("inf"))
+    grad_limits = {k: STEP_LIMITS[k] for k in worst}
+    broken = [k for k, lim in grad_limits.items() if not worst[k] <= lim]
+    report["sharded"]["pipeline_grad"] = dict(worst, broken=broken,
+                                              leaves=len(ref))
+    if broken or len(gots) != len(ref):
+        failures.append(f"pipeline (d) gradient breaks {broken}")
+    print(f"pipeline (d) gradient through pipeline_apply (plain stage, "
+          f"synthetic_qm9.yml f32, {PIPE_MICRO} x "
+          f"{GRAD_PIPE_B // PIPE_MICRO} graphs) against the sequential "
+          f"stack, {len(ref)} leaves: {json.dumps(worst)}, limits "
+          f"{grad_limits}, broken {broken}; the world {world_s:.1f} s",
+          flush=True)
+
+    # (b) the ('dcn', 'dp') mesh: four ranks
+    base = dict(train_cases["f32"])
+    dcn_cases = {"dcn": base, "flat": base,
+                 "fault cross_slice_skipped": dict(
+                     base, fault="cross_slice_skipped")}
+    t0 = time.time()
+    dcn_out = launch(dcn_card_world, 4, dcn_cases, device="cuda:0",
+                     backend="gloo")
+    dcn_s = time.time() - t0
+    dcn_rows = {
+        "dcn_vs_single": step_errors(dcn_out[0]["dcn"]["step"], refs["f32"],
+                                     lr),
+        "dcn_vs_flat": step_errors(dcn_out[0]["dcn"]["step"],
+                                   dcn_out[0]["flat"]["step"], lr),
+        "fault cross_slice_skipped": step_errors(
+            dcn_out[0]["fault cross_slice_skipped"]["step"], refs["f32"], lr)}
+    report["sharded"]["dcn"] = dcn_rows
+    print_step_rows("dcn (b) ('dcn', 'dp') = (2, 2) DP step over four gloo "
+                    "ranks on card 0", dcn_rows, STEP_LIMITS, failures)
+    dcn_timing = [dict(ms_per_step=r["dcn"]["ms_per_step"],
+                       all_reduce_ms=r["dcn"]["all_reduce_ms"],
+                       flat_ms_per_step=r["flat"]["ms_per_step"],
+                       flat_all_reduce_ms=r["flat"]["all_reduce_ms"])
+                  for r in dcn_out]
+    report["sharded"]["dcn_timing"] = dcn_timing
+    print(f"dcn (b) ms per rank (B=64 as 4 x 16, four ranks sharing card 0 "
+          f"over gloo): {json.dumps(dcn_timing)}; the world {dcn_s:.1f} s "
+          f"({card})", flush=True)
+    return failures, launched
+
+
+def _pp_view():
+    """A 'pp' mesh of two stages seen from rank 0, without a world: what
+    schnet_pipeline needs to stack the stages."""
+    import torch
+
+    from agdiff_torch.parallel.mesh import Mesh
+
+    return Mesh(2, 0, torch.device("cpu"), "gloo", axis_names=("pp",),
+                dims=(2,))
+
+
+def pipe_plain_checks(fwd, stage, stacked, payload):
+    """K3 against its plain version on the inputs the sequential K3 stack
+    gives each of its blocks (microbatch 0), and the plain stack's h over
+    every microbatch: ({block: errors row}, plain h)."""
+    import torch
+
+    from agdiff_torch.kernels import fused
+    from agdiff_torch.models.fast_forward import (
+        node_input,
+        schnet_block,
+        stacked_distance_weights,
+    )
+    from agdiff_torch.parallel import pipeline
+
+    rows = {}
+    h, e, el, env = (a[0] for a in payload)
+    b, n = env.shape[:2]
+    for s in range(PIPE_STAGES):
+        blocks = pipeline.stage_slice(stacked, s)
+        we = stacked_distance_weights(
+            blocks, el.reshape(b, n * n, 1), env.reshape(b, n * n),
+            fwd.sigmoid).reshape(-1, b, n, n)
+        for k, blk in enumerate(blocks):
+            c1, c2 = blk["convs"]
+            args = (e, we[2 * k], we[2 * k + 1], node_input(c1, h),
+                    node_input(c2, h), c1, c2)
+            got = fused.interaction_block_aggregate(*args)
+            ref = fused.interaction_block_aggregate_plain(*args)
+            rows[f"stage {s} block {k}"] = {
+                key: max(errors(g, r)[key] for g, r in zip(got, ref))
+                for key in ("max_rel", "median_rel", "p99_rel",
+                            "beyond_1pct")}
+            h = schnet_block(blk, h, *got, fwd.softplus, fwd.sigmoid)
+    real = pipeline.interaction_block_aggregate
+    pipeline.interaction_block_aggregate = \
+        fused.interaction_block_aggregate_plain
+    try:
+        plain = stage_sequence(stage, stacked, payload, PIPE_STAGES)
+    finally:
+        pipeline.interaction_block_aggregate = real
+    torch.cuda.synchronize()
+    return rows, plain
+
+
 def main() -> int:
     import torch
 
@@ -5649,10 +6277,15 @@ def main() -> int:
     new_rows.update(gelu_k4)
     mono_rows.update(gelu_k6)
     phase_done("13 configuration variants")
+
+    # ---- 14. sharded and pipelined training layouts --------------------------
+    failed, k3_pipeline = run_sharded(qcfg, qmols, dev, gen, report)
+    failures += failed
+    phase_done("14 sharded and pipelined")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 14. result lines --------------------------------------------------
+    # ---- 15. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -5701,7 +6334,8 @@ def main() -> int:
         new_entry("block_agg:f32", path_launches(
             "fused/block_agg:f32", ("A", "C")), fused_src),
         new_entry("block_agg:bf16", path_launches(
-            "fused/block_agg:bf16", ("B", "C-bf16")), fused_src),
+            "fused/block_agg:bf16", ("B", "C-bf16")) + k3_pipeline,
+            fused_src),
         new_entry("pair_score:f32", path_launches(
             "fused/pair_score:f32", ("C",)), fused_src),
         new_entry("pair_score:bf16", path_launches(

@@ -21,6 +21,8 @@ relu forms' limits, with relu heads (and the exact gelu under
 '-approx') as faults that must miss them. Data parallelism: two gloo
 ranks on card 0, the train step against the single-process step and a
 'pksf' ladder against single-process runs at each rank's batch size.
+Pipelines: K3 in parallel/pipeline.py's SchNet stage body against the
+same body on K3's plain version, and K3 refusing a gradient.
 Imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -1677,3 +1679,49 @@ def test_cuda_dp_pksf_ladder_is_the_single_process_run_per_rank(card,
         assert torch.equal(got[rows], alone["pos"]), r
         assert not alone["flags"].any()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_k3_in_a_pipeline_stage(card, dtype):
+    """parallel/pipeline.py's SchNet stage body on the card: three blocks,
+    one K3 launch each, against the same body asked for a gradient (K3's
+    plain version, no launch) within K3's limits (f32: 1e-5 of the
+    largest |h|; bf16: the bf16 limits above); K3 itself refuses a
+    gradient."""
+    from agdiff_torch.kernels import fused
+    from agdiff_torch.parallel.pipeline import schnet_stage
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(hidden_dim=32, num_convs=6, num_convs_local=2,
+                      dtype=dtype)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    fwd = build_fast_forward(cfg, model, "pallas")
+    stage = schnet_stage(fwd)
+    gen = torch.Generator(device=card).manual_seed(0)
+    b, n, c = 4, 20, 32
+    h = torch.randn(b, n, c, generator=gen, device=card)
+    e = (torch.randn(b, n, n, c, generator=gen, device=card) * 0.1).to(
+        fwd.compute_dtype)
+    el = torch.rand(b, n, n, 1, generator=gen, device=card) * 3.0 + 0.5
+    env = torch.rand(b, n, n, generator=gen, device=card)
+    blocks = tuple(fwd.blocks[:3])
+    name = fused.variant("block_agg", fwd.compute_dtype)
+    before = fused.launches[name]
+    with torch.no_grad():
+        got = stage(blocks, (h, e, el, env))[0]
+    torch.cuda.synchronize()
+    assert fused.launches[name] - before == 3
+    plain = stage(blocks, (h.clone().requires_grad_(True), e, el, env))[0]
+    assert fused.launches[name] - before == 3
+    if dtype == "float32":
+        scale = float(plain.abs().max())
+        assert float((got - plain.detach()).abs().max()) <= 1e-5 * scale
+    else:
+        _within_limits(got, plain.detach())
+    c1, c2 = blocks[0]["convs"]
+    w = torch.ones(b, n, n, device=card, requires_grad=True)
+    x1 = torch.zeros(b, n, c1["fb"][0].shape[1], device=card)
+    x2 = torch.zeros(b, n, c2["fb"][0].shape[1], device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused.block_agg_launch(e, w, w, x1, x2, c1, c2)

@@ -24,7 +24,7 @@ with the batch's graph axis sharded.
       global draw, sliced); each rank's forwards; also against the port's
       single-process sampler, and the DP runner against the single one at
       the same seed;
-  (h) refusals: a batch that does not split, dcn_slices > 1;
+  (h) refusals: a batch that does not split, a mesh outside a world;
   a data-parallel server's runner call that fails on every rank raises
   its error on each, one that fails on one rank only raises RanksDisagree
   on both.
@@ -551,13 +551,14 @@ def test_server_calls_compare_the_ranks_outcomes(world):
 
 def test_shards_and_refusals():
     """A rank's rows of the graph axis, and the refusals: a batch that
-    does not split, dcn_slices > 1, a mesh outside a world."""
+    does not split, a mesh outside a world, 1-D or multi-slice (the
+    ('dcn', 'dp') mesh itself: tests/test_torch_port_sharded.py)."""
     group = Mesh(2, 1, torch.device("cpu"), "gloo")
     assert batch_sharding(group, 8) == slice(4, 8)
     assert replicated(group) == slice(None)
     with pytest.raises(ValueError, match="does not split"):
         group.rows(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="no world"):
         make_mesh(2, dcn_slices=2)
     with pytest.raises(RuntimeError, match="no world"):
         make_mesh(2)

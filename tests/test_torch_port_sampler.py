@@ -150,8 +150,8 @@ def test_entry_points_need_a_device_or_cpu():
 
 def test_port_imports_no_jax():
     """Importing every module of agdiff_torch, the CLIs under cli/ and
-    the COV/MAT, training, serving and data-parallel (parallel/) modules
-    and the .pkl reader (data/geom.py) among them, loads neither jax nor
+    the COV/MAT, training, serving and parallel (mesh, data-parallel,
+    sharded, pipeline) modules and the .pkl reader (data/geom.py) among them, loads neither jax nor
     agdiff_tpu, and no source names them in an import."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
@@ -171,6 +171,7 @@ def test_port_imports_no_jax():
         "'agdiff_torch.utils.misc', 'agdiff_torch.serve.server', "
         "'agdiff_torch.cli.serve', 'agdiff_torch.parallel', "
         "'agdiff_torch.parallel.mesh', 'agdiff_torch.parallel.data_parallel', "
+        "'agdiff_torch.parallel.sharded', 'agdiff_torch.parallel.pipeline', "
         "'agdiff_torch.data.geom', 'agdiff_torch.nn.edge_encoders') "
         "if m not in sys.modules]\n"
         "print(len(list(pkgutil.walk_packages(agdiff_torch.__path__))), bad)\n"
