@@ -1,7 +1,7 @@
 """Host-side molecule (port of agdiff_tpu/chem/mol.py: the fields padding
 and generation read, the bond helpers the symmetry-aware RMSD reads,
-:67-97, and the .npz format, :97-155, which both packages read and write
-alike)."""
+:67-97, the .npz format, :97-155, which both packages read and write
+alike, and the connected components, :158-204)."""
 
 from __future__ import annotations
 
@@ -129,3 +129,53 @@ def load_molecules(path: str) -> List[Molecule]:
                 mol.meta = ast.literal_eval(str(data[prefix + "__meta__"]))
             mols.append(mol)
     return mols
+
+
+def subgraph_bonds(mol: Molecule, keep: np.ndarray):
+    """(bond_index, bond_type) of the bonds between kept atoms (a (N,)
+    bool), renumbered to the kept atoms' order."""
+    new_index = -np.ones(mol.num_nodes, np.int64)
+    new_index[keep] = np.arange(int(keep.sum()))
+    i, j = mol.bond_index
+    bk = keep[i] & keep[j]
+    return np.stack([new_index[i[bk]], new_index[j[bk]]]), mol.bond_type[bk]
+
+
+def connected_components(mol: Molecule) -> np.ndarray:
+    """(N,) component id of each atom, 0-based in first-seen order
+    (agdiff_tpu/chem/mol.py:158-180; the networkx-free counterpart of the
+    reference's MolClusterData subgraph indexing)."""
+    n = mol.num_nodes
+    comp = -np.ones(n, np.int64)
+    adj = [[] for _ in range(n)]
+    for a, b in mol.bond_index.T:
+        adj[a].append(b)
+    next_id = 0
+    for start in range(n):
+        if comp[start] >= 0:
+            continue
+        stack = [start]
+        comp[start] = next_id
+        while stack:
+            u = stack.pop()
+            for v in adj[u]:
+                if comp[v] < 0:
+                    comp[v] = next_id
+                    stack.append(v)
+        next_id += 1
+    return comp
+
+
+def split_disconnected(mol: Molecule) -> List[Molecule]:
+    """One Molecule per connected component of `mol` (a '.' SMILES),
+    meta {'component', 'parent_smiles'}."""
+    comp = connected_components(mol)
+    out = []
+    for cid in range(comp.max() + 1):
+        keep = comp == cid
+        bond_index, bond_type = subgraph_bonds(mol, keep)
+        out.append(Molecule(
+            atom_type=mol.atom_type[keep], pos=mol.pos[keep],
+            bond_index=bond_index, bond_type=bond_type, smiles=None,
+            meta={"component": cid, "parent_smiles": mol.smiles}))
+    return out

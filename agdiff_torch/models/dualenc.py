@@ -25,7 +25,10 @@ are, so no generation path depends on the module's training flag.
 unordered pairs and mirrors the two score planes back to (B, N, N)
 (agdiff_tpu/models/dualenc.py:104-120); `config.remat` recomputes both
 encoders in backward (torch.utils.checkpoint), the running statistics
-moving once per forward.
+moving once per forward. Under spatial sharding (`nodes`, mode 'sp' of
+parallel/sharded.py) the same modules run on this rank's node rows: the
+pair ops take their j side from gathered node tensors and the planes come
+out as row blocks; without a layout every module computes what it did.
 """
 
 from __future__ import annotations
@@ -53,6 +56,13 @@ from agdiff_torch.ops.pairs import (
     pack_plane,
     triu_pairs,
 )
+
+
+PACKED_SP_REFUSAL = (
+    "packed_pairs under spatial sharding (mode 'sp') is not ported: a "
+    "triu pair axis does not split into row blocks; ROADMAP.md queue 1 "
+    "item 7a-sp-packed. Train the sp step with packed_pairs: false (the "
+    "dense layout computes the same values)")
 
 
 class ModelOutput(NamedTuple):
@@ -84,17 +94,23 @@ class DualEncoderEpsNetwork(nn.Module):
             2 * h, (h, h // 2, 1), cfg.mlp_act, dtype=dt)
 
     def forward(self, batch: GraphBatch, *, train: bool = False,
-                extend_order: bool = False,
-                extend_radius: bool = True) -> ModelOutput:
+                extend_order: bool = False, extend_radius: bool = True,
+                nodes=None) -> ModelOutput:
         """train: batch statistics, running ones moved (see the module
         docstring); extend_order extends the bond adjacency here (it is
         normally extended on the host); extend_radius=False takes the bond
-        graph alone (agdiff_tpu/models/dualenc.py:66-95)."""
+        graph alone (agdiff_tpu/models/dualenc.py:66-95). `nodes`, a node
+        layout (parallel/mesh.py NodeLayout, spatial sharding): the batch
+        holds this rank's node rows, and the output planes are their row
+        blocks (B, k, N)."""
         cfg = self.config
         node_mask = batch.node_mask
+        if nodes is not None and cfg.packed_pairs:
+            raise ValueError(PACKED_SP_REFUSAL)
         dist, edge_mask, edge_type, local_mask = working_graph(
             batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
-            extend_radius=extend_radius, dtype=self.compute_dtype)
+            extend_radius=extend_radius, dtype=self.compute_dtype,
+            nodes=nodes)
         pairs = None
         if cfg.packed_pairs:
             pairs = _triu(dist.shape[-1], dist.device)
@@ -110,13 +126,13 @@ class DualEncoderEpsNetwork(nn.Module):
                    else self.edge_encoder_local(edge_length, et_in))
 
         h = self._encode(self.encoder_global, batch.atom_type, node_mask,
-                         em_in, edge_length, e_global, train, pairs)
+                         em_in, edge_length, e_global, train, pairs, nodes)
         inv_global = self.grad_global_dist_mlp(
-            _pair_feature(h, e_global, pairs), train)[..., 0]
+            _pair_feature(h, e_global, pairs, nodes), train)[..., 0]
         hl = self._encode(self.encoder_local, batch.atom_type, node_mask,
-                          lm_in, e_local, train, pairs)
+                          lm_in, e_local, train, pairs, nodes)
         inv_local = self.grad_local_dist_mlp(
-            _pair_feature(hl, e_local, pairs), train)[..., 0]
+            _pair_feature(hl, e_local, pairs, nodes), train)[..., 0]
         if pairs is not None:
             # the diagonal gets pair 0's value, as in the dense path's
             # h_i * h_i diagonal: every consumer masks it
@@ -146,12 +162,14 @@ def _triu(n: int, device) -> PairList:
     return triu_pairs(n, device)
 
 
-def _pair_feature(node_attr, edge_attr, pairs=None):
-    """concat(h_i * h_j, e_ij) over the dense pair block, or over the
-    pairs of a packed layout."""
+def _pair_feature(node_attr, edge_attr, pairs=None, nodes=None):
+    """concat(h_i * h_j, e_ij) over the dense pair block (a node layout's
+    row block, h_j from the gathered axis), or over the pairs of a packed
+    layout."""
     if pairs is not None:
         hi, hj = gather_endpoints(node_attr, pairs)
         prod = hi * hj
     else:
-        prod = node_attr[:, :, None, :] * node_attr[:, None, :, :]
+        hj = node_attr if nodes is None else nodes.gather(node_attr)
+        prod = node_attr[:, :, None, :] * hj[:, None, :, :]
     return torch.cat([prod, edge_attr], dim=-1)

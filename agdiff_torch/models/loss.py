@@ -61,14 +61,21 @@ def global_edge_mask(d_perturbed, local, edge_mask, cutoff: float):
 
 
 def diffusion_loss(output, batch: GraphBatch, pos_perturbed: torch.Tensor,
-                   a: torch.Tensor, cutoff: float, group=None) -> LossOutput:
+                   a: torch.Tensor, cutoff: float, group=None,
+                   nodes=None) -> LossOutput:
     """The dual global/local position-score loss of a model output taken
     at pos_perturbed. With a data-parallel `group` (parallel/mesh.py) the
     batch is this rank's shard and the sums are divided by the real-node
     count of every rank's shard together
     (agdiff_tpu/models/loss.py:98-105 over the global batch): the ranks'
-    losses sum to the global one, and so do their gradients."""
-    d_gt = pairwise_distance(batch.pos)
+    losses sum to the global one, and so do their gradients. Under a node
+    layout `nodes` (spatial sharding; `group` then spans every rank of the
+    mesh) the shard is this rank's node rows, the output's planes their
+    row blocks: the equivariant transforms add the transposed terms from
+    the other ranks (ops/geometry.py eq_transform_dense), and per_node
+    and the sums are the rows'."""
+    d_gt = pairwise_distance(
+        batch.pos, None if nodes is None else nodes.gather(batch.pos))
     d_perturbed = output.edge_length
     a_edge = a[:, None, None]
     d_target = (d_gt - d_perturbed) / torch.sqrt(1.0 - a_edge) \
@@ -77,15 +84,15 @@ def diffusion_loss(output, batch: GraphBatch, pos_perturbed: torch.Tensor,
     gmask = global_edge_mask(d_perturbed, local, output.edge_mask, cutoff)
 
     target_global = eq_transform_dense(d_target, pos_perturbed, gmask,
-                                       d_perturbed)
+                                       d_perturbed, nodes)
     eq_global = eq_transform_dense(output.edge_inv_global, pos_perturbed,
-                                   gmask, d_perturbed)
+                                   gmask, d_perturbed, nodes)
     loss_global = GLOBAL_WEIGHT * torch.sum(
         (eq_global - target_global) ** 2, dim=-1)
     target_local = eq_transform_dense(d_target, pos_perturbed, local,
-                                      d_perturbed)
+                                      d_perturbed, nodes)
     eq_local = eq_transform_dense(output.edge_inv_local, pos_perturbed,
-                                  local, d_perturbed)
+                                  local, d_perturbed, nodes)
     loss_local = LOCAL_WEIGHT * torch.sum((eq_local - target_local) ** 2,
                                           dim=-1)
 

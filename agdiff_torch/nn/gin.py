@@ -2,6 +2,8 @@
 agdiff_tpu/nn/gin.py). With `pairs` (the `packed_pairs` train layout)
 edge_attr is (B, P, H) and local_mask (B, P), and the message act(x_j +
 e_p) goes to endpoint i, act(x_i + e_p) to j (agdiff_tpu/nn/gin.py:40-54).
+Under a node layout `nodes` (parallel/mesh.py NodeLayout) x is this
+rank's rows and the messages take x_j from the gathered axis.
 `dtype` is the compute dtype of the MLPs and of the embedding's output."""
 
 from __future__ import annotations
@@ -26,14 +28,15 @@ class GINEConv(nn.Module):
                                        dtype=dtype)
 
     def forward(self, x, local_mask, edge_attr, train: bool = False,
-                pairs=None):
+                pairs=None, nodes=None):
         if pairs is not None:
             xi, xj = gather_endpoints(x, pairs)
             lm = local_mask[..., None].to(x.dtype)
             agg = scatter_add_endpoints(self.act(xj + edge_attr) * lm,
                                         self.act(xi + edge_attr) * lm, pairs)
         else:
-            msg = self.act(x[:, None, :, :] + edge_attr)
+            xj = x if nodes is None else nodes.gather(x)
+            msg = self.act(xj[:, None, :, :] + edge_attr)
             agg = torch.einsum("bij,bijh->bih", local_mask.to(msg.dtype),
                                msg)
         return self.nn(x + agg, train)
@@ -56,11 +59,11 @@ class GINEncoder(nn.Module):
             self.add_module(f"batch_norms_{i}", MaskedBatchNorm(hidden))
 
     def forward(self, z, node_mask, local_mask, edge_attr,
-                train: bool = False, pairs=None):
+                train: bool = False, pairs=None, nodes=None):
         h = F.embedding(z, self.node_emb.weight).to(self.compute_dtype)
         for i in range(self.num_convs):
             hidden = getattr(self, f"convs_{i}")(h, local_mask, edge_attr,
-                                                 train, pairs)
+                                                 train, pairs, nodes)
             hidden = getattr(self, f"batch_norms_{i}")(hidden, node_mask,
                                                        train)
             if i < self.num_convs - 1:

@@ -2,10 +2,13 @@
 agdiff_tpu/nn/schnet.py). With `pairs` (a shared triu PairList, the
 `packed_pairs` train layout) the per-edge tensors are (B, P[, C]) on the
 unordered pairs and the aggregation runs over endpoint selectors
-(agdiff_tpu/nn/schnet.py:100-108). `dtype` is the compute dtype of every
-layer and of the embedding's output (nn/common.py); the learnable
-softplus turns a bf16 input into f32, as the JAX module's f32 beta
-does."""
+(agdiff_tpu/nn/schnet.py:100-108). Under a node layout `nodes`
+(parallel/mesh.py NodeLayout, mode 'sp') the nodes are this rank's rows
+and the per-edge tensors their row blocks (B, k, N, C): each CFConv
+gathers the whole axis of h after norm1 for the j side. `dtype` is the
+compute dtype of every layer and of the embedding's output
+(nn/common.py); the learnable softplus turns a bf16 input into f32, as
+the JAX module's f32 beta does."""
 
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ class CFConv(nn.Module):
         self.norm2 = MaskedBatchNorm(hidden)
 
     def forward(self, x, node_mask, edge_mask, edge_length, edge_attr,
-                train: bool = False, pairs=None):
+                train: bool = False, pairs=None, nodes=None):
         combined = (self.distance_weighting(edge_length)
                     * envelope(edge_length, self.cutoff, self.smooth))
         w = self.filter_1(self.filter_act(self.filter_0(edge_attr)))
@@ -72,7 +75,8 @@ class CFConv(nn.Module):
             hi, hj = gather_endpoints(h, pairs)
             out = scatter_add_endpoints(w * hj, w * hi, pairs)
         else:
-            out = torch.einsum("bijf,bjf->bif", w, h)
+            hj = h if nodes is None else nodes.gather(h)
+            out = torch.einsum("bijf,bjf->bif", w, hj)
         return self.norm2(self.lin2(out), node_mask, train)
 
 
@@ -91,11 +95,11 @@ class InteractionBlock(nn.Module):
         self.attention_1 = Linear(hidden // 2, 1, dtype=dtype)
 
     def forward(self, x, node_mask, edge_mask, edge_length, edge_attr,
-                train: bool = False, pairs=None):
+                train: bool = False, pairs=None, nodes=None):
         p1 = self.conv1(x, node_mask, edge_mask, edge_length, edge_attr,
-                        train, pairs)
+                        train, pairs, nodes)
         p2 = self.conv2(x, node_mask, edge_mask, edge_length, edge_attr,
-                        train, pairs)
+                        train, pairs, nodes)
         combined = self.lin(self.act(torch.cat([p1, p2], dim=-1)))
         gate = torch.sigmoid(self.attention_1(
             torch.relu(self.attention_0(combined))))
@@ -146,11 +150,12 @@ class SchNetEncoder(nn.Module):
                             AdaptiveScalingModule(hidden, dtype=dtype))
 
     def forward(self, z, node_mask, edge_mask, edge_length, edge_attr,
-                train: bool = False, pairs=None):
+                train: bool = False, pairs=None, nodes=None):
         h = embed_max_norm(self.embedding.weight, z, self.embedding_max_norm,
                            self.compute_dtype)
         for i in range(self.num_interactions):
             out = getattr(self, f"interactions_{i}")(
-                h, node_mask, edge_mask, edge_length, edge_attr, train, pairs)
+                h, node_mask, edge_mask, edge_length, edge_attr, train, pairs,
+                nodes)
             h = h + getattr(self, f"scaling_modules_{i}")(out)
         return h

@@ -16,31 +16,39 @@ from agdiff_torch.chem.constants import NUM_BOND_TYPES
 from agdiff_torch.ops.geometry import pairwise_distance
 
 
-def radius_union_mask(dist, bond_adj, node_mask, cutoff: float):
+def radius_union_mask(dist, bond_adj, node_mask, cutoff: float,
+                      nodes=None):
     """Union of the radius graph and the typed bond graph.
 
     Returns edge_mask (B, N, N) bool, edge_type (B, N, N) int64 (0 for
-    radius-only edges) and local_mask (B, N, N) bool (bond-graph edges).
+    radius-only edges) and local_mask (B, N, N) bool (bond-graph edges);
+    under a node layout, their row blocks (B, k, N).
     """
-    pair = _real_pairs(node_mask)
+    pair = _real_pairs(node_mask, nodes)
     local_mask = (bond_adj > 0) & pair
     edge_mask = ((dist <= cutoff) & pair) | local_mask
     edge_type = torch.where(edge_mask, bond_adj, torch.zeros_like(bond_adj))
     return edge_mask, edge_type, local_mask
 
 
-def bond_graph_mask(bond_adj, node_mask):
+def bond_graph_mask(bond_adj, node_mask, nodes=None):
     """The bond graph alone (extend_radius=False): edge_mask equals
     local_mask, and edge_type is the adjacency on it."""
-    local_mask = (bond_adj > 0) & _real_pairs(node_mask)
+    local_mask = (bond_adj > 0) & _real_pairs(node_mask, nodes)
     edge_type = torch.where(local_mask, bond_adj, torch.zeros_like(bond_adj))
     return local_mask, edge_type, local_mask
 
 
-def _real_pairs(node_mask):
-    n = node_mask.shape[-1]
+def _real_pairs(node_mask, nodes=None):
+    """(B, N, N) pairs of distinct real nodes; under a node layout
+    (parallel/mesh.py NodeLayout) the rows of this rank's nodes against
+    the whole axis (the j-side mask gathered)."""
+    cols = node_mask if nodes is None else nodes.gather(node_mask)
+    n = cols.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=node_mask.device)
-    return node_mask[:, :, None] & node_mask[:, None, :] & ~eye[None]
+    if nodes is not None:
+        eye = eye[nodes.rows]
+    return node_mask[:, :, None] & cols[:, None, :] & ~eye[None]
 
 
 def extend_graph_order_dense(bond_adj, order: int = 3,
@@ -68,18 +76,30 @@ def extend_graph_order_dense(bond_adj, order: int = 3,
 
 def working_graph(batch, cutoff: float, edge_order: int, *,
                   extend_order: bool = False, extend_radius: bool = True,
-                  dtype: torch.dtype = torch.float32):
+                  dtype: torch.dtype = torch.float32, nodes=None):
     """(dist, edge_mask, edge_type, local_mask) of a GraphBatch: the bond
     adjacency extended to `edge_order` here when extend_order (it is
     normally extended on the host), then the radius union or the bond
     graph alone. The distances are taken on the positions cast to
-    `dtype` (the module's compute dtype), and the radius mask on them."""
+    `dtype` (the module's compute dtype), and the radius mask on them.
+
+    Under a node layout `nodes` (parallel/mesh.py NodeLayout) the batch
+    holds this rank's node rows (pos (B, k, 3), bond_adj (B, k, N)) and
+    the four planes come out as row blocks (B, k, N), the distances to
+    the gathered positions; the in-forward extension, which needs the
+    whole adjacency, is refused."""
     bond_adj = batch.bond_adj
     if extend_order:
+        if nodes is not None:
+            raise ValueError("extend_order needs the whole adjacency: "
+                             "extend it on the host under a node layout")
         bond_adj = extend_graph_order_dense(bond_adj, order=edge_order)
-    dist = pairwise_distance(batch.pos.to(dtype))
+    pos = batch.pos.to(dtype)
+    dist = pairwise_distance(
+        pos, None if nodes is None else nodes.gather(pos))
     if extend_radius:
-        masks = radius_union_mask(dist, bond_adj, batch.node_mask, cutoff)
+        masks = radius_union_mask(dist, bond_adj, batch.node_mask, cutoff,
+                                  nodes)
     else:
-        masks = bond_graph_mask(bond_adj, batch.node_mask)
+        masks = bond_graph_mask(bond_adj, batch.node_mask, nodes)
     return (dist,) + masks

@@ -52,6 +52,7 @@ import contextlib
 import dataclasses
 import datetime
 import itertools
+import math
 import os
 import pickle
 import socket
@@ -336,6 +337,49 @@ def with_adjoint(x: torch.Tensor, forward: Callable,
     return _Adjoint.apply(x, forward, backward)
 
 
+@dataclass(frozen=True)
+class NodeLayout:
+    """Spatial (node-axis) sharding of a (B, N, ...) block over `mesh`, the
+    'sp' line (parallel/sharded.py, mode 'sp'): this rank holds node rows
+    [rank * k, (rank + 1) * k) of N = k * mesh.world_size, and every
+    (B, N, N, ...) pair tensor as its row block (B, k, N, ...). The
+    forward's modules take it as `nodes` (None: the whole axis)."""
+
+    mesh: Mesh
+    k: int      # the rows this rank holds
+
+    @property
+    def n(self) -> int:
+        """The whole node axis."""
+        return self.k * self.mesh.world_size
+
+    @property
+    def rows(self) -> slice:
+        start = self.mesh.rank * self.k
+        return slice(start, start + self.k)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, k, ...) rows of every rank -> the whole (B, N, ...) axis
+        (the j side of a pair op); its backward sends each rank the sum of
+        the gradients of its rows. A tensor without a gradient (a mask)
+        is gathered as bytes."""
+        x = x.contiguous()
+        stacked = (self.mesh.all_gather_with_grad(x) if x.is_floating_point()
+                   else self.mesh.all_gather(x))
+        return stacked.movedim(0, 1).reshape(
+            (x.shape[0], self.n) + tuple(x.shape[2:]))
+
+    def columns(self, partial: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (B, k, ...) of the sum over the ranks of a
+        (B, N, ...) partial over the whole axis (each rank's column
+        contributions); its backward gathers."""
+        b = partial.shape[0]
+        split = partial.reshape((b, self.mesh.world_size, self.k)
+                                + tuple(partial.shape[2:]))
+        return self.mesh.reduce_scatter_with_grad(
+            split.movedim(1, 0).contiguous())
+
+
 # the Mesh of this process's rank inside join(), its collectives' timeout,
 # and the meshes made in it, by (axis names, sizes)
 _CURRENT: list = [None]
@@ -359,9 +403,13 @@ def _mesh(names: Tuple[str, ...], dims: Tuple[int, ...]) -> Mesh:
     if len(set(names)) != len(names):
         raise ValueError(f"mesh axis names {names} repeat")
     key = (names, dims)
+    size = math.prod(dims)
+    if size > world.world_size:
+        raise ValueError(f"requested {size} devices, the world has "
+                         f"{world.world_size} ranks")
     if key not in _MESHES:
         coords = list(itertools.product(*[range(d) for d in dims]))
-        mine = coords[world.rank]
+        mine = coords[world.rank] if world.rank < size else None
         spans = [(a,) for a in range(len(dims))]
         if len(dims) > 2:
             spans += [tuple(b for b in range(len(dims)) if b != a)
@@ -375,13 +423,21 @@ def _mesh(names: Tuple[str, ...], dims: Tuple[int, ...]) -> Mesh:
                 groups.setdefault(tuple(c[a] for a in fixed), []).append(r)
             for at, ranks in sorted(groups.items()):
                 pg = dist.new_group(ranks, timeout=timeout)
-                if at == tuple(mine[a] for a in fixed):
+                if mine is not None and at == tuple(mine[a] for a in fixed):
                     lines[tuple(names[a] for a in span)] = Mesh(
                         len(ranks), ranks.index(world.rank), world.device,
                         world.backend, pg, tuple(names[a] for a in span),
                         tuple(dims[a] for a in span), tuple(ranks))
-        _MESHES[key] = dataclasses.replace(world, axis_names=names,
-                                           dims=dims, lines=lines)
+        if size == world.world_size:
+            mesh = dataclasses.replace(world, axis_names=names, dims=dims,
+                                       lines=lines)
+        else:
+            # the first `size` ranks, as JAX's mesh takes jax.devices()[:n]
+            pg = dist.new_group(list(range(size)), timeout=timeout)
+            mesh = None if mine is None else Mesh(
+                size, world.rank, world.device, world.backend, pg, names,
+                dims, tuple(range(size)), lines)
+        _MESHES[key] = mesh
     return _MESHES[key]
 
 
@@ -410,17 +466,15 @@ def make_mesh(num_devices: Optional[int] = None, axis_name: str = "dp",
 
 def make_hybrid_mesh(num_devices: int, model_parallel: int,
                      model_axis: str = "fsdp",
-                     data_axis: str = "dp") -> Mesh:
-    """A (data_axis, model_axis) mesh over the world: num_devices = dp *
-    model_parallel ranks, the model axis the inner one (ranks 2i and
-    2i + 1 share a model line at model_parallel 2)."""
+                     data_axis: str = "dp") -> Optional[Mesh]:
+    """A (data_axis, model_axis) mesh over the first num_devices ranks of
+    the world (JAX's takes jax.devices()[:num_devices]): num_devices = dp
+    * model_parallel ranks, the model axis the inner one (ranks 2i and
+    2i + 1 share a model line at model_parallel 2). Collective over the
+    world; a rank past num_devices gets None."""
     if num_devices % model_parallel:
         raise ValueError(f"{num_devices} devices not divisible by "
                          f"model_parallel={model_parallel}")
-    world = _world()
-    if num_devices != world.world_size:
-        raise ValueError(f"requested {num_devices} devices, the world has "
-                         f"{world.world_size} ranks")
     return _mesh((data_axis, model_axis),
                  (num_devices // model_parallel, model_parallel))
 

@@ -35,8 +35,18 @@ step computes what the single-device step computes over the global batch:
     axis.
   * The clip's global norm and the finite check span the model axis; Adam
     runs on each slice.
-  * mode 'sp' (spatial, node-axis sharding for protein-scale N) is not
-    ported: it raises, naming ROADMAP.md queue 1 item 7a-sp.
+  * mode 'sp' (spatial, node-axis sharding, for protein-scale N whose
+    (B, N, N, C) pair tensors outgrow one card): the state stays whole
+    on every rank; the batch's graph axis is sharded over the non-'sp'
+    axes and its node axis over 'sp', so that each rank holds a row
+    block of every pair tensor (graph_batch_node_sharding). The forward
+    runs under a node layout (parallel/mesh.py NodeLayout): the j side of
+    every pair op all-gathers a small (B, N, F) node tensor, the
+    equivariant transform's transposed terms reduce-scatter a (B, N, 3)
+    column partial, BatchNorm and the loss's count span every rank, and
+    the gradients are summed over every rank (train/train_step.py).
+    packed_pairs is refused under it (ROADMAP.md queue 1 item
+    7a-sp-packed).
 
 The reference has no analog of any of this (SURVEY.md section 2.5).
 """
@@ -53,6 +63,7 @@ from torch import nn
 
 from agdiff_torch.config import Config
 from agdiff_torch.data.graph_batch import GraphBatch
+from agdiff_torch.models.dualenc import PACKED_SP_REFUSAL
 from agdiff_torch.models.weights import flax_leaf, load_jax_variables
 from agdiff_torch.nn.common import Linear, tensor_parallel
 from agdiff_torch.parallel.mesh import Mesh, make_hybrid_mesh  # noqa: F401
@@ -63,9 +74,6 @@ from agdiff_torch.train.train_step import TrainState, TrainStep
 MIN_SHARD_SIZE = 1024
 
 MODES = ("fsdp", "tp", "sp")
-SP_REFUSAL = ("mode 'sp' (spatial, node-axis sharding) is not ported: "
-              "ROADMAP.md queue 1 item 7a-sp, with data/protein.py and "
-              "chem/pdb.py")
 
 
 def spec_for_array(x, n_shard: int, axis_name: str,
@@ -301,12 +309,14 @@ def gather_state(state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
     """The whole tensors of a sharded state by name (no gradient):
     'params', 'buffers', 'grads' (zeros where a parameter has none),
     'mu' and 'nu' (each Adam's, by parameter name) and 'ema' (when the
-    state has one). Collective over the model axis."""
+    state has one). Collective over the model axis; a whole state (mode
+    'sp') gives copies."""
     layout, module = state.layout, state.module
 
     def whole(name, t):
-        return layout.whole(name, t) if name in layout.dims else \
-            t.detach().clone()
+        if layout is not None and name in layout.dims:
+            return layout.whole(name, t)
+        return t.detach().clone()
 
     named = list(module.named_parameters())
     opt = state.optimizer
@@ -333,10 +343,50 @@ def _graph_batch_sharding(mesh: Mesh, axes) -> Mesh:
     return mesh.axis(*axes)
 
 
+@dataclass(frozen=True)
+class NodeSharding:
+    """Spatial (node-axis) sharding of a GraphBatch: the graph axis over
+    `graphs` (None: whole on every rank), the node axis over `nodes`, the
+    'sp' line. A rank's shard: atom_type and node_mask (b, N/sp), pos
+    (b, N/sp, 3), bond_adj (b, N/sp, N) (its node rows, every column),
+    graph_mask (b,)."""
+
+    graphs: Optional[Mesh]
+    nodes: Mesh
+
+    def _slices(self, batch: GraphBatch):
+        b, n = batch.atom_type.shape
+        sp = self.nodes.world_size
+        if n % sp:
+            raise ValueError(f"a node axis of {n} does not split over "
+                             f"{sp} 'sp' ranks")
+        rows = slice(None) if self.graphs is None else self.graphs.rows(b)
+        k = n // sp
+        return rows, slice(self.nodes.rank * k, (self.nodes.rank + 1) * k)
+
+    def shard(self, batch: GraphBatch) -> GraphBatch:
+        """This rank's (graph rows, node rows) of a host batch, on its
+        device."""
+        rows, nodes = self._slices(batch)
+
+        def cut(x, node_axis=True):
+            x = x[rows]
+            return (x[:, nodes] if node_axis else x).to(self.nodes.device)
+        return GraphBatch(
+            atom_type=cut(batch.atom_type), pos=cut(batch.pos),
+            node_mask=cut(batch.node_mask), bond_adj=cut(batch.bond_adj),
+            graph_mask=cut(batch.graph_mask, node_axis=False))
+
+
 def graph_batch_node_sharding(mesh: Mesh, node_axis: str = "sp",
-                              data_axes=("dp",)):
-    """Spatial (node-axis) sharding (sharded.py:127-143): not ported."""
-    raise NotImplementedError(SP_REFUSAL)
+                              data_axes=("dp",)) -> NodeSharding:
+    """The spatial sharding of a batch (agdiff_tpu/parallel/sharded.py:
+    127-143): the graph axis over `data_axes` of the mesh, the node axis
+    over `node_axis`; every (B, N, N, ...) pair tensor the forward builds
+    is then this rank's row block."""
+    data_axes = tuple(a for a in data_axes if a != node_axis)
+    return NodeSharding(mesh.axis(*data_axes) if data_axes else None,
+                        mesh.axis(node_axis))
 
 
 def make_sharded_train_step(config: Config, mesh: Mesh,
@@ -346,15 +396,22 @@ def make_sharded_train_step(config: Config, mesh: Mesh,
     (state, shard[, t, noise]) -> StepMetrics of the global batch, with
     `shard` this rank's rows of the batch sharded over every mesh axis
     ('fsdp') or over the non-'tp' axes ('tp'; shard_graph_batch_over),
-    and `t` and `noise` the global batch's when injected. `state`, when
-    given and cut, must be cut over this mesh's axis of the mode
-    (shard_train_state)."""
+    or, for 'sp', its graph rows over the non-'sp' axes and its node rows
+    over 'sp' (shard_graph_batch_nodes), and `t` and `noise` the global
+    batch's when injected. `state`, when given and cut, must be cut over
+    this mesh's axis of the mode (shard_train_state); 'sp' takes a whole
+    state, the same on every rank."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if mode not in mesh.axis_names:
         raise ValueError(f"mesh {mesh.axis_names} has no '{mode}' axis")
     if mode == "sp":
-        raise NotImplementedError(SP_REFUSAL)
+        if state is not None and state.layout is not None:
+            raise ValueError("mode 'sp' keeps the state whole: pass it "
+                             "uncut")
+        if config.model.packed_pairs:
+            raise ValueError(PACKED_SP_REFUSAL)
+        return TrainStep(config, mesh.device, mesh, mode)
     if state is not None and state.layout is not None and (
             state.layout.axis != mode or state.layout.mesh != mesh):
         raise ValueError(f"the state is cut over {state.layout.axis!r}, "
@@ -373,7 +430,11 @@ def shard_graph_batch_over(batch: GraphBatch, mesh: Mesh,
 
 
 def shard_graph_batch_nodes(batch: GraphBatch, mesh: Mesh,
-                            node_axis: str = "sp", data_axes=("dp",)):
-    """Spatial (node-axis) sharding of a batch (sharded.py:197-203): not
-    ported."""
-    raise NotImplementedError(SP_REFUSAL)
+                            node_axis: str = "sp",
+                            data_axes=("dp",)) -> GraphBatch:
+    """This rank's shard of a (host) batch with the node axis sharded over
+    `node_axis` and the graph axis over `data_axes`, on its device
+    (sharded.py:197-203); a node axis that does not split evenly raises
+    ValueError."""
+    return graph_batch_node_sharding(mesh, node_axis,
+                                     tuple(data_axes)).shard(batch)

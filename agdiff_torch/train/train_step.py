@@ -24,6 +24,15 @@ same step with its module made whole for the forward and the backward
 (`ShardLayout.materialized`): the gradients land on each rank's shards,
 and the clip's norm and the finite check span the model axis
 (train/optimizer.py `TwoAdams.use_shards`).
+
+Mode 'sp' (spatial sharding) keeps the state whole on every rank and
+gives each rank the node rows of its graphs: the module and the loss run
+under a node layout (parallel/mesh.py NodeLayout) over the mesh's 'sp'
+line, the timesteps are the rank's graphs' and the noise its graphs'
+node rows of the global draw, BatchNorm's statistics and the loss's
+count span every rank, and the gradients, partial sums over each rank's
+rows, are summed over every rank before the clip, so that the norm and
+the finite check are the whole step's.
 """
 
 from __future__ import annotations
@@ -111,13 +120,15 @@ def global_draw_rows(batch: GraphBatch, group):
     return b, group.rows(b)
 
 
+
 class TrainStep:
     """(state, batch[, t, noise]) -> StepMetrics, updating the state in
     place; `t` (B,) and `noise` (B, N, 3) replace the generator's draws.
     With a `group`, `batch` is this rank's shard and `t` and `noise` are
     the global batch's (module docstring). `mode` 'fsdp' or 'tp' steps a
     sharded state (parallel/sharded.py make_sharded_train_step; `group`
-    is then the mesh the batch is sharded over)."""
+    is then the mesh the batch is sharded over); 'sp' a whole state on
+    node rows (`group` the whole mesh, its 'sp' line the node axis's)."""
 
     def __init__(self, config: Config, device, group=None,
                  mode: Optional[str] = None):
@@ -128,25 +139,43 @@ class TrainStep:
         self.ema_decay = config.train.ema_decay
         self.group = group
         self.mode = mode
+        # the ranks the graph axis and the node axis split over
+        spatial = mode == "sp"
+        self.graphs = group.others("sp") if spatial else group
+        self.node_line = group.axis("sp") if spatial else None
 
     def draws(self, state: TrainState, batch: GraphBatch, t=None,
-              noise=None):
-        b, rows = global_draw_rows(batch, self.group)
+              noise=None, nodes=None):
+        """(perturbed positions, alpha_bar of each graph) of this rank's
+        graphs, and under a node layout its node rows, of the global
+        draws."""
+        b, rows = global_draw_rows(batch, self.graphs)
         dev = batch.pos.device
+        n = batch.pos.shape[1] if nodes is None else nodes.n
         if t is None:
             t = sample_timesteps(state.generator, b, self.num_timesteps, dev)
         if noise is None:
-            noise = torch.randn((b,) + tuple(batch.pos.shape[1:]),
+            noise = torch.randn((b, n) + tuple(batch.pos.shape[2:]),
                                 generator=state.generator, device=dev,
                                 dtype=batch.pos.dtype)
+        noise = noise[rows]
+        if nodes is not None:
+            noise = noise[:, nodes.rows]
         return perturb_positions(batch, self.alphas, t[rows].to(dev),
-                                 noise[rows].to(dev))
+                                 noise.to(dev))
 
     def loss(self, state: TrainState, batch: GraphBatch, t=None, noise=None,
              train: bool = True):
-        pos_p, a = self.draws(state, batch, t, noise)
-        out = state.module(batch.replace(pos=pos_p), train=train)
-        return diffusion_loss(out, batch, pos_p, a, self.cutoff, self.group)
+        nodes = None
+        if self.node_line is not None:
+            # imported here: the parallel package imports this module
+            from agdiff_torch.parallel.mesh import NodeLayout
+
+            nodes = NodeLayout(self.node_line, batch.pos.shape[1])
+        pos_p, a = self.draws(state, batch, t, noise, nodes)
+        out = state.module(batch.replace(pos=pos_p), train=train, nodes=nodes)
+        return diffusion_loss(out, batch, pos_p, a, self.cutoff, self.group,
+                              nodes)
 
     def gradients(self, state: TrainState, batch: GraphBatch, t=None,
                   noise=None):
@@ -154,7 +183,7 @@ class TrainStep:
         ranks) in each parameter's .grad; on a sharded state, in each
         shard's, the module whole inside its layout's `materialized`."""
         layout = state.layout
-        if (layout is None) != (self.mode is None):
+        if (layout is None) != (self.mode in (None, "sp")):
             raise ValueError(f"a step of mode {self.mode} on a state "
                              f"{'not ' if layout is None else ''}sharded")
         whole = (contextlib.nullcontext() if layout is None

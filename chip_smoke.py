@@ -318,7 +318,24 @@ Phases, each of which fails the run:
      gradient of a projection of h through pipeline_apply (plain stage
      body, synthetic_qm9.yml, 4 x 8 graphs) against the sequential stack
      under STEP_LIMITS' gradient limits;
- 15. one JSON line lists each kernel variant and its numbers, then the
+ 15. spatial (node-axis) sharding and the protein path: (a) two gloo
+     ranks on card 0, a ('dp', 'sp') = (1, 2) mesh: the sp train step of
+     synthetic_qm9.yml (f32) and qm9_fast.yml (bf16, packed_pairs off)
+     at N=32, B=8 and at N=256, B=2 (the training batch's first graphs,
+     padded) against the single-process card step under SHARD_LIMITS
+     (f32) and BF16_STEP_LIMITS (bf16), the moments' worst leaf beside
+     them; the ranks' parameters equal; each rank's peak allocation over
+     SP_TIMED_STEPS steps as a share of the single step's, at most
+     SP_MEMORY_SHARE at N=256; ms per step; (b) planted faults (the
+     transposed eq terms dropped, per-rank BatchNorm statistics, h_j
+     from the rank's own rows, a per-rank loss count) that must break the
+     f32 limits; (c) python -m agdiff_torch.examples.alanine_dipeptide on
+     qm9_fast.yml's seeded weights ('pksf', K1), 64 samples x 50 steps at
+     --clip_local 20: samples.pdb parses back to 64 models, every sample
+     finite; (d) subgraph_position_scores over the dipeptide (max_nodes
+     32, cutoff 3 A) through 'pksf' against K1's plain twin: each
+     subgraph's planes at K1's triu limits, one K1 launch a subgraph;
+ 16. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -3573,8 +3590,9 @@ def bf16_fault(name):
         patch(masked, "masked_batch_norm_stats", bf16_stats)
     elif name == "position_cast_left_out":
         real = graph.pairwise_distance
-        patch(graph, "pairwise_distance",
-              lambda pos: real(pos.float()).to(pos.dtype))
+        patch(graph, "pairwise_distance", lambda pos, other=None: real(
+            pos.float(), None if other is None else other.float()).to(
+                pos.dtype))
     elif name == "bias_dropped":
         real = common.Linear.forward
 
@@ -5557,14 +5575,15 @@ def shard_rows(cases, ranks_out, refs, lr) -> dict:
     return rows
 
 
-def run_sharded(qcfg, qmols, dev, gen, report):
+def run_sharded(qcfg, qmols, dev, gen, report, train_cases):
     """Phase 14: (a) fsdp and tp train steps on two gloo ranks on card 0
     against the single-process step, with planted faults, each rank's
     bytes of the state, and the specs against JAX's; (b) the ('dcn',
     'dp') DP step on four ranks against the single and the flat 4-rank
     steps; (c) schnet_pipeline through K3 on two ranks against the
     sequential K3 stack and K3's plain version; (d) a gradient through
-    the pipeline. Returns (failures, K3 bf16 launches of the pipelined
+    the pipeline. `train_cases` is dp_train_cases' (cases, card
+    references). Returns (failures, K3 bf16 launches of the pipelined
     forward over the ranks)."""
     import torch
     from torch.utils._pytree import tree_leaves, tree_map
@@ -5579,7 +5598,7 @@ def run_sharded(qcfg, qmols, dev, gen, report):
     failures = check_specs(report)
 
     # (a) and (c)-(d): one world of two ranks
-    train_cases, refs = dp_train_cases(dev)
+    train_cases, refs = train_cases
     shard_cases = {}
     for label in ("f32", "bf16"):
         base = {k: train_cases[label][k]
@@ -5815,6 +5834,499 @@ def pipe_plain_checks(fwd, stage, stacked, payload):
         pipeline.interaction_block_aggregate = real
     torch.cuda.synchronize()
     return rows, plain
+
+
+# ---- phase 15: spatial sharding and the protein path ------------------------
+
+# (a) the sp step over two gloo ranks on card 0, a ('dp', 'sp') = (1, 2)
+# mesh, against the single-process card step: at N=32, B=8 (the training
+# batch's first graphs) and at N=256, B=2 (two of its molecules padded to
+# 256), f32 (synthetic_qm9.yml) and bf16 (qm9_fast.yml, packed_pairs off:
+# sp refuses the triu layout, ROADMAP.md 7a-sp-packed)
+SP_SHAPES = ((32, 8), (256, 2))
+SP_TIMED_STEPS = 3
+# a rank's peak allocation above its baseline over SP_TIMED_STEPS steps, as
+# a share of the single-process step's, at N=256: the pair tensors halve,
+# and a share near 1 means an op gathered a whole (B, N, N) plane
+SP_MEMORY_SHARE = 0.6
+# the moments' worst leaf: f32 on STEP_LIMITS' per-leaf scale (nu = (1 -
+# b2) g^2 doubles the gradient's relative error), bf16 over the moment's
+# largest value, as BF16_STEP_LIMITS' grad_top_rel
+SP_MOMENT_LIMITS = {"f32": 2 * STEP_LIMITS["grad_max_rel"],
+                    "bf16": 2 * BF16_STEP_LIMITS["grad_top_rel"]}
+# (b) the faults an sp step must not have (tests/torch_port_shard_ranks.py
+# plants the same on the CPU), each at f32, N=32
+SP_FAULTS = ("transposed_dropped", "own_row_stats", "own_rows_hj",
+             "own_rows_count")
+# (c) the alanine dipeptide example on qm9_fast.yml's seeded weights
+EXAMPLE_SAMPLES, EXAMPLE_STEPS, EXAMPLE_CLIP_LOCAL = 64, 50, 20.0
+# (d) subgraph_position_scores over the dipeptide through 'pksf'
+SUBGRAPH_MAX_NODES, SUBGRAPH_CUTOFF = 32, 3.0
+# residue names of the dipeptide's atoms (ACE 1, ALA 2, NME 3), so that
+# its PDB carries backbone annotations
+DIPEPTIDE_NAMES = ("CH3", "H1", "H2", "H3", "C", "O", "N", "H", "CA", "HA",
+                   "CB", "HB1", "HB2", "HB3", "C", "O", "N", "H", "CH3",
+                   "H1", "H2", "H3")
+DIPEPTIDE_RESIDUES = (("ACE", 6), ("ALA", 10), ("NME", 6))
+
+
+@contextlib.contextmanager
+def sp_fault(name):
+    """A planted fault of the sp step: the transposed terms of the
+    equivariant transform dropped; BatchNorm's statistics from the rank's
+    own rows; the pair ops' j side from the rank's own rows (h not
+    gathered); the loss's node count the rank's own."""
+    import torch
+
+    from agdiff_torch.ops import masked
+    from agdiff_torch.parallel.mesh import NodeLayout
+    from agdiff_torch.train import train_step as ts
+
+    saved = []
+
+    def patch(obj, attr, value):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, value)
+
+    if name == "transposed_dropped":
+        patch(NodeLayout, "columns", lambda self, partial: torch.zeros_like(
+            partial[:, self.rows]))
+    elif name == "own_row_stats":
+        real_stats = masked.masked_batch_norm_stats
+        patch(masked, "masked_batch_norm_stats",
+              lambda x, mask, group=None: real_stats(x, mask))
+    elif name == "own_rows_hj":
+        real_gather = NodeLayout.gather
+
+        def own_rows(self, x):
+            if x.is_floating_point() and x.shape[-1] != 3:
+                return torch.cat([x] * self.mesh.world_size, 1)
+            return real_gather(self, x)
+        patch(NodeLayout, "gather", own_rows)
+    elif name == "own_rows_count":
+        real_loss = ts.diffusion_loss
+        patch(ts, "diffusion_loss",
+              lambda *a: real_loss(*a[:5], None, *a[6:]))
+    elif name is not None:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for obj, attr, value in reversed(saved):
+            setattr(obj, attr, value)
+
+
+def sp_moments(state) -> dict:
+    """{parameter name: (mu, nu)} of both Adams, on the CPU."""
+    names = {id(p): n for n, p in state.module.named_parameters()}
+    return {names[id(p)]: (mu.detach().cpu().clone(),
+                           nu.detach().cpu().clone())
+            for adam in state.optimizer.adams.values()
+            for p, mu, nu in zip(adam.params, adam.mu, adam.nu)}
+
+
+def sp_run(step, state, batch, case, dev) -> dict:
+    """One step on the case's t and noise (a planted fault when the case
+    names one): step_result's tuple and the moments; a sound step is then
+    timed over SP_TIMED_STEPS steps, with the peak allocation above the
+    baseline before them."""
+    import copy
+
+    import torch
+
+    module = state.module
+    before = {n: p.detach().cpu().clone()
+              for n, p in module.named_parameters()}
+    with sp_fault(case.get("fault")):
+        metrics = step(state, batch, case["t"].to(dev),
+                       case["noise"].to(dev))
+    out = {"step": copy.deepcopy(step_result(metrics, module, before)),
+           "moments": sp_moments(state)}
+    if case.get("fault") is None:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        for _ in range(SP_TIMED_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize(dev)
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
+            / SP_TIMED_STEPS
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    return out
+
+
+def sp_state(case, dev):
+    import torch
+
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.train.optimizer import make_optimizer
+    from agdiff_torch.train.train_step import TrainState
+
+    config = case["config"]
+    module = DualEncoderEpsNetwork(config.model)
+    module.load_state_dict(case["init"])
+    module = module.to(dev)
+    return TrainState(step=0, module=module,
+                      optimizer=make_optimizer(module, config.train),
+                      generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def sp_rank(group, case) -> dict:
+    """(a)-(b) one sp step of the case on the world's ('dp', 'sp') =
+    (1, 2) mesh, this rank's node rows of the batch (sp_run)."""
+    from agdiff_torch.parallel import sharded
+    from agdiff_torch.parallel.mesh import make_hybrid_mesh
+
+    mesh = make_hybrid_mesh(2, 2, model_axis="sp")
+    state = sp_state(case, group.device)
+    step = sharded.make_sharded_train_step(case["config"], mesh, state,
+                                           "sp")
+    shard = sharded.shard_graph_batch_nodes(case["batch"], mesh)
+    out = sp_run(step, state, shard, case, group.device)
+    out["rows"] = tuple(shard.pos.shape[:2])
+    return out
+
+
+def sp_card_world(group, cases) -> list:
+    """Phase 15 (a)-(b) in each of two gloo ranks on card 0."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {name: sp_rank(group, case) for name, case in cases.items()}
+    return dp_every_rank(group, out)
+
+
+def padded_nodes(x, n, axes):
+    """x with zeros appended on `axes` up to n entries each."""
+    import torch.nn.functional as F
+
+    pad = [0] * (2 * x.dim())
+    for a in axes:
+        pad[2 * (x.dim() - 1 - a) + 1] = n - x.shape[a]
+    return F.pad(x, pad)
+
+
+def sp_cases(train_cases) -> dict:
+    """(a)'s and (b)'s cases: {name: case}, the first B graphs of each
+    config's training batch, padded with empty node slots to N, with
+    their t and noise (zero on the new slots)."""
+    cases = {}
+    for label in ("f32", "bf16"):
+        base = train_cases[label]
+        config = base["config"]
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model, packed_pairs=False))
+        for n, b in SP_SHAPES:
+            batch = base["batch"]
+            batch = batch.replace(
+                atom_type=padded_nodes(batch.atom_type[:b], n, (1,)),
+                pos=padded_nodes(batch.pos[:b], n, (1,)),
+                node_mask=padded_nodes(batch.node_mask[:b], n, (1,)),
+                bond_adj=padded_nodes(batch.bond_adj[:b], n, (1, 2)),
+                graph_mask=batch.graph_mask[:b])
+            cases[f"{label} N={n} B={b}"] = dict(
+                label=label, config=config, init=base["init"], batch=batch,
+                t=base["t"][:b], noise=padded_nodes(base["noise"][:b], n,
+                                                    (1,)))
+    for fault in SP_FAULTS:
+        cases[f"f32 fault {fault}"] = dict(cases["f32 N=32 B=8"],
+                                           fault=fault)
+    return cases
+
+
+def moment_error(got, ref, label) -> tuple:
+    """The worst moment leaf of an sp step against the single step's:
+    (error, 'mu|nu name'); f32 on each leaf's scale (GRAD_NOISE of the
+    moment's largest at least), bf16 over the moment's largest value."""
+    worst = (0.0, "")
+    for k, part in enumerate(("mu", "nu")):
+        top = max(float(m[k].abs().max()) for m in ref.values())
+        for name, m in ref.items():
+            d = float((got[name][k] - m[k]).abs().max())
+            scale = top if label == "bf16" else max(
+                float(m[k].abs().max()), GRAD_NOISE * top)
+            e = d / scale if d == d else float("inf")
+            if e >= worst[0]:
+                worst = (e, f"{part} {name}")
+    return worst
+
+
+def sp_row(got, ref, label, lr) -> dict:
+    """One sp case (rank 0) against the single-process step: the f32 or
+    bf16 step row, the gradient norm (f32) and the moments' worst leaf,
+    with the limits it breaks."""
+    if label == "f32":
+        row = step_errors(got["step"], ref["step"], lr)
+        want = ref["step"][0]["grad_norm"]
+        row["grad_norm_rel"] = abs(got["step"][0]["grad_norm"] - want) / want
+        limits = SHARD_LIMITS
+    else:
+        row = bf16_step_errors(got["step"], ref["step"])
+        limits = BF16_STEP_LIMITS
+    row["moment_rel"], row["moment_leaf"] = moment_error(
+        got["moments"], ref["moments"], label)
+    row["broken"] = [k for k, lim in limits.items() if not row[k] <= lim]
+    if not row["moment_rel"] <= SP_MOMENT_LIMITS[label]:
+        row["broken"].append("moment_rel")
+    return row
+
+
+def dipeptide_structure():
+    """The example's dipeptide written as a PDB with residue names and
+    parsed back: (Molecule, annotations)."""
+    import tempfile
+
+    import numpy as np
+
+    from agdiff_torch.chem.pdb import parse_pdb, write_pdb
+    from agdiff_torch.examples.alanine_dipeptide import (
+        build_alanine_dipeptide,
+    )
+
+    mol = build_alanine_dipeptide()
+    ann = {"atom_name": np.array(DIPEPTIDE_NAMES),
+           "res_name": np.array([r for r, k in DIPEPTIDE_RESIDUES
+                                 for _ in range(k)]),
+           "res_id": np.array([i + 1 for i, (_, k) in enumerate(
+               DIPEPTIDE_RESIDUES) for _ in range(k)], np.int32)}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dipeptide.pdb")
+        write_pdb(path, mol, mol.pos, ann)
+        with open(path) as f:
+            return parse_pdb(f.read())
+
+
+def position_scores(out, pos):
+    """The global (off the bond graph) and local position scores of a
+    model output at pos, unclipped."""
+    from agdiff_torch.ops.geometry import eq_transform_dense
+
+    local = out.local_mask.float()
+    return (eq_transform_dense(out.edge_inv_global * (1.0 - local), pos,
+                               out.edge_mask, out.edge_length)
+            + eq_transform_dense(out.edge_inv_local, pos, out.local_mask,
+                                 out.edge_length))
+
+
+def run_example(qcfg, dev, report) -> tuple:
+    """(c) python -m agdiff_torch.examples.alanine_dipeptide (runpy, as
+    -m runs it) on a reference .pt of qm9_fast.yml's seeded weights:
+    EXAMPLE_SAMPLES samples of EXAMPLE_STEPS steps at --clip_local
+    EXAMPLE_CLIP_LOCAL; samples.pdb must parse back to as many models
+    and every sample be finite. Returns (failures, K1 launches)."""
+    import runpy
+
+    import numpy as np
+    import torch
+
+    from agdiff_torch.chem.pdb import parse_pdb
+    from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
+    from agdiff_torch.models.reference_checkpoint import (
+        export_reference_state_dict,
+    )
+    from agdiff_torch.models.weights import init_random
+
+    out_dir = os.path.join(OUT_DIR, "alanine")
+    os.makedirs(out_dir, exist_ok=True)
+    ckpt = os.path.join(out_dir, "model.pt")
+    torch.save({"model": export_reference_state_dict(init_random(
+        DualEncoderEpsNetwork(qcfg), SEED)),
+        "config": {"model": dataclasses.asdict(qcfg)}}, ckpt)
+    argv = sys.argv
+    sys.argv = ["alanine_dipeptide", ckpt, "--num_samples",
+                str(EXAMPLE_SAMPLES), "--n_steps", str(EXAMPLE_STEPS),
+                "--clip_local", str(EXAMPLE_CLIP_LOCAL), "--out", out_dir]
+    zero_counts()
+    t0 = time.time()
+    try:
+        runpy.run_module("agdiff_torch.examples.alanine_dipeptide",
+                         run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    launches = launch_counts()
+    k1 = launches.get("stack_packed/stack_full:triu", 0)
+    with open(os.path.join(out_dir, "samples.pdb")) as f:
+        text = f.read()
+    models = sum(line.startswith("MODEL ") for line in text.splitlines())
+    atoms = parse_pdb(text)[0].num_nodes
+    saved = np.load(os.path.join(out_dir, "samples.npz"))
+    pos, rmsd = saved["pos_gen"], saved["rmsd"]
+    row = dict(models=models, atoms=atoms, k1_launches=k1,
+               other_launches={k: v for k, v in launches.items()
+                               if k != "stack_packed/stack_full:triu"},
+               finite=bool(np.isfinite(pos).all()),
+               rmsd_mean=float(rmsd.mean()), rmsd_min=float(rmsd.min()),
+               rmsd_max=float(rmsd.max()), seconds=seconds)
+    report["spatial"]["example"] = row
+    failures = []
+    if models != EXAMPLE_SAMPLES or atoms != EXAMPLE_SAMPLES * 22:
+        failures.append(f"example (c): samples.pdb holds {models} models "
+                        f"and {atoms} atoms")
+    if pos.shape != (EXAMPLE_SAMPLES, 22, 3) or not row["finite"]:
+        failures.append(f"example (c): samples {pos.shape}, finite "
+                        f"{row['finite']}")
+    if not k1:
+        failures.append(f"example (c): no K1 launch ({launches})")
+    print(f"protein (c) python -m agdiff_torch.examples.alanine_dipeptide, "
+          f"qm9_fast.yml seeded weights ('pksf', bucket 32, chunk 50), "
+          f"{EXAMPLE_SAMPLES} samples x {EXAMPLE_STEPS} steps, clip_local "
+          f"{EXAMPLE_CLIP_LOCAL}: {json.dumps(row)}", flush=True)
+    return failures, k1
+
+
+def run_subgraph_scores(qcfg, qmodel, dev, report) -> tuple:
+    """(d) subgraph_position_scores over the dipeptide (max_nodes
+    SUBGRAPH_MAX_NODES, cutoff SUBGRAPH_CUTOFF A) with a 'pksf' score
+    function, against the same function on K1's plain twin: each
+    subgraph's score planes at K1's triu limits (QM9_LIMITS), the
+    averaged scores within K1_LIMITS' max_rel. Returns (failures, K1
+    launches)."""
+    import torch
+
+    from agdiff_torch.data.protein import subgraph_position_scores
+    from agdiff_torch.models.fast_forward import build_fast_forward
+
+    mol, ann = dipeptide_structure()
+    fwd = build_fast_forward(qcfg, qmodel, "pksf")
+
+    def score_fn(planes):
+        def score(batch):
+            batch = batch.to(dev)
+            with torch.no_grad():
+                out = fwd(batch)
+            planes.append((out.edge_inv_global, out.edge_inv_local))
+            return position_scores(out, batch.pos)
+        return score
+
+    zero_counts()
+    kernel_planes, plain_planes = [], []
+    got = subgraph_position_scores(mol, ann, score_fn(kernel_planes),
+                                   SUBGRAPH_MAX_NODES, SUBGRAPH_CUTOFF,
+                                   qcfg.edge_order)
+    torch.cuda.synchronize(dev)
+    launches = launch_counts()
+    k1 = launches.get("stack_packed/stack_full:triu", 0)
+    with plain_twins():
+        want = subgraph_position_scores(mol, ann, score_fn(plain_planes),
+                                        SUBGRAPH_MAX_NODES, SUBGRAPH_CUTOFF,
+                                        qcfg.edge_order)
+    failures, planes = [], []
+    for g, w in zip(kernel_planes, plain_planes, strict=True):
+        rows = {name: errors(a, b) for name, a, b in zip(
+            ("global", "local"), g, w)}
+        planes.append(rows)
+        broken = broken_limits(rows, QM9_LIMITS)
+        if broken:
+            failures.append(f"protein (d): subgraph {len(planes) - 1}'s "
+                            f"planes break {broken}")
+    scores = errors(torch.from_numpy(got), torch.from_numpy(want))
+    row = dict(subgraphs=len(kernel_planes), k1_launches=k1,
+               other_launches={k: v for k, v in launches.items()
+                               if k != "stack_packed/stack_full:triu"},
+               planes=planes, scores=scores)
+    report["spatial"]["subgraph_scores"] = row
+    if len(kernel_planes) < 2 or k1 != len(kernel_planes):
+        failures.append(f"protein (d): {len(kernel_planes)} subgraphs, "
+                        f"{k1} K1 launches")
+    if not (scores["finite"] and scores["max_rel"]
+            <= K1_LIMITS["max_rel"]):
+        failures.append(f"protein (d): scores against the plain twin "
+                        f"{scores}")
+    shown = [{name: (r["max_rel"], r["median_rel"]) for name, r in p.items()}
+             for p in planes]
+    print(f"protein (d) subgraph_position_scores over the dipeptide "
+          f"(max_nodes {SUBGRAPH_MAX_NODES}, cutoff {SUBGRAPH_CUTOFF} A) "
+          f"through 'pksf' against K1's plain twin: {len(kernel_planes)} "
+          f"subgraphs, K1 launches {k1}; planes (max_rel, median_rel) "
+          f"{shown}; scores max_rel {scores['max_rel']:.3e} median_rel "
+          f"{scores['median_rel']:.3e}", flush=True)
+    return failures, k1
+
+
+def run_spatial(qcfg, qmodel, train_cases, dev, report):
+    """Phase 15: (a) the sp train step on two gloo ranks on card 0 against
+    the single-process card step at N=32 and N=256, f32 and bf16, with
+    each rank's peak allocation as a share of the single step's; (b)
+    planted faults; (c) the alanine dipeptide example; (d)
+    subgraph-decomposed scores through K1. Returns (failures, K1
+    launches of (c) and (d))."""
+    from agdiff_torch.parallel import launch
+    from agdiff_torch.train.train_step import make_train_step
+
+    report["spatial"] = {}
+    card = report["card"]
+    cases = sp_cases(train_cases)
+    t0 = time.time()
+    ranks_out = launch(sp_card_world, 2, cases, device="cuda:0",
+                       backend="gloo")
+    world_s = time.time() - t0
+    refs = {}
+    for name, case in cases.items():
+        if "fault" not in name:
+            refs[name] = sp_run(make_train_step(case["config"], dev),
+                                sp_state(case, dev), case["batch"].to(dev),
+                                case, dev)
+    lr = train_cases["f32"]["config"].train.optimizer.lr
+    failures, rows, memory = [], {}, {}
+    for name, case in cases.items():
+        ref = refs[name.split(" fault")[0] + " N=32 B=8"
+                   if "fault" in name else name]
+        rows[name] = sp_row(ranks_out[0][name], ref, case["label"], lr)
+        if "fault" in name:
+            if not rows[name]["broken"]:
+                failures.append(f"sp (b) {name}: breaks no limit")
+            continue
+        if rows[name]["broken"]:
+            failures.append(f"sp (a) {name}: breaks {rows[name]['broken']}")
+        same = all(torch_equal_params(r[name], ranks_out[0][name])
+                   for r in ranks_out)
+        shares = [r[name]["peak_bytes"] / ref["peak_bytes"]
+                  for r in ranks_out]
+        memory[name] = dict(
+            rank_peak_mib=[r[name]["peak_bytes"] / 2 ** 20
+                           for r in ranks_out],
+            single_peak_mib=ref["peak_bytes"] / 2 ** 20, share=shares,
+            rank_ms_per_step=[r[name]["ms_per_step"] for r in ranks_out],
+            single_ms_per_step=ref["ms_per_step"],
+            rows=[r[name]["rows"] for r in ranks_out], replicas_equal=same)
+        if not same:
+            failures.append(f"sp (a) {name}: the ranks' parameters differ")
+        if case["batch"].pos.shape[1] == 256 and not all(
+                s <= SP_MEMORY_SHARE for s in shares):
+            failures.append(f"sp (a) {name}: a rank's peak is {shares} of "
+                            f"the single step's (at most {SP_MEMORY_SHARE})")
+    report["spatial"]["steps"] = rows
+    report["spatial"]["memory"] = memory
+    for label, limits in (("f32", SHARD_LIMITS), ("bf16", BF16_STEP_LIMITS)):
+        print_step_rows(
+            f"sp (a)-(b) {label} train step on a ('dp', 'sp') = (1, 2) mesh "
+            f"of two gloo ranks on card 0 against the single-process card "
+            f"step (moments' worst leaf within "
+            f"{SP_MOMENT_LIMITS[label]})",
+            {k.split(" ", 1)[1]: v for k, v in rows.items()
+             if k.split()[0] == label}, limits, [])
+    print(f"sp (a) per rank: peak allocation above the pre-step baseline "
+          f"as a share of the single step's (at N=256 at most "
+          f"{SP_MEMORY_SHARE}), ms per step (two ranks sharing card 0 over "
+          f"gloo, not a scaling figure): {json.dumps(memory)}; the world "
+          f"{world_s:.1f} s ({card})", flush=True)
+    failed, k1_example = run_example(qcfg, dev, report)
+    failures += failed
+    failed, k1_scores = run_subgraph_scores(qcfg, qmodel, dev, report)
+    failures += failed
+    return failures, k1_example + k1_scores
+
+
+def torch_equal_params(a, b) -> bool:
+    """Whether two ranks' parameters after the step are equal."""
+    import torch
+
+    return all(torch.equal(a["step"][4][n], p)
+               for n, p in b["step"][4].items())
 
 
 def main() -> int:
@@ -6279,13 +6791,21 @@ def main() -> int:
     phase_done("13 configuration variants")
 
     # ---- 14. sharded and pipelined training layouts --------------------------
-    failed, k3_pipeline = run_sharded(qcfg, qmols, dev, gen, report)
+    train_cases = dp_train_cases(dev)
+    failed, k3_pipeline = run_sharded(qcfg, qmols, dev, gen, report,
+                                      train_cases)
     failures += failed
     phase_done("14 sharded and pipelined")
+
+    # ---- 15. spatial sharding and the protein path -------------------------
+    failed, k1_protein = run_spatial(qcfg, qmodel, train_cases[0], dev,
+                                     report)
+    failures += failed
+    phase_done("15 spatial sharding and protein path")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 15. result lines --------------------------------------------------
+    # ---- 16. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -6316,7 +6836,7 @@ def main() -> int:
         entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]
               + report["serve"]["qm9"]["k1_launches"]
               + report["engines"]["pksf-e16"]["k1_launches"]
-              + k1_student + k1_dp_triu,
+              + k1_student + k1_dp_triu + k1_protein,
               ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32")),
         entry("stack_full:tight", "tight_B48_N64",
               slices["drugs_bucket64"]["k1_launches"]

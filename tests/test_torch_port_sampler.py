@@ -151,8 +151,10 @@ def test_entry_points_need_a_device_or_cpu():
 def test_port_imports_no_jax():
     """Importing every module of agdiff_torch, the CLIs under cli/ and
     the COV/MAT, training, serving and parallel (mesh, data-parallel,
-    sharded, pipeline) modules and the .pkl reader (data/geom.py) among them, loads neither jax nor
-    agdiff_tpu, and no source names them in an import."""
+    sharded, pipeline) modules, the .pkl reader (data/geom.py) and the
+    protein path (chem/pdb.py, data/protein.py, the alanine dipeptide
+    example) among them, loads neither jax nor agdiff_tpu, and no source
+    names them in an import."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
         "for m in pkgutil.walk_packages(agdiff_torch.__path__, "
@@ -172,7 +174,9 @@ def test_port_imports_no_jax():
         "'agdiff_torch.cli.serve', 'agdiff_torch.parallel', "
         "'agdiff_torch.parallel.mesh', 'agdiff_torch.parallel.data_parallel', "
         "'agdiff_torch.parallel.sharded', 'agdiff_torch.parallel.pipeline', "
-        "'agdiff_torch.data.geom', 'agdiff_torch.nn.edge_encoders') "
+        "'agdiff_torch.data.geom', 'agdiff_torch.nn.edge_encoders', "
+        "'agdiff_torch.chem.pdb', 'agdiff_torch.data.protein', "
+        "'agdiff_torch.examples.alanine_dipeptide') "
         "if m not in sys.modules]\n"
         "print(len(list(pkgutil.walk_packages(agdiff_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -1,7 +1,8 @@
-"""Sharded training layouts (agdiff_torch/parallel/sharded.py: FSDP and
-tensor parallelism), the multi-slice ('dcn', 'dp') mesh and the mesh's
-collectives (agdiff_torch/parallel/mesh.py) against the JAX package's on
-the CPU. One world of four gloo ranks, spawned once for the module
+"""Sharded training layouts (agdiff_torch/parallel/sharded.py: FSDP,
+tensor parallelism and spatial (node-axis) sharding), the multi-slice
+('dcn', 'dp') mesh and the mesh's collectives
+(agdiff_torch/parallel/mesh.py) against the JAX package's on the CPU.
+One world of four gloo ranks, spawned once for the module
 (`agdiff_torch.parallel.launch`, tests/torch_port_shard_ranks.py), runs
 every case; the JAX references run on the conftest's eight virtual CPU
 devices.
@@ -21,10 +22,18 @@ atol 1e-2, the parameters rtol 1e-3 and atol 3e-3; the dcn loss rtol
 holds the DP step's: max |diff| <= GRAD_RTOL x its largest |g| +
 GRAD_FLOOR x the model's largest.
 
-JAX runs mode 'sp' (spatial, node-axis sharding); the port raises
-NotImplementedError for it, naming ROADMAP.md queue 1 item 7a-sp.
+Mode 'sp' runs on ('dp', 'sp') meshes of (2, 2) and (1, 2) (the first two
+ranks of the world, as JAX's make_hybrid_mesh takes the first devices),
+f32 and under remat, against JAX's single step and JAX's sp step on its
+(4, 2) mesh at the same tolerances; at bf16 against the port's
+single-process bf16 step (which tests/test_torch_port_bf16.py holds
+against JAX's) at chip_smoke.py phase 11's limits. Its shard shapes are
+JAX's shard_shape on the same meshes, and planted faults (the transposed
+terms dropped, per-rank statistics, h_j not gathered, a per-rank count)
+break the limits.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -68,7 +77,7 @@ from agdiff_torch.parallel import launch
 from agdiff_torch.parallel import sharded as sh
 from agdiff_torch.parallel.mesh import Mesh
 from agdiff_torch.train.optimizer import make_optimizer
-from agdiff_torch.train.train_step import TrainState
+from agdiff_torch.train.train_step import TrainState, make_train_step
 
 import torch_port_shard_ranks as ranks
 from test_torch_port_common import (
@@ -92,6 +101,12 @@ OPT = dict(lr=1e-3, beta1=0.95, beta2=0.999)
 SMALL = dict(hidden_dim=32, num_convs=2, num_convs_local=2,
              num_diffusion_timesteps=50)
 EMA = 0.999
+#: the port's ('dp', 'sp') meshes of the sp cases
+SP_DIMS = {"sp 2x2": (2, 2), "sp 1x2": (1, 2), "sp remat": (2, 2)}
+#: chip_smoke.py phase 11's limits of a bf16 step (BF16_STEP_LIMITS)
+BF16_LIMITS = dict(loss_rel=1.5e-3, grad_top_rel=0.1, grad_norm_median=7e-2,
+                   stats_max_rel=2.5e-3)
+SHAPE_FIELDS = ("atom_type", "pos", "node_mask", "bond_adj", "graph_mask")
 
 
 def _configs():
@@ -175,6 +190,15 @@ def world():
                         ("partial_unreduced", "tp"),
                         ("own_shard_norm", "fsdp")):
         cases[f"fault {fault}"] = dict(cases[mode], fault=fault)
+    for name, dims in SP_DIMS.items():
+        remat = dataclasses.replace(conf.model, remat=name == "sp remat")
+        cases[name] = dict(base, kind="sp", dims=dims,
+                           config=dataclasses.replace(conf, model=remat))
+    bf16 = dataclasses.replace(conf, model=dataclasses.replace(
+        conf.model, dtype="bfloat16"))
+    cases["sp bf16"] = dict(base, kind="sp", dims=(2, 2), config=bf16)
+    for fault in ranks.SP_FAULTS:
+        cases[f"sp fault {fault}"] = dict(cases["sp 2x2"], fault=fault)
     cases["dcn"] = dict(base, kind="dcn")
     cases["dcn fault"] = dict(base, kind="dcn", fault="cross_slice_skipped")
     cases["flat"] = dict(base, kind="flat")
@@ -189,7 +213,21 @@ def world():
                 jax.grad(loss_fn)(state.params, state.batch_stats, batch,
                                   key))
 
-    refs = {"single": _compiled(jax.jit(single), state, jb, key)}
+    refs = {"single": _compiled(jax.jit(single), state, jb, key),
+            "single bf16": _port_single(bf16, variables, tb, base["t"],
+                                        base["noise"])}
+    mesh = jax_sharded.make_hybrid_mesh(8, 2, model_axis="sp")
+    step = jax_sharded.make_sharded_train_step(model, jconf, mesh, state,
+                                               mode="sp")
+    refs["sp"] = _compiled(step, jax_sharded.shard_train_state(
+        state, mesh, "dp", min_size=1 << 62),
+        jax_sharded.shard_graph_batch_nodes(jb, mesh), key)
+    for d, sp in set(SP_DIMS.values()):
+        shard = jax_sharded.graph_batch_node_sharding(
+            jax_sharded.make_hybrid_mesh(d * sp, sp, model_axis="sp"))
+        refs[f"sp shapes {d}x{sp}"] = {
+            f: tuple(getattr(shard, f).shard_shape(getattr(jb, f).shape))
+            for f in SHAPE_FIELDS}
     for mode in ("fsdp", "tp"):
         mesh = jax_sharded.make_hybrid_mesh(8, 4, model_axis=mode)
         step = jax_sharded.make_sharded_train_step(model, jconf, mesh, state,
@@ -201,6 +239,15 @@ def world():
         two = jax_sharded.make_hybrid_mesh(8, 2, model_axis=mode)
         refs[f"specs {mode}"] = jax_sharded.state_specs(state, two, mode)
     return refs, cases, world()
+
+
+def _port_single(config, variables, batch, t, noise):
+    """The port's single-process step of `config` on the JAX weights:
+    (metrics, whole state as sharded.gather_state gives it)."""
+    module = ranks.dp.module_of(config.model, variables)
+    state = ranks.state_of(config, module)
+    metrics = make_train_step(config, "cpu")(state, batch, t, noise)
+    return [float(m) for m in metrics], sh.gather_state(state)
 
 
 def _leaf(tree, path):
@@ -263,10 +310,11 @@ def _broken(got, ref, module) -> list:
             NORM_RTOL * abs(float(metrics.grad_norm)):
         broken.append("grad_norm")
     moments = _adam_moments(jax.device_get(new_state.opt_state))
+    params = jax.device_get(new_state.params)
     st = got["state"]
     for name in st["params"]:
         coll, path, p = _flax(module, name, st["params"][name])
-        if not np.allclose(p, _leaf(jax.device_get(new_state.params), path),
+        if not np.allclose(p, _leaf(params, path),
                            rtol=PARAM_RTOL, atol=PARAM_ATOL):
             broken.append(f"param {name}")
         for part, want in zip(("mu", "nu"), moments[path]):
@@ -482,17 +530,91 @@ def test_planted_faults_break_the_limits(world, fault):
 
 def test_sp_mode_validation(world):
     """'pp2' and 'sp' on a mesh without an 'sp' axis raise ValueError, as
-    in JAX (test_sharded_parallel.py:171-177); JAX runs 'sp' on a
-    ('dp', 'sp') mesh, the port raises NotImplementedError naming its
-    ROADMAP item, for the step and for the batch."""
+    in JAX (test_sharded_parallel.py:171-177); on a ('dp', 'sp') mesh the
+    step and the batch's node sharding are made; a node axis the 'sp'
+    axis does not divide, and packed_pairs (refused under 'sp', naming
+    its ROADMAP item), raise ValueError."""
     _, _, out = world
     got = out[0]["refusals"]
     assert got["pp2"][0] == "ValueError"
     assert got["sp_on_tp"][0] == "ValueError"
     assert got["no_axis"][0] == "ValueError"
-    for key in ("sp", "sp_batch"):
-        assert got[key][0] == "NotImplementedError"
-        assert "ROADMAP.md queue 1 item 7a-sp" in got[key][1]
+    assert got["sp"] is None and got["sp_batch"] is None
+    assert got["sp_indivisible"][0] == "ValueError"
+    assert got["sp_packed"][0] == "ValueError"
+    assert "ROADMAP.md queue 1 item 7a-sp-packed" in got["sp_packed"][1]
+
+
+@pytest.mark.parametrize("name", list(SP_DIMS))
+@pytest.mark.parametrize("reference", ["single", "sp"])
+def test_sp_matches_jax(world, name, reference):
+    """The port's sp step on ('dp', 'sp') = (2, 2) and (1, 2), and under
+    remat, against JAX's single step and JAX's sp step on its (4, 2)
+    mesh (test_sharded_parallel.py:146-168): loss, gradient norm,
+    moments, parameters (and, against the single step, every gradient
+    leaf), on every rank of the mesh; the ranks' whole states are
+    equal."""
+    refs, cases, out = world
+    module = _module(cases[name]["config"])
+    members = 4 if SP_DIMS[name][0] == 2 else 2
+    for r in range(members):
+        assert _broken(out[r][name], refs[reference], module) == [], r
+    for part, tensors in out[0][name]["state"].items():
+        for key, x in tensors.items():
+            assert torch.equal(x, out[members - 1][name]["state"][part][key]
+                               ), (part, key)
+    assert all(out[r][name] is None for r in range(members, 4))
+
+
+@pytest.mark.parametrize("name", list(SP_DIMS))
+def test_sp_shard_shapes_equal_jax(world, name):
+    """Each field of a rank's sp shard has the shape JAX's
+    graph_batch_node_sharding gives it on a mesh of the same shape:
+    atom_type and node_mask (b, N/sp), pos (b, N/sp, 3), bond_adj
+    (b, N/sp, N), graph_mask (b,)."""
+    refs, _, out = world
+    d, sp = SP_DIMS[name]
+    want = refs[f"sp shapes {d}x{sp}"]
+    assert want["bond_adj"] == (B // d, N // sp, N)
+    for r in range(d * sp):
+        assert out[r][name]["shapes"] == want
+
+
+def test_sp_bf16_matches_the_single_step(world):
+    """The bf16 sp step on (2, 2) against the port's single-process bf16
+    step at chip_smoke.py phase 11's limits: the loss terms, the worst
+    gradient leaf over the model's largest |g|, the median over leaves
+    of the gradient's relative error, the running statistics."""
+    refs, _, out = world
+    metrics, whole = refs["single bf16"]
+    for r in range(4):
+        got = out[r]["sp bf16"]
+        row = _bf16_errors(got["metrics"], got["state"], metrics, whole)
+        assert [k for k, lim in BF16_LIMITS.items() if not row[k] <= lim
+                ] == [], (r, row)
+
+
+def _bf16_errors(mg, sg, mr, sr) -> dict:
+    """chip_smoke.py bf16_step_errors on the metrics and whole states."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mg[:3], mr[:3]))
+    top = max(float(g.abs().max()) for g in sr["grads"].values())
+    norms = [float((sg["grads"][n] - g).norm()) / max(float(g.norm()), 1e-30)
+             for n, g in sr["grads"].items()]
+    return dict(
+        loss_rel=loss_rel,
+        grad_top_rel=max(float((sg["grads"][n] - g).abs().max()) / top
+                         for n, g in sr["grads"].items()),
+        grad_norm_median=float(np.median(norms)),
+        stats_max_rel=max(float((sg["buffers"][n] - b).abs().max())
+                          / max(float(b.abs().max()), 1.0)
+                          for n, b in sr["buffers"].items()))
+
+
+@pytest.mark.parametrize("fault", ranks.SP_FAULTS)
+def test_sp_planted_faults_break_the_limits(world, fault):
+    refs, cases, out = world
+    module = _module(cases[f"sp fault {fault}"]["config"])
+    assert _broken(out[0][f"sp fault {fault}"], refs["single"], module)
 
 
 def test_hybrid_mesh_validation(world):

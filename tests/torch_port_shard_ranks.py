@@ -1,14 +1,17 @@
-"""Rank-side code of the sharded, multi-slice and pipeline tests
-(tests/test_torch_port_sharded.py, tests/test_torch_port_pipeline.py; no
-tests here): the functions `agdiff_torch.parallel.launch` runs in each
-of four spawned gloo ranks, which must be importable and import no JAX,
-and the planted faults of the sharded step and the pipeline."""
+"""Rank-side code of the sharded, spatially sharded, multi-slice and
+pipeline tests (tests/test_torch_port_sharded.py,
+tests/test_torch_port_pipeline.py; no tests here): the functions
+`agdiff_torch.parallel.launch` runs in each of four spawned gloo ranks,
+which must be importable and import no JAX, and the planted faults of
+the sharded steps and the pipeline."""
 
 import contextlib
+import dataclasses
 
 import torch
 
 from agdiff_torch.models.fast_forward import build_fast_forward
+from agdiff_torch.ops import masked
 from agdiff_torch.parallel import pipeline as pp
 from agdiff_torch.parallel import sharded as sh
 from agdiff_torch.parallel.data_parallel import (
@@ -17,6 +20,7 @@ from agdiff_torch.parallel.data_parallel import (
 )
 from agdiff_torch.parallel.mesh import (
     Mesh,
+    NodeLayout,
     make_hybrid_mesh,
     make_mesh,
     with_adjoint,
@@ -31,6 +35,13 @@ import torch_port_dp_ranks as dp
 # row); a row-parallel partial product left unreduced; the clip's norm
 # taken from the rank's own shards
 SHARD_FAULTS = ("shard_unsummed", "partial_unreduced", "own_shard_norm")
+# the faults a spatially sharded ('sp') step must not have: the transposed
+# terms of the equivariant transform dropped (no column partial);
+# BatchNorm's statistics from the rank's own rows; the j side of the pair
+# ops from the rank's own rows in place of the whole axis (h not
+# gathered); the loss's node count the rank's own
+SP_FAULTS = ("transposed_dropped", "own_row_stats", "own_rows_hj",
+             "own_rows_count")
 
 
 @contextlib.contextmanager
@@ -57,6 +68,25 @@ def planted(fault):
             for p, g in zip(params, flat.split([g.numel() for g in grads])):
                 p.grad = g.view_as(p)
         patch(Mesh, "sum_gradients", within)
+    elif fault == "transposed_dropped":
+        patch(NodeLayout, "columns", lambda self, partial: torch.zeros_like(
+            partial[:, self.rows]))
+    elif fault == "own_row_stats":
+        real_stats = masked.masked_batch_norm_stats
+        patch(masked, "masked_batch_norm_stats",
+              lambda x, mask, group=None: real_stats(x, mask))
+    elif fault == "own_rows_hj":
+        real_gather = NodeLayout.gather
+
+        def own_rows(self, x):
+            if x.is_floating_point() and x.shape[-1] != 3:
+                return torch.cat([x] * self.mesh.world_size, 1)
+            return real_gather(self, x)
+        patch(NodeLayout, "gather", own_rows)
+    elif fault == "own_rows_count":
+        real_loss = ts.diffusion_loss
+        patch(ts, "diffusion_loss",
+              lambda *a: real_loss(*a[:5], None, *a[6:]))
     elif fault is not None:
         raise ValueError(fault)
     try:
@@ -109,6 +139,29 @@ def sharded_case(group, case):
         rows=shard.num_graphs)
 
 
+def sp_case(group, case):
+    """One spatially sharded step ('sp') of the case's weights on a
+    ('dp', 'sp') mesh of case['dims'] over the first ranks of the world,
+    this rank's (graph rows, node rows) of the batch, t and the noise the
+    global batch's: the metrics, the whole state after it, and the shape
+    of each field of the rank's shard. None on a rank outside the
+    mesh."""
+    config, (d, s) = case["config"], case["dims"]
+    mesh = make_hybrid_mesh(d * s, s, model_axis="sp")
+    if mesh is None:
+        return None
+    state = state_of(config, dp.module_of(config.model, case["variables"]))
+    step = sh.make_sharded_train_step(config, mesh, state, "sp")
+    shard = sh.shard_graph_batch_nodes(case["batch"], mesh)
+    with planted(case.get("fault")):
+        metrics = step(state, shard, case["t"], case["noise"])
+    return dict(metrics=[float(m) for m in metrics],
+                state=sh.gather_state(state),
+                shapes={f: tuple(getattr(shard, f).shape) for f in (
+                    "atom_type", "pos", "node_mask", "bond_adj",
+                    "graph_mask")})
+
+
 def dp_step(group, case, mesh):
     config = case["config"]
     module = dp.module_of(config.model, case["variables"])
@@ -151,6 +204,12 @@ def refusals_case(group, case):
     config = case["config"]
     tp = make_hybrid_mesh(4, 2, model_axis="tp")
     sp = make_hybrid_mesh(4, 2, model_axis="sp")
+    packed = dataclasses.replace(config, model=dataclasses.replace(
+        config.model, packed_pairs=True))
+    batch = case["batch"]
+    odd = batch.replace(**{f: getattr(batch, f)[:, :15] for f in (
+        "atom_type", "pos", "node_mask")}, bond_adj=batch.bond_adj[:, :15,
+                                                                   :15])
     return dict(
         indivisible=_error(lambda: make_hybrid_mesh(4, 3)),
         too_many=_error(lambda: make_hybrid_mesh(8, 4)),
@@ -165,6 +224,9 @@ def refusals_case(group, case):
                                                      mode="sp")),
         sp_batch=_error(lambda: sh.shard_graph_batch_nodes(
             case["batch"], sp)),
+        sp_indivisible=_error(lambda: sh.shard_graph_batch_nodes(odd, sp)),
+        sp_packed=_error(lambda: sh.make_sharded_train_step(packed, sp,
+                                                            mode="sp")),
         no_axis=_error(lambda: sh.make_sharded_train_step(config, tp,
                                                           mode="fsdp")))
 
@@ -193,9 +255,9 @@ def collectives_case(group, case):
         line=line.all_gather(x), line_members=line.members)
 
 
-SHARD_KINDS = {"sharded": sharded_case, "dcn": dcn_case, "flat": flat_case,
-               "refusals": refusals_case, "collectives": collectives_case,
-               "train": dp.train_case}
+SHARD_KINDS = {"sharded": sharded_case, "sp": sp_case, "dcn": dcn_case,
+               "flat": flat_case, "refusals": refusals_case,
+               "collectives": collectives_case, "train": dp.train_case}
 
 
 def run_cases(group, cases):
