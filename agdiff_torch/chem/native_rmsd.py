@@ -4,26 +4,22 @@ of agdiff_tpu/chem/native_rmsd.py:78-134).
 The library is built with g++ at first use (-O3 -march=native -fopenmp;
 without the last two where the toolchain refuses them) into this
 package's own build directory, agdiff_torch/chem/build/ (ignored by git),
-as librmsd-<hash>.so, the hash of the source, so an edited source builds
-anew; the JAX package's native/build/ is not touched. A build writes a
-temporary file and renames it, so that processes building at once do not
-load a half-written library. If g++ fails, or the library does not load,
-`get_lib` raises: chem/rmsd.py does not fall back to numpy.
+as librmsd-<hash>.so (utils/native_build.py). If g++ fails, or the
+library does not load, `get_lib` raises: chem/rmsd.py does not fall back
+to numpy.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Optional
 
 import numpy as np
 
 from agdiff_torch.chem.mol import Molecule
+from agdiff_torch.utils import native_build
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -35,40 +31,12 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path(source: Optional[str] = None) -> str:
-    with open(source or SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"librmsd-{digest}.so")
-
-
 def build(source: Optional[str] = None) -> str:
     """The library of `source` (default SOURCE), compiled unless it is
     built already; raises RuntimeError with g++'s output if no flag set
     builds it."""
-    source = source or SOURCE
-    out = library_path(source)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    logs = []
-    try:
-        for flags in FLAGS:
-            try:
-                proc = subprocess.run(
-                    ["g++", *flags, "-shared", "-fPIC", "-std=c++17",
-                     source, "-o", tmp], capture_output=True, text=True)
-            except FileNotFoundError as err:
-                raise RuntimeError(f"g++ not found: {err}") from err
-            if proc.returncode == 0:
-                os.replace(tmp, out)
-                return out
-            logs.append(f"g++ {' '.join(flags)}: {proc.stderr}")
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    raise RuntimeError(f"cannot build {source}:\n" + "\n".join(logs))
+    return native_build.build_library(source or SOURCE, "rmsd", BUILD_DIR,
+                                      FLAGS)
 
 
 def get_lib() -> ctypes.CDLL:

@@ -9,9 +9,9 @@ Reads a samples file of either package (eval/generate.py load_samples)
 and writes <samples>_covmat.csv (the summary table; pandas where present,
 else the csv module) and <samples>_covmat.npz (CoverageR, MatchingR,
 CoverageP, MatchingP, thresholds). The RMSDs run on the host (numpy and
-native/rmsd.cpp), never on a CUDA device. --use_ff / --useFF (RDKit's
-force field) raises until chem/rdkit_bridge is ported (ROADMAP.md queue 1
-item 8).
+native/rmsd.cpp), never on a CUDA device. --use_ff / --useFF relaxes
+each generated conformer with RDKit's MMFF94 first (chem/rdkit_bridge.py),
+and raises ImportError naming RDKit where it is not installed.
 """
 
 from __future__ import annotations

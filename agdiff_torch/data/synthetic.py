@@ -1,7 +1,7 @@
 """Synthetic molecule generation (RDKit-free) for tests and benchmarks
-(the port's copy of agdiff_tpu/data/synthetic.py, numpy only: the same
-molecules for the same arguments, the geometry relaxation always through
-its numpy body).
+(the port's copy of agdiff_tpu/data/synthetic.py: the same molecules
+for the same arguments, the rich chemistry's geometry relaxation through
+the same native kernel, data/native_relax.py).
 
 Two generators, selected by ``synthetic_dataset(chem=...)``:
 
@@ -287,7 +287,7 @@ def random_molecule(
 
 
 def _relax(pos, constraints, exclude, iters, step=0.04, repulse=1.5,
-           polish=None):
+           polish=None, use_native=True):
     """SHAKE-style geometry relaxation: soft repulsion between non-bonded
     close atoms plus symmetric projection of every distance constraint
     (both endpoints move), which preserves ring closure — the tree
@@ -296,9 +296,16 @@ def _relax(pos, constraints, exclude, iters, step=0.04, repulse=1.5,
     — pass the bond list so exact bond lengths win over the (approximate)
     ring-shape chords.
 
-    This is the JAX package's numpy body; its native kernel
-    (native/relax.cpp, same f64 math, agreeing to ~1e-6) is not used
-    here."""
+    By default the native kernel runs it (data/native_relax.py:
+    native/relax.cpp, the same f64 math, ~1e-6 from this body), and
+    raises where it cannot be built; use_native=False runs this numpy
+    body, the parity reference (agdiff_tpu/data/synthetic.py:286-305,
+    which falls back to it instead)."""
+    if use_native:
+        from agdiff_torch.data import native_relax
+
+        return native_relax.relax(pos, constraints, exclude, iters, step,
+                                  repulse, polish)
     n = pos.shape[0]
     eye = np.eye(n, dtype=bool)
     for _ in range(iters):

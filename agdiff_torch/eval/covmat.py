@@ -15,10 +15,10 @@ here touches a CUDA device.
   minima; t = 0.05, 0.10, ..., 3.00.
 * Molecules in parallel over a `spawn` process pool (num_workers, 8 by
   default).
-* The force-field relaxation of generated conformers (the reference's
-  useFF, MMFFOptimizeMolecule) needs RDKit, through chem/rdkit_bridge,
-  which the port does not have yet (ROADMAP.md queue 1 item 8):
-  use_force_field=True raises.
+* use_force_field relaxes each generated conformer with MMFF94 before it
+  is scored (the reference's useFF, MMFFOptimizeMolecule, through
+  chem/rdkit_bridge.py): it needs RDKit, and the evaluator raises
+  ImportError naming it when constructed where RDKit is missing.
 """
 
 from __future__ import annotations
@@ -36,12 +36,16 @@ from agdiff_torch.chem.rmsd import rmsd_confusion_matrix
 THRESHOLDS = np.arange(0.05, 3.05, 0.05)
 
 
-def _confusion_for(packed: Molecule, max_maps: int,
-                   use_native: bool) -> np.ndarray:
+def _confusion_for(packed: Molecule, max_maps: int, use_native: bool,
+                   use_ff: bool) -> np.ndarray:
     n = packed.num_nodes
+    gens = np.asarray(packed.meta["pos_gen"]).reshape(-1, n, 3)
+    if use_ff:
+        from agdiff_torch.chem.rdkit_bridge import mmff_optimize_positions
+
+        gens = np.stack([mmff_optimize_positions(packed, g) for g in gens])
     return rmsd_confusion_matrix(
-        packed, packed.pos_ref.reshape(-1, n, 3),
-        np.asarray(packed.meta["pos_gen"]).reshape(-1, n, 3),
+        packed, packed.pos_ref.reshape(-1, n, 3), gens,
         max_maps=max_maps, use_native=use_native)
 
 
@@ -60,10 +64,9 @@ class CovMatEvaluator:
                  filter_disconnected: bool = True, max_maps: int = 10000,
                  print_fn=print, use_native: bool = True):
         if use_force_field:
-            raise NotImplementedError(
-                "use_force_field needs RDKit's MMFF relaxation through "
-                "chem/rdkit_bridge, which agdiff_torch does not have yet "
-                "(ROADMAP.md queue 1 item 8)")
+            from agdiff_torch.chem import rdkit_bridge
+
+            rdkit_bridge.require_rdkit()
         self.num_workers = num_workers
         self.use_force_field = use_force_field
         self.thresholds = (THRESHOLDS if thresholds is None
@@ -99,7 +102,8 @@ class CovMatEvaluator:
     def confusion_matrices(self, mols: List[Molecule]) -> List[np.ndarray]:
         """Each molecule's matrix, over the pool when it has workers."""
         func = partial(_confusion_for, max_maps=self.max_maps,
-                       use_native=self.use_native)
+                       use_native=self.use_native,
+                       use_ff=self.use_force_field)
         if self.num_workers > 1 and len(mols) > 1:
             if self.use_native:   # built once here, loaded by each worker
                 from agdiff_torch.chem import native_rmsd

@@ -335,7 +335,29 @@ Phases, each of which fails the run:
      finite; (d) subgraph_position_scores over the dipeptide (max_nodes
      32, cutoff 3 A) through 'pksf' against K1's plain twin: each
      subgraph's planes at K1's triu limits, one K1 launch a subgraph;
- 16. one JSON line lists each kernel variant and its numbers, then the
+ 16. the host modules and the RDKit seam: (a) the native relaxation
+     (native/relax.cpp, built by g++ on the machine) on two Drugs-size
+     rich-chemistry molecules (synthetic_dataset(2, seed=7, chem='rich',
+     min_heavy=20, max_heavy=28)): each relaxation call within 1e-6 of
+     the numpy body, the whole dataset of two native runs bit-equal; ms
+     per molecule native against numpy, relaxation and generation;
+     (b) utils/profiling.py on the graphed 'pksf' ladder (qm9_fast.yml's
+     seeded weights, QM9 B=128 N=32, PROFILED_STEPS steps): trace()
+     writes a trace that names K1's kernel, Timer with block_on reads no
+     less than CUDA events around the same steps, device_memory_stats()
+     reports bytes in use and a peak no smaller; (c) the main of
+     agdiff_torch.examples.synthetic_end_to_end at E2E_ITERS iterations
+     (f32, hidden 64): MAT-R and COV-R@1 A untrained -> trained, the
+     example's assertion that training lowers MAT-R; (d) SMILES
+     generation's model half, cli/smiles_generation.py
+     generate_for_molecule, on a qm9_synthetic.json molecule from a bf16
+     checkpoint of 2 iterations of cli/train.py on qm9_fast.yml, --fast
+     ('pksf', K1), SMILES_STEPS steps, --num_samples auto: 5 x (1100 //
+     atoms) finite samples; (e) without RDKit or psikit on the machine,
+     CovMatEvaluator(use_force_field=True), smiles_to_molecule,
+     PropertyCalculator() and cli.preprocess geom each raise ImportError
+     naming the package;
+ 17. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -6321,6 +6343,344 @@ def run_spatial(qcfg, qmodel, train_cases, dev, report):
     return failures, k1_example + k1_scores
 
 
+# ---- phase 16: the host modules and the RDKit seam -------------------------
+
+# (a) the native relaxation against the numpy body: each call's positions
+# within the JAX package's tolerance (tests/test_native_relax.py)
+RELAX_TOL = 1e-6
+# (b) the profiled graphed 'pksf' ladder
+PROFILED_STEPS = 5
+# (c) the synthetic end-to-end example's training iterations: the fewest of
+# those tried at which its assertion held in three runs on the card (PERF.md
+# section 6; 1000 held too and took 90 s of the phase)
+E2E_ITERS = 200
+# (d) the SMILES generation's ladder; its bf16 checkpoint's iterations
+SMILES_STEPS = 50
+SMILES_TRAIN_ITERS = 2
+
+
+def check_native_relax(report) -> list:
+    """(a) Each _relax call of synthetic_dataset(2, seed=7, chem='rich',
+    min_heavy=20, max_heavy=28), replayed through the native kernel and
+    the numpy body, within RELAX_TOL; two native generations bit-equal;
+    ms per molecule of each path's relaxation calls and of the whole
+    generation."""
+    import numpy as np
+
+    from agdiff_torch.data import native_relax, synthetic
+
+    t0 = time.perf_counter()
+    native_relax.get_lib()
+    build_s = time.perf_counter() - t0
+    kw = dict(seed=7, chem="rich", min_heavy=20, max_heavy=28)
+    real, calls = synthetic._relax, []
+
+    def record(*args, **kwargs):
+        calls.append(([np.array(a) if isinstance(a, np.ndarray) else a
+                       for a in args], kwargs))
+        return real(*args, **kwargs)
+
+    synthetic._relax = record
+    try:
+        first = synthetic.synthetic_dataset(2, **kw)
+    finally:
+        synthetic._relax = real
+    t0 = time.perf_counter()
+    second = synthetic.synthetic_dataset(2, **kw)
+    native_s = time.perf_counter() - t0
+    synthetic._relax = lambda *a, **k: real(*a, **{**k, "use_native": False})
+    try:
+        t0 = time.perf_counter()
+        plain = synthetic.synthetic_dataset(2, **kw)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        synthetic._relax = real
+    worst, times = 0.0, {True: 0.0, False: 0.0}
+    for args, kwargs in calls:
+        outs = {}
+        for native in (True, False):
+            copies = [np.array(a) if isinstance(a, np.ndarray) else a
+                      for a in args]
+            t0 = time.perf_counter()
+            outs[native] = real(*copies, **{**kwargs, "use_native": native})
+            times[native] += time.perf_counter() - t0
+        worst = max(worst, float(np.abs(outs[True] - outs[False]).max()))
+    equal = all(np.array_equal(getattr(a, f), getattr(b, f))
+                for a, b in zip(first, second)
+                for f in ("atom_type", "pos", "bond_index", "bond_type"))
+    same_shapes = [a.pos.shape == b.pos.shape for a, b in zip(second, plain)]
+    row = dict(
+        atoms=[m.num_nodes for m in second], relax_calls=len(calls),
+        worst_abs_diff=worst, native_runs_equal=equal, build_s=build_s,
+        relax_ms_per_mol_native=times[True] / len(second) * 1e3,
+        relax_ms_per_mol_numpy=times[False] / len(second) * 1e3,
+        generation_ms_per_mol_native=native_s / len(second) * 1e3,
+        generation_ms_per_mol_numpy=numpy_s / len(second) * 1e3,
+        dataset_max_abs_diff=max(
+            float(np.abs(a.pos - b.pos).max()) if same else float("inf")
+            for a, b, same in zip(second, plain, same_shapes)))
+    report["host"]["native_relax"] = row
+    failures = []
+    if not calls or worst > RELAX_TOL:
+        failures.append(f"host (a): {len(calls)} relax calls, native "
+                        f"against numpy {worst:.3e} (at most {RELAX_TOL})")
+    if not equal:
+        failures.append("host (a): two native generations differ")
+    print(f"host (a) native relax (g++ on this machine, built in "
+          f"{build_s:.2f} s) on synthetic_dataset(2, seed=7, chem='rich', "
+          f"min_heavy=20, max_heavy=28), {row['atoms']} atoms: "
+          f"{len(calls)} calls, native against numpy at most {worst:.3e}; "
+          f"two native runs bit-equal {equal}; relaxation ms per molecule "
+          f"native {row['relax_ms_per_mol_native']:.3f}, numpy "
+          f"{row['relax_ms_per_mol_numpy']:.3f}; whole generation ms per "
+          f"molecule native {row['generation_ms_per_mol_native']:.3f}, "
+          f"numpy {row['generation_ms_per_mol_numpy']:.3f} (host CPU)",
+          flush=True)
+    return failures
+
+
+def check_profiling(qcfg, qmodel, qmols, dev, report) -> tuple:
+    """(b) utils/profiling.py around PROFILED_STEPS steps of the graphed
+    'pksf' ladder at QM9 B=128 N=32 (captured by a first run outside the
+    window). Returns (failures, K1 launches of the traced run)."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    from agdiff_torch.data.bucketing import pad_molecules
+    from agdiff_torch.models.fast_forward import build_fast_forward
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import (
+        SamplerConfig,
+        build_fast_sampler,
+    )
+    from agdiff_torch.utils.profiling import (
+        Timer,
+        device_memory_stats,
+        trace,
+    )
+
+    sampler = build_fast_sampler(
+        build_fast_forward(qcfg, qmodel, "pksf"), make_diffusion(qcfg),
+        SamplerConfig(n_steps=PROFILED_STEPS, w_global=0.3), graph=True)
+    batch = pad_molecules([qmols[0]] * CHUNK, 32, batch_size=CHUNK,
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pos0 = torch.randn(batch.pos.shape, generator=gen, device=dev)
+    sampler(batch, pos0, generator=gen)
+    torch.cuda.synchronize()
+    log_dir = tempfile.mkdtemp(prefix="trace-")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counts()
+    try:
+        with trace(log_dir):
+            with Timer() as timer:
+                start.record()
+                result = sampler(batch, pos0, generator=gen)
+                end.record()
+                timer.block_on(result)
+        torch.cuda.synchronize()
+        k1 = launch_counts().get("stack_packed/stack_full:triu", 0)
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        text = ""
+        for path in files:
+            with open(path) as f:
+                text += f.read()
+        kernel_events = text.count("stack_kernel")
+        trace_bytes = len(text)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    event_ms = start.elapsed_time(end)
+    stats = device_memory_stats()
+    row = dict(steps=PROFILED_STEPS, batch=CHUNK, bucket=32,
+               trace_files=len(files), trace_bytes=trace_bytes,
+               k1_names_in_trace=kernel_events, timer_ms=timer.elapsed * 1e3,
+               event_ms=event_ms, k1_launches=k1, memory=stats)
+    report["host"]["profiling"] = row
+    failures = []
+    if len(files) != 1 or not kernel_events:
+        failures.append(f"host (b): {len(files)} trace files, K1's kernel "
+                        f"named {kernel_events} times")
+    if not timer.elapsed * 1e3 >= event_ms:
+        failures.append(f"host (b): Timer {timer.elapsed * 1e3:.3f} ms below "
+                        f"the events' {event_ms:.3f} ms")
+    if not (stats and stats["bytes_in_use"] > 0
+            and stats["peak_bytes_in_use"] >= stats["bytes_in_use"]):
+        failures.append(f"host (b): device_memory_stats() {stats}")
+    if not k1:
+        failures.append("host (b): the traced ladder launched no K1")
+    print(f"host (b) utils/profiling.py around {PROFILED_STEPS} graphed "
+          f"'pksf' steps at B={CHUNK} N=32: trace {len(files)} file(s), "
+          f"{trace_bytes} bytes, K1's kernel named {kernel_events} times; "
+          f"Timer {timer.elapsed * 1e3:.3f} ms, CUDA events "
+          f"{event_ms:.3f} ms; K1 launches {k1}; memory {stats} "
+          f"({report['card']})", flush=True)
+    return failures, k1
+
+
+def run_e2e_example(dev, report) -> list:
+    """(c) The synthetic end-to-end example at E2E_ITERS iterations on
+    the card; its own assertion (trained MAT-R below untrained) must
+    hold."""
+    from agdiff_torch.examples import synthetic_end_to_end
+
+    out = os.path.join(OUT_DIR, "e2e")
+    t0 = time.time()
+    try:
+        res = synthetic_end_to_end.main(["--iters", str(E2E_ITERS), "--out",
+                                         out, "--device", str(dev)])
+    except AssertionError as err:
+        report["host"]["e2e"] = dict(iters=E2E_ITERS, failed=str(err))
+        return [f"host (c): the example's assertion failed: {err}"]
+    res.update(iters=E2E_ITERS, seconds=time.time() - t0)
+    report["host"]["e2e"] = res
+    print(f"host (c) synthetic_end_to_end --iters {E2E_ITERS}: MAT-R "
+          f"{res['mat_untrained']:.4f} -> {res['mat_trained']:.4f} A, "
+          f"COV-R@1A {res['cov_untrained']:.4f} -> {res['cov_trained']:.4f}; "
+          f"training {res['train_s']:.1f} s "
+          f"({E2E_ITERS / res['train_s']:.1f} it/s), all "
+          f"{res['seconds']:.1f} s ({report['card']})", flush=True)
+    return []
+
+
+def run_smiles_generation(qmols, dev, report) -> tuple:
+    """(d) generate_for_molecule on qm9_synthetic.json's first molecule
+    from a bf16 checkpoint of SMILES_TRAIN_ITERS iterations of
+    cli/train.py on qm9_fast.yml, --fast ('pksf'), SMILES_STEPS steps,
+    --num_samples auto. Returns (failures, K1 launches)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from agdiff_torch.cli import smiles_generation
+    from agdiff_torch.cli import train as train_cli
+
+    root = os.path.join(OUT_DIR, "smiles")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open(os.path.join(ROOT, "configs", FAST_CONFIG)) as f:
+        raw = yaml.safe_load(f)
+    raw["train"].update(max_iters=SMILES_TRAIN_ITERS,
+                        val_freq=SMILES_TRAIN_ITERS)
+    cfg_path = os.path.join(root, "qm9_fast.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    run = train_cli.main([cfg_path, "--logdir", os.path.join(root, "train"),
+                          "--synthetic", "64", "--device", str(dev)])
+    mol = qmols[0]
+    args = smiles_generation.parse_args([
+        run.log_dir, "--smiles", mol.smiles, "--out_sdf",
+        os.path.join(root, "unused.sdf"), "--fast", "--n_steps",
+        str(SMILES_STEPS)])
+    zero_counts()
+    t0 = time.time()
+    pos = smiles_generation.generate_for_molecule(run.log_dir, mol, "auto",
+                                                  args, dev)
+    torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    launches = launch_counts()
+    k1 = launches.get("stack_packed/stack_full:triu", 0)
+    shutil.rmtree(os.path.join(run.log_dir, "checkpoints"))
+    want = 5 * (1100 // mol.num_nodes)
+    row = dict(atoms=mol.num_nodes, samples=int(pos.shape[0]),
+               expected=want, finite=bool(np.isfinite(pos).all()),
+               k1_launches=k1, other_launches={
+                   k: v for k, v in launches.items()
+                   if k != "stack_packed/stack_full:triu"},
+               seconds=seconds, dtype=run.config.model.dtype)
+    report["host"]["smiles_generation"] = row
+    failures = []
+    if pos.shape != (want, mol.num_nodes, 3) or not row["finite"]:
+        failures.append(f"host (d): samples {pos.shape} (want {want}), "
+                        f"finite {row['finite']}")
+    if not k1:
+        failures.append(f"host (d): no K1 launch ({launches})")
+    print(f"host (d) smiles_generation.generate_for_molecule ({row['dtype']} "
+          f"checkpoint of {SMILES_TRAIN_ITERS} cli/train.py iterations, "
+          f"--fast, {SMILES_STEPS} steps, auto): {mol.num_nodes} atoms -> "
+          f"{row['samples']} samples (5 x (1100 // {mol.num_nodes}) = "
+          f"{want}), finite {row['finite']}, K1 launches {k1}, "
+          f"{seconds:.1f} s", flush=True)
+    return failures, k1
+
+
+def check_refusals(report) -> list:
+    """(e) Without RDKit or psikit installed, each entry point raises
+    ImportError naming what is missing, and returns nothing."""
+    import importlib.util
+    import tempfile
+
+    from agdiff_torch.chem import rdkit_bridge
+    from agdiff_torch.cli import preprocess
+    from agdiff_torch.eval.covmat import CovMatEvaluator
+    from agdiff_torch.eval.properties import PropertyCalculator
+
+    base = tempfile.mkdtemp(prefix="geom-")
+    cases = (
+        ("CovMatEvaluator(use_force_field=True)", "rdkit", "RDKit",
+         lambda: CovMatEvaluator(use_force_field=True)),
+        ("smiles_to_molecule", "rdkit", "RDKit",
+         lambda: rdkit_bridge.smiles_to_molecule("CCO")),
+        ("PropertyCalculator()", "psikit", "psikit",
+         lambda: PropertyCalculator()),
+        ("cli.preprocess geom", "rdkit", "RDKit",
+         lambda: preprocess.main(["geom", "--base_path", base, "--dataset",
+                                  "qm9", "--out_dir",
+                                  os.path.join(base, "out")])))
+    failures, rows = [], {}
+    for label, package, named, call in cases:
+        if importlib.util.find_spec(package) is not None:
+            rows[label] = f"{package} is installed: not checked"
+            continue
+        try:
+            got = call()
+        except ImportError as err:
+            rows[label] = str(err)
+            if named not in str(err):
+                failures.append(f"host (e) {label}: {err} names no {named}")
+        else:
+            rows[label] = f"returned {got!r}"
+            failures.append(f"host (e) {label}: returned {got!r} without "
+                            f"{package}")
+    report["host"]["refusals"] = rows
+    print(f"host (e) refusals: {json.dumps(rows)}", flush=True)
+    return failures
+
+
+def run_host(qcfg, qmodel, qmols, dev, report) -> tuple:
+    """Phase 16: (a)-(e) of the module docstring. Returns (failures, K1
+    launches of (b) and (d))."""
+    report["host"] = {"part_s": {}}
+    mark = [time.time()]
+
+    def part(name):
+        now = time.time()
+        report["host"]["part_s"][name] = now - mark[0]
+        mark[0] = now
+
+    failures = check_native_relax(report)
+    part("a native relax")
+    failed, k1_profiled = check_profiling(qcfg, qmodel, qmols, dev, report)
+    failures += failed
+    part("b profiling")
+    failures += run_e2e_example(dev, report)
+    part("c example")
+    failed, k1_smiles = run_smiles_generation(qmols, dev, report)
+    failures += failed
+    part("d smiles generation")
+    failures += check_refusals(report)
+    part("e refusals")
+    print("phase 16 parts (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["host"]["part_s"].items()),
+        flush=True)
+    return failures, k1_profiled + k1_smiles
+
+
 def torch_equal_params(a, b) -> bool:
     """Whether two ranks' parameters after the step are equal."""
     import torch
@@ -6802,10 +7162,15 @@ def main() -> int:
                                      report)
     failures += failed
     phase_done("15 spatial sharding and protein path")
+
+    # ---- 16. the host modules and the RDKit seam ---------------------------
+    failed, k1_host = run_host(qcfg, qmodel, qmols, dev, report)
+    failures += failed
+    phase_done("16 host modules and the RDKit seam")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 16. result lines --------------------------------------------------
+    # ---- 17. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -6836,7 +7201,7 @@ def main() -> int:
         entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]
               + report["serve"]["qm9"]["k1_launches"]
               + report["engines"]["pksf-e16"]["k1_launches"]
-              + k1_student + k1_dp_triu + k1_protein,
+              + k1_student + k1_dp_triu + k1_protein + k1_host,
               ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32")),
         entry("stack_full:tight", "tight_B48_N64",
               slices["drugs_bucket64"]["k1_launches"]

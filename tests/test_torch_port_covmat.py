@@ -5,6 +5,7 @@ on both sides, so results agree to 1e-12; the RMSD primitives on the
 cases of tests/test_native_rmsd.py; the native path raising where the
 JAX package falls back to numpy."""
 
+import importlib.util
 import os
 import shutil
 
@@ -192,8 +193,8 @@ def test_native_path_raises_instead_of_falling_back(samples, tmp_path,
                                                     monkeypatch):
     """An unbuildable source: use_native=True raises (the JAX package
     would quietly run numpy); use_native=False still scores; the force
-    field, which needs RDKit, is refused with the queue item that ports
-    it."""
+    field, which needs RDKit, is refused when constructed, naming RDKit,
+    where RDKit is missing."""
     bad = tmp_path / "rmsd.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(native_rmsd, "SOURCE", str(bad))
@@ -209,5 +210,6 @@ def test_native_path_raises_instead_of_falling_back(samples, tmp_path,
     assert rmsd.rmsd_confusion_matrix(mol, refs, gens,
                                       use_native=False).shape == (3, 7)
     assert os.listdir(tmp_path / "build") == []
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        covmat.CovMatEvaluator(use_force_field=True)
+    if importlib.util.find_spec("rdkit") is None:
+        with pytest.raises(ImportError, match="RDKit"):
+            covmat.CovMatEvaluator(use_force_field=True)

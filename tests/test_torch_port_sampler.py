@@ -153,15 +153,20 @@ def test_port_imports_no_jax():
     the COV/MAT, training, serving and parallel (mesh, data-parallel,
     sharded, pipeline) modules, the .pkl reader (data/geom.py) and the
     protein path (chem/pdb.py, data/protein.py, the alanine dipeptide
-    example) among them, loads neither jax nor agdiff_tpu, and no source
-    names them in an import."""
+    example), the host modules (data/native_relax.py, utils/profiling.py,
+    the synthetic end-to-end example) and the RDKit and psi4 ones
+    (chem/rdkit_bridge.py, the GEOM CLI, SMILES generation, properties)
+    among them, loads neither jax nor agdiff_tpu, nor RDKit or psikit, and
+    no source names jax or agdiff_tpu in an import, or RDKit or psikit in
+    an import at module level."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
         "for m in pkgutil.walk_packages(agdiff_torch.__path__, "
         "'agdiff_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'agdiff_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'agdiff_tpu', 'rdkit', 'psikit', "
+        "'psi4')]\n"
         "bad += [m for m in ('agdiff_torch.cli.generate', "
         "'agdiff_torch.cli._common', 'agdiff_torch.cli.eval_covmat', "
         "'agdiff_torch.chem.rmsd', 'agdiff_torch.chem.native_rmsd', "
@@ -176,7 +181,12 @@ def test_port_imports_no_jax():
         "'agdiff_torch.parallel.sharded', 'agdiff_torch.parallel.pipeline', "
         "'agdiff_torch.data.geom', 'agdiff_torch.nn.edge_encoders', "
         "'agdiff_torch.chem.pdb', 'agdiff_torch.data.protein', "
-        "'agdiff_torch.examples.alanine_dipeptide') "
+        "'agdiff_torch.examples.alanine_dipeptide', "
+        "'agdiff_torch.data.native_relax', 'agdiff_torch.utils.profiling', "
+        "'agdiff_torch.examples.synthetic_end_to_end', "
+        "'agdiff_torch.chem.rdkit_bridge', 'agdiff_torch.cli.preprocess', "
+        "'agdiff_torch.cli.smiles_generation', "
+        "'agdiff_torch.eval.properties', 'agdiff_torch.cli.eval_prop') "
         "if m not in sys.modules]\n"
         "print(len(list(pkgutil.walk_packages(agdiff_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -193,6 +203,9 @@ def test_port_imports_no_jax():
                                                 "chip_stamps.py",
                                                 "chip_profile.py")]
     assert len(sources) > 20
+    top_level = re.compile(r"^(import|from)\s+(rdkit|psikit|psi4)\b", re.M)
     for path in sources:
         with open(path) as f:
-            assert not pattern.search(f.read()), path
+            text = f.read()
+        assert not pattern.search(text), path
+        assert not top_level.search(text), path

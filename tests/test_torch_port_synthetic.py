@@ -1,9 +1,10 @@
 """The port's synthetic molecules (agdiff_torch/data/synthetic.py) against
 the JAX package's generator, and the port's JSON fixtures against the
-port's generator. The JAX generator relaxes ring and torsion geometry
-through a native kernel when one builds (equal to its numpy body to
-~1e-6); the port has the numpy body only, so the comparison runs JAX's
-generator on its numpy body, where the two give the same bits."""
+port's generator. Both relax ring and torsion geometry through the same
+native kernel (native/relax.cpp) by default, and then give the same bits;
+each case also runs with both on their numpy body (JAX's native library
+hidden, the port's `_relax` called with use_native=False), which agree to
+~1e-6 with the kernel and give the same bits as each other."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,11 @@ from agdiff_tpu.data import synthetic as jax_synthetic
 
 from agdiff_torch.data import synthetic
 from agdiff_torch.data.fixture import load_fixture
+
+from test_torch_port_native_relax import (  # noqa: F401 (fixtures)
+    jax_relax,
+    jax_relax_library,
+)
 
 FIELDS = ("atom_type", "pos", "bond_index", "bond_type", "pos_ref")
 
@@ -30,6 +36,21 @@ def _assert_same(got, want):
         assert a.meta == b.meta
 
 
+@pytest.fixture(params=["native", "numpy"])
+def relax(request, monkeypatch):
+    """Which relaxation both generators run: their defaults (the native
+    kernel; JAX's library built privately, test_torch_port_native_relax.py
+    jax_relax) or their numpy bodies."""
+    if request.param == "native":
+        request.getfixturevalue("jax_relax")
+    else:
+        monkeypatch.setattr(native_relax, "get_lib", lambda: None)
+        numpy_relax = synthetic._relax
+        monkeypatch.setattr(synthetic, "_relax", lambda *a, **k: numpy_relax(
+            *a, **{**k, "use_native": False}))
+    return request.param
+
+
 @pytest.mark.parametrize("seed", [0, 5])
 @pytest.mark.parametrize("kw", [
     dict(),
@@ -39,15 +60,13 @@ def _assert_same(got, want):
     dict(chem="rich", multiref=True),
     dict(min_heavy=12, max_heavy=16),
 ])
-def test_synthetic_dataset_matches_jax(monkeypatch, seed, kw):
-    monkeypatch.setattr(native_relax, "get_lib", lambda: None)
+def test_synthetic_dataset_matches_jax(relax, seed, kw):
     args = dict(num_conformers=2, **kw)
     _assert_same(synthetic.synthetic_dataset(3, seed=seed, **args),
                  jax_synthetic.synthetic_dataset(3, seed=seed, **args))
 
 
-def test_expand_conformers_and_refusals_match_jax(monkeypatch):
-    monkeypatch.setattr(native_relax, "get_lib", lambda: None)
+def test_expand_conformers_and_refusals_match_jax(relax):
     mols = synthetic.synthetic_dataset(2, seed=1, chem="rich")
     jmols = jax_synthetic.synthetic_dataset(2, seed=1, chem="rich")
     _assert_same(synthetic.expand_conformers(mols, 3, seed=2, jitter=0.05),
