@@ -40,8 +40,9 @@ def load_inference_bundle(ckpt: str, ckpt_iter: Optional[int] = None,
     (bf16 sampling of an f32-trained model, or an f32 teacher of a bf16
     one). use_ema samples
     with the EMA shadow's parameters and the raw running statistics, as
-    the JAX CLI does. The JAX package's orbax directories raise
-    (train/checkpoint.py)."""
+    the JAX CLI does. A log dir or checkpoint directory of the JAX
+    package loads once convert_jax_checkpoint.py has converted it; an
+    unconverted one raises, naming the converter (train/checkpoint.py)."""
     from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
     from agdiff_torch.models.reference_checkpoint import (
         load_reference_checkpoint,

@@ -9,7 +9,8 @@ ladder stage by stage:
       --logdir distill_logs [--device cpu]
 
 The teacher is a log dir of cli/train.py (its latest checkpoint, or
---ckpt_iter's), one of its checkpoint directories, or a reference .pt;
+--ckpt_iter's), one of its checkpoint directories, a converted one of the
+JAX package (convert_jax_checkpoint.py), or a reference .pt;
 --ema_teacher takes the EMA shadow's parameters with the raw running
 statistics; --dtype overrides the config's compute dtype. The student
 trains with the teacher's config, its learning rate replaced by --lr and

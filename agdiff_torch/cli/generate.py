@@ -10,7 +10,9 @@ Usage:
       --eta 0 --solver heun] [--denoise_tail 10] [--device cpu]
 
 The checkpoint is a log dir of cli/train.py (its latest checkpoint, or
---ckpt_iter's), one of its checkpoint directories, or a reference .pt; the
+--ckpt_iter's), one of its checkpoint directories, a log dir or checkpoint
+directory of the JAX package converted by convert_jax_checkpoint.py, or a
+reference .pt; the
 model config travels in it (reference: test.py:111), and the sampling
 hyperparameters are flags (test.py:40-75 defaults). --ema samples with the
 EMA shadow's parameters and the raw running statistics. Samples go to <out_dir>/samples_<i>.npz, one per

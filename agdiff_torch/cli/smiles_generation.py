@@ -16,8 +16,9 @@ checkpoint of cli/train.py (a log dir or checkpoint directory) or a
 reference .pt and samples through GenerationRunner, with --fast on the
 runner's engine (on a bf16 checkpoint 'pksf', the hand kernel K1, at
 buckets below 40, 'tight-pksf' above). A checkpoint of the JAX package
-(orbax) is refused (ROADMAP.md queue 1 item 4c). The run is on the CUDA
-card unless --device says otherwise.
+loads once convert_jax_checkpoint.py has converted it
+(train/checkpoint.py). The run is on the CUDA card unless --device says
+otherwise.
 """
 
 from __future__ import annotations

@@ -16,8 +16,16 @@ bit on a card). A config of model.dtype bfloat16 (configs/qm9_fast.yml)
 trains at bf16 compute. --num_devices N trains data-parallel over N ranks
 (parallel/mesh.py launch: one card a rank over NCCL, or N ranks over gloo
 with --device cpu; more ranks than cards raise), each batch's graphs
-split over them, the step the global batch's (train/trainer.py). Refused:
-a log dir of the JAX package (ROADMAP.md queue 1 item 4c).
+split over them, the step the global batch's (train/trainer.py).
+
+A log dir of the JAX package resumes once its checkpoint is converted
+(convert_jax_checkpoint.py at the repository's root, run where jax is
+installed; an unconverted one raises, naming it): the run continues from
+the checkpoint's iteration + 1 with the JAX state's parameters, running
+statistics, both Adams, EMA shadow and plateau states, and writes the
+port's checkpoints (state.pt) into the same log dir from there on. The
+JAX package saves no generator or loader state, so those start as a
+fresh run's, as the JAX package's own resume starts them.
 """
 
 from __future__ import annotations
@@ -68,17 +76,17 @@ def main(argv=None):
         placement(args.num_devices, args.device)   # raises without the cards
 
     from agdiff_torch.train.checkpoint import (
-        ORBAX_REFUSAL,
-        is_jax_checkpoint,
+        UNCONVERTED,
         latest_checkpoint,
+        unconverted,
     )
     from agdiff_torch.utils.logging import get_new_log_dir
 
     resume = os.path.isdir(args.config)
     if resume:
         path, _ = latest_checkpoint(args.config, args.resume_iter)
-        if is_jax_checkpoint(path):
-            raise NotImplementedError(ORBAX_REFUSAL.format(path=path))
+        if unconverted(path):
+            raise FileNotFoundError(UNCONVERTED.format(path=path))
         log_dir = args.config
         config_path = os.path.join(log_dir, "config.yml")
     else:

@@ -29,6 +29,10 @@ moving once per forward. Under spatial sharding (`nodes`, mode 'sp' of
 parallel/sharded.py) the same modules run on this rank's node rows: the
 pair ops take their j side from gathered node tensors and the planes come
 out as row blocks; without a layout every module computes what it did.
+`packed_pairs` under a layout puts the per-edge tensors on the rank's
+owned pairs (ops/pairs.py owned_pairs): messages and scores reach both
+endpoints through one reduce-scatter a layer, and the planes are the row
+blocks the dense sp step gives.
 """
 
 from __future__ import annotations
@@ -53,16 +57,10 @@ from agdiff_torch.ops.pairs import (
     PairList,
     gather_endpoints,
     mirror_plane,
+    owned_pairs,
     pack_plane,
     triu_pairs,
 )
-
-
-PACKED_SP_REFUSAL = (
-    "packed_pairs under spatial sharding (mode 'sp') is not ported: a "
-    "triu pair axis does not split into row blocks; ROADMAP.md queue 1 "
-    "item 7a-sp-packed. Train the sp step with packed_pairs: false (the "
-    "dense layout computes the same values)")
 
 
 class ModelOutput(NamedTuple):
@@ -105,15 +103,14 @@ class DualEncoderEpsNetwork(nn.Module):
         blocks (B, k, N)."""
         cfg = self.config
         node_mask = batch.node_mask
-        if nodes is not None and cfg.packed_pairs:
-            raise ValueError(PACKED_SP_REFUSAL)
         dist, edge_mask, edge_type, local_mask = working_graph(
             batch, cfg.cutoff, cfg.edge_order, extend_order=extend_order,
             extend_radius=extend_radius, dtype=self.compute_dtype,
             nodes=nodes)
         pairs = None
         if cfg.packed_pairs:
-            pairs = _triu(dist.shape[-1], dist.device)
+            pairs = (_triu(dist.shape[-1], dist.device) if nodes is None
+                     else owned_pairs(nodes, dist.device))
             edge_length = pack_plane(dist, pairs)[..., None]
             em_in = pack_plane(edge_mask, pairs)
             lm_in = pack_plane(local_mask, pairs)

@@ -1,7 +1,9 @@
 """Local GIN encoder over the bond graph, dense masked form (port of
 agdiff_tpu/nn/gin.py). With `pairs` (the `packed_pairs` train layout)
 edge_attr is (B, P, H) and local_mask (B, P), and the message act(x_j +
-e_p) goes to endpoint i, act(x_i + e_p) to j (agdiff_tpu/nn/gin.py:40-54).
+e_p) goes to endpoint i, act(x_i + e_p) to j (agdiff_tpu/nn/gin.py:40-54);
+with a rank's OwnedPairs (packed under a node layout, ops/pairs.py) both
+go into a (B, N, H) partial, reduce-scattered to the rows once a layer.
 Under a node layout `nodes` (parallel/mesh.py NodeLayout) x is this
 rank's rows and the messages take x_j from the gathered axis.
 `dtype` is the compute dtype of the MLPs and of the embedding's output."""

@@ -2,7 +2,10 @@
 agdiff_tpu/nn/schnet.py). With `pairs` (a shared triu PairList, the
 `packed_pairs` train layout) the per-edge tensors are (B, P[, C]) on the
 unordered pairs and the aggregation runs over endpoint selectors
-(agdiff_tpu/nn/schnet.py:100-108). Under a node layout `nodes`
+(agdiff_tpu/nn/schnet.py:100-108); with a rank's OwnedPairs (packed under
+a node layout, ops/pairs.py) h_i comes from the rank's rows, h_j from the
+gathered axis, and both sides' messages reach their rows through one
+reduce-scatter a CFConv. Under a node layout `nodes`
 (parallel/mesh.py NodeLayout, mode 'sp') the nodes are this rank's rows
 and the per-edge tensors their row blocks (B, k, N, C): each CFConv
 gathers the whole axis of h after norm1 for the j side. `dtype` is the

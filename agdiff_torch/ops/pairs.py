@@ -20,13 +20,21 @@ that touch it in increasing pair order, each with the pair's other
 endpoint, packed into one 32-bit entry (pair << inc_shift | other).
 Summing a node's messages in that fixed order needs no atomics and
 reproduces run to run. A pad slot is in no node's list.
+
+Under spatial sharding (a NodeLayout, parallel/mesh.py, mode 'sp') the
+packed layout runs on `owned_pairs`: each rank's share of the triangle,
+every pair owned by exactly one rank, the one whose node rows hold its
+endpoint i, with the ranks' loads equal within N (`pair_owners`). The
+four free functions below (pack_plane, gather_endpoints,
+scatter_add_endpoints, mirror_plane) take such a share in place of a
+PairList and return the rank's blocks.
 """
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -182,7 +190,10 @@ def _flat(index, b: int, stride: int):
 
 
 def pack_plane(a, pairs: PairList):
-    """(B, N, N[, C]) symmetric -> (B, P[, C]) at the list's cells."""
+    """(B, N, N[, C]) symmetric -> (B, P[, C]) at the list's cells (a
+    rank's row block (B, k, N[, C]) at its owned pairs' cells)."""
+    if isinstance(pairs, OwnedPairs):
+        return pairs.pack(a)
     b, n = a.shape[:2]
     flat = a.reshape(b * n * n, *a.shape[3:])
     return flat[_flat(pairs.idx, b, n * n)]
@@ -205,7 +216,10 @@ def scatter_nodes(out, index, msg):
 def mirror_plane(s, pairs: PairList):
     """(B, P) packed symmetric plane -> (B, N, N). Cells outside the list
     (the diagonal, padded nodes) get slot 0's value: every consumer masks
-    them."""
+    them. A rank's owned pairs give its row block (B, k, N), the diagonal
+    0."""
+    if isinstance(pairs, OwnedPairs):
+        return pairs.mirror(s)
     b, p = s.shape
     n = pairs.num_nodes
     return s.reshape(-1)[_flat(pairs.slot, b, p)].reshape(b, n, n)
@@ -236,10 +250,18 @@ def gather_endpoints(x, pairs: PairList):
     selectors: the rows exactly, and a backward that sums each node's
     pairs in a product. (On a card the backward of x[:, iu], PyTorch's
     indexing_backward_kernel, put a train step's gradients 1e-4 of their
-    scale off the dense layout's; this one stays within 5e-6.)"""
-    oh_i, oh_j = _selectors(pairs, x.dtype)
-    return (torch.einsum("pn,bnf->bpf", oh_i, x),
-            torch.einsum("pn,bnf->bpf", oh_j, x))
+    scale off the dense layout's; this one stays within 5e-6.) The
+    products run in float32 and round to x's dtype once, so that the
+    backward's sums over the pairs accumulate in float32 at bf16 too, as
+    JAX's einsum accumulates them (scatter_add_endpoints). On a rank's
+    owned pairs x is its node rows (B, k, F), and j's rows come from the
+    whole axis."""
+    if isinstance(pairs, OwnedPairs):
+        return pairs.endpoints(x)
+    oh_i, oh_j = _selectors(pairs, torch.float32)
+    xf = x.float()
+    return (torch.einsum("pn,bnf->bpf", oh_i, xf).to(x.dtype),
+            torch.einsum("pn,bnf->bpf", oh_j, xf).to(x.dtype))
 
 
 def scatter_add_endpoints(msg_i, msg_j, pairs: PairList):
@@ -247,7 +269,115 @@ def scatter_add_endpoints(msg_i, msg_j, pairs: PairList):
     (B, N, F): msg_i lands on endpoint i, msg_j on endpoint j. Through the
     endpoint selectors, as the JAX package sums them (agdiff_tpu/ops/
     pairs.py:75-81): a product, with no atomics, so the sum and its
-    gradient repeat bit for bit."""
-    oh_i, oh_j = _selectors(pairs, msg_i.dtype)
-    return (torch.einsum("bpf,pn->bnf", msg_i, oh_i)
-            + torch.einsum("bpf,pn->bnf", msg_j, oh_j))
+    gradient repeat bit for bit. Each product sums in float32 and rounds
+    to the messages' dtype once: a bf16 GEMM may reduce in reduced
+    precision (cuBLAS's split-K over P, 32640 pairs at N=256, moved a
+    bf16 step's BatchNorm statistics 7.8e-3), where JAX's einsum
+    accumulates in float32. On a rank's owned pairs the result is the
+    rank's rows (B, k, F) of every rank's messages."""
+    if isinstance(pairs, OwnedPairs):
+        return pairs.scatter(msg_i, msg_j)
+    oh_i, oh_j = _selectors(pairs, torch.float32)
+    return (torch.einsum("bpf,pn->bnf", msg_i.float(), oh_i).to(msg_i.dtype)
+            + torch.einsum("bpf,pn->bnf", msg_j.float(), oh_j).to(
+                msg_j.dtype))
+
+
+def pair_owners(n: int):
+    """(i, j): every unordered pair of n nodes once, as (owner endpoint,
+    other endpoint), cyclically: node i owns (i, (i + d) mod n) for d = 1
+    .. ceil((n - 1) / 2), and each pair at d = n / 2 (n even) goes to one
+    of its two nodes, i < n / 2 when i is even, else i + n / 2. Every node
+    owns (n - 1) // 2 or n // 2 pairs, so a rank's k rows hold P / sp
+    pairs within k."""
+    iu, ju = np.triu_indices(n, k=1)
+    d = ju - iu
+    flip = (2 * d > n) | ((2 * d == n) & (iu % 2 == 1))
+    return (np.where(flip, ju, iu).astype(np.int64),
+            np.where(flip, iu, ju).astype(np.int64))
+
+
+@dataclass(frozen=True)
+class OwnedPairs:
+    """This rank's share of the triangle under a node layout `nodes`
+    (parallel/mesh.py NodeLayout): the pairs whose owner endpoint i lies in
+    its rows (pair_owners), sorted by (i, j). The packed per-edge tensors
+    are then (B, P_r, ...) on them: i's side reads the rank's own node
+    rows, j's side the gathered axis. The messages to i stay on the rank
+    (every pair of a node as i is its owner's); those to j, and the score
+    planes at (i, j) and (j, i), go into a (B, N, ...) partial over the
+    whole axis whose reduce-scatter (NodeLayout.columns) gives each rank
+    its rows: one collective a message layer and a plane. Selections and
+    sums run in float32 through one-hot selectors built once a forward; a
+    node's messages are summed in two parts, those it receives as the
+    lower endpoint of a pair and as the higher, each rounded to the
+    compute dtype once before the two are added, as the one-process
+    packed layout's two products (scatter_add_endpoints) round them."""
+
+    nodes: Any
+    i: torch.Tensor       # (P_r,) int64 owner endpoint, global index
+    j: torch.Tensor       # (P_r,) int64 other endpoint, global index
+    cell: torch.Tensor    # (P_r,) int64 cell (i - row0) * N + j of the block
+    sel_i: torch.Tensor   # (P_r, k) float32 one-hot of i among the rows
+    sel_j: torch.Tensor   # (P_r, N) float32 one-hot of j
+    # one-hots of (i among the rows, the part) and (j, the part), the part
+    # 0 where the node is the pair's lower endpoint, 1 where the higher
+    to_i: torch.Tensor    # (P_r, 2k) float32
+    to_j: torch.Tensor    # (P_r, 2N) float32
+
+    @property
+    def num_pairs(self) -> int:
+        return self.i.shape[0]
+
+    def pack(self, a):
+        """(B, k, N[, C]) row block -> (B, P_r[, C])."""
+        b = a.shape[0]
+        return a.reshape(b, -1, *a.shape[3:])[:, self.cell]
+
+    def endpoints(self, x):
+        """(B, k, F) node rows -> (x_i, x_j), each (B, P_r, F): x_i from the
+        rank's rows, x_j from every rank's (NodeLayout.gather)."""
+        xf = x.float()
+        return (torch.einsum("pn,bnf->bpf", self.sel_i, xf).to(x.dtype),
+                torch.einsum("pn,bnf->bpf", self.sel_j,
+                             self.nodes.gather(xf)).to(x.dtype))
+
+    def scatter(self, msg_i, msg_j):
+        """msg_i onto endpoint i and msg_j onto j, summed over every
+        rank's pairs: this rank's rows (B, k, F)."""
+        b, f = msg_i.shape[0], msg_i.shape[-1]
+        own = torch.einsum("bpf,pn->bnf", msg_i.float(), self.to_i)
+        partial = torch.einsum("bpf,pn->bnf", msg_j.float(), self.to_j)
+        parts = (own.view(b, -1, 2, f) + self.nodes.columns(
+            partial.view(b, -1, 2, f))).to(msg_i.dtype)
+        return parts[:, :, 0] + parts[:, :, 1]
+
+    def mirror(self, s):
+        """(B, P_r) symmetric scores -> this rank's row block (B, k, N) of
+        the plane every rank's pairs fill at (i, j) and (j, i); the
+        diagonal is 0 (every consumer masks it)."""
+        b, n = s.shape[0], self.nodes.n
+        cells = torch.cat([self.i * n + self.j, self.j * n + self.i])
+        partial = s.new_zeros((b, n * n), dtype=torch.float32).index_add(
+            1, cells, torch.cat([s, s], 1).float())
+        return self.nodes.columns(partial.view(b, n, n)).to(s.dtype)
+
+
+def owned_pairs(nodes, device) -> OwnedPairs:
+    """This rank's OwnedPairs under the node layout `nodes`, built on the
+    host."""
+    i, j = pair_owners(nodes.n)
+    start = nodes.rows.start
+    mine = (i >= start) & (i < start + nodes.k)
+    i, j = i[mine], j[mine]
+    order = np.lexsort((j, i))
+    i = torch.from_numpy(i[order]).to(device)
+    j = torch.from_numpy(j[order]).to(device)
+    one_hot = torch.nn.functional.one_hot
+    flip = (i > j).long()
+    return OwnedPairs(nodes=nodes, i=i, j=j, cell=(i - start) * nodes.n + j,
+                      sel_i=one_hot(i - start, nodes.k).float(),
+                      sel_j=one_hot(j, nodes.n).float(),
+                      to_i=one_hot(2 * (i - start) + flip,
+                                   2 * nodes.k).float(),
+                      to_j=one_hot(2 * j + 1 - flip, 2 * nodes.n).float())

@@ -45,8 +45,10 @@ step computes what the single-device step computes over the global batch:
     equivariant transform's transposed terms reduce-scatter a (B, N, 3)
     column partial, BatchNorm and the loss's count span every rank, and
     the gradients are summed over every rank (train/train_step.py).
-    packed_pairs is refused under it (ROADMAP.md queue 1 item
-    7a-sp-packed).
+    Under packed_pairs each rank holds its owned pairs of the triangle
+    (ops/pairs.py owned_pairs), P / sp of them: the j-side messages and
+    the mirrored planes reach their rows through one (B, N, F)
+    reduce-scatter a message layer and a plane.
 
 The reference has no analog of any of this (SURVEY.md section 2.5).
 """
@@ -63,7 +65,6 @@ from torch import nn
 
 from agdiff_torch.config import Config
 from agdiff_torch.data.graph_batch import GraphBatch
-from agdiff_torch.models.dualenc import PACKED_SP_REFUSAL
 from agdiff_torch.models.weights import flax_leaf, load_jax_variables
 from agdiff_torch.nn.common import Linear, tensor_parallel
 from agdiff_torch.parallel.mesh import Mesh, make_hybrid_mesh  # noqa: F401
@@ -409,8 +410,6 @@ def make_sharded_train_step(config: Config, mesh: Mesh,
         if state is not None and state.layout is not None:
             raise ValueError("mode 'sp' keeps the state whole: pass it "
                              "uncut")
-        if config.model.packed_pairs:
-            raise ValueError(PACKED_SP_REFUSAL)
         return TrainStep(config, mesh.device, mesh, mode)
     if state is not None and state.layout is not None and (
             state.layout.axis != mode or state.layout.mesh != mesh):

@@ -8,7 +8,8 @@ JAX package scans them in one program), metrics every log_freq
 iterations, validation every val_freq iterations and at the last one
 (both plateau controllers step on it: the global Adam's on the global
 loss, the local one's on the local loss), a checkpoint at each validation
-with best-model tracking, and `resume(log_dir, it)`. A checkpoint holds
+with best-model tracking, and `resume(log_dir, it)` (of a port run, or of
+a JAX run's converted checkpoint). A port checkpoint holds
 the step generator's and the loader's state, so a resumed run continues
 the uninterrupted one's draws: j iterations after a resume from
 checkpoint k equal iterations k + 1 .. k + j of the uninterrupted run
@@ -70,6 +71,24 @@ def to_device(batch: GraphBatch, device) -> GraphBatch:
                          for k, v in vars(batch).items()})
 
 
+def restore_state(state: TrainState, ckpt: dict) -> None:
+    """A checkpoint's payload (load_checkpoint) into `state`, in place:
+    the module, both Adams, the step, the EMA shadow and the step
+    generator. A converted checkpoint of the JAX package holds no
+    generator state (the JAX package saves none): the generator then
+    keeps a fresh run's seed, train.seed, as the JAX package's resume
+    restarts its key from PRNGKey(train.seed) (agdiff_tpu/train/
+    trainer.py:83-84, 104-118)."""
+    state.module.load_state_dict(ckpt["module"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    if state.ema is not None:
+        for name, t in state.ema.items():
+            t.copy_(ckpt["ema"][name])
+    if "generator" in ckpt:
+        state.generator.set_state(ckpt["generator"].cpu())
+
+
 class Trainer:
     def __init__(self, config: Config, train_set: ConformationDataset,
                  val_set: Optional[ConformationDataset], log_dir: str,
@@ -118,15 +137,12 @@ class Trainer:
         path, iteration = latest_checkpoint(resume_dir, it)
         self.logger.info("Resuming from: %s (iteration %d)", path, iteration)
         ckpt = load_checkpoint(path, map_location=self.device)
-        st = self.state
-        st.module.load_state_dict(ckpt["module"])
-        st.optimizer.load_state_dict(ckpt["optimizer"])
-        st.step = int(ckpt["step"])
-        st.generator.set_state(ckpt["generator"].cpu())
-        if st.ema is not None:
-            for name, t in st.ema.items():
-                t.copy_(ckpt["ema"][name])
-        self.train_loader.load_state_dict(ckpt["loader"])
+        restore_state(self.state, ckpt)
+        # a converted checkpoint of the JAX package holds no loader state
+        # (the JAX package saves none): the loader then starts at its first
+        # draw, as the JAX package's resume restarts its loader
+        if "loader" in ckpt:
+            self.train_loader.load_state_dict(ckpt["loader"])
         self.plateau_global = ckpt["plateau_global"]
         self.plateau_local = ckpt["plateau_local"]
         self.best_val_loss = ckpt["avg_val_loss"]

@@ -172,15 +172,16 @@ Phases, each of which fails the run:
      training, the unbiased variance normalising, the local loss weight
      1, ~local dropped from the global mask), and packed_pairs against
      dense on the card within the same limits; then cli/train.py main
-     (--deterministic): 150 dense iterations (EMA 0.999, checkpoints at
-     100 and 150) whose losses must be finite and whose last 50 must
-     average below the first 50, a resume from checkpoint 100 whose 50
-     iterations must equal the run's bit for bit (parameters, statistics,
-     both Adams, EMA, generator, loader), and 50 packed_pairs
-     iterations; the run's log dir through cli/generate.py main (--ema,
-     4 held-out synthetic molecules, 50 'pksf' steps, K1 launched) and
-     cli/eval_covmat.py (every molecule scored); last, 10 train steps of
-     each layout timed (CUDA events), their peak memory, and profiled
+     (--deterministic): TRAIN_ITERS dense iterations (EMA 0.999,
+     checkpoints every TRAIN_VAL_FREQ) whose losses must be finite and
+     whose last 50 must average below the first 50, a resume from
+     checkpoint RESUME_FROM whose iterations must equal the run's bit for
+     bit (parameters, statistics, both Adams, EMA, generator, loader), and
+     PACKED_ITERS packed_pairs iterations; the run's log dir through
+     cli/generate.py main (--ema, 4 held-out synthetic molecules, 50
+     'pksf' steps, K1 launched) and cli/eval_covmat.py (every molecule
+     scored); last, TRAIN_PROFILE_STEPS train steps of each layout timed
+     (CUDA events), their peak memory, and profiled
      (device busy, idle share, the top device operations). One `train`
      line sums it up;
  10. the generation server (serve/server.py, cli/serve.py) and the
@@ -244,9 +245,9 @@ Phases, each of which fails the run:
      stream of four requests, then eight concurrent ones, each of two
      molecules x 4 conformers: every reply ok, no capture during
      requests, K1's launches equal to the forwards, latency p50 and max
-     and conformers/s printed; (h) 10 eager steps each of the bf16 train
-     step and of the distill step at f32 and bf16 (B=64) timed and
-     profiled;
+     and conformers/s printed; (h) TRAIN_PROFILE_STEPS eager steps each of
+     the bf16 train step and of the distill step at f32 and bf16 (B=64)
+     timed and profiled;
  12. data parallelism (parallel/mesh.py, parallel/data_parallel.py):
      (a) cli/train.py --num_devices 1 (one spawned rank, NCCL) on
      synthetic_qm9.yml, DP_ITERS iterations under deterministic
@@ -320,16 +321,20 @@ Phases, each of which fails the run:
      under STEP_LIMITS' gradient limits;
  15. spatial (node-axis) sharding and the protein path: (a) two gloo
      ranks on card 0, a ('dp', 'sp') = (1, 2) mesh: the sp train step of
-     synthetic_qm9.yml (f32) and qm9_fast.yml (bf16, packed_pairs off)
-     at N=32, B=8 and at N=256, B=2 (the training batch's first graphs,
-     padded) against the single-process card step under SHARD_LIMITS
-     (f32) and BF16_STEP_LIMITS (bf16), the moments' worst leaf beside
-     them; the ranks' parameters equal; each rank's peak allocation over
+     synthetic_qm9.yml (f32, dense and packed_pairs) at N=32, B=8, at
+     N=256, B=2 and at N=512, B=1, and qm9_fast.yml as written (bf16,
+     packed_pairs) at N=32 and N=256 and dense at N=256 (the training
+     batch's first graphs, padded; SP_LAYOUTS) against the
+     single-process card step of the same layout under SHARD_LIMITS (f32)
+     and BF16_STEP_LIMITS (bf16), the moments' worst leaf beside them; the
+     ranks' parameters equal; each rank's peak allocation over
      SP_TIMED_STEPS steps as a share of the single step's, at most
-     SP_MEMORY_SHARE at N=256; ms per step; (b) planted faults (the
-     transposed eq terms dropped, per-rank BatchNorm statistics, h_j
-     from the rank's own rows, a per-rank loss count) that must break the
-     f32 limits; (c) python -m agdiff_torch.examples.alanine_dipeptide on
+     SP_MEMORY_SHARE at N=256; ms per step; each rank's owned pairs under
+     packed_pairs; (b) planted faults (the transposed eq terms dropped,
+     per-rank BatchNorm statistics, h_j from the rank's own rows, a
+     per-rank loss count; packed: the j-side messages kept on the owner,
+     the mirror's lower half dropped, a pair owned by two ranks) that
+     must break the f32 limits; (c) python -m agdiff_torch.examples.alanine_dipeptide on
      qm9_fast.yml's seeded weights ('pksf', K1), 64 samples x 50 steps at
      --clip_local 20: samples.pdb parses back to 64 models, every sample
      finite; (d) subgraph_position_scores over the dipeptide (max_nodes
@@ -357,7 +362,26 @@ Phases, each of which fails the run:
      CovMatEvaluator(use_force_field=True), smiles_to_molecule,
      PropertyCalculator() and cli.preprocess geom each raise ImportError
      naming the package;
- 17. one JSON line lists each kernel variant and its numbers, then the
+ 17. a checkpoint of the JAX package in the port (f32, TF32 off): the
+     committed converted fixture agdiff_torch/data/fixtures/
+     jax_checkpoint_small (hidden 32, 2 + 2 convs, two JAX train steps,
+     EMA on, the Adams at two learning rates) resumed on the card: the
+     restored Adams' learning rates those of its plateau states; the eval
+     forward within 2e-4 + 2e-4 |ref| of JAX's stored planes; one train
+     step with the stored t and noise within STEP_LIMITS of JAX's stored
+     losses and gradient leaves, the gradient norm within 1e-4, the
+     stored parameter leaves' updates and EMA leaves within their limits;
+     planted faults in the reader (the two Adams' states swapped, the
+     running statistics not carried, the EMA shadow left at the
+     parameters) must break a limit; cli/train.py resumes a copy of the
+     log dir for JAX_RESUME_ITERS iterations and writes the port's
+     checkpoint into it, finite losses; cli/generate.py on it at bf16,
+     --engine pksf (K1), JAX_GEN_STEPS steps on JAX_GEN_MOLS synthetic
+     QM9-size molecules: finite samples, K1 launched, and K1 at this
+     width (hidden 32) on its first step's inputs against its plain
+     version at K1's triu limits, with its planted faults and every
+     layout level (the row joins K1's triu entry of the result line);
+ 18. one JSON line lists each kernel variant and its numbers, then the
      card's line, then the last line {"ok": true, "device": {...}}.
 Every phase prints its seconds. Details also go to
 chiprun_out/chip_smoke.json.
@@ -2420,18 +2444,19 @@ def run_test_set(qmodel, qcfg, dmodel, dconf, report, dev) -> list:
 
 TRAIN_CONFIG = "synthetic_qm9.yml"   # hidden 128, 6 + 4 convs, B=64, f32
 TRAIN_MOLECULES = 512   # synthetic_dataset(512, seed=2021), split 0.9 / 0.1
-# phases 9 and 11 run half their earlier iterations since phase 13 joined
-# the run (300, 200, 100, 192, 64 to PR 15): the gates are the same, and
-# the whole script stays inside its time limit on a slower host
-TRAIN_ITERS = 150
-TRAIN_VAL_FREQ = 100    # validations and checkpoints at 100 and 150
-RESUME_FROM = 100       # 50 resumed iterations against the same of the run
-PACKED_ITERS = 50
+# phase 9 runs a third of its first iterations (300, 200 and 100 at
+# first), phase 11 two thirds (192 and 64), as later phases joined the run:
+# the gates are the same, and the whole script stays inside its time limit
+# on a slower host
+TRAIN_ITERS = 100
+TRAIN_VAL_FREQ = 50     # validations and checkpoints at 50 and 100
+RESUME_FROM = 50        # 50 resumed iterations against the same of the run
+PACKED_ITERS = 25
 TRAIN_EMA = 0.999
 LOSS_WINDOW = 50        # the last 50 losses' mean below the first 50's
-# eager train and distill steps timed, then profiled (20 to PR 15; 10 keep
-# the run inside its time limit as phase 13 joins it)
-TRAIN_PROFILE_STEPS = 10
+# eager train and distill steps timed, then profiled (20 at first; 5 keep
+# the run inside its time limit as later phases join it)
+TRAIN_PROFILE_STEPS = 5
 TRAIN_GEN_MOLS = 4      # held-out: the generation CLI's synthetic seed 7
 TRAIN_GEN_STEPS = 50
 # One train step on the card against the same step on the CPU (f32, the
@@ -4348,7 +4373,7 @@ DP_GEN_STEPS = 20
 # (b) two gloo ranks on card 0 (NCCL refuses two ranks on one device)
 DP_LADDER_STEPS = 8     # the runner's ladders at B=128 (QM9) and B=48 (Drugs)
 DP_SERVE_STEPS = 20     # the two-rank service's ladder
-DP_TIMED_STEPS = 5      # data-parallel train steps timed on each rank
+DP_TIMED_STEPS = 3      # data-parallel train steps timed on each rank
 # the faults a data-parallel step must not have (tests/torch_port_dp_
 # ranks.py plants the same on the CPU): per-rank BatchNorm statistics;
 # statistics summed by an all-reduce without gradient (the cross-rank
@@ -5277,7 +5302,7 @@ SHARD_MODES = ("fsdp", "tp")
 SHARD_FAULTS = (("shard_unsummed", "fsdp"), ("partial_unreduced", "tp"),
                 ("own_shard_norm", "fsdp"))
 SHARD_STATE_SHARE = 0.55  # a rank's bytes of the state at most, of the whole
-SHARD_TIMED_STEPS = 3
+SHARD_TIMED_STEPS = 2
 SPEC_FIXTURE = os.path.join(ROOT, "tests", "torch_port_jax_specs.json")
 SPEC_CONFIGS = (TRAIN_CONFIG, FAST_CONFIG)
 # (c) schnet_pipeline on qm9_fast.yml: six blocks in two stages of three,
@@ -5861,11 +5886,16 @@ def pipe_plain_checks(fwd, stage, stacked, payload):
 # ---- phase 15: spatial sharding and the protein path ------------------------
 
 # (a) the sp step over two gloo ranks on card 0, a ('dp', 'sp') = (1, 2)
-# mesh, against the single-process card step: at N=32, B=8 (the training
-# batch's first graphs) and at N=256, B=2 (two of its molecules padded to
-# 256), f32 (synthetic_qm9.yml) and bf16 (qm9_fast.yml, packed_pairs off:
-# sp refuses the triu layout, ROADMAP.md 7a-sp-packed)
-SP_SHAPES = ((32, 8), (256, 2))
+# mesh, against the single-process card step of the same layout: (name,
+# label of its limits, packed_pairs, its (N, B) shapes) of
+# synthetic_qm9.yml dense and packed (f32) and of qm9_fast.yml as written
+# (bf16, packed) and dense; at N=32, B=8 (the training batch's first
+# graphs), at N=256, B=2 (two of its molecules padded to 256) and, f32, at
+# N=512, B=1 (how each layout's time and peak grow with N)
+SP_LAYOUTS = (("f32", "f32", False, ((32, 8), (256, 2), (512, 1))),
+              ("f32 packed", "f32", True, ((32, 8), (256, 2), (512, 1))),
+              ("bf16", "bf16", False, ((256, 2),)),
+              ("bf16 packed", "bf16", True, ((32, 8), (256, 2))))
 SP_TIMED_STEPS = 3
 # a rank's peak allocation above its baseline over SP_TIMED_STEPS steps, as
 # a share of the single-process step's, at N=256: the pair tensors halve,
@@ -5880,6 +5910,8 @@ SP_MOMENT_LIMITS = {"f32": 2 * STEP_LIMITS["grad_max_rel"],
 # plants the same on the CPU), each at f32, N=32
 SP_FAULTS = ("transposed_dropped", "own_row_stats", "own_rows_hj",
              "own_rows_count")
+# and the packed step's (sp_packed_faults().SP_PACKED_FAULTS), on the f32
+# packed case at N=32
 # (c) the alanine dipeptide example on qm9_fast.yml's seeded weights
 EXAMPLE_SAMPLES, EXAMPLE_STEPS, EXAMPLE_CLIP_LOCAL = 64, 50, 20.0
 # (d) subgraph_position_scores over the dipeptide through 'pksf'
@@ -5897,7 +5929,8 @@ def sp_fault(name):
     """A planted fault of the sp step: the transposed terms of the
     equivariant transform dropped; BatchNorm's statistics from the rank's
     own rows; the pair ops' j side from the rank's own rows (h not
-    gathered); the loss's node count the rank's own."""
+    gathered); the loss's node count the rank's own; or one of the packed
+    sp step's (sp_packed_faults())."""
     import torch
 
     from agdiff_torch.ops import masked
@@ -5929,6 +5962,8 @@ def sp_fault(name):
         real_loss = ts.diffusion_loss
         patch(ts, "diffusion_loss",
               lambda *a: real_loss(*a[:5], None, *a[6:]))
+    elif name in sp_packed_faults().SP_PACKED_FAULTS:
+        sp_packed_faults().patch_packed(name, patch)
     elif name is not None:
         raise ValueError(name)
     try:
@@ -5936,6 +5971,17 @@ def sp_fault(name):
     finally:
         for obj, attr, value in reversed(saved):
             setattr(obj, attr, value)
+
+
+def sp_packed_faults():
+    """tests/torch_port_sp_faults.py, which plants the packed sp step's
+    faults for the CPU tests and for this script."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_port_sp_faults
+
+    return torch_port_sp_faults
 
 
 def sp_moments(state) -> dict:
@@ -5996,9 +6042,11 @@ def sp_state(case, dev):
 
 def sp_rank(group, case) -> dict:
     """(a)-(b) one sp step of the case on the world's ('dp', 'sp') =
-    (1, 2) mesh, this rank's node rows of the batch (sp_run)."""
+    (1, 2) mesh, this rank's node rows of the batch (sp_run), and the
+    pairs it owns under packed_pairs (0 dense)."""
+    from agdiff_torch.ops.pairs import owned_pairs
     from agdiff_torch.parallel import sharded
-    from agdiff_torch.parallel.mesh import make_hybrid_mesh
+    from agdiff_torch.parallel.mesh import NodeLayout, make_hybrid_mesh
 
     mesh = make_hybrid_mesh(2, 2, model_axis="sp")
     state = sp_state(case, group.device)
@@ -6007,6 +6055,10 @@ def sp_rank(group, case) -> dict:
     shard = sharded.shard_graph_batch_nodes(case["batch"], mesh)
     out = sp_run(step, state, shard, case, group.device)
     out["rows"] = tuple(shard.pos.shape[:2])
+    out["pairs"] = (owned_pairs(NodeLayout(mesh.axis("sp"),
+                                           shard.pos.shape[1]),
+                                "cpu").num_pairs
+                    if case["config"].model.packed_pairs else 0)
     return out
 
 
@@ -6035,12 +6087,12 @@ def sp_cases(train_cases) -> dict:
     config's training batch, padded with empty node slots to N, with
     their t and noise (zero on the new slots)."""
     cases = {}
-    for label in ("f32", "bf16"):
+    for prefix, label, packed, shapes in SP_LAYOUTS:
         base = train_cases[label]
         config = base["config"]
         config = dataclasses.replace(config, model=dataclasses.replace(
-            config.model, packed_pairs=False))
-        for n, b in SP_SHAPES:
+            config.model, packed_pairs=packed))
+        for n, b in shapes:
             batch = base["batch"]
             batch = batch.replace(
                 atom_type=padded_nodes(batch.atom_type[:b], n, (1,)),
@@ -6048,13 +6100,16 @@ def sp_cases(train_cases) -> dict:
                 node_mask=padded_nodes(batch.node_mask[:b], n, (1,)),
                 bond_adj=padded_nodes(batch.bond_adj[:b], n, (1, 2)),
                 graph_mask=batch.graph_mask[:b])
-            cases[f"{label} N={n} B={b}"] = dict(
+            cases[f"{prefix} N={n} B={b}"] = dict(
                 label=label, config=config, init=base["init"], batch=batch,
                 t=base["t"][:b], noise=padded_nodes(base["noise"][:b], n,
                                                     (1,)))
     for fault in SP_FAULTS:
         cases[f"f32 fault {fault}"] = dict(cases["f32 N=32 B=8"],
                                            fault=fault)
+    for fault in sp_packed_faults().SP_PACKED_FAULTS:
+        cases[f"f32 packed fault {fault}"] = dict(
+            cases["f32 packed N=32 B=8"], fault=fault)
     return cases
 
 
@@ -6271,7 +6326,7 @@ def run_subgraph_scores(qcfg, qmodel, dev, report) -> tuple:
 
 def run_spatial(qcfg, qmodel, train_cases, dev, report):
     """Phase 15: (a) the sp train step on two gloo ranks on card 0 against
-    the single-process card step at N=32 and N=256, f32 and bf16, with
+    the single-process card step (SP_LAYOUTS), f32 and bf16, with
     each rank's peak allocation as a share of the single step's; (b)
     planted faults; (c) the alanine dipeptide example; (d)
     subgraph-decomposed scores through K1. Returns (failures, K1
@@ -6286,12 +6341,10 @@ def run_spatial(qcfg, qmodel, train_cases, dev, report):
     ranks_out = launch(sp_card_world, 2, cases, device="cuda:0",
                        backend="gloo")
     world_s = time.time() - t0
-    refs = {}
-    for name, case in cases.items():
-        if "fault" not in name:
-            refs[name] = sp_run(make_train_step(case["config"], dev),
-                                sp_state(case, dev), case["batch"].to(dev),
-                                case, dev)
+    refs = {name: sp_run(make_train_step(case["config"], dev),
+                         sp_state(case, dev), case["batch"].to(dev), case,
+                         dev)
+            for name, case in cases.items() if "fault" not in name}
     lr = train_cases["f32"]["config"].train.optimizer.lr
     failures, rows, memory = [], {}, {}
     for name, case in cases.items():
@@ -6314,9 +6367,18 @@ def run_spatial(qcfg, qmodel, train_cases, dev, report):
             single_peak_mib=ref["peak_bytes"] / 2 ** 20, share=shares,
             rank_ms_per_step=[r[name]["ms_per_step"] for r in ranks_out],
             single_ms_per_step=ref["ms_per_step"],
-            rows=[r[name]["rows"] for r in ranks_out], replicas_equal=same)
+            rows=[r[name]["rows"] for r in ranks_out],
+            pairs=[r[name]["pairs"] for r in ranks_out], replicas_equal=same)
         if not same:
             failures.append(f"sp (a) {name}: the ranks' parameters differ")
+        n = case["batch"].pos.shape[1]
+        if case["config"].model.packed_pairs and (
+                sum(memory[name]["pairs"]) != n * (n - 1) // 2
+                or max(memory[name]["pairs"]) - min(memory[name]["pairs"])
+                > n):
+            failures.append(f"sp (a) {name}: owned pairs "
+                            f"{memory[name]['pairs']} do not split the "
+                            f"triangle evenly")
         if case["batch"].pos.shape[1] == 256 and not all(
                 s <= SP_MEMORY_SHARE for s in shares):
             failures.append(f"sp (a) {name}: a rank's peak is {shares} of "
@@ -6679,6 +6741,275 @@ def run_host(qcfg, qmodel, qmols, dev, report) -> tuple:
         f"{k} {v:.1f}" for k, v in report["host"]["part_s"].items()),
         flush=True)
     return failures, k1_profiled + k1_smiles
+
+
+# ---- phase 17: a checkpoint of the JAX package in the port ------------------
+
+JAX_FIXTURE = os.path.join(ROOT, "agdiff_torch", "data", "fixtures",
+                           "jax_checkpoint_small")
+# the eval forward against JAX's stored planes, on the working graph:
+# |diff| <= FORWARD_ATOL + FORWARD_RTOL |ref| (the module path's class)
+JAX_FORWARD_ATOL, JAX_FORWARD_RTOL = 2e-4, 2e-4
+JAX_NORM_RTOL = SHARD_LIMITS["grad_norm_rel"]
+JAX_RESUME_ITERS = 20   # cli/train.py iterations after the checkpoint's
+JAX_GEN_MOLS = 4        # cli/generate.py --synthetic, QM9-size
+JAX_GEN_STEPS = 50
+# the reader's faults: the two Adams' states (count, lr, moments by
+# partition) swapped where they can be (count and lr: the partitions hold
+# different leaves); the running statistics left at their init (0, 1); the
+# EMA shadow left at the parameters
+JAX_FAULTS = ("adams_swapped", "batch_stats_dropped", "ema_at_params")
+
+
+@contextlib.contextmanager
+def jax_fault(name):
+    """A planted fault in train/checkpoint.py's reader of converted JAX
+    checkpoints (JAX_FAULTS)."""
+    from agdiff_torch.train import checkpoint
+
+    real = checkpoint.load_converted
+
+    def faulty(path, config):
+        payload = real(path, config)
+        adams = payload["optimizer"]["adams"]
+        if name == "adams_swapped":
+            for key in ("count", "lr"):
+                adams["global"][key], adams["local"][key] = \
+                    adams["local"][key], adams["global"][key]
+        elif name == "batch_stats_dropped":
+            for key, t in payload["module"].items():
+                if key.endswith("running_mean"):
+                    t.zero_()
+                elif key.endswith("running_var"):
+                    t.fill_(1.0)
+        elif name == "ema_at_params":
+            payload["ema"] = {n: t.clone() for n, t in
+                              payload["module"].items() if n in
+                              payload["ema"]}
+        return payload
+
+    if name is not None:
+        checkpoint.load_converted = faulty
+    try:
+        yield
+    finally:
+        checkpoint.load_converted = real
+
+
+def jax_numbers() -> dict:
+    """JAX's numbers stored beside the fixture (its reference/ folder)."""
+    import numpy as np
+
+    with np.load(os.path.join(JAX_FIXTURE, "reference",
+                              "jax_numbers.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def jax_resumed(path, dev, fault=None):
+    """The converted checkpoint `path` resumed on `dev` as Trainer.resume
+    resumes one, the optimizer's learning rates those it restored: (state,
+    payload)."""
+    from agdiff_torch.train.checkpoint import load_checkpoint
+    from agdiff_torch.train.train_step import create_train_state
+    from agdiff_torch.train.trainer import restore_state
+
+    with jax_fault(fault):
+        ckpt = load_checkpoint(path, map_location=dev)
+    state = create_train_state(ckpt["config"], dev)
+    restore_state(state, ckpt)
+    return state, ckpt
+
+
+def jax_checkpoint_row(path, ref, dev, fault=None) -> dict:
+    """The resumed fixture on the card against JAX's numbers: the eval
+    forward, one step with the stored t and noise (step_errors against
+    JAX's losses, gradient leaves and the stored parameter leaves), the
+    gradient norm, the stored EMA leaves, and the restored learning
+    rates against the plateau states; with the limits it breaks."""
+    import torch
+
+    from agdiff_torch.data.graph_batch import GraphBatch
+    from agdiff_torch.models.weights import flax_leaf
+    from agdiff_torch.train.train_step import make_train_step
+
+    state, ckpt = jax_resumed(path, dev, fault)
+    config, module = ckpt["config"], state.module
+    batch = GraphBatch(**{f: torch.from_numpy(ref[f"batch/{f}"]).to(dev)
+                          for f in ("atom_type", "pos", "node_mask",
+                                    "bond_adj", "graph_mask")})
+    names = {"/".join(flax_leaf(module, n)[1]): n
+             for n, _ in module.named_parameters()}
+
+    def port(key):
+        """A stored flax leaf in the port's layout, on the CPU."""
+        x = torch.from_numpy(ref[key])
+        return x.T.contiguous() if key.endswith("kernel") else x
+
+    lrs = state.optimizer.get_learning_rates()
+    want_lrs = (ckpt["plateau_global"].lr, ckpt["plateau_local"].lr)
+    lr_off = max(abs(a - b) / b for a, b in zip(lrs, want_lrs))
+    with torch.no_grad():
+        out = module(batch)
+    mask = torch.from_numpy(ref["forward/edge_mask"]).to(dev)
+    excess = 0.0
+    for plane in ("edge_inv_global", "edge_inv_local"):
+        want = torch.from_numpy(ref[f"forward/{plane}"]).to(dev)[mask]
+        d = (getattr(out, plane)[mask] - want).abs()
+        excess = max(excess, float((d / (JAX_FORWARD_ATOL + JAX_FORWARD_RTOL
+                                         * want.abs())).max()))
+    stored = [k[len("step/params/"):] for k in ref
+              if k.startswith("step/params/")]
+    params = dict(module.named_parameters())
+    before = {names[k]: params[names[k]].detach().cpu().clone()
+              for k in stored}
+    metrics = make_train_step(config, dev)(
+        state, batch, torch.from_numpy(ref["step/t"]).to(dev),
+        torch.from_numpy(ref["step/noise"]).to(dev))
+    got = step_result(metrics, module, before)
+    got = (got[0], got[1], {}, got[3], {n: got[4][n] for n in before})
+    want = ({k: float(ref[f"step/{k}"]) for k in ("loss", "loss_global",
+                                                  "loss_local")},
+            {names[k[len("step/grads/"):]]: port(k) for k in ref
+             if k.startswith("step/grads/")},
+            {}, before, {names[k]: port(f"step/params/{k}") for k in stored})
+    lr = config.train.optimizer.lr
+    row = step_errors(got, want, lr)
+    row["grad_norm_rel"] = abs(float(metrics.grad_norm)
+                               - float(ref["step/grad_norm"])) \
+        / float(ref["step/grad_norm"])
+    ema_limit = (1.0 - config.train.ema_decay) * 3.0 * lr + 1e-6
+    row["ema_off"] = max(float((state.ema[names[k]].cpu()
+                                - port(f"step/ema_params/{k}")).abs().max())
+                         for k in stored)
+    row.update(forward_excess=excess, lr_off=lr_off, ema_limit=ema_limit)
+    if not row["grad_norm_rel"] <= JAX_NORM_RTOL:
+        row["broken"].append("grad_norm_rel")
+    if not row["ema_off"] <= ema_limit:
+        row["broken"].append("ema_off")
+    if not excess <= 1.0:
+        row["broken"].append("forward")
+    if not lr_off <= 1e-6:
+        row["broken"].append("lr_off")
+    return row
+
+
+def run_jax_checkpoint(dev, report) -> tuple:
+    """Phase 17: the converted JAX fixture resumed on the card against
+    JAX's numbers, the reader's planted faults, cli/train.py resuming it
+    and cli/generate.py sampling it through K1, and K1 at its width
+    against the plain version. Returns (failures, K1 launches, {label: K1
+    row})."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from agdiff_torch.cli import generate as gen_cli
+    from agdiff_torch.cli import train as train_cli
+    from agdiff_torch.eval import generate as gen_mod
+    from agdiff_torch.train.checkpoint import latest_checkpoint
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("phase 17: TF32 must be off before the gates")
+    report["jax_checkpoint"] = {}
+    root = os.path.join(OUT_DIR, "jax_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    log_dir = os.path.join(root, "run")
+    shutil.copytree(JAX_FIXTURE, log_dir,
+                    ignore=shutil.ignore_patterns("reference"))
+    path, it = latest_checkpoint(log_dir)
+    ref = jax_numbers()
+    failures, rows = [], {}
+    for fault in (None,) + JAX_FAULTS:
+        label = "converted" if fault is None else f"fault {fault}"
+        rows[label] = row = jax_checkpoint_row(path, ref, dev, fault)
+        print(f"jax checkpoint (a) {label}: forward {row['forward_excess']:.2e}"
+              f" of its limit, loss {row['loss_rel']:.2e}, grad norm "
+              f"{row['grad_norm_rel']:.2e}, grads max {row['grad_max_rel']:.2e}"
+              f" ({row['grad_max_rel_leaf']}), median "
+              f"{row['grad_median_rel']:.2e}, p99 {row['grad_p99_rel']:.2e}, "
+              f"updates off {row['update_off_share']:.2e}, EMA off "
+              f"{row['ema_off']:.2e} (limit {row['ema_limit']:.2e}), lr off "
+              f"{row['lr_off']:.2e}; broken {row['broken']}", flush=True)
+        if fault is None and row["broken"]:
+            failures.append(f"jax checkpoint (a): breaks {row['broken']}")
+        if fault is not None and not row["broken"]:
+            failures.append(f"jax checkpoint (a) {label}: breaks no limit")
+    t0 = time.time()
+    run = train_cli.main([log_dir, "--max_iters", str(it + JAX_RESUME_ITERS),
+                          "--synthetic", "64", "--device", str(dev)])
+    last, last_it = latest_checkpoint(log_dir)
+    resumed = dict(start_iter=run.start_iter, losses=len(run.losses),
+                   finite=bool(np.isfinite(run.losses).all()),
+                   last_checkpoint=last_it, seconds=time.time() - t0,
+                   port_state=os.path.isfile(os.path.join(last, "state.pt")))
+    if (run.start_iter != it + 1 or resumed["losses"] != JAX_RESUME_ITERS
+            or not resumed["finite"] or last_it != it + JAX_RESUME_ITERS
+            or not resumed["port_state"]):
+        failures.append(f"jax checkpoint (b) cli/train.py resume: {resumed}")
+    print(f"jax checkpoint (b) cli/train.py on the converted log dir: "
+          f"{resumed}", flush=True)
+    out = os.path.join(root, "samples")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    with first_k1_inputs() as inputs:
+        gen_cli.main([path, "--fast", "--engine", "pksf", "--dtype",
+                      "bfloat16", "--synthetic", str(JAX_GEN_MOLS),
+                      "--n_steps", str(JAX_GEN_STEPS), "--out_dir", out,
+                      "--no_resume", "--device", str(dev)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    k1 = counts.pop("stack_packed/stack_full:triu", 0)
+    done = gen_mod.load_samples(os.path.join(out, "samples_all.npz"))
+    finite = all(np.isfinite(m.meta["pos_gen"]).all() for m in done)
+    generated = dict(molecules=len(done), finite=finite, k1_launches=k1,
+                     other_kernels=counts, seconds=time.time() - t0)
+    if len(done) != JAX_GEN_MOLS or not finite or not k1 or counts:
+        failures.append(f"jax checkpoint (c) cli/generate.py: {generated}")
+    print(f"jax checkpoint (c) cli/generate.py on the converted checkpoint "
+          f"(bf16, --engine pksf, {JAX_GEN_STEPS} steps): {generated}",
+          flush=True)
+    report["jax_checkpoint"] = dict(rows=rows, resumed=resumed,
+                                    generated=generated)
+    if not inputs:
+        return failures + ["jax checkpoint (c): K1 never ran eagerly"], k1, {}
+    # K1 at this model's width (hidden 32, where no other phase runs it)
+    # against its plain version on the inputs of the ladder's first step
+    kw = dict(inputs[0])
+    mode, approx = kw.pop("mode"), kw.pop("approx")
+    b, n = kw["h0"].shape[:2]
+    label = f"jax_triu_B{b}_N{n}_H{kw['h0'].shape[2]}"
+    k1_row, failed = check_k1(kw, None, label, mode, approx, QM9_LIMITS,
+                              None, report)
+    failures += failed
+    failures += check_levels(kw, label, report, approx)
+    report["jax_checkpoint"]["k1_case"] = label
+    return failures, k1, {label: k1_row}
+
+
+@contextlib.contextmanager
+def first_k1_inputs():
+    """Records a copy of K1's keyword arguments at the first launch of
+    models/fast_forward.py's packed_stack_forward outside a CUDA graph's
+    capture, in the list it yields."""
+    import torch
+
+    from agdiff_torch.models import fast_forward as ff
+
+    real, inputs = ff.packed_stack_forward, []
+
+    def record(**kw):
+        if not inputs and not torch.cuda.is_current_stream_capturing():
+            inputs.append({k: v.clone() if isinstance(v, torch.Tensor)
+                           else v for k, v in kw.items()})
+        return real(**kw)
+
+    ff.packed_stack_forward = record
+    try:
+        yield inputs
+    finally:
+        ff.packed_stack_forward = real
 
 
 def torch_equal_params(a, b) -> bool:
@@ -7167,10 +7498,16 @@ def main() -> int:
     failed, k1_host = run_host(qcfg, qmodel, qmols, dev, report)
     failures += failed
     phase_done("16 host modules and the RDKit seam")
+
+    # ---- 17. a checkpoint of the JAX package in the port --------------------
+    failed, k1_jax, jax_k1 = run_jax_checkpoint(dev, report)
+    failures += failed
+    cases.update(jax_k1)
+    phase_done("17 JAX checkpoint")
     if failures:
         raise SystemExit("\n".join(failures))
 
-    # ---- 17. result lines --------------------------------------------------
+    # ---- 18. result lines --------------------------------------------------
     def entry(name, case, launches, also=()):
         """K1's row: times and bound of `case`, the largest error of it
         and of the cases `also` (the other batch sizes the path runs)."""
@@ -7201,8 +7538,8 @@ def main() -> int:
         entry("stack_full:triu", "triu_B128_N32", qm9["k1_launches"]
               + report["serve"]["qm9"]["k1_launches"]
               + report["engines"]["pksf-e16"]["k1_launches"]
-              + k1_student + k1_dp_triu + k1_protein + k1_host,
-              ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32")),
+              + k1_student + k1_dp_triu + k1_protein + k1_host + k1_jax,
+              ("triu_B64_N32", "triu_B32_N32", "triu_B16_N32", *jax_k1)),
         entry("stack_full:tight", "tight_B48_N64",
               slices["drugs_bucket64"]["k1_launches"]
               + slices["drugs_above64"]["k1_launches"]

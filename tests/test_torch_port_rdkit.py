@@ -470,7 +470,7 @@ def test_smiles_generation_refuses_an_orbax_checkpoint(tmp_path):
                                          "C", "--out_sdf", "x.sdf"])
     mol = Molecule(atom_type=[6], pos=np.zeros((1, 3)),
                    bond_index=np.zeros((2, 0)), bond_type=[])
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="convert_jax_checkpoint"):
         smiles_generation.generate_for_molecule(str(tmp_path / "log"), mol,
                                                 "auto", args, "cpu")
 

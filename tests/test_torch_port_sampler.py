@@ -158,7 +158,11 @@ def test_port_imports_no_jax():
     (chem/rdkit_bridge.py, the GEOM CLI, SMILES generation, properties)
     among them, loads neither jax nor agdiff_tpu, nor RDKit or psikit, and
     no source names jax or agdiff_tpu in an import, or RDKit or psikit in
-    an import at module level."""
+    an import at module level. The reader of converted JAX checkpoints
+    (train/checkpoint.py) is among the listed modules; no module of the
+    port and no chip_*.py script imports the converter
+    (convert_jax_checkpoint.py, the one file of the port that imports
+    jax)."""
     code = (
         "import importlib, pkgutil, sys, agdiff_torch\n"
         "for m in pkgutil.walk_packages(agdiff_torch.__path__, "
@@ -204,8 +208,12 @@ def test_port_imports_no_jax():
                                                 "chip_profile.py")]
     assert len(sources) > 20
     top_level = re.compile(r"^(import|from)\s+(rdkit|psikit|psi4)\b", re.M)
+    converter = re.compile(r"^\s*(import|from)\s+convert_jax_checkpoint\b|"
+                           r"import_module\([\"']convert_jax_checkpoint",
+                           re.M)
     for path in sources:
         with open(path) as f:
             text = f.read()
         assert not pattern.search(text), path
         assert not top_level.search(text), path
+        assert not converter.search(text), path

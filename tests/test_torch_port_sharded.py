@@ -30,7 +30,12 @@ single-process bf16 step (which tests/test_torch_port_bf16.py holds
 against JAX's) at chip_smoke.py phase 11's limits. Its shard shapes are
 JAX's shard_shape on the same meshes, and planted faults (the transposed
 terms dropped, per-rank statistics, h_j not gathered, a per-rank count)
-break the limits.
+break the limits. The same with packed_pairs: each rank holds its owned
+pairs of the triangle (ops/pairs.py owned_pairs), held against JAX's sp
+step on the packed config and its single packed step (f32), or the
+port's single packed bf16 step, with three faults of its own (the j-side
+messages kept on the owner, the mirror's lower half dropped, a pair
+owned twice) and the ownership rule checked directly.
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ import json
 import os
 import sys
 import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +57,7 @@ from agdiff_tpu.config import (
     TrainConfig as JaxTrainConfig,
     load_config as jax_load_config,
 )
+from agdiff_tpu.models.dualenc import get_model
 from agdiff_tpu.models.loss import (
     diffusion_loss as jax_diffusion_loss,
     perturb_positions as jax_perturb,
@@ -73,6 +80,7 @@ from agdiff_torch.config import (
 )
 from agdiff_torch.models.dualenc import DualEncoderEpsNetwork
 from agdiff_torch.models.weights import flax_leaf
+from agdiff_torch.ops.pairs import owned_pairs
 from agdiff_torch.parallel import launch
 from agdiff_torch.parallel import sharded as sh
 from agdiff_torch.parallel.mesh import Mesh
@@ -101,8 +109,10 @@ OPT = dict(lr=1e-3, beta1=0.95, beta2=0.999)
 SMALL = dict(hidden_dim=32, num_convs=2, num_convs_local=2,
              num_diffusion_timesteps=50)
 EMA = 0.999
-#: the port's ('dp', 'sp') meshes of the sp cases
-SP_DIMS = {"sp 2x2": (2, 2), "sp 1x2": (1, 2), "sp remat": (2, 2)}
+#: the port's ('dp', 'sp') meshes of the sp cases, dense and packed_pairs
+SP_DIMS = {"sp 2x2": (2, 2), "sp 1x2": (1, 2), "sp remat": (2, 2),
+           "sp packed 2x2": (2, 2), "sp packed 1x2": (1, 2),
+           "sp packed remat": (2, 2)}
 #: chip_smoke.py phase 11's limits of a bf16 step (BF16_STEP_LIMITS)
 BF16_LIMITS = dict(loss_rel=1.5e-3, grad_top_rel=0.1, grad_norm_median=7e-2,
                    stats_max_rel=2.5e-3)
@@ -164,13 +174,15 @@ def world():
     mols = synthetic_dataset(B, seed=0, min_heavy=3, max_heavy=4)
     jb, tb = batches(mols, N, batch_size=B)
     model, variables = jax_variables(jconf.model, jb)
+    jpacked = _packed(jconf)
+    models = {"": model, " packed": get_model(jpacked.model)}
     key = jax.random.PRNGKey(5)
     tkey, nkey = jax.random.split(key)
     t = jax_sample_timesteps(tkey, B, jconf.model.num_diffusion_timesteps)
     noise = jax.random.normal(nkey, jb.pos.shape, jb.pos.dtype)
     alphas = jnp.asarray(jax_diffusion(jconf.model).alphas)
 
-    def loss_fn(params, stats, batch, key):
+    def loss_fn(params, stats, batch, key, model=model):
         tkey, nkey = jax.random.split(key)
         t = jax_sample_timesteps(tkey, batch.num_graphs,
                                  jconf.model.num_diffusion_timesteps)
@@ -191,14 +203,20 @@ def world():
                         ("own_shard_norm", "fsdp")):
         cases[f"fault {fault}"] = dict(cases[mode], fault=fault)
     for name, dims in SP_DIMS.items():
-        remat = dataclasses.replace(conf.model, remat=name == "sp remat")
+        model_conf = dataclasses.replace(conf.model, remat="remat" in name,
+                                         packed_pairs="packed" in name)
         cases[name] = dict(base, kind="sp", dims=dims,
-                           config=dataclasses.replace(conf, model=remat))
+                           config=dataclasses.replace(conf, model=model_conf))
     bf16 = dataclasses.replace(conf, model=dataclasses.replace(
         conf.model, dtype="bfloat16"))
     cases["sp bf16"] = dict(base, kind="sp", dims=(2, 2), config=bf16)
+    cases["sp packed bf16"] = dict(base, kind="sp", dims=(2, 2),
+                                   config=_packed(bf16))
     for fault in ranks.SP_FAULTS:
         cases[f"sp fault {fault}"] = dict(cases["sp 2x2"], fault=fault)
+    for fault in ranks.SP_PACKED_FAULTS:
+        cases[f"sp packed fault {fault}"] = dict(cases["sp packed 2x2"],
+                                                 fault=fault)
     cases["dcn"] = dict(base, kind="dcn")
     cases["dcn fault"] = dict(base, kind="dcn", fault="cross_slice_skipped")
     cases["flat"] = dict(base, kind="flat")
@@ -206,22 +224,26 @@ def world():
     cases["collectives"] = dict(kind="collectives")
     world = background(launch, ranks.run_cases, 4, cases, device="cpu")
     state = _jax_state(jconf, model, variables)
-    inner = jax_train_step(model, jconf, jit=False)
-
-    def single(state, batch, key):
-        return (*inner(state, batch, key),
-                jax.grad(loss_fn)(state.params, state.batch_stats, batch,
-                                  key))
-
-    refs = {"single": _compiled(jax.jit(single), state, jb, key),
-            "single bf16": _port_single(bf16, variables, tb, base["t"],
-                                        base["noise"])}
+    refs = {"single bf16": _port_single(bf16, variables, tb, base["t"],
+                                        base["noise"]),
+            "single packed bf16": _port_single(
+                _packed(bf16), variables, tb, base["t"], base["noise"])}
     mesh = jax_sharded.make_hybrid_mesh(8, 2, model_axis="sp")
-    step = jax_sharded.make_sharded_train_step(model, jconf, mesh, state,
-                                               mode="sp")
-    refs["sp"] = _compiled(step, jax_sharded.shard_train_state(
-        state, mesh, "dp", min_size=1 << 62),
-        jax_sharded.shard_graph_batch_nodes(jb, mesh), key)
+    for suffix, jc in (("", jconf), (" packed", jpacked)):
+        m = models[suffix]
+        inner = jax_train_step(m, jc, jit=False)
+
+        def single(state, batch, key, inner=inner, m=m):
+            return (*inner(state, batch, key),
+                    jax.grad(loss_fn)(state.params, state.batch_stats,
+                                      batch, key, m))
+
+        refs["single" + suffix] = _compiled(jax.jit(single), state, jb, key)
+        step = jax_sharded.make_sharded_train_step(m, jc, mesh, state,
+                                                   mode="sp")
+        refs["sp" + suffix] = _compiled(step, jax_sharded.shard_train_state(
+            state, mesh, "dp", min_size=1 << 62),
+            jax_sharded.shard_graph_batch_nodes(jb, mesh), key)
     for d, sp in set(SP_DIMS.values()):
         shard = jax_sharded.graph_batch_node_sharding(
             jax_sharded.make_hybrid_mesh(d * sp, sp, model_axis="sp"))
@@ -239,6 +261,12 @@ def world():
         two = jax_sharded.make_hybrid_mesh(8, 2, model_axis=mode)
         refs[f"specs {mode}"] = jax_sharded.state_specs(state, two, mode)
     return refs, cases, world()
+
+
+def _packed(config):
+    """`config` (either package's) with packed_pairs on."""
+    return dataclasses.replace(config, model=dataclasses.replace(
+        config.model, packed_pairs=True))
 
 
 def _port_single(config, variables, batch, t, noise):
@@ -532,8 +560,9 @@ def test_sp_mode_validation(world):
     """'pp2' and 'sp' on a mesh without an 'sp' axis raise ValueError, as
     in JAX (test_sharded_parallel.py:171-177); on a ('dp', 'sp') mesh the
     step and the batch's node sharding are made; a node axis the 'sp'
-    axis does not divide, and packed_pairs (refused under 'sp', naming
-    its ROADMAP item), raise ValueError."""
+    axis does not divide raises ValueError; a packed_pairs config's sp
+    step is made (the triangle is split into each rank's owned pairs,
+    ops/pairs.py owned_pairs)."""
     _, _, out = world
     got = out[0]["refusals"]
     assert got["pp2"][0] == "ValueError"
@@ -541,24 +570,25 @@ def test_sp_mode_validation(world):
     assert got["no_axis"][0] == "ValueError"
     assert got["sp"] is None and got["sp_batch"] is None
     assert got["sp_indivisible"][0] == "ValueError"
-    assert got["sp_packed"][0] == "ValueError"
-    assert "ROADMAP.md queue 1 item 7a-sp-packed" in got["sp_packed"][1]
+    assert got["sp_packed"] is None
 
 
 @pytest.mark.parametrize("name", list(SP_DIMS))
 @pytest.mark.parametrize("reference", ["single", "sp"])
 def test_sp_matches_jax(world, name, reference):
     """The port's sp step on ('dp', 'sp') = (2, 2) and (1, 2), and under
-    remat, against JAX's single step and JAX's sp step on its (4, 2)
-    mesh (test_sharded_parallel.py:146-168): loss, gradient norm,
+    remat, dense and packed_pairs, against JAX's single step and JAX's sp
+    step on its (4, 2) mesh of the same layout (test_sharded_parallel.py:
+    146-168; GSPMD partitions JAX's triu pack): loss, gradient norm,
     moments, parameters (and, against the single step, every gradient
     leaf), on every rank of the mesh; the ranks' whole states are
     equal."""
     refs, cases, out = world
     module = _module(cases[name]["config"])
     members = 4 if SP_DIMS[name][0] == 2 else 2
+    ref = refs[reference + (" packed" if "packed" in name else "")]
     for r in range(members):
-        assert _broken(out[r][name], refs[reference], module) == [], r
+        assert _broken(out[r][name], ref, module) == [], r
     for part, tensors in out[0][name]["state"].items():
         for key, x in tensors.items():
             assert torch.equal(x, out[members - 1][name]["state"][part][key]
@@ -580,15 +610,17 @@ def test_sp_shard_shapes_equal_jax(world, name):
         assert out[r][name]["shapes"] == want
 
 
-def test_sp_bf16_matches_the_single_step(world):
-    """The bf16 sp step on (2, 2) against the port's single-process bf16
-    step at chip_smoke.py phase 11's limits: the loss terms, the worst
-    gradient leaf over the model's largest |g|, the median over leaves
-    of the gradient's relative error, the running statistics."""
+@pytest.mark.parametrize("name", ["sp bf16", "sp packed bf16"])
+def test_sp_bf16_matches_the_single_step(world, name):
+    """The bf16 sp step on (2, 2), dense and packed_pairs, against the
+    port's single-process bf16 step of the same layout at chip_smoke.py
+    phase 11's limits: the loss terms, the worst gradient leaf over the
+    model's largest |g|, the median over leaves of the gradient's
+    relative error, the running statistics."""
     refs, _, out = world
-    metrics, whole = refs["single bf16"]
+    metrics, whole = refs["single" + name[2:]]
     for r in range(4):
-        got = out[r]["sp bf16"]
+        got = out[r][name]
         row = _bf16_errors(got["metrics"], got["state"], metrics, whole)
         assert [k for k, lim in BF16_LIMITS.items() if not row[k] <= lim
                 ] == [], (r, row)
@@ -615,6 +647,54 @@ def test_sp_planted_faults_break_the_limits(world, fault):
     refs, cases, out = world
     module = _module(cases[f"sp fault {fault}"]["config"])
     assert _broken(out[0][f"sp fault {fault}"], refs["single"], module)
+
+
+@pytest.mark.parametrize("fault", ranks.SP_PACKED_FAULTS)
+def test_sp_packed_planted_faults_break_the_limits(world, fault):
+    """The packed sp step's faults (tests/torch_port_shard_ranks.py
+    SP_PACKED_FAULTS) against JAX's single packed step."""
+    refs, cases, out = world
+    name = f"sp packed fault {fault}"
+    assert _broken(out[0][name], refs["single packed"],
+                   _module(cases[name]["config"]))
+
+
+def test_sp_packed_pair_counts(world):
+    """Each rank of the packed sp steps owns P / sp of the triangle's
+    pairs within N, and the ranks of an 'sp' line own P together."""
+    _, _, out = world
+    p = N * (N - 1) // 2
+    for name, (d, sp) in SP_DIMS.items():
+        if "packed" in name:
+            counts = [out[r][name]["pairs"] for r in range(d * sp)]
+            assert sum(counts) == d * p, (name, counts)
+            assert max(abs(c - p / sp) for c in counts) <= N, counts
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("n", [16, 32, 33])
+def test_pair_ownership_rule(sp, n):
+    """ops/pairs.py owned_pairs over the ranks of an 'sp' line of size sp,
+    at N = 16, 32 and 33 (padded to the next multiple of sp, as a batch
+    must be): every unordered pair is owned exactly once, its endpoint i
+    lies in the owner's rows, and each rank holds P / sp pairs within
+    N."""
+    n = -(-n // sp) * sp
+    k = n // sp
+    owned = {}
+    for rank in range(sp):
+        nodes = SimpleNamespace(n=n, k=k, rows=slice(rank * k, rank * k + k))
+        share = owned_pairs(nodes, "cpu")
+        i, j = share.i.numpy(), share.j.numpy()
+        assert ((i >= rank * k) & (i < rank * k + k)).all()
+        assert (share.cell.numpy() == (i - rank * k) * n + j).all()
+        owned[rank] = {(min(a, b), max(a, b)) for a, b in zip(i, j)}
+        assert len(owned[rank]) == len(i)
+    p = n * (n - 1) // 2
+    assert sum(len(v) for v in owned.values()) == p
+    assert set().union(*owned.values()) == {
+        (a, b) for a in range(n) for b in range(a + 1, n)}
+    assert max(abs(len(v) - p / sp) for v in owned.values()) <= n
 
 
 def test_hybrid_mesh_validation(world):

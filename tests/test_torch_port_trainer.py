@@ -6,8 +6,8 @@ torch.use_deterministic_algorithms), `cli.generate.main` on the run's log
 dir with --ckpt_iter and --ema, the weights both ways across the flax
 naming, a port-trained module read by the JAX package's reference
 importer (its forward to the module path's 2e-4), and the refusals at the
-slice's edge (--num_devices beyond the machine's cards, a JAX orbax log
-dir; a bf16 config trains)."""
+slice's edge (--num_devices beyond the machine's cards, an unconverted
+JAX orbax log dir; a bf16 config trains)."""
 
 import dataclasses
 import glob
@@ -279,7 +279,8 @@ def test_port_trained_module_runs_in_jax(runs, tmp_path):
 def test_refusals_name_their_roadmap_items(tmp_path):
     """--num_devices beyond the machine's cards (item 7 trains
     data-parallel since it was ported; tests/test_torch_port_parallel_
-    cli.py runs it) and a JAX orbax log dir (item 4c) raise; a bf16 config
+    cli.py runs it) and an unconverted JAX orbax log dir (item 4c, ported:
+    the message names convert_jax_checkpoint.py) raise; a bf16 config
     (item 4a, refused before bf16 training was ported) trains at bf16
     compute."""
     bf16 = _write_config(tmp_path / "bf16.yml")
@@ -298,9 +299,9 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     jax_dir = tmp_path / "jax_run"
     os.makedirs(jax_dir / "checkpoints" / "5" / "state")
     shutil.copy(_write_config(tmp_path / "ok.yml"), jax_dir / "config.yml")
-    with pytest.raises(NotImplementedError, match="item 4c"):
+    with pytest.raises(FileNotFoundError, match="convert_jax_checkpoint.py"):
         train_cli.main([str(jax_dir), *SYNTH])
-    with pytest.raises(NotImplementedError, match="item 4c"):
+    with pytest.raises(FileNotFoundError, match="convert_jax_checkpoint.py"):
         load_inference_bundle(str(jax_dir))
-    with pytest.raises(NotImplementedError, match="item 4c"):
+    with pytest.raises(FileNotFoundError, match="convert_jax_checkpoint.py"):
         gen_cli.main([str(jax_dir), "--synthetic", "1", "--device", "cpu"])

@@ -12,6 +12,7 @@ import torch
 
 from agdiff_torch.models.fast_forward import build_fast_forward
 from agdiff_torch.ops import masked
+from agdiff_torch.ops.pairs import owned_pairs
 from agdiff_torch.parallel import pipeline as pp
 from agdiff_torch.parallel import sharded as sh
 from agdiff_torch.parallel.data_parallel import (
@@ -29,6 +30,7 @@ from agdiff_torch.train import train_step as ts
 from agdiff_torch.train.optimizer import TwoAdams, global_norm, make_optimizer
 
 import torch_port_dp_ranks as dp
+from torch_port_sp_faults import SP_PACKED_FAULTS, patch_packed
 
 # the faults a sharded step must not have: an fsdp gradient shard left
 # unsummed over the model axis (the gather's backward keeps the rank's own
@@ -87,6 +89,8 @@ def planted(fault):
         real_loss = ts.diffusion_loss
         patch(ts, "diffusion_loss",
               lambda *a: real_loss(*a[:5], None, *a[6:]))
+    elif fault in SP_PACKED_FAULTS:
+        patch_packed(fault, patch)
     elif fault is not None:
         raise ValueError(fault)
     try:
@@ -144,7 +148,8 @@ def sp_case(group, case):
     ('dp', 'sp') mesh of case['dims'] over the first ranks of the world,
     this rank's (graph rows, node rows) of the batch, t and the noise the
     global batch's: the metrics, the whole state after it, and the shape
-    of each field of the rank's shard. None on a rank outside the
+    of each field of the rank's shard, and the pairs the rank owns under
+    packed_pairs (ops/pairs.py owned_pairs). None on a rank outside the
     mesh."""
     config, (d, s) = case["config"], case["dims"]
     mesh = make_hybrid_mesh(d * s, s, model_axis="sp")
@@ -155,8 +160,10 @@ def sp_case(group, case):
     shard = sh.shard_graph_batch_nodes(case["batch"], mesh)
     with planted(case.get("fault")):
         metrics = step(state, shard, case["t"], case["noise"])
+    nodes = NodeLayout(mesh.axis("sp"), shard.pos.shape[1])
     return dict(metrics=[float(m) for m in metrics],
                 state=sh.gather_state(state),
+                pairs=owned_pairs(nodes, "cpu").num_pairs,
                 shapes={f: tuple(getattr(shard, f).shape) for f in (
                     "atom_type", "pos", "node_mask", "bond_adj",
                     "graph_mask")})
