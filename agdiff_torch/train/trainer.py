@@ -5,15 +5,23 @@ An infinite shuffled loader (collated on a background thread, into pinned
 memory on a card), a step an iteration (train.step_chunk groups K
 batches, run as K eager steps: the values of K single steps, where the
 JAX package scans them in one program), metrics every log_freq
-iterations, validation every val_freq iterations and at the last one
-(both plateau controllers step on it: the global Adam's on the global
-loss, the local one's on the local loss), a checkpoint at each validation
-with best-model tracking, and `resume(log_dir, it)` (of a port run, or of
-a JAX run's converted checkpoint). A port checkpoint holds
-the step generator's and the loader's state, so a resumed run continues
-the uninterrupted one's draws: j iterations after a resume from
-checkpoint k equal iterations k + 1 .. k + j of the uninterrupted run
-(bit for bit, on a card under torch.use_deterministic_algorithms).
+iterations (to <log_dir>/metrics.jsonl and, where the `tensorboard`
+package is installed, to TensorBoard event files beside it), validation
+every val_freq iterations and at the last one (both plateau controllers
+step on it: the global Adam's on the global loss, the local one's on the
+local loss), a checkpoint at each validation with best-model tracking,
+and `resume(log_dir, it)` (of a port run, or of a JAX run's converted
+checkpoint). A port checkpoint holds the step generator's and the
+loader's state, so a resumed run continues the uninterrupted one's
+draws: j iterations after a resume from checkpoint k equal iterations
+k + 1 .. k + j of the uninterrupted run (bit for bit, on a card under
+torch.use_deterministic_algorithms).
+
+`Trainer.losses` holds every iteration's loss. The step's loss tensors
+stay on the device for one log interval at most (log_freq iterations, or
+one step_chunk where that is larger): at each log point, and when
+`train` returns, they go to the host in one copy, into an array of
+8 bytes an iteration.
 
 `model.dtype: bfloat16` trains the module at bf16 compute with f32
 parameters, f32 BatchNorm statistics and an f32 loss, as the JAX package
@@ -27,9 +35,9 @@ single run's; the step is the global batch's (train/train_step.py).
 Every rank validates (its draws keep the step generators equal), and
 rank 0's three validation losses go to every rank, whose plateau
 controllers then take the same decision; rank 0 alone writes
-checkpoints, metrics and the log. Every rank resumes from the same
-checkpoint, and before the first step every rank's parameters are
-checked equal to rank 0's.
+checkpoints, metrics (JSONL and TensorBoard) and the log. Every rank
+resumes from the same checkpoint, and before the first step every rank's
+parameters are checked equal to rank 0's.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+from array import array
 from typing import Optional
 
 import torch
@@ -62,7 +71,12 @@ from agdiff_torch.train.train_step import (
     create_train_state,
     make_eval_step,
 )
-from agdiff_torch.utils.logging import MetricsWriter, get_logger
+from agdiff_torch.utils.logging import (
+    MetricsWriter,
+    MultiWriter,
+    TensorBoardWriter,
+    get_logger,
+)
 
 
 def to_device(batch: GraphBatch, device) -> GraphBatch:
@@ -104,8 +118,10 @@ class Trainer:
         else:
             self.logger = logging.getLogger("train.rank")
             self.logger.disabled = True
-        self.writer = MetricsWriter(os.path.join(log_dir, "metrics.jsonl")
-                                    if self.is_writer else None)
+        self.writer = MultiWriter(
+            MetricsWriter(os.path.join(log_dir, "metrics.jsonl")
+                          if self.is_writer else None),
+            TensorBoardWriter(log_dir if self.is_writer else None))
         self.device = group.device if group else resolve_device(device)
         self.log_freq = log_freq
         if group is not None:
@@ -130,7 +146,8 @@ class Trainer:
         self.plateau_local = plateau_init(lr)
         self.start_iter = 1
         self.best_val_loss = float("inf")
-        self._losses = []  # every iteration's loss, on the device
+        self._pending = []  # this log interval's losses, on the device
+        self._history = array("d")  # every earlier iteration's, on the host
 
     # --- resume (reference: train.py:104-115) ---
     def resume(self, resume_dir: str, it: Optional[int] = None) -> None:
@@ -223,16 +240,19 @@ class Trainer:
             it = self.start_iter
             while it <= max_iters:
                 k = min(chunk, max_iters - it + 1)
+                if len(self._pending) + k > max(self.log_freq, chunk):
+                    self._flush_losses()  # step_chunk does not divide log_freq
                 drawn = [next(data) for _ in range(k)]
                 loader_state = drawn[-1][2]
                 batches = [self._place(b) for _, b, _ in drawn]
                 for batch in batches:
                     metrics = self.train_step(self.state, batch)
-                    self._losses.append(metrics.loss)
+                    self._pending.append(metrics.loss)
                 prev, it = it, it + k - 1
                 if it // self.log_freq != (prev - 1) // self.log_freq \
                         or prev == 1:
                     self._log(it, metrics, t_start)
+                    self._flush_losses()
                     t_start = time.time()
                 if self.val_loader is not None and (
                         it // cfg.val_freq != (prev - 1) // cfg.val_freq
@@ -254,12 +274,21 @@ class Trainer:
             self.logger.info("Terminating...")
         finally:
             data.close()
+            self.writer.close()
+        self._flush_losses()
         return self.state
+
+    def _flush_losses(self) -> None:
+        """The pending loss tensors to the host history, in one copy."""
+        if self._pending:
+            self._history.extend(torch.stack(self._pending).tolist())
+            self._pending.clear()
 
     @property
     def losses(self):
         """Every iteration's loss of this trainer's runs, as floats."""
-        return torch.stack(self._losses).tolist() if self._losses else []
+        self._flush_losses()
+        return self._history.tolist()
 
     def _log(self, it: int, metrics, t_start: float) -> None:
         vals = {"train/loss": float(metrics.loss),

@@ -1,6 +1,9 @@
-"""Logging and metrics (port of agdiff_tpu/utils/logging.py:15-66): the
-logger to the console and <log_dir>/log.txt, timestamped run directories,
-and the JSONL scalar stream (one {"step": n, name: value, ...} per line)."""
+"""Logging and metrics (port of agdiff_tpu/utils/logging.py): the logger
+to the console and <log_dir>/log.txt, timestamped run directories, the
+JSONL scalar stream (one {"step": n, name: value, ...} per line), the
+same scalars as TensorBoard event files when the `tensorboard` package is
+installed (the reference's train.py:152-158), and a writer that fans a
+stream out to several."""
 
 from __future__ import annotations
 
@@ -54,9 +57,11 @@ def get_new_log_dir(root: str = "./logs", prefix: str = "",
 
 
 class MetricsWriter:
-    """Append-only JSONL scalar stream."""
+    """Append-only JSONL scalar stream; inactive without a path. A write
+    after `close` reopens the file."""
 
     def __init__(self, path: Optional[str]):
+        self.path = path
         self._f = None
         if path:
             os.makedirs(os.path.dirname(os.path.abspath(path)),
@@ -64,8 +69,10 @@ class MetricsWriter:
             self._f = open(path, "a")
 
     def write(self, step: int, scalars: Dict[str, float]) -> None:
-        if self._f is None:
+        if not self.path:
             return
+        if self._f is None:
+            self._f = open(self.path, "a")
         self._f.write(json.dumps({"step": step, **scalars}) + "\n")
         self._f.flush()
 
@@ -73,3 +80,59 @@ class MetricsWriter:
         if self._f:
             self._f.close()
             self._f = None
+
+
+class TensorBoardWriter:
+    """The scalar stream as TensorBoard event files in `log_dir`, through
+    torch.utils.tensorboard, imported here and not at module level.
+    Silently inactive (`active` False) without a log_dir or when that
+    import fails, as the JAX package's writer is. A write after `close`
+    starts a new event file in the same directory, as a resumed run
+    does."""
+
+    def __init__(self, log_dir: Optional[str]):
+        self.log_dir = log_dir
+        self._summary_writer = None
+        self._w = None
+        if not log_dir:
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self._summary_writer = SummaryWriter
+        self._w = SummaryWriter(log_dir)
+
+    @property
+    def active(self) -> bool:
+        return self._summary_writer is not None
+
+    def write(self, step: int, scalars: Dict[str, float]) -> None:
+        if not self.active:
+            return
+        if self._w is None:
+            self._w = self._summary_writer(self.log_dir)
+        for tag, value in scalars.items():
+            self._w.add_scalar(tag, value, step)
+        self._w.flush()
+
+    def close(self) -> None:
+        if self._w:
+            self._w.close()
+            self._w = None
+
+
+class MultiWriter:
+    """One scalar stream to several writers (the JSONL file and the
+    TensorBoard events)."""
+
+    def __init__(self, *writers):
+        self.writers = [w for w in writers if w is not None]
+
+    def write(self, step: int, scalars: Dict[str, float]) -> None:
+        for w in self.writers:
+            w.write(step, scalars)
+
+    def close(self) -> None:
+        for w in self.writers:
+            w.close()

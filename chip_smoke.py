@@ -38,7 +38,10 @@ Phases, each of which fails the run:
      (f32) or qm9_fast.yml (bf16), B=128, N=32, with planted faults (a
      dropped filter or first-layer bias, the softplus shift dropped, the
      mask ignored, the relu dropped), each timed as a lone call (`ms`)
-     and behind a card spin (`ms_spun`); K4 also on the local head's
+     and behind a card spin (`ms_spun`), K5 also over a run of
+     RUN_LAUNCHES back-to-back launches (`ms_run`, CUDA events around the
+     run over its count, the run queued behind a spin the host outlasts
+     in launching it); K4 also on the local head's
      inputs (its second call) and on a mask of every real-atom pair, with
      each mask's density and the bound over its masked pairs beside the
      bound over all N x N pairs, and a third planted fault (each graph's
@@ -177,7 +180,14 @@ Phases, each of which fails the run:
      whose last 50 must average below the first 50, a resume from
      checkpoint RESUME_FROM whose iterations must equal the run's bit for
      bit (parameters, statistics, both Adams, EMA, generator, loader), and
-     PACKED_ITERS packed_pairs iterations; the run's log dir through
+     PACKED_ITERS packed_pairs iterations; a Trainer built directly,
+     LOSS_ITERS = 2 x LOSS_LOG_FREQ + 1 iterations: at most LOSS_LOG_FREQ
+     of the step's loss tensors alive at a log point (weakrefs), none but
+     the last step's once train() returns, `losses` the logged losses,
+     and torch.cuda.memory_allocated() the same after LOSS_ITERS more
+     iterations; whether its TensorBoard writer is active (the tensorboard
+     package installed), and if it is, its events against metrics.jsonl
+     at float32; the run's log dir through
      cli/generate.py main (--ema, 4 held-out synthetic molecules, 50
      'pksf' steps, K1 launched) and cli/eval_covmat.py (every molecule
      scored); last, TRAIN_PROFILE_STEPS train steps of each layout timed
@@ -448,6 +458,10 @@ ENGINE_TOL = 0.05       # bf16 engine vs f32 engine, the JAX slim gate's
 DRUGS_ENGINE_TOL = 0.15
 PROFILE_STEPS = 20
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock (cuda_time's spin)
+# cuda_time_run: a run of back-to-back launches (K5's `ms_run`) behind a
+# ~40 ms spin, longer than the host takes to launch the run
+RUN_LAUNCHES = 200
+RUN_SPIN_CYCLES = 40 * SPIN_CYCLES
 F32_ENGINE_TOL = 2e-4   # two f32 engines: summation order only
 SOURCES = ("stack_packed", "fused", "block_packed", "mono")
 # the TPU kernel each new kernel replaces (file:line of its function)
@@ -518,6 +532,34 @@ def cuda_time(fn, reps: int = 20, spin: bool = False) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_time_run(fn, launches: int = None, reps: int = 5) -> tuple:
+    """(ms a launch, host ms a launch): CUDA events around a run of
+    `launches` back-to-back calls, over the count, the median of `reps`
+    runs after two warm-ups. Each run is queued behind a spin of
+    RUN_SPIN_CYCLES, so the host has launched it all before the card
+    reaches the start event (the host's ms a launch, printed beside it,
+    says whether the spin outlasted the launching)."""
+    import torch
+
+    launches = launches or RUN_LAUNCHES
+    for _ in range(2):
+        fn()
+    times, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(RUN_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3 / launches)
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times), statistics.median(host)
 
 
 def k1_work(kw, mode: str) -> tuple:
@@ -1381,6 +1423,14 @@ def check_new_kernels(fwds, batch, report) -> tuple:
         [("agg", 0, node, None)], faults,
         limits_for(("agg",), torch.float32), gine_work, PEAK_F32, report)
     failures += f
+    row = rows["gine:f32"]
+    row["ms_run"], row["host_ms_run"] = cuda_time_run(
+        lambda: fused.gine_aggregate(*args))
+    print(f"gine:f32 path A: {RUN_LAUNCHES} back-to-back launches, "
+          f"{row['ms_run']:.4f} ms a launch (CUDA events over the run), "
+          f"{row['bound_ms'] / row['ms_run']:.3f} of its bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the host "
+          f"launched one every {row['host_ms_run']:.4f} ms", flush=True)
 
     for label, key in (("C", "dense_f32"), ("C-bf16", "dense_bf16")):
         rows.update(check_k4(label, fwds[key], batch, limits_for, report,
@@ -2458,6 +2508,10 @@ LOSS_WINDOW = 50        # the last 50 losses' mean below the first 50's
 # the run inside its time limit as later phases join it)
 TRAIN_PROFILE_STEPS = 5
 TRAIN_GEN_MOLS = 4      # held-out: the generation CLI's synthetic seed 7
+# the Trainer's loss history: 2 x LOSS_LOG_FREQ + 1 iterations, so that the
+# last one is pending when train() returns, then as many again
+LOSS_LOG_FREQ = 5
+LOSS_ITERS = 2 * LOSS_LOG_FREQ + 1
 TRAIN_GEN_STEPS = 50
 # One train step on the card against the same step on the CPU (f32, the
 # same init_like_jax weights, batch, timesteps and noise; TF32 off), each
@@ -2792,6 +2846,113 @@ def same_checkpoint(a, b) -> list:
     return bad
 
 
+def tensorboard_against_metrics(log_dir) -> list:
+    """The differences between a run's TensorBoard events and its
+    metrics.jsonl: the same tags at the same steps, each event the JSONL
+    value rounded to float32."""
+    import numpy as np
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    acc = EventAccumulator(log_dir)
+    acc.Reload()
+    events = {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+              for tag in acc.Tags()["scalars"]}
+    want = {}
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        for line in map(json.loads, f):
+            for tag, value in line.items():
+                if tag != "step":
+                    want.setdefault(tag, []).append(
+                        (line["step"], float(np.float32(value))))
+    return [f"{tag}: events {events.get(tag)}, metrics.jsonl {want.get(tag)}"
+            for tag in sorted(set(events) | set(want))
+            if events.get(tag) != want.get(tag)]
+
+
+def check_loss_history(config, train_mols, dev, root, report) -> list:
+    """Phase 9 (a): a Trainer on the card for LOSS_ITERS iterations holds
+    at most LOSS_LOG_FREQ of the step's loss tensors at a log point and
+    none but the last step's once train() returns; LOSS_ITERS more leave
+    torch.cuda.memory_allocated() as it was. (b) whether its TensorBoard
+    writer is active here, and if it is, its events against
+    metrics.jsonl."""
+    import weakref
+
+    import torch
+
+    from agdiff_torch.data.dataset import ConformationDataset
+    from agdiff_torch.train.trainer import Trainer
+    from agdiff_torch.utils.logging import TensorBoardWriter
+
+    failures = []
+    log_dir = os.path.join(root, "loss_history")
+    t0 = time.time()
+    trainer = Trainer(config, ConformationDataset(train_mols), None, log_dir,
+                      device=dev, log_freq=LOSS_LOG_FREQ)
+    refs, alive_at_logs = [], []
+    step, log = trainer.train_step, trainer._log
+
+    def recording_step(state, batch):
+        metrics = step(state, batch)
+        refs.append(weakref.ref(metrics.loss))
+        return metrics
+
+    def recording_log(*args):
+        alive_at_logs.append(sum(r() is not None for r in refs))
+        log(*args)
+
+    trainer.train_step, trainer._log = recording_step, recording_log
+    trainer.train(max_iters=LOSS_ITERS)
+    alive = [i + 1 for i, r in enumerate(refs) if r() is not None]
+    torch.cuda.synchronize()
+    mem_n = torch.cuda.memory_allocated(dev)
+    trainer.start_iter = LOSS_ITERS + 1
+    trainer.train(max_iters=2 * LOSS_ITERS)
+    torch.cuda.synchronize()
+    mem_2n = torch.cuda.memory_allocated(dev)
+    losses = trainer.losses
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        logged = {line["step"]: line["train/loss"]
+                  for line in map(json.loads, f)}
+    tb = next(w for w in trainer.writer.writers
+              if isinstance(w, TensorBoardWriter))
+    tb_diff = tensorboard_against_metrics(log_dir) if tb.active else []
+    row = dict(log_freq=LOSS_LOG_FREQ, iterations=LOSS_ITERS,
+               alive_at_logs=alive_at_logs, alive_after=alive,
+               memory_allocated=[mem_n, mem_2n],
+               tensorboard_active=tb.active, tensorboard_diff=tb_diff[:5],
+               wall_s=time.time() - t0)
+    report["train"]["loss_history"] = row
+    print(f"train loss history: a Trainer on the card, {LOSS_ITERS} "
+          f"iterations at log_freq {LOSS_LOG_FREQ}: the step's loss tensors "
+          f"alive at its log points {alive_at_logs}, after train() "
+          f"{len(alive)} (iterations {alive}); "
+          f"torch.cuda.memory_allocated() {mem_n} B after {LOSS_ITERS} "
+          f"iterations, {mem_2n} B after {2 * LOSS_ITERS}; "
+          f"{row['wall_s']:.1f} s", flush=True)
+    print(f"train TensorBoard on the card: active {tb.active} ("
+          + ("its events against metrics.jsonl: "
+             f"{'equal' if not tb_diff else tb_diff[:3]}" if tb.active else
+             "torch.utils.tensorboard does not import here: metrics.jsonl "
+             "only") + ")", flush=True)
+    if max(alive_at_logs, default=0) > LOSS_LOG_FREQ or alive:
+        failures.append(f"train loss history: tensors alive at log points "
+                        f"{alive_at_logs}, after train() {alive}")
+    if mem_n != mem_2n:
+        failures.append(f"train loss history: memory_allocated {mem_n} B "
+                        f"after {LOSS_ITERS} iterations, {mem_2n} B after "
+                        f"{2 * LOSS_ITERS}")
+    if len(losses) != 2 * LOSS_ITERS or any(
+            losses[it - 1] != v for it, v in logged.items()):
+        failures.append(f"train loss history: {len(losses)} losses, logged "
+                        f"{logged}")
+    if tb_diff:
+        failures.append(f"train TensorBoard: {tb_diff[:3]}")
+    return failures
+
+
 def run_training(dev, report) -> list:
     """Phase 9: the card step against the CPU step (and its planted
     faults, and packed against dense), the Trainer through cli/train.py
@@ -2893,6 +3054,7 @@ def run_training(dev, report) -> list:
     print(f"train packed_pairs: {PACKED_ITERS} iterations in {packed_s:.1f} "
           f"s ({PACKED_ITERS / packed_s:.2f} it/s with loader), losses "
           f"finite {bool(np.isfinite(plosses).all())}", flush=True)
+    failures += check_loss_history(config, train_mols, dev, root, report)
 
     # the trained checkpoint (the EMA shadow) to generated, scored samples
     out = os.path.join(root, "samples")

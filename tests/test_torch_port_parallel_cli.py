@@ -12,6 +12,7 @@ Tolerances: losses LOSS_RTOL relative; positions POS_ATOL (a forward on
 a rank's half of a chunk may round otherwise than on the whole chunk in
 the CPU's BLAS; a merged chunk is larger than a request's own)."""
 
+import importlib.util
 import json
 import os
 import shutil
@@ -95,6 +96,12 @@ def test_dp_training_follows_the_single_process_run(runs):
         dp_lines = [json.loads(x)["step"] for x in f]
     with open(os.path.join(single.log_dir, "metrics.jsonl")) as f:
         assert dp_lines == [json.loads(x)["step"] for x in f]
+    # and alone writes TensorBoard events (where tensorboard is installed):
+    # every event file's name ends in <pid>.<n>, all of one process
+    pids = {f.rsplit(".", 2)[1] for f in os.listdir(dp.log_dir)
+            if f.startswith("events.out.tfevents.")}
+    assert len(pids) == (1 if importlib.util.find_spec("tensorboard")
+                         else 0), pids
 
 
 def test_dp_resume_continues_bit_for_bit(runs):

@@ -156,8 +156,9 @@ def test_port_imports_no_jax():
     example), the host modules (data/native_relax.py, utils/profiling.py,
     the synthetic end-to-end example) and the RDKit and psi4 ones
     (chem/rdkit_bridge.py, the GEOM CLI, SMILES generation, properties)
-    among them, loads neither jax nor agdiff_tpu, nor RDKit or psikit, and
-    no source names jax or agdiff_tpu in an import, or RDKit or psikit in
+    among them, loads neither jax nor agdiff_tpu, nor RDKit or psikit, nor
+    tensorboard (utils/logging.py imports it in TensorBoardWriter), and no
+    source names jax or agdiff_tpu in an import, or RDKit or psikit in
     an import at module level. The reader of converted JAX checkpoints
     (train/checkpoint.py) is among the listed modules; no module of the
     port and no chip_*.py script imports the converter
@@ -170,7 +171,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'agdiff_tpu', 'rdkit', 'psikit', "
-        "'psi4')]\n"
+        "'psi4', 'tensorboard', 'tensorflow')]\n"
         "bad += [m for m in ('agdiff_torch.cli.generate', "
         "'agdiff_torch.cli._common', 'agdiff_torch.cli.eval_covmat', "
         "'agdiff_torch.chem.rmsd', 'agdiff_torch.chem.native_rmsd', "
