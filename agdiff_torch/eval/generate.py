@@ -81,6 +81,7 @@ from agdiff_torch.sampling.langevin import (
     build_fast_sampler,
     build_sampler,
 )
+from agdiff_torch.utils.profiling import span
 
 RETRY_CLIP_LOCAL = 20.0
 TIGHT_FROM_BUCKET = 40
@@ -302,24 +303,31 @@ class GenerationRunner:
         while remaining > 0:
             count = min(remaining, self.chunk_size)
             bsz = self._batch_size_for(count)
-            batch = self._batch(mol, bucket, bsz)
-            pos_init = torch.randn(batch.pos.shape, generator=generator,
-                                   device=self.device)
+            with span("runner.pad"):
+                batch = self._batch(mol, bucket, bsz)
+            with span("runner.starts"):
+                pos_init = torch.randn(batch.pos.shape, generator=generator,
+                                       device=self.device)
             result = self._sampler(engine, False, capacity)(
                 batch, pos_init, generator=generator)
             pos, flags = result.pos, result.nan_flags
-            if bool(flags.any()):
-                if self.logger:
-                    self.logger.warning(
-                        "NaN in %d/%d samples; retrying with clip_local",
-                        int(flags.sum()), len(flags))
-                retry = self._sampler(engine, True, capacity)(
-                    batch, pos_init, generator=generator)
-                pos = torch.where(flags[:, None, None], retry.pos, pos)
-            out.append(pos[:count, :n].cpu().numpy())
+            with span("runner.wait"):
+                flagged = bool(flags.any())
+            if flagged:
+                with span("runner.retry"):
+                    if self.logger:
+                        self.logger.warning(
+                            "NaN in %d/%d samples; retrying with clip_local",
+                            int(flags.sum()), len(flags))
+                    retry = self._sampler(engine, True, capacity)(
+                        batch, pos_init, generator=generator)
+                    pos = torch.where(flags[:, None, None], retry.pos, pos)
+            with span("runner.copy_back"):
+                out.append(pos[:count, :n].cpu().numpy())
             remaining -= count
         return np.concatenate(out, axis=0)
 
+    @span("runner.run")
     def run(self, dataset: Sequence[Molecule], out_dir: Optional[str] = None,
             seed: int = 0, num_confs="2x", start_idx: int = 0,
             end_idx: Optional[int] = None, resume: bool = True,
@@ -330,13 +338,14 @@ class GenerationRunner:
         at the end, and with resume loads a molecule whose file exists
         instead of generating it (agdiff_tpu/eval/generate.py:454-503).
         out_dir None writes nothing."""
-        save = save and out_dir is not None
-        if save and self.writer:
-            os.makedirs(out_dir, exist_ok=True)
-        end_idx = len(dataset) if end_idx is None else min(end_idx,
-                                                           len(dataset))
-        done = self._done(out_dir, range(start_idx, end_idx),
-                          resume) if save else set()
+        with span("runner.plan"):
+            save = save and out_dir is not None
+            if save and self.writer:
+                os.makedirs(out_dir, exist_ok=True)
+            end_idx = len(dataset) if end_idx is None else min(
+                end_idx, len(dataset))
+            done = self._done(out_dir, range(start_idx, end_idx),
+                              resume) if save else set()
         results = []
         for i in range(start_idx, end_idx):
             mol = dataset[i]
@@ -347,15 +356,17 @@ class GenerationRunner:
             ns = self.num_samples_for(mol, num_confs)
             gen = torch.Generator(device=self.device).manual_seed(seed + i)
             pos_gen = self.generate_molecule(mol, ns, gen)
-            if save and self.writer:
-                _save_with_gen(path, mol, pos_gen)
-            if self.logger:
-                self.logger.info("molecule %d: %d samples generated (%d "
-                                 "atoms)", i, ns, mol.num_nodes)
-            results.append(dataclasses.replace(
-                mol, meta={**mol.meta, "pos_gen": pos_gen}))
+            with span("runner.collect"):
+                if save and self.writer:
+                    _save_with_gen(path, mol, pos_gen)
+                if self.logger:
+                    self.logger.info("molecule %d: %d samples generated "
+                                     "(%d atoms)", i, ns, mol.num_nodes)
+                results.append(dataclasses.replace(
+                    mol, meta={**mol.meta, "pos_gen": pos_gen}))
         if save and self.writer:
-            _save_all(os.path.join(out_dir, "samples_all.npz"), results)
+            with span("runner.collect"):
+                _save_all(os.path.join(out_dir, "samples_all.npz"), results)
         return results
 
 
@@ -437,6 +448,7 @@ class PackedGenerationRunner(GenerationRunner):
                               .manual_seed(slot_seed(*k))) for k in keys]
         return torch.stack(starts).to(self.device)
 
+    @span("runner.run")
     def run(self, dataset: Sequence[Molecule], out_dir: Optional[str] = None,
             seed: int = 0, num_confs="2x", start_idx: int = 0,
             end_idx: Optional[int] = None, resume: bool = True,
@@ -447,32 +459,35 @@ class PackedGenerationRunner(GenerationRunner):
         per-item list of sample counts (indexed by dataset index);
         item_seeds, a per-item (seed, index) list, seeds item i's starts
         in place of (seed, i)."""
-        save = save and out_dir is not None
-        if save and self.writer:
-            os.makedirs(out_dir, exist_ok=True)
-        end_idx = len(dataset) if end_idx is None else min(end_idx,
-                                                           len(dataset))
-        if item_seeds is not None and len(item_seeds) != len(dataset):
-            raise ValueError(f"{len(item_seeds)} item seeds for "
-                             f"{len(dataset)} molecules")
-        done = self._done(out_dir, range(start_idx, end_idx),
-                          resume) if save else set()
-        todo, results = [], {}
-        for i in range(start_idx, end_idx):
-            mol = dataset[i]
-            path = os.path.join(out_dir, f"samples_{i}.npz") if save else None
-            if i in done:
-                results[i] = load_samples(path)[0]
-                continue
-            ns = (int(num_confs[i]) if isinstance(num_confs, (list, tuple))
-                  else self.num_samples_for(mol, num_confs))
-            todo.append((i, mol, ns))
-        groups: Dict[tuple, list] = {}
-        for i, mol, ns in todo:
-            bucket = self._bucket_for(mol)
-            size = (mol.num_nodes
-                    if self._engine_for(bucket) in _TIGHT_ENGINES else None)
-            groups.setdefault((bucket, size), []).append((i, mol, ns))
+        with span("runner.plan"):
+            save = save and out_dir is not None
+            if save and self.writer:
+                os.makedirs(out_dir, exist_ok=True)
+            end_idx = len(dataset) if end_idx is None else min(
+                end_idx, len(dataset))
+            if item_seeds is not None and len(item_seeds) != len(dataset):
+                raise ValueError(f"{len(item_seeds)} item seeds for "
+                                 f"{len(dataset)} molecules")
+            done = self._done(out_dir, range(start_idx, end_idx),
+                              resume) if save else set()
+            todo, results = [], {}
+            for i in range(start_idx, end_idx):
+                mol = dataset[i]
+                path = (os.path.join(out_dir, f"samples_{i}.npz") if save
+                        else None)
+                if i in done:
+                    results[i] = load_samples(path)[0]
+                    continue
+                ns = (int(num_confs[i])
+                      if isinstance(num_confs, (list, tuple))
+                      else self.num_samples_for(mol, num_confs))
+                todo.append((i, mol, ns))
+            groups: Dict[tuple, list] = {}
+            for i, mol, ns in todo:
+                bucket = self._bucket_for(mol)
+                size = (mol.num_nodes if self._engine_for(bucket)
+                        in _TIGHT_ENGINES else None)
+                groups.setdefault((bucket, size), []).append((i, mol, ns))
 
         collected: Dict[int, list] = {i: [] for i, _, _ in todo}
         chunk_no = 0   # over the run: each chunk's ladder noise its own
@@ -484,46 +499,55 @@ class PackedGenerationRunner(GenerationRunner):
                 chunk = slots[start:start + self.chunk_size]
                 mols = [mol for _, mol, _ in chunk]
                 bsz = self._batch_size_for(len(chunk))
-                batch = pad_molecules(
-                    mols + [mols[-1]] * (bsz - len(chunk)), bucket,
-                    edge_order=self.model_config.edge_order, batch_size=bsz,
-                    device=self.device)
+                with span("runner.pad"):
+                    batch = pad_molecules(
+                        mols + [mols[-1]] * (bsz - len(chunk)), bucket,
+                        edge_order=self.model_config.edge_order,
+                        batch_size=bsz, device=self.device)
                 keys = [(seed, i, k) if item_seeds is None else
                         (item_seeds[i][0], item_seeds[i][1], k)
                         for i, _, k in chunk]
-                pos_init = self._starts(
-                    keys + [(0, 0, 0)] * (bsz - len(chunk)), bucket)
+                with span("runner.starts"):
+                    pos_init = self._starts(
+                        keys + [(0, 0, 0)] * (bsz - len(chunk)), bucket)
                 run = (seed ^ 0x5EED, chunk_no)
                 chunk_no += 1
                 result = self._sampler(engine, False, capacity)(
                     batch, pos_init, generator=torch.Generator(
                         device=self.device).manual_seed(slot_seed(*run)))
                 pos, flags = result.pos, result.nan_flags
-                if bool(flags.any()):
-                    if self.logger:
-                        self.logger.warning(
-                            "NaN in %d/%d samples; retrying with "
-                            "clip_local", int(flags.sum()), len(flags))
-                    retry = self._sampler(engine, True, capacity)(
-                        batch, pos_init, generator=torch.Generator(
-                            device=self.device).manual_seed(
-                                slot_seed(*run, 1)))
-                    pos = torch.where(flags[:, None, None], retry.pos, pos)
-                pos = pos.cpu().numpy()
-                for slot, (i, mol, _) in enumerate(chunk):
-                    collected[i].append(pos[slot, :mol.num_nodes])
+                with span("runner.wait"):
+                    flagged = bool(flags.any())
+                if flagged:
+                    with span("runner.retry"):
+                        if self.logger:
+                            self.logger.warning(
+                                "NaN in %d/%d samples; retrying with "
+                                "clip_local", int(flags.sum()), len(flags))
+                        retry = self._sampler(engine, True, capacity)(
+                            batch, pos_init, generator=torch.Generator(
+                                device=self.device).manual_seed(
+                                    slot_seed(*run, 1)))
+                        pos = torch.where(flags[:, None, None], retry.pos,
+                                          pos)
+                with span("runner.copy_back"):
+                    pos = pos.cpu().numpy()
+                    for slot, (i, mol, _) in enumerate(chunk):
+                        collected[i].append(pos[slot, :mol.num_nodes])
 
-        for i, mol, ns in todo:
-            pos_gen = np.stack(collected[i], axis=0)
+        with span("runner.collect"):
+            for i, mol, ns in todo:
+                pos_gen = np.stack(collected[i], axis=0)
+                if save and self.writer:
+                    _save_with_gen(os.path.join(out_dir,
+                                                f"samples_{i}.npz"),
+                                   mol, pos_gen)
+                if self.logger:
+                    self.logger.info("molecule %d: %d samples (packed "
+                                     "chunks)", i, ns)
+                results[i] = dataclasses.replace(
+                    mol, meta={**mol.meta, "pos_gen": pos_gen})
+            ordered = [results[i] for i in sorted(results)]
             if save and self.writer:
-                _save_with_gen(os.path.join(out_dir, f"samples_{i}.npz"),
-                               mol, pos_gen)
-            if self.logger:
-                self.logger.info("molecule %d: %d samples (packed chunks)",
-                                 i, ns)
-            results[i] = dataclasses.replace(
-                mol, meta={**mol.meta, "pos_gen": pos_gen})
-        ordered = [results[i] for i in sorted(results)]
-        if save and self.writer:
-            _save_all(os.path.join(out_dir, "samples_all.npz"), ordered)
+                _save_all(os.path.join(out_dir, "samples_all.npz"), ordered)
         return ordered

@@ -6,7 +6,8 @@ it includes from csrc/ (`#include "..."`, followed to any depth), so an
 edit to a shared header rebuilds each library that includes it.
 `nvcc -gencode arch=compute_90a,code=sm_90a` targets Hopper; nothing
 includes PyTorch's headers, so a build takes seconds. Nothing is built
-when a module is imported: the first launch builds.
+when a module is imported: the first launch builds, under the span
+`kernels.build` (utils/profiling.py) with the library's load.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from typing import Dict, List, Sequence
+
+from agdiff_torch.utils.profiling import span
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
@@ -119,7 +122,8 @@ def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(library_path(name))
+        with span("kernels.build"):
+            build(name)
+            lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib

@@ -41,19 +41,30 @@ replayed is the launches recorded times their replays, not a count of
 what ran; only a profile of the replays (chip_profile.py --graph) sees
 the kernels run. A forward's `calls` likewise counts the forwards
 captured times their replays.
+
+The device operations a block replays are counted where it is captured:
+the node count of the graph being captured, read from the CUDA driver
+(`capture_nodes`) at the block's start and end and around each forward
+inside it, gives `nodes[(kind, size)] = (total, forward)`, None where
+libcuda cannot be asked. Each replay adds them to the counters
+`ladder.replayed_nodes` and `forward.replayed_nodes`, and its steps to
+`ladder.replayed_steps` (utils/profiling.py).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import time
 from collections import Counter
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from agdiff_torch import kernels
 from agdiff_torch.kernels import block_packed, fused, monolithic
 from agdiff_torch.kernels import stack_packed
+from agdiff_torch.utils import profiling
 
 # launches recorded into graphs, and each replay's recorded launches
 # added up, as "<kernel module>/<variant>"
@@ -72,10 +83,75 @@ def kernel_counts() -> Counter:
     return out
 
 
+_CAPTURE_ACTIVE = 1   # CU_STREAM_CAPTURE_STATUS_ACTIVE
+
+
+@functools.cache
+def _cuda_driver() -> Optional[ctypes.CDLL]:
+    """The CUDA driver with the two calls capture_nodes makes declared;
+    None where it is missing or lacks them (no card, an old driver)."""
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+        info, nodes = lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes
+    except (OSError, AttributeError):
+        return None
+    info.restype = nodes.restype = ctypes.c_int
+    info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_uint64),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_size_t)]
+    nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_size_t)]
+    return lib
+
+
+def capture_nodes(stream: torch.cuda.Stream) -> Optional[int]:
+    """The nodes of the graph being captured on `stream` so far; None
+    where the stream is not capturing or libcuda cannot be asked."""
+    lib = _cuda_driver()
+    if lib is None:
+        return None
+    status, graph = ctypes.c_int(), ctypes.c_void_p()
+    if lib.cuStreamGetCaptureInfo_v2(
+            stream.cuda_stream, ctypes.byref(status),
+            ctypes.byref(ctypes.c_uint64()), ctypes.byref(graph),
+            ctypes.byref(ctypes.c_void_p()),
+            ctypes.byref(ctypes.c_size_t())) != 0 \
+            or status.value != _CAPTURE_ACTIVE or not graph.value:
+        return None
+    n = ctypes.c_size_t()
+    if lib.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        return None
+    return n.value
+
+
+class NodeTally:
+    """The nodes a block's capture on `stream` adds inside forward calls:
+    the ladder enters it around each forward while `Ladder.tally` is
+    set; `forward` is None once a read failed."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.stream, self.forward = stream, 0
+
+    def __enter__(self):
+        self._before = capture_nodes(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        after = capture_nodes(self.stream)
+        if None in (self._before, after, self.forward):
+            self.forward = None
+        else:
+            self.forward += after - self._before
+        return False
+
+
 class LadderGraphs:
     """The captured blocks of one Ladder (its forward, config, batch shape
     and pair list). `captured[(kind, size)]` holds each graph's launches
-    and forwards; `capture_s` the seconds warm-up and capture took,
+    and forwards, `nodes[(kind, size)]` its (total, forward) graph nodes
+    or None; `capture_s` the seconds warm-up and capture took,
     `pool_bytes` the device memory the captures reserved. `captures`
     counts the ladders captured in this process (a server checks that
     none is captured while it answers requests)."""
@@ -89,6 +165,8 @@ class LadderGraphs:
         self.shape = tuple(batch.pos.shape)
         self.graphs: Dict[Tuple[str, int], torch.cuda.CUDAGraph] = {}
         self.captured: Dict[Tuple[str, int], Tuple[Counter, int]] = {}
+        self.nodes: Dict[Tuple[str, int],
+                         Optional[Tuple[int, int]]] = {}
         self.held = []
         self.pool_bytes = 0
         t0 = time.perf_counter()
@@ -96,6 +174,7 @@ class LadderGraphs:
         self.capture_s = time.perf_counter() - t0
 
     @torch.no_grad()
+    @profiling.span("ladder.capture")
     def _capture(self, batch) -> None:
         ladder = self.ladder
         blocks = sorted({(kind, size) for kind, size, _, _ in ladder.plan})
@@ -119,9 +198,18 @@ class LadderGraphs:
                 graph = torch.cuda.CUDAGraph()
                 counts0 = kernel_counts()
                 calls0 = getattr(ladder.forward_fn, "calls", 0)
-                with kernels.holding() as held, torch.cuda.graph(
-                        graph, pool=pool, stream=stream):
-                    ladder.block(kind, size)
+                tally = ladder.tally = NodeTally(stream)
+                try:
+                    with kernels.holding() as held, torch.cuda.graph(
+                            graph, pool=pool, stream=stream):
+                        start = capture_nodes(stream)
+                        ladder.block(kind, size)
+                        end = capture_nodes(stream)
+                finally:
+                    ladder.tally = None
+                self.nodes[(kind, size)] = (
+                    None if None in (start, end, tally.forward)
+                    else (end - start, tally.forward))
                 pool = graph.pool() if pool is None else pool
                 self.held.extend(held)
                 self.graphs[(kind, size)] = graph
@@ -141,6 +229,11 @@ class LadderGraphs:
         replayed.update(launched)
         if calls:
             self.ladder.forward_fn.calls += calls
+        nodes = self.nodes[(kind, size)]
+        if nodes is not None:
+            profiling.count("ladder.replayed_nodes", nodes[0])
+            profiling.count("forward.replayed_nodes", nodes[1])
+            profiling.count("ladder.replayed_steps", size)
 
     def run(self, batch, pairs, pos_init, generator=None, noise=None):
         """Replay the ladder on `batch`; raises for another batch shape or

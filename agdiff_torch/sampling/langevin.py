@@ -55,6 +55,7 @@ collective.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -65,10 +66,12 @@ import torch
 from agdiff_torch.models.schedules import Diffusion
 from agdiff_torch.ops.geometry import center_pos, clip_norm, eq_transform_dense
 from agdiff_torch.sampling.graphed import LadderGraphs
+from agdiff_torch.utils import profiling
 
 # steps per block of the ladder without a trajectory: a graph of 20 steps
-# holds ~3000 launches on the K1 and K6 engines (~150 a step), and a
-# 5000-step ladder is 250 replays of it
+# holds ~3400 device operations on 'pksf' at QM9 width (170 a step, 95 of
+# them the forward's: LadderGraphs.nodes), and a 5000-step ladder is 250
+# replays of it
 BLOCK_STEPS = 20
 
 
@@ -225,6 +228,8 @@ class Ladder:
         self.noise_buffer = torch.zeros((size,) + shape, device=dev)
         self.noise = (self.noise_buffer if shard is None
                       else self.noise_buffer[:, shard[0]])
+        # a graphed.NodeTally while LadderGraphs captures a block
+        self.tally = None
 
     def _plan(self) -> List[Tuple[str, int, int, bool]]:
         cfg = self.config
@@ -257,7 +262,10 @@ class Ladder:
     def eps_at(self, pos, sigma):
         """The assembled drift at positions `pos` and noise level
         `sigma` (a (1,) tensor)."""
-        out = self.forward_fn(self.batch.replace(pos=pos), **self.fwd_kwargs)
+        with profiling.span("forward"), \
+                self.tally or contextlib.nullcontext():
+            out = self.forward_fn(self.batch.replace(pos=pos),
+                                  **self.fwd_kwargs)
         return assemble_drift(out, pos, sigma, self.config)
 
     def step(self, noise: Optional[torch.Tensor], update: str) -> None:
@@ -394,7 +402,10 @@ class Sampler:
 
     def pairs(self, batch):
         prepare = getattr(self.forward_fn, "prepare", None)
-        return None if prepare is None else prepare(batch, self.pair_capacity)
+        if prepare is None:
+            return None
+        with profiling.span("ladder.pairs"):
+            return prepare(batch, self.pair_capacity)
 
     def graphed(self, batch) -> bool:
         return self.graph and batch.pos.device.type == "cuda"
@@ -458,23 +469,25 @@ class Sampler:
     @torch.no_grad()
     def __call__(self, batch, pos_init, generator=None,
                  noise: Optional[torch.Tensor] = None) -> SampleResult:
-        batch, pos_init, shard = self._shard(batch, pos_init)
-        pairs = self.pairs(batch)
-        if not self.graphed(batch):
-            out = langevin_dynamics_sample(
-                self.forward_fn, batch, pos_init, self.diffusion,
-                self.config, generator=generator, noise=noise, pairs=pairs,
-                shard=shard)
-        else:
-            out = self._graphs(batch, pairs, shard=shard)[0].run(
-                batch, pairs, pos_init, generator, noise)
-        if self.group is None:
-            return out
-        g = self.group
-        return SampleResult(
-            g.gather_rows(out.pos),
-            g.gather_rows(out.nan_flags.to(torch.int32)).bool(),
-            None if out.traj is None else g.gather_rows(out.traj, axis=1))
+        with profiling.span("ladder.run"):
+            batch, pos_init, shard = self._shard(batch, pos_init)
+            pairs = self.pairs(batch)
+            if not self.graphed(batch):
+                out = langevin_dynamics_sample(
+                    self.forward_fn, batch, pos_init, self.diffusion,
+                    self.config, generator=generator, noise=noise,
+                    pairs=pairs, shard=shard)
+            else:
+                out = self._graphs(batch, pairs, shard=shard)[0].run(
+                    batch, pairs, pos_init, generator, noise)
+            if self.group is None:
+                return out
+            g = self.group
+            return SampleResult(
+                g.gather_rows(out.pos),
+                g.gather_rows(out.nan_flags.to(torch.int32)).bool(),
+                None if out.traj is None
+                else g.gather_rows(out.traj, axis=1))
 
 
 def build_sampler(model, diffusion: Diffusion, config: SamplerConfig,

@@ -935,6 +935,98 @@ def test_cuda_graphed_ladder_gives_the_eager_bits(card):
 
 
 @pytest.mark.cuda
+def test_cuda_node_counter_counts_plain_ops(card):
+    """A captured block of k in-place elementwise ops adds k graph nodes,
+    read from libcuda while the stream captures; outside a capture
+    the count is None."""
+    from agdiff_torch.sampling.graphed import capture_nodes
+
+    stream = torch.cuda.Stream()
+    x = torch.ones(1024, device=card)
+    torch.cuda.synchronize()
+    assert capture_nodes(stream) is None
+    for k in (1, 7):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            start = capture_nodes(stream)
+            for _ in range(k):
+                x.add_(1.0)
+            end = capture_nodes(stream)
+        assert (start, end - start) == (0, k)
+
+
+@pytest.mark.cuda
+def test_cuda_ladder_node_counts(card):
+    """K1 over the triu set, a 25-step ladder (a 20-step block and a
+    5-step one): each block's forward holds some of its nodes and not
+    all, a 20-step block 4 times the 5-step one's (the step's nodes
+    repeat); a run replays each block once and adds its nodes and steps
+    to the counters."""
+    from agdiff_torch.sampling.langevin import SamplerConfig
+    from agdiff_torch.utils import profiling
+
+    fwd, batch = _small_forward(card, "bfloat16", "pksf")
+    graphed, _ = _samplers(fwd, SamplerConfig(n_steps=25, w_global=0.3))
+    _run(graphed, batch)
+    (graphs,) = graphed.ladders.values()
+    total, forward = graphs.nodes[("ladder", 20)]
+    assert 0 < forward < total
+    assert graphs.nodes[("ladder", 5)] == (total // 4, forward // 4)
+    before = profiling.counters()
+    _run(graphed, batch)
+    after = profiling.counters()
+    moved = {k: after[k] - before.get(k, 0) for k in after}
+    assert moved == {"ladder.replayed_nodes": total + total // 4,
+                     "forward.replayed_nodes": forward + forward // 4,
+                     "ladder.replayed_steps": 25}
+
+
+@pytest.mark.cuda
+def test_cuda_block_nodes_are_the_profiled_device_operations(card):
+    """At the benchmark cell's model and chunk (QM9 width, 6 + 4 convs,
+    bf16 'pksf', B = 128 at bucket 32, a kept 20-step block): the graph
+    nodes counted at capture equal the device operations torch.profiler
+    sees the block's one graph launch run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.sampling.langevin import (
+        SamplerConfig,
+        build_fast_sampler,
+    )
+
+    cfg = dataclasses.replace(ModelConfig(), dtype="bfloat16",
+                              packed_pairs=True)
+    model = init_random(DualEncoderEpsNetwork(cfg), 0).to(card).eval()
+    mols = load_fixture()
+    batch = pad_molecules([mols[i % len(mols)] for i in range(128)], 32,
+                          device=card)
+    sampler = build_fast_sampler(
+        build_fast_forward(cfg, model, "pksf"), make_diffusion(cfg),
+        SamplerConfig(n_steps=20, w_global=0.3, clip_local=20.0,
+                      traj_stride=20))
+    _run(sampler, batch)
+    (graphs,) = sampler.ladders.values()
+    total, forward = graphs.nodes[("ladder", 20)]
+    graphs.ladder.counter.zero_()   # the block again from the first step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphs.replay("ladder", 20)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    launch = {e.correlation_id() for e in events
+              if e.name() == "cudaGraphLaunch"}
+    ops = [e for e in events if e.device_type() == DeviceType.CUDA]
+    replayed = [e for e in ops if e.correlation_id() in launch]
+    print(f"20-step pksf block at B=128 N=32: {total} graph nodes "
+          f"({forward} in the forward); in one replay {len(replayed)} "
+          f"device operations of the graph's launch, {len(ops)} in all")
+    assert len(launch) == 1 and len(replayed) == total
+
+
+@pytest.mark.cuda
 def test_cuda_graphs_of_two_tight_molecules_in_one_bucket(card):
     """Two Drugs molecules of 50 and 56 atoms in bucket 64 at one
     capacity: their tight lists differ (V = 1225, 1540), so each has its

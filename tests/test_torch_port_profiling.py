@@ -134,3 +134,149 @@ def test_example_main_runs(tmp_path, capsys):
             gens = [data[f"m{k}/pos_gen"] for k in range(2)]
         assert all(g.shape[0] == 6 and np.isfinite(g).all() for g in gens)
     assert os.path.exists(out / "trained" / "samples_1.npz")
+
+
+# ---- spans and counters ------------------------------------------------------
+
+def _cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_off_records_nothing(monkeypatch):
+    """With no profiler recording a span records nothing and opens no
+    profiler range."""
+    def no_range(name):
+        raise AssertionError(f"a range {name!r} opened")
+
+    profiling.clear()
+    monkeypatch.setattr(profiling, "_host_range", no_range)
+    with profiling.span("outer"):
+        with profiling.span("inner"):
+            pass
+    assert profiling.spans() == []
+
+
+def test_span_records_under_the_profiler():
+    """Under torch.profiler: one record a span, nested spans linked to
+    their parent and sharing its request, each a host event of the
+    profiler; a second root starts a request of its own."""
+    profiling.clear()
+    with _cpu_profile() as prof:
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                torch.ones(4).sum()
+        with profiling.span("second"):
+            pass
+    got = {s.name: s for s in profiling.spans()}
+    assert sorted(got) == ["inner", "outer", "second"]
+    outer, inner, second = got["outer"], got["inner"], got["second"]
+    assert outer.parent_id is None and second.parent_id is None
+    assert inner.parent_id == outer.id
+    assert inner.request == outer.request == outer.id
+    assert second.request == second.id != outer.id
+    assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+    assert outer.end_ns <= second.start_ns <= second.end_ns
+    names = {e.name for e in prof.events()}
+    assert {"outer", "inner", "second"} <= names
+    # host ops, not user annotations, which the profiler would also draw
+    # on a card's timeline over the kernels launched inside them
+    kinds = {e.activity_type() for e in prof.profiler.kineto_results.events()
+             if e.name() in ("outer", "inner", "second")}
+    assert kinds == {"cpu_op"}
+    # a span decorating a function opens one span a call
+    profiling.clear()
+    fn = profiling.span("decorated")(lambda x: x + 1)
+    with _cpu_profile():
+        assert fn(1) == 2 and fn(2) == 3
+    assert [s.name for s in profiling.spans()] == ["decorated"] * 2
+
+
+def test_spans_of_two_threads_do_not_nest():
+    """A span opened in one thread while another thread's span is open is
+    a root of its own."""
+    import threading
+
+    profiling.clear()
+    opened, done = threading.Event(), threading.Event()
+
+    def other():
+        with profiling.span("a"):
+            opened.set()
+            assert done.wait(30)
+
+    with _cpu_profile():
+        t = threading.Thread(target=other)
+        t.start()
+        assert opened.wait(30)
+        with profiling.span("b"):
+            with profiling.span("b.child"):
+                pass
+        done.set()
+        t.join(30)
+    assert not t.is_alive()
+    got = {s.name: s for s in profiling.spans()}
+    assert got["a"].parent_id is None and got["b"].parent_id is None
+    assert got["b.child"].parent_id == got["b"].id
+    assert got["a"].request != got["b"].request
+
+
+def test_count_and_clear():
+    profiling.clear()
+    profiling.count("x")
+    profiling.count("x", 4)
+    profiling.count("y", 2)
+    assert profiling.counters() == {"x": 5, "y": 2}
+    with _cpu_profile():
+        with profiling.span("s"):
+            pass
+    assert len(profiling.spans()) == 1
+    profiling.clear()
+    assert profiling.counters() == {} and profiling.spans() == []
+
+
+def test_runner_spans_under_the_profiler():
+    """An eager PackedGenerationRunner.run at hidden 32 under the
+    profiler: one `runner.run` root a call, with the runner's phases and
+    `ladder.run` under it and `forward` under `ladder.run`; the same run
+    with the profiler off records none."""
+    from agdiff_torch.eval.generate import PackedGenerationRunner
+    from agdiff_torch.models.schedules import make_diffusion
+    from agdiff_torch.models.weights import init_random
+    from agdiff_torch.sampling.langevin import SamplerConfig
+
+    from test_torch_port_common import port_molecule
+
+    torch.set_num_threads(2)
+    _, cfg = configs()
+    model = init_random(DualEncoderEpsNetwork(cfg), 3).eval()
+    runner = PackedGenerationRunner(
+        model, cfg, make_diffusion(cfg), SamplerConfig(n_steps=3),
+        buckets=(16,), chunk_size=8, device="cpu")
+    mols = [port_molecule(m) for m in molecules(2)]
+    profiling.clear()
+    with _cpu_profile():
+        for seed in (0, 1):
+            runner.run(mols, None, seed=seed, num_confs=[2, 3])
+    spans = profiling.spans()
+    by_id = {s.id: s for s in spans}
+    roots = [s for s in spans if s.parent_id is None]
+    assert [s.name for s in roots] == ["runner.run"] * 2
+    for root in roots:
+        children = [s for s in spans if s.parent_id == root.id]
+        names = [s.name for s in children]
+        assert names == ["runner.plan", "runner.pad", "runner.starts",
+                         "ladder.run", "runner.wait", "runner.copy_back",
+                         "runner.collect"], names
+        ladder = children[3]
+        forwards = [s for s in spans if s.name == "forward"
+                    and s.request == root.id]
+        assert len(forwards) == 3
+        assert all(by_id[s.parent_id] is ladder for s in forwards)
+        assert all(s.request == root.id for s in spans
+                   if s.parent_id == root.id)
+    assert profiling.counters() == {}    # nothing replays on the CPU
+    profiling.clear()
+    runner.run(mols, None, seed=0, num_confs=[2, 3])
+    assert profiling.spans() == []
